@@ -1,0 +1,123 @@
+"""Mode-3 CLI of the port::
+
+    python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
+        --mode PRINT_REASSIGNMENT [--topics a,b] [--integer_broker_ids 1,2 |
+        --broker_hosts h1,h2] [--broker_hosts_to_remove h3]
+        [--desired_replication_factor N] [--disable_rack_awareness]
+        [--leadership_context PATH] [--device {cuda,cpu}]
+
+The flags are the reference CLI's mode-3 flags (``kafka_assigner_tpu/
+cli.py:83-118``); ``--device`` takes the place of ``--solver``. Stdout is
+byte-identical to ``kafka_assigner_tpu.cli --solver tpu``. Exit codes follow
+the reference's documented ones: 1 usage, 3 metadata ingest, 5 validation
+(RF bounds, unknown hosts, infeasible plan).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+EXIT_OK = 0
+EXIT_USAGE = 1
+EXIT_INGEST = 3
+EXIT_VALIDATION = 5
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kafka-assignment-generator-torch",
+        description="Prints a least-disruptive reassignment of topic "
+        "partition replicas to brokers in Kafka-parseable JSON.",
+    )
+    p.add_argument("--zk_string", default=None,
+                   help="a file://cluster.json snapshot")
+    p.add_argument("--mode", default=None, choices=("PRINT_REASSIGNMENT",),
+                   help="the mode to run")
+    p.add_argument("--integer_broker_ids", default=None,
+                   help="comma-separated list of Kafka broker IDs (integers)")
+    p.add_argument("--broker_hosts", default=None,
+                   help="comma-separated list of broker hostnames (instead of broker IDs)")
+    p.add_argument("--broker_hosts_to_remove", default=None,
+                   help="comma-separated list of broker hostnames to exclude")
+    p.add_argument("--topics", default=None,
+                   help="comma-separated list of topics")
+    p.add_argument("--desired_replication_factor", type=int, default=-1,
+                   help="used for changing replication factor for topics; "
+                        "if not present it will use the existing number")
+    p.add_argument("--disable_rack_awareness", action="store_true",
+                   help="set to true to ignore rack configurations")
+    p.add_argument("--leadership_context", default=None, metavar="PATH",
+                   help="persist cross-run leadership counters to PATH "
+                        "(loaded if present, saved after the plan)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the solve runs (default: cuda)")
+    return p
+
+
+def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
+    """Parse, validate, load the snapshot, run mode 3. Raises the typed
+    errors (``ValueError``, ``KeyError``, ``OSError``); :func:`run` maps
+    them to exit codes."""
+    from .generator import (
+        build_rack_assignment,
+        print_least_disruptive_reassignment,
+        resolve_broker_ids,
+        resolve_excluded_broker_ids,
+    )
+    from .io.snapshot import open_snapshot
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    try:
+        if args.zk_string is None:
+            raise ValueError("--zk_string is required")
+        if args.mode is None:
+            raise ValueError("--mode is required")
+        if args.integer_broker_ids is not None and args.broker_hosts is not None:
+            raise ValueError(
+                "--integer_broker_ids and --broker_hosts cannot be used together!"
+            )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+
+    topics = args.topics.split(",") if args.topics is not None else None
+    backend = open_snapshot(args.zk_string)
+    live_brokers = backend.brokers()
+    print_least_disruptive_reassignment(
+        backend,
+        topics,
+        resolve_broker_ids(live_brokers, args.integer_broker_ids, args.broker_hosts),
+        resolve_excluded_broker_ids(live_brokers, args.broker_hosts_to_remove),
+        build_rack_assignment(live_brokers, args.disable_rack_awareness),
+        args.desired_replication_factor,
+        device=args.device,
+        out=out,
+        live_brokers=live_brokers,
+        context_file=args.leadership_context,
+    )
+    return EXIT_OK
+
+
+def run(argv: Optional[List[str]] = None) -> int:
+    """:func:`run_tool` with the documented exit-code mapping."""
+    try:
+        return run_tool(argv)
+    except BrokenPipeError:
+        raise
+    except OSError as e:
+        print(f"error: metadata ingest failed: {e}", file=sys.stderr)
+        return EXIT_INGEST
+    except (ValueError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_VALIDATION
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()

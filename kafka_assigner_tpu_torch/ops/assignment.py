@@ -1,0 +1,584 @@
+"""Placement in plain PyTorch, batched over topics — the port of
+``kafka_assigner_tpu/ops/assignment.py``'s sticky fill and orphan-spread
+leg chain (``sticky_fill`` :197, ``cluster_segments`` :331, ``_wave_body``
+:349, ``_wave_body_dense`` :257, ``_seq_fill`` :573, ``spread_orphans``
+:719), held byte-identical to ``place_scan`` (:1170).
+
+Placement is independent per topic (only leadership carries state across
+topics), so where the reference scans topics and runs one ``while_loop`` per
+topic, this port runs each leg as ONE wave loop over a batch of topics:
+
+- one sticky fill over ``(B, P_pad, L)``;
+- the chain's first leg (``fast`` under ``auto``) over every topic at once,
+  each topic with its own node loads, capacity and rotation start; the loop
+  syncs with the host once per wave (to test whether any topic still has a
+  deficit), never once per topic;
+- topics a leg strands restart from their post-sticky state in the next leg,
+  exactly as ``spread_orphans`` restarts each leg (this is the reference's
+  ``place_chunked`` + stranded-topic rescue, pinned byte-equal to
+  ``place_scan`` by ``tests/test_place_vmap.py``).
+
+A finished or stranded topic is frozen inside a batched wave loop (its
+state is selected back), which is what the per-topic ``while_loop`` does.
+
+Parity hazards the reference leaves to JAX semantics, handled explicitly:
+``lax.top_k`` breaks ties toward the lower index (a stable sort here);
+``jnp.argsort`` is stable (``stable=True`` here); ``argmax`` over a bool
+mask takes the first True (cast to int32 first); int32 ``cumsum`` is given
+its dtype; and every index JAX would clamp is clamped here.
+
+Not ported yet (a later slice): the giant-shape legs the reference switches
+to when ``P_pad * N_pad > KA_DENSE_MASK_BUDGET`` (``slot_pack``,
+``balance_slots``, ``balance_quota``). Such shapes raise
+``NotImplementedError`` — they never compute a different answer.
+"""
+from __future__ import annotations
+
+from types import MappingProxyType
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.env import env_int
+
+BIG = 0x3FFFFFFF
+I32 = torch.int32
+
+#: Elements (stranded topics x P_pad x N_pad) of one dense-leg chunk: the
+#: dense leg builds (P x N) masks per topic, so it runs over the stranded
+#: topics in chunks of at most this many mask elements.
+DENSE_CHUNK_ELEMS = 1 << 26
+
+
+class AssignState(NamedTuple):
+    """Carried placement state for a batch of B topics."""
+
+    acc_nodes: torch.Tensor   # (B, P, RF) accepted broker index per slot, -1 empty
+    acc_count: torch.Tensor   # (B, P)     number accepted per partition
+    node_load: torch.Tensor   # (B, N+1)   replicas per node (+1 scratch row)
+    deficit: torch.Tensor     # (B, P)     replicas still to place
+    infeasible: torch.Tensor  # (B,)       bool: some partition cannot be completed
+
+    def take(self, idx: torch.Tensor) -> "AssignState":
+        return AssignState(*(t[idx] for t in self))
+
+    def put(self, idx: torch.Tensor, rows: "AssignState") -> "AssignState":
+        out = []
+        for t, r in zip(self, rows):
+            t = t.clone()
+            t[idx] = r
+            out.append(t)
+        return AssignState(*out)
+
+
+class PlaceResult(NamedTuple):
+    acc_nodes: torch.Tensor   # (B, P_pad, RF) int32
+    acc_count: torch.Tensor   # (B, P_pad) int32
+    infeasible: torch.Tensor  # (B,) bool
+    deficit: torch.Tensor     # (B, P_pad) int32
+    waves: Dict[str, int]     # leg -> batched waves run (1 for seq)
+
+
+def dense_mask_budget() -> int:
+    """The reference's giant-shape gate (``KA_DENSE_MASK_BUDGET``)."""
+    return env_int("KA_DENSE_MASK_BUDGET")
+
+
+def default_alive(rack_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(N_pad,) liveness: the first n real nodes are alive, padding is not."""
+    return torch.arange(rack_idx.shape[0], device=rack_idx.device) < n
+
+
+def _requests_rank(
+    pick: torch.Tensor, valid: torch.Tensor, sentinel: int
+) -> torch.Tensor:
+    """(B, P) rank of each valid request among the requests of its topic for
+    the same key, in ascending partition-row order — the stand-in for
+    "TreeMap iteration order decides who hits the capacity gate first".
+
+    One stable sort over (topic, key) composites; rank = sorted position
+    minus the first position of that composite. Valid keys lie in
+    [0, sentinel); invalid rows get the sentinel and an unused rank."""
+    b, p = pick.shape
+    dev = pick.device
+    keys = torch.where(valid, pick, sentinel).long()
+    comp = (torch.arange(b, device=dev)[:, None] * (sentinel + 1) + keys).reshape(-1)
+    sorted_keys, order = torch.sort(comp, stable=True)
+    first = torch.searchsorted(sorted_keys, sorted_keys, side="left")
+    rank_sorted = torch.arange(b * p, device=dev) - first
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    return rank.view(b, p).to(I32)
+
+
+def _accept_batch(
+    state: AssignState, cand: torch.Tensor, accept: torch.Tensor
+) -> AssignState:
+    """Record one accepted replica per accepting partition (``Node.accept``
+    + ``Rack.accept``, ``KafkaAssignmentStrategy.java:326-331``)."""
+    rf = state.acc_nodes.shape[2]
+    n_scratch = state.node_load.shape[1] - 1
+    slots = torch.arange(rf, dtype=I32, device=cand.device)
+    write = (slots == state.acc_count[..., None]) & accept[..., None]
+    acc_nodes = torch.where(write, cand.to(I32)[..., None], state.acc_nodes)
+    acc_count = state.acc_count + accept.to(I32)
+    target = torch.where(accept, cand, n_scratch).long()
+    node_load = state.node_load.scatter_add(
+        1, target, torch.ones_like(target, dtype=I32)
+    )
+    deficit = state.deficit - accept.to(I32)
+    return state._replace(
+        acc_nodes=acc_nodes, acc_count=acc_count, node_load=node_load,
+        deficit=deficit,
+    )
+
+
+def _acc_racks(state: AssignState, rack_idx: torch.Tensor) -> torch.Tensor:
+    """(B, P, RF) rack id of each accepted replica, -1 for empty slots."""
+    nodes = state.acc_nodes
+    return torch.where(nodes >= 0, rack_idx[nodes.clamp(min=0).long()], -1)
+
+
+def _candidate_ok(
+    state: AssignState,
+    cand: torch.Tensor,       # (B, P)
+    rack_idx: torch.Tensor,
+    rf_actual: torch.Tensor,  # (B,)
+    alive: torch.Tensor,
+) -> torch.Tensor:
+    """Acceptability of one candidate per partition, sans capacity: node
+    exists and is alive, not already holding the partition, rack unused
+    (``Node.canAccept`` and ``Rack.canAccept``, ``:320-324, 346-348``)."""
+    safe = cand.clamp(min=0).long()
+    exists = (cand >= 0) & alive[safe]
+    dup_node = (state.acc_nodes == cand[..., None]).any(-1)
+    dup_rack = (_acc_racks(state, rack_idx) == rack_idx[safe][..., None]).any(-1)
+    under_rf = state.acc_count < rf_actual[:, None]
+    return exists & ~dup_node & ~dup_rack & under_rf
+
+
+def sticky_fill(
+    current: torch.Tensor,    # (B, P, L) broker index or -1
+    rack_idx: torch.Tensor,   # (N_pad,)
+    rf: int,                  # slot width (batch-max RF)
+    cap: torch.Tensor,        # (B,) per-topic capacity
+    n: int,
+    p_real: torch.Tensor,     # (B,) real partition counts; padded rows get no deficit
+    alive: torch.Tensor,      # (N_pad,) bool
+    rf_actual: torch.Tensor,  # (B,) per-topic RF <= rf
+) -> AssignState:
+    """Vectorized sticky fill (``fillNodesFromAssignment``, ``:101-131``):
+    slot by slot (slot 0 of every partition before any slot 1), ascending
+    partition rows win capacity ties; a partition keeps at most its RF."""
+    b, p, hist_width = current.shape
+    dev = current.device
+    rows = torch.arange(p, device=dev)
+    deficit = torch.where(
+        rows[None, :] < p_real[:, None], rf_actual[:, None], 0
+    ).to(I32)
+    state = AssignState(
+        acc_nodes=torch.full((b, p, rf), -1, dtype=I32, device=dev),
+        acc_count=torch.zeros((b, p), dtype=I32, device=dev),
+        node_load=torch.zeros((b, n + 1), dtype=I32, device=dev),
+        deficit=deficit,
+        infeasible=torch.zeros(b, dtype=torch.bool, device=dev),
+    )
+    for s in range(hist_width):
+        cand = current[:, :, s]
+        ok = _candidate_ok(state, cand, rack_idx, rf_actual, alive)
+        rank = _requests_rank(cand, ok, n)
+        load = state.node_load.gather(1, cand.clamp(min=0).long())
+        accept = ok & (load + rank < cap[:, None])
+        state = _accept_batch(state, cand, accept)
+    return state
+
+
+class Segments(NamedTuple):
+    """Live nodes sorted by (rack, live-rank), with per-rack [start, end)
+    bounds — shared by every topic of a batch (see the reference's
+    ``Segments``)."""
+
+    order: torch.Tensor        # (n,) int64 node indices
+    sorted_key: torch.Tensor   # (n,) rack * n_pad + live-rank (BIG for dead)
+    sorted_rank: torch.Tensor  # (n,) live-rank in sorted order (BIG for dead)
+    seg_start: torch.Tensor    # (r_cap,) int64
+    seg_end: torch.Tensor      # (r_cap,) int64
+
+
+def cluster_segments(
+    rack_idx: torch.Tensor, n: int, alive: torch.Tensor, r_cap: int
+) -> Segments:
+    n_pad = rack_idx.shape[0]
+    alive_n = alive[:n]
+    alive_rank = torch.cumsum(alive_n.to(I32), 0, dtype=I32) - 1
+    key = torch.where(alive_n, rack_idx[:n] * n_pad + alive_rank, BIG).to(I32)
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    alive_s = alive_n[order]
+    sorted_rack = torch.where(alive_s, rack_idx[:n][order], r_cap).to(I32)
+    sorted_rank = torch.where(alive_s, alive_rank[order], BIG).to(I32)
+    rr = torch.arange(r_cap, dtype=I32, device=rack_idx.device)
+    seg_start = torch.searchsorted(sorted_rack, rr, side="left")
+    seg_end = torch.searchsorted(sorted_rack, rr, side="right")
+    return Segments(order, sorted_key, sorted_rank, seg_start, seg_end)
+
+
+def _topk_stable(x: torch.Tensor, k: int, largest: bool) -> torch.Tensor:
+    """Indices of the k largest (smallest) entries per row, ties toward the
+    lower index — ``lax.top_k``'s order, which ``torch.topk`` does not
+    promise."""
+    _, idx = torch.sort(-x if largest else x, dim=1, stable=True)
+    return idx[:, :k]
+
+
+def _wave_body(
+    rack_idx: torch.Tensor,
+    cap: torch.Tensor,     # (B,)
+    n: int,
+    alive: torch.Tensor,
+    rf: int,
+    r_cap: int,
+    seg: Segments,
+    start: torch.Tensor,   # (B,) topic rotation start = jhash % n_alive
+    n_alive: int,
+    balance: bool = False,
+):
+    """One rack-factored auction wave over every deficient partition of
+    every topic (the reference's ``_wave_body``, node-per-wave hand-out).
+
+    A partition's first-fit node is the min-rotated-position available node
+    of its best unblocked rack; the rotation within a rack's segment is a
+    cut at live-rank ``n_alive - start``. ``balance=True`` ranks candidate
+    racks by remaining capacity instead (ties to the lowest rack id). Among
+    the K = min(RF+1, r_cap) best racks at least one is unblocked."""
+    k = min(rf + 1, r_cap)
+    order, sorted_key, sorted_rank, seg_start, seg_end = seg
+    n_pad = rack_idx.shape[0]
+    dev = rack_idx.device
+    rr = torch.arange(r_cap, dtype=I32, device=dev)
+    # Per-topic, per-rack rotation cut: first in-segment index whose
+    # live-rank >= n_alive - start.
+    cut = torch.searchsorted(
+        sorted_key, (rr[None, :] * n_pad + (n_alive - start[:, None])).to(I32)
+    )
+    rack_n = rack_idx[:n].long()
+
+    def body(state: AssignState) -> AssignState:
+        b = state.acc_nodes.shape[0]
+        load_n = state.node_load[:, :n]
+        avail = alive[:n][None, :] & (load_n < cap[:, None])
+        ca = torch.cumsum(avail.to(I32)[:, order], dim=1, dtype=I32)
+        ca_pad = F.pad(ca, (1, 0))
+        base = ca_pad[:, seg_start]                  # (B, r_cap)
+        end = ca_pad[:, seg_end]
+        seg_avail = end - base                       # per-rack available count
+        cum_at_cut = ca_pad.gather(1, cut)
+        a_after = end - cum_at_cut                   # available at/after the cut
+        if balance:
+            headroom = torch.where(avail, cap[:, None] - load_n, 0).to(I32)
+            rack_room = torch.zeros((b, r_cap), dtype=I32, device=dev).scatter_add_(
+                1, rack_n.expand(b, n), headroom
+            )
+            cand_racks = _topk_stable(rack_room, k, largest=True)
+            cand_ok = rack_room.gather(1, cand_racks) > 0
+        else:
+            # Best rotated position per rack: first available at/after the
+            # cut (the wrapped half), else first available before it.
+            t_first = torch.where(a_after > 0, cum_at_cut + 1, base + 1)
+            i_first = torch.searchsorted(ca, t_first).clamp(0, n - 1)
+            rack_best = torch.where(
+                seg_avail > 0, (sorted_rank[i_first] + start[:, None]) % n_alive, BIG
+            ).to(I32)
+            cand_racks = _topk_stable(rack_best, k, largest=False)
+            cand_ok = rack_best.gather(1, cand_racks) < BIG
+
+        acc_racks = _acc_racks(state, rack_idx)      # (B, P, RF)
+        blocked = (cand_racks[:, None, :, None] == acc_racks[:, :, None, :]).any(3)
+        wanting = state.deficit > 0
+        ok = ~blocked & cand_ok[:, None, :] & wanting[..., None]   # (B, P, K)
+        has_choice = ok.any(2)
+        valid = wanting & has_choice
+        first_ok = torch.argmax(ok.to(I32), dim=2)   # first True
+        # Monotone eligibility: no eligible rack now means never again.
+        infeasible = state.infeasible | (wanting & ~has_choice).any(1)
+
+        # Rank among same-rack requesters, then hand out that rack's j-th
+        # best available node in rotated order.
+        rack_choice = cand_racks.gather(1, first_ok)
+        pick_rack = torch.where(valid, rack_choice, r_cap)
+        j = _requests_rank(pick_rack, valid, r_cap)
+        accept = valid & (j < seg_avail.gather(1, rack_choice))
+        pick = pick_rack.clamp(0, r_cap - 1)
+        a_after_p = a_after.gather(1, pick)
+        target = torch.where(
+            j >= a_after_p,                          # past the wrapped half
+            base.gather(1, pick) + (j - a_after_p) + 1,
+            cum_at_cut.gather(1, pick) + j + 1,
+        )
+        slot = torch.searchsorted(ca, target).clamp(0, n - 1)
+        node = order[slot]
+        state = _accept_batch(state, node, accept)
+        return state._replace(infeasible=infeasible)
+
+    return body
+
+
+def _wave_body_dense(
+    rack_idx: torch.Tensor,
+    pos: torch.Tensor,     # (B, N_pad) rotated position per node (BIG for dead)
+    cap: torch.Tensor,
+    n: int,
+    alive: torch.Tensor,
+    r_cap: int,
+):
+    """Dense-eligibility wave: every deficient partition bids for its best
+    eligible node over an explicit (P x N) mask (the reference's
+    ``_wave_body_dense``)."""
+    rack_n = rack_idx[:n].long()
+
+    def body(state: AssignState) -> AssignState:
+        b, p, _ = state.acc_nodes.shape
+        dev = state.acc_nodes.device
+        nodes = torch.where(state.acc_nodes >= 0, state.acc_nodes, n).long()
+        assigned = torch.zeros((b, p, n + 1), dtype=torch.bool, device=dev).scatter_(
+            2, nodes, torch.ones_like(nodes, dtype=torch.bool)
+        )[:, :, :n]
+        acc_racks = _acc_racks(state, rack_idx)
+        racks = torch.where(acc_racks >= 0, acc_racks, r_cap).long()
+        rack_used = torch.zeros((b, p, r_cap + 1), dtype=torch.bool, device=dev).scatter_(
+            2, racks, torch.ones_like(racks, dtype=torch.bool)
+        )
+        rack_blocked = rack_used[:, :, rack_n]
+        under_cap = (state.node_load[:, :n] < cap[:, None]) & alive[:n][None, :]
+        wanting = state.deficit > 0
+        eligible = ~assigned & ~rack_blocked & under_cap[:, None, :] & wanting[..., None]
+
+        score = torch.where(eligible, pos[:, None, :n], BIG)
+        pick = torch.argmin(score, dim=2)
+        has_choice = eligible.any(2)
+        valid = wanting & has_choice
+        infeasible = state.infeasible | (wanting & ~has_choice).any(1)
+
+        rank = _requests_rank(pick, valid, n)
+        load = state.node_load.gather(1, pick)
+        accept = valid & (load + rank < cap[:, None])
+        state = _accept_batch(state, pick, accept)
+        return state._replace(infeasible=infeasible)
+
+    return body
+
+
+def _seq_fill(
+    state: AssignState,
+    rack_idx: torch.Tensor,
+    pos: torch.Tensor,     # (B, N_pad)
+    cap: torch.Tensor,
+    n: int,
+    alive: torch.Tensor,
+) -> AssignState:
+    """The reference's ``assignOrphans`` verbatim (``:162-186``, the
+    reference package's ``_seq_fill``): partitions in ascending row order,
+    each filled completely by rotated first-fit before the next starts.
+    Sequential over rows, batched over topics. A row with no deficit in any
+    topic of the batch is a no-op, so only rows with a deficit are
+    visited (read once, before the scan: a row's deficit changes only
+    while that row is processed)."""
+    b, _, w = state.acc_nodes.shape
+    dev = state.acc_nodes.device
+    pos_n = pos[:, :n]
+    rows_n = torch.arange(n, dtype=I32, device=dev)
+    slots = torch.arange(w, dtype=I32, device=dev)
+    rack_n = rack_idx[:n]
+    alive_n = alive[:n][None, :]
+    acc_nodes = state.acc_nodes.clone()
+    acc_count = state.acc_count.clone()
+    deficit = state.deficit.clone()
+    node_load = state.node_load
+    infeasible = state.infeasible.clone()
+    todo_rows = torch.nonzero((deficit > 0).any(0)).flatten().tolist()
+    for r in todo_rows:
+        nodes, count, dfc = acc_nodes[:, r], acc_count[:, r], deficit[:, r]
+        for _ in range(w):  # a row's deficit <= its slot width
+            racks = torch.where(nodes >= 0, rack_idx[nodes.clamp(min=0).long()], -1)
+            rack_blocked = (rack_n[None, :, None] == racks[:, None, :]).any(2)
+            dup = (rows_n[None, :, None] == nodes[:, None, :]).any(2)
+            eligible = (
+                alive_n & (node_load[:, :n] < cap[:, None]) & ~rack_blocked & ~dup
+            )
+            any_e = eligible.any(1)
+            pick = torch.argmin(torch.where(eligible, pos_n, BIG), dim=1)
+            ok = (dfc > 0) & any_e
+            infeasible |= (dfc > 0) & ~any_e
+            write = (slots == count[:, None]) & ok[:, None]
+            nodes = torch.where(write, pick.to(I32)[:, None], nodes)
+            count = count + ok.to(I32)
+            node_load = node_load.scatter_add(
+                1, torch.where(ok, pick, n)[:, None],
+                torch.ones((b, 1), dtype=I32, device=dev),
+            )
+            dfc = dfc - ok.to(I32)
+        acc_nodes[:, r], acc_count[:, r], deficit[:, r] = nodes, count, dfc
+    return AssignState(acc_nodes, acc_count, node_load, deficit, infeasible)
+
+
+#: Legal wave modes and the leg chain each runs (the reference's
+#: ``WAVE_MODES``). Every leg restarts from the post-sticky state; a later
+#: leg runs only for the topics the previous one stranded.
+WAVE_MODES = MappingProxyType({
+    "auto": ("fast", "dense", "balance", "seq"),
+    "fresh": ("balance", "fast", "dense", "seq"),
+    "fast": ("fast",),
+    "dense": ("dense",),
+    "balance": ("balance",),
+    "seq": ("seq",),
+    "fast_balance": ("fast", "balance"),
+    "fast_dense": ("fast", "dense"),
+    "balance_quota": ("balance_quota",),
+})
+
+
+def _resolve_wave_plan(
+    wave_mode: str, n_pad: int, r_cap: int | None
+) -> Tuple[Tuple[str, ...], int]:
+    """(legs, r_cap), as the reference resolves them: validates the mode,
+    defaults r_cap, and degrades first-fit chains to dense/seq where the
+    int32 (rack, live-rank) key packing would overflow."""
+    if wave_mode not in WAVE_MODES:
+        raise ValueError(
+            f"unknown wave_mode {wave_mode!r}; expected one of {sorted(WAVE_MODES)}"
+        )
+    if r_cap is None:
+        r_cap = 2 * n_pad
+    legs = WAVE_MODES[wave_mode]
+    if n_pad * n_pad >= BIG:
+        if wave_mode in ("balance", "balance_quota"):
+            raise ValueError(
+                f"wave_mode {wave_mode!r} packs (rack, live-rank) into int32 "
+                f"keys, which overflows at n_pad={n_pad}"
+            )
+        if wave_mode != "seq":
+            legs = ("dense", "seq") if len(legs) > 1 else ("dense",)
+    return legs, r_cap
+
+
+def _refuse_unported(legs: Tuple[str, ...], p_pad: int, n_pad: int) -> None:
+    """Raise where the reference would run a leg this port lacks. Past the
+    budget the reference slot-packs the fast leg, inserts the quota leg
+    before balance and demotes dense in multi-leg chains; only the
+    single-leg dense and seq chains are unchanged there."""
+    if "balance_quota" in legs:
+        raise NotImplementedError(
+            "wave mode 'balance_quota' (the quota-balance leg) is not ported "
+            "yet; it belongs to the giant-shape slice"
+        )
+    if p_pad * n_pad > dense_mask_budget() and legs not in (("dense",), ("seq",)):
+        raise NotImplementedError(
+            f"P_pad x N_pad = {p_pad} x {n_pad} exceeds KA_DENSE_MASK_BUDGET "
+            f"({dense_mask_budget()}): the reference switches to its "
+            "giant-shape legs (slot_pack, balance_slots, balance_quota), "
+            "which the giant-shape slice of the port adds"
+        )
+
+
+def _positions(alive: torch.Tensor, start: torch.Tensor, n_alive: int) -> torch.Tensor:
+    """(B, N_pad) topic-rotated position of every node (BIG for dead)."""
+    alive_rank = torch.cumsum(alive.to(I32), 0, dtype=I32) - 1
+    pos = (alive_rank[None, :] + start[:, None]) % n_alive
+    return torch.where(alive[None, :], pos, BIG).to(I32)
+
+
+def _wave_loop(body, state: AssignState) -> Tuple[AssignState, int]:
+    """Run ``body`` until every topic is placed or stranded. A topic that is
+    done is frozen (its state selected back), as its own ``while_loop``
+    would stop. One host sync per wave."""
+    waves = 0
+    while True:
+        active = (state.deficit > 0).any(1) & ~state.infeasible
+        if not bool(active.any()):
+            return state, waves
+        new = body(state)
+        state = AssignState(*(
+            torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
+            for nw, o in zip(new, state)
+        ))
+        waves += 1
+
+
+def place_batched(
+    currents: torch.Tensor,   # (B, P_pad, L) broker index or -1
+    rack_idx: torch.Tensor,   # (N_pad,)
+    jhashes: torch.Tensor,    # (B,)
+    p_reals: torch.Tensor,    # (B,)
+    n: int,
+    rf: int,                  # batch-max RF (slot width)
+    wave_mode: str = "auto",
+    rfs: torch.Tensor | None = None,  # (B,) per-topic RF (mixed-RF batches)
+    r_cap: int | None = None,
+) -> PlaceResult:
+    """Place every topic of the batch: the port of ``place_scan``.
+
+    Returns per topic the accepted nodes and counts, the infeasible flag
+    and the deficit vector (for the reference's error message). Inert
+    padding topics (p_real 0) have nothing to place."""
+    dev = currents.device
+    currents = currents.to(I32)
+    rack_idx = rack_idx.to(I32)
+    jhashes = jhashes.to(I32)
+    p_reals = p_reals.to(I32)
+    b, p_pad, _ = currents.shape
+    n_pad = rack_idx.shape[0]
+    legs, r_cap = _resolve_wave_plan(wave_mode, n_pad, r_cap)
+    _refuse_unported(legs, p_pad, n_pad)
+    rfs = torch.full((b,), rf, dtype=I32, device=dev) if rfs is None else rfs.to(I32)
+    alive = default_alive(rack_idx, n)
+    n_alive = max(n, 1)  # default liveness: the first n nodes
+    # Capacity ceil(P*RF/N_alive) (KafkaAssignmentStrategy.java:65-71) and
+    # rotation start abs(hash) % N_alive (:188-200), per topic.
+    cap = (p_reals * rfs + n_alive - 1) // n_alive
+    start = jhashes % n_alive
+
+    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, alive, rfs)
+    seg = None
+    if any(leg in ("fast", "balance") for leg in legs):
+        seg = cluster_segments(rack_idx, n, alive, r_cap)
+
+    result = sticky
+    todo = torch.arange(b, device=dev)
+    waves: Dict[str, int] = {}
+    for leg in legs:
+        sub = sticky.take(todo)
+        cap_t, start_t = cap[todo], start[todo]
+        if leg == "seq":
+            out = _seq_fill(
+                sub, rack_idx, _positions(alive, start_t, n_alive), cap_t, n, alive
+            )
+            waves[leg] = 1
+        elif leg == "dense":
+            # Masks are (P x N) per topic: chunk the stranded topics.
+            chunk = max(1, DENSE_CHUNK_ELEMS // (p_pad * n_pad))
+            parts, trips = [], 0
+            for c0 in range(0, len(todo), chunk):
+                sl = slice(c0, c0 + chunk)
+                body = _wave_body_dense(
+                    rack_idx, _positions(alive, start_t[sl], n_alive),
+                    cap_t[sl], n, alive, r_cap,
+                )
+                part, w = _wave_loop(body, sub.take(sl))
+                parts.append(part)
+                trips += w
+            out = AssignState(*(torch.cat(ts) for ts in zip(*parts)))
+            waves[leg] = trips
+        else:
+            body = _wave_body(
+                rack_idx, cap_t, n, alive, rf, r_cap, seg, start_t, n_alive,
+                balance=(leg == "balance"),
+            )
+            out, waves[leg] = _wave_loop(body, sub)
+        result = result.put(todo, out)
+        todo = todo[out.infeasible]
+        if todo.numel() == 0:
+            break
+    return PlaceResult(
+        result.acc_nodes, result.acc_count, result.infeasible, result.deficit,
+        waves,
+    )

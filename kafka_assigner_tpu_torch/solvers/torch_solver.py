@@ -1,0 +1,216 @@
+"""The PyTorch/CUDA solver: host encode → placement on the device → the
+leadership kernel → host decode. The counterpart of
+``kafka_assigner_tpu/solvers/tpu.py:TpuSolver`` (``assign_many`` :377 and
+``assign`` :309) with the same invariants and byte-identical output:
+
+- sticky fill reproduces the reference's decisions (movement parity);
+- orphans are placed by the reference package's ``auto`` leg chain
+  (``ops/assignment.py``);
+- leadership ordering is bit-identical (``ops/leadership.py``), carried
+  across topics through one counter slab in topic order;
+- an infeasible solve raises "Partition N could not be fully assigned!"
+  and leaves the ``Context`` untouched.
+
+Not ported yet: the reference's ``KA_RF_DECREASE_COMPAT=1`` wide slots on
+an RF decrease (raises ``NotImplementedError``; the compat default wave
+chain ``seq`` is honored), and the giant-shape legs (see
+``ops/assignment.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Dict, List, Mapping, Sequence, Set
+
+import numpy as np
+import torch
+
+from ..carry import to_tensor
+from ..models.problem import (
+    apply_counter_updates,
+    context_to_array,
+    decode_assignments_batched,
+    encode_problem,
+    encode_topic_group,
+)
+from ..ops.assignment import WAVE_MODES, place_batched
+from ..ops.leadership import leadership_order
+from ..utils.env import env_bool, env_choice, env_int
+from .base import Context
+
+
+def rf_compat_enabled() -> bool:
+    return env_bool("KA_RF_DECREASE_COMPAT")
+
+
+def wave_mode() -> str:
+    """``KA_WAVE_MODE``; default ``auto``, or ``seq`` under
+    ``KA_RF_DECREASE_COMPAT=1`` (the reference's ``solver_tuning``)."""
+    default = "seq" if rf_compat_enabled() else "auto"
+    return env_choice("KA_WAVE_MODE", choices=tuple(WAVE_MODES), default=default)
+
+
+def leader_chunk(p_pad: int) -> int:
+    """``KA_LEADER_CHUNK``, resolved like the reference's ``leadership_order``
+    (8 when it tiles P_pad, else 1; a requested chunk that does not tile
+    P_pad is refused loudly). Semantics-invariant: the plain version reads
+    its rows in blocks of this many; the kernel, one launch per batch, has
+    no chunk."""
+    default = 8 if p_pad % 8 == 0 else 1
+    chunk = env_int("KA_LEADER_CHUNK")
+    if chunk is None:
+        return default
+    if p_pad % chunk != 0:
+        print(
+            f"kafka-assigner: leader chunk {chunk} does not divide "
+            f"p_pad={p_pad}; using {default}",
+            file=sys.stderr,
+        )
+        return default
+    return chunk
+
+
+class TorchSolver:
+    """Solver-protocol implementation on PyTorch tensors.
+
+    ``device`` defaults to ``cuda`` and the constructor raises when no card
+    is present; pass ``device="cpu"`` to run the plain versions on the CPU
+    (the tests do)."""
+
+    def __init__(self, device: str | torch.device = "cuda") -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchSolver: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU"
+            )
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"TorchSolver runs on cuda or cpu, not {self.device}")
+        #: phase wall-clock (ms) of the most recent solve: encode, place,
+        #: leadership, decode; each phase ends in a device synchronize.
+        self.last_timers: Dict[str, float] = {}
+        #: batched waves per leg of the most recent placement.
+        self.last_waves: Dict[str, int] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return to_tensor(a, self.device)
+
+    def assign(
+        self,
+        topic: str,
+        current_assignment: Mapping[int, Sequence[int]],
+        rack_assignment: Mapping[int, str],
+        nodes: Set[int],
+        partitions: Set[int],
+        replication_factor: int,
+        context: Context | None = None,
+    ) -> Dict[int, List[int]]:
+        """Solve one topic (``partitions`` missing from the current
+        assignment are placed from scratch)."""
+        if context is None:
+            context = Context()
+        enc = encode_problem(
+            topic, current_assignment, rack_assignment, nodes, partitions,
+            replication_factor,
+        )
+        (_, out), = self._solve(
+            [enc], enc.current[None], np.array([enc.jhash], np.int32),
+            np.array([enc.p], np.int32), [replication_factor], context,
+        )
+        return out
+
+    def assign_many(
+        self,
+        named_currents: Sequence[tuple],  # [(topic, current_assignment), ...]
+        rack_assignment: Mapping[int, str],
+        nodes: Set[int],
+        replication_factor,  # int, or Sequence[int] per topic (mixed RF)
+        context: Context | None = None,
+    ) -> List[tuple]:
+        """Solve a group of topics together, returning ``[(topic,
+        assignment), ...]`` in input order; identical to solving them
+        serially in that order (the leadership counters carry across
+        topics). Topics of different replication factors share the batch
+        through the per-topic ``rfs`` lane."""
+        if context is None:
+            context = Context()
+        if not named_currents:
+            return []
+        if isinstance(replication_factor, int):
+            rf_list = [replication_factor] * len(named_currents)
+        else:
+            rf_list = [int(r) for r in replication_factor]
+        t0 = time.perf_counter()
+        encs, currents, jhashes, p_reals = encode_topic_group(
+            named_currents, rack_assignment, nodes, rf_list
+        )
+        return self._solve(
+            encs, currents, jhashes, p_reals, rf_list, context,
+            encode_ms=(time.perf_counter() - t0) * 1e3,
+        )
+
+    def _solve(self, encs, currents, jhashes, p_reals, rf_list, context,
+               encode_ms: float = 0.0) -> List[tuple]:
+        timers = {}
+        self.last_timers = timers
+        rf_max = max(rf_list)
+        if rf_compat_enabled() and currents.shape[2] > rf_max:
+            raise NotImplementedError(
+                "KA_RF_DECREASE_COMPAT=1 on an RF decrease (wide compat "
+                "slots) is not ported yet; it belongs to the compat slice"
+            )
+        t0 = time.perf_counter()
+        # The counter slab spans the widest RF of the group; a narrower
+        # topic touches only its own leading slots.
+        enc_slab = dataclasses.replace(encs[0], rf=rf_max)
+        counters_before = context_to_array(context, enc_slab)
+        b_real = len(encs)
+        rfs = None
+        if any(r != rf_max for r in rf_list):
+            rfs_np = np.full(currents.shape[0], rf_max, dtype=np.int32)
+            rfs_np[:b_real] = rf_list
+            rfs = self._t(rfs_np)
+        cur_t, rack_t = self._t(currents), self._t(encs[0].rack_idx)
+        jh_t, pr_t = self._t(jhashes), self._t(p_reals)
+        counters_t = self._t(counters_before)
+        self._sync()
+        timers["encode"] = encode_ms + (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        placed = place_batched(
+            cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, wave_mode(), rfs,
+            r_cap=encs[0].r_cap,
+        )
+        self.last_waves = placed.waves
+        infeasible = placed.infeasible[:b_real].cpu().numpy()
+        timers["place"] = (time.perf_counter() - t0) * 1e3
+        if infeasible.any():
+            b = int(np.argmax(infeasible))
+            bad = int(np.argmax(placed.deficit[b].cpu().numpy() > 0))
+            raise ValueError(
+                f"Partition {int(encs[b].partition_ids[bad])} could not be "
+                "fully assigned!"
+            )
+
+        t0 = time.perf_counter()
+        ordered, counters_after = leadership_order(
+            placed.acc_nodes[:b_real].contiguous(),
+            placed.acc_count[:b_real].contiguous(),
+            counters_t, jh_t[:b_real].contiguous(),
+            chunk=leader_chunk(currents.shape[1]),
+        )
+        self._sync()
+        timers["leadership"] = (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        ordered = ordered.cpu().numpy()
+        counters_after = counters_after.cpu().numpy()
+        apply_counter_updates(context, enc_slab, counters_before, counters_after)
+        decoded = decode_assignments_batched(encs, ordered)
+        timers["decode"] = (time.perf_counter() - t0) * 1e3
+        return [(enc.topic, a) for enc, a in zip(encs, decoded)]

@@ -1,0 +1,99 @@
+"""The ``KA_*`` knobs this package reads, with the reference's names,
+defaults and house rule (``kafka_assigner_tpu/utils/env.py``): a mis-set
+knob never silently changes the configuration — an unparsable or unknown
+value is ignored LOUDLY on stderr and the declared default is used.
+
+Only the six knobs of the ported mode-3 path are declared, each with the
+reference's default and floor. ``KA_QUOTA_WAVE_TARGET`` and
+``KA_QUOTA_ENDGAME`` tune the reference's giant-shape quota leg, which
+this package refuses today (``ops/assignment.py:_refuse_unported``).
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import Any, NamedTuple
+
+
+class Knob(NamedTuple):
+    default: Any
+    floor: Any = None  # numeric clamp (min), None = unclamped
+
+
+KNOBS = {
+    # Orphan-spread leg chain, validated against ops/assignment.py:
+    # WAVE_MODES at the call site. None = "auto" ("seq" under compat).
+    "KA_WAVE_MODE": Knob(None),
+    # Leadership rows per plain-version step; semantics-invariant.
+    "KA_LEADER_CHUNK": Knob(None, floor=1),
+    "KA_RF_DECREASE_COMPAT": Knob(False),
+    # P_pad x N_pad gate past which the reference switches to its
+    # giant-shape legs.
+    "KA_DENSE_MASK_BUDGET": Knob(1 << 27, floor=1),
+    "KA_QUOTA_WAVE_TARGET": Knob(4, floor=1),
+    "KA_QUOTA_ENDGAME": Knob(32, floor=1),
+}
+
+_TRUE = frozenset({"1", "true", "yes", "on"})
+_FALSE = frozenset({"0", "false", "no", "off"})
+
+
+def _lookup(name: str) -> Knob:
+    try:
+        return KNOBS[name]
+    except KeyError:
+        raise KeyError(f"{name!r} is not a knob of this package") from None
+
+
+def _warn(msg: str) -> None:
+    print(f"kafka-assigner: {msg}", file=sys.stderr)
+
+
+def env_int(name: str):
+    """``int(os.environ[name])`` clamped to the knob's floor; the declared
+    default when unset/empty or non-integer (the latter with a warning)."""
+    k = _lookup(name)
+    raw = os.environ.get(name)
+    if not raw:
+        return k.default
+    try:
+        val = int(raw)
+    except ValueError:
+        _warn(f"ignoring non-integer {name}={raw!r}")
+        return k.default
+    return val if k.floor is None else max(k.floor, val)
+
+
+def env_bool(name: str) -> bool:
+    """Boolean knob (truthy 1/true/yes/on, falsy 0/false/no/off); anything
+    else warns and defaults."""
+    default = bool(_lookup(name).default)
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    low = raw.strip().lower()
+    if low in _TRUE:
+        return True
+    if low in _FALSE:
+        return False
+    _warn(
+        f"ignoring non-boolean {name}={raw!r} "
+        "(truthy: 1/true/yes/on, falsy: 0/false/no/off)"
+    )
+    return default
+
+
+def env_choice(name: str, choices, default):
+    """Enumerated knob: the raw value must be one of ``choices``; case and
+    surrounding whitespace are forgiven; unknown values warn and fall back
+    to ``default`` (the call site's, for knobs whose default is computed)."""
+    _lookup(name)
+    raw = os.environ.get(name)
+    if not raw or not raw.strip():
+        return default
+    raw = raw.strip()
+    for cand in (raw, raw.upper(), raw.lower()):
+        if cand in choices:
+            return cand
+    _warn(f"ignoring unknown {name}={raw!r} (expected one of {sorted(choices)})")
+    return default

@@ -1,0 +1,120 @@
+"""The port's mode-3 CLI (``python -m kafka_assigner_tpu_torch.cli``) on the
+CPU: stdout against the golden files and against the JAX package's
+``--solver tpu`` run, byte for byte; the ``--leadership_context`` file and
+the documented exit codes."""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+
+import pytest
+
+from kafka_assigner_tpu.cli import run_tool as jax_run_tool
+from kafka_assigner_tpu_torch import cli
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def golden(name: str) -> str:
+    with open(os.path.join(GOLDEN_DIR, name), "r", encoding="utf-8") as f:
+        return f.read()
+
+
+def _snapshot(tmp_path, name, cluster) -> str:
+    path = tmp_path / name
+    path.write_text(json.dumps(cluster))
+    return str(path)
+
+
+def _port(*argv) -> str:
+    buf = io.StringIO()
+    assert cli.run_tool(list(argv) + ["--device", "cpu"], out=buf) == 0
+    return buf.getvalue()
+
+
+def _jax(*argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jax_run_tool(list(argv) + ["--solver", "tpu"]) == 0
+    return buf.getvalue()
+
+
+def test_golden_mode3_steady_state(tmp_path):
+    snap = _snapshot(tmp_path, "steady.json", {
+        "brokers": [{"id": 1, "host": "h1", "port": 9092},
+                    {"id": 2, "host": "h2", "port": 9092}],
+        "topics": {"x": {"0": [1, 2]}},
+    })
+    out = _port("--zk_string", snap, "--mode", "PRINT_REASSIGNMENT")
+    assert out == golden("mode3_steady_state.txt")
+
+
+def test_golden_mode3_multitopic(tmp_path):
+    # Same fixture and CLI topic order as tests/test_golden_output.py.
+    topics = {f"t{i:02d}": {str(p): [1 + (i + p) % 4, 1 + (i + p + 1) % 4]
+                            for p in range(2)} for i in range(18)}
+    snap = _snapshot(tmp_path, "multi.json", {
+        "brokers": [{"id": b, "host": f"h{b}", "port": 9092} for b in range(1, 5)],
+        "topics": topics,
+    })
+    order = ",".join(f"t{i:02d}" for i in (
+        17, 3, 0, 11, 5, 16, 8, 2, 14, 9, 1, 13, 7, 4, 15, 10, 6, 12))
+    out = _port("--zk_string", f"file://{snap}", "--mode", "PRINT_REASSIGNMENT",
+                "--topics", order)
+    assert out == golden("mode3_multitopic.txt")
+
+
+@pytest.fixture()
+def replacement_snapshot(tmp_path):
+    """Brokers 0-3 replaced by 40-43 on a 40-broker, 4-rack cluster."""
+    racks = {b: f"r{b % 4}" for b in range(44)}
+    live = [b for b in range(4, 44)]
+    inter = sorted(range(40), key=lambda b: (b // 4, b % 4))
+    topics = {
+        f"topic-{t}": {str(p): [inter[(t * 7 + p * 3 + i) % 40] for i in range(3)]
+                       for p in range(12)}
+        for t in range(6)
+    }
+    return _snapshot(tmp_path, "replacement.json", {
+        "brokers": [{"id": b, "host": f"h{b}", "port": 9092, "rack": racks[b]}
+                    for b in live],
+        "topics": topics,
+    })
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--topics", "topic-4,topic-1,topic-4"],
+    ["--broker_hosts_to_remove", "h5,h6", "--desired_replication_factor", "2"],
+    ["--integer_broker_ids", ",".join(str(b) for b in range(4, 40))],
+    ["--disable_rack_awareness"],
+])
+def test_stdout_matches_jax_tpu_solver(replacement_snapshot, extra):
+    argv = ["--zk_string", replacement_snapshot, "--mode", "PRINT_REASSIGNMENT", *extra]
+    assert _port(*argv) == _jax(*argv)
+
+
+def test_leadership_context_file_matches(replacement_snapshot, tmp_path):
+    ctx_port, ctx_jax = str(tmp_path / "port.ctx"), str(tmp_path / "jax.ctx")
+    argv = ["--zk_string", replacement_snapshot, "--mode", "PRINT_REASSIGNMENT"]
+    for _ in range(2):  # the second run loads what the first saved
+        out_p = _port(*argv, "--leadership_context", ctx_port)
+        out_j = _jax(*argv, "--leadership_context", ctx_jax)
+        assert out_p == out_j
+    with open(ctx_port, "rb") as a, open(ctx_jax, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_exit_codes(replacement_snapshot, capsys):
+    assert cli.run(["--mode", "PRINT_REASSIGNMENT", "--device", "cpu"]) == cli.EXIT_USAGE
+    assert cli.run(["--zk_string", replacement_snapshot, "--mode",
+                    "PRINT_REASSIGNMENT", "--topics", "nope", "--device", "cpu"]
+                   ) == cli.EXIT_VALIDATION
+    assert cli.run(["--zk_string", replacement_snapshot, "--mode",
+                    "PRINT_REASSIGNMENT", "--desired_replication_factor", "99",
+                    "--device", "cpu"]) == cli.EXIT_VALIDATION
+    assert cli.run(["--zk_string", "file:///no/such/snapshot.json", "--mode",
+                    "PRINT_REASSIGNMENT", "--device", "cpu"]) == cli.EXIT_INGEST
+    assert "error:" in capsys.readouterr().err

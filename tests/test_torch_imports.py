@@ -1,0 +1,86 @@
+"""The port stands alone: every module of ``kafka_assigner_tpu_torch``, and
+``chip_smoke.py``, imports with ``jax`` and ``kafka_assigner_tpu`` blocked
+(checked in a fresh subprocess, since this test process has both loaded),
+and the entry points default to ``cuda``."""
+from __future__ import annotations
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import kafka_assigner_tpu_torch
+from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_BLOCKER = r"""
+import importlib, importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "kafka_assigner_tpu")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+sys.meta_path.insert(0, Block())
+for mod in sys.argv[1:]:
+    importlib.import_module(mod)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(sys.modules)
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def _port_modules():
+    mods = ["kafka_assigner_tpu_torch"]
+    for info in pkgutil.walk_packages(
+        kafka_assigner_tpu_torch.__path__, "kafka_assigner_tpu_torch."
+    ):
+        mods.append(info.name)
+    return mods
+
+
+def test_every_port_module_and_chip_smoke_import_without_jax():
+    mods = _port_modules() + ["chip_smoke"]
+    assert "kafka_assigner_tpu_torch.ops.leadership" in mods
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == f"ok {len(mods)}"
+
+
+def test_port_sources_never_name_the_jax_package():
+    for path in (ROOT / "kafka_assigner_tpu_torch").rglob("*.py"):
+        for line in path.read_text(encoding="utf-8").splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")):
+                assert "jax" not in stripped and "kafka_assigner_tpu " not in stripped \
+                    and "kafka_assigner_tpu." not in stripped, f"{path}: {line}"
+
+
+def test_solver_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert TorchSolver().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TorchSolver()
+    assert TorchSolver(device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
+    # Alone in a directory, chip_smoke.py must fail and print no result.
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
