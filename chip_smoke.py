@@ -11,9 +11,15 @@ Phases, each printing its own line; any failure exits non-zero:
 2. build — every ``kafka_assigner_tpu_torch/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, started together), with the
    registers and shared memory ``-Xptxas -v`` reports per kernel;
-3. kernels — the leadership kernel against its plain PyTorch version on
-   the card, bit for bit (RF 1-4, partial and empty rows, P not a multiple
-   of 8, multi-topic counter carry, shared- and global-memory slabs);
+3. kernels — the leadership kernel against its plain PyTorch version,
+   bit for bit, on the stress cases of
+   ``kafka_assigner_tpu_torch/ops/leadership_bench.py``: RF 1-5, 12 and
+   32 with shared- and global-memory slabs, partial and empty rows, P not
+   a multiple of 8, multi-topic counter carry; every row on the same
+   brokers with N_pad = RF and RF + 1 (every step conflicts); a mixed-RF
+   batch; P = 1; one topic of 5,000 partitions (many record tiles, a
+   partial last one); -1 and >= N_pad candidates; a slab over the
+   shared-memory opt-in limit;
 4. main path — BASELINE config 4 (5,000 brokers in 10 racks, 2,000 topics
    x 100 partitions at RF 3, brokers 0-99 replaced by 5000-5099, built as
    ``bench.py:build_headline`` does) written to a snapshot and solved by the
@@ -25,8 +31,10 @@ Phases, each printing its own line; any failure exits non-zero:
 5. cuda == cpu — a 64-topic prefix of config 4, plan text byte-identical;
 6. timing — warm median of 5 solves split into encode, placement,
    leadership and decode (host clocks ending in ``torch.cuda.synchronize``),
-   the kernel alone with CUDA events at the config-4 shape, and the plain
-   version on the card at a reduced shape (stated in the output).
+   the kernel alone at the config-4 shape (median of 10 launches, each
+   timed with CUDA events), its byte bound and its dependent-chain floor,
+   and the plain version on the card at a reduced shape (stated in the
+   output).
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -48,6 +56,10 @@ N_BROKERS, N_RACKS, N_TOPICS, P_PER_TOPIC, RF, REPLACED = 5000, 10, 2000, 100, 3
 PREFIX_TOPICS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 LEADERSHIP_TPU_KERNEL = "kafka_assigner_tpu/ops/pallas_leadership.py:63"
+KERNEL_REPS = 10
+# Dependent-issue latency of an integer ALU op (compare, select, add), in
+# cycles: the figure microbenchmarks report for Volta through Hopper.
+DEPENDENT_OP_CYCLES = 4
 
 
 def fail(msg: str) -> None:
@@ -59,53 +71,33 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else ""
 
 
-def random_rows(rng, b, p, n, rf):
-    """(B, P, RF) candidate rows with counts 0..RF (partial and empty)."""
-    import numpy as np
-
-    acc = np.full((b, p, rf), -1, np.int32)
-    cnt = rng.integers(0, rf + 1, (b, p)).astype(np.int32)
-    for t in range(b):
-        for i in range(p):
-            if cnt[t, i]:
-                acc[t, i, : cnt[t, i]] = rng.choice(n, cnt[t, i], replace=False)
-    return acc, cnt
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``)."""
+    mhz = nvidia_smi("clocks.max.sm").split()[0]
+    return float(mhz) * 1e6
 
 
-def kernel_cases(torch, lead):
-    """Phase 3: kernel vs plain on the card. Returns max |kernel - plain|."""
-    import numpy as np
-
+def kernel_cases(bench):
+    """Phase 3: kernel vs plain on the stress cases. Returns max |kernel -
+    plain| over every case."""
     worst = 0
-    cases = []
-    for rf in (1, 2, 3, 4):
-        cases.append((f"rf{rf}-smem", rf, 3, 45, 50, False))
-        cases.append((f"rf{rf}-global", rf, 3, 45, 50, True))
-    cases.append(("rf4-slab-over-optin-limit", 4, 2, 16, 20000, False))
-    for name, rf, b, p, n, force_global in cases:
-        rng = np.random.default_rng(rf * 7 + n)
-        acc, cnt = random_rows(rng, b, p, n, rf)
-        counters = rng.integers(0, 5, (n + 6, rf)).astype(np.int32)
-        jhs = rng.integers(0, 2**30, b).astype(np.int32)
-        args = [torch.as_tensor(x).cuda() for x in (acc, cnt, counters, jhs)]
-        o_k, c_k = lead.leadership_order(*args, force_global_slab=force_global)
-        torch.cuda.synchronize()
-        o_p, c_p = lead.leadership_order_plain(*args)
-        err = max(
-            int((o_k - o_p).abs().max()), int((c_k - c_p).abs().max())
-        )
+    for case in bench.stress_cases():
+        name, acc, _, counters = case[:4]
+        err = bench.check_case(case)
         worst = max(worst, err)
         if err:
             fail(f"leadership kernel disagrees with plain on case {name}")
-        phase("kernels", f"leadership {name} (B={b} P={p} RF={rf} N_pad={n + 6}): bit-equal")
+        b, p, rf = acc.shape
+        phase("kernels", f"leadership {name} (B={b} P={p} RF={rf} "
+              f"N_pad={counters.shape[0]}): bit-equal")
     return worst
 
 
@@ -182,19 +174,6 @@ def check_plan(plan, topic_map, live, rack_map):
     return moved, cap
 
 
-def cuda_ms(torch, fn, reps):
-    fn()  # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     import torch
 
@@ -211,6 +190,7 @@ def main() -> int:
     from kafka_assigner_tpu_torch.models.problem import context_to_array, encode_topic_group
     from kafka_assigner_tpu_torch.ops import build
     from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.ops import leadership_bench as bench
     from kafka_assigner_tpu_torch.ops.assignment import place_batched
     from kafka_assigner_tpu_torch.solvers.base import Context
 
@@ -226,7 +206,7 @@ def main() -> int:
             if "Compiling entry function" in line or "Used" in line:
                 phase("build", f"{src}: {line.strip()}")
 
-    max_err = kernel_cases(torch, lead)
+    max_err = kernel_cases(bench)
 
     # --- 4: main path at config 4 -------------------------------------
     topic_map, live, rack_map = build_config4()
@@ -298,19 +278,29 @@ def main() -> int:
         f"{k} {med[k]:.1f}" for k in ("total", "encode", "place", "leadership", "decode")
     ) + f"; waves {assigner.solver.last_waves}")
 
-    ms = cuda_ms(torch, lambda: lead.leadership_order(*k_args), 5)
+    times = bench.event_ms(lambda: lead.leadership_order(*k_args), KERNEL_REPS)
+    ms = statistics.median(times)
     small = tuple(t[:2].contiguous() for t in (k_args[0], k_args[1])) + (
         k_args[2], k_args[3][:2].contiguous())
-    ms_small = cuda_ms(torch, lambda: lead.leadership_order(*small), 5)
-    plain_ms = cuda_ms(torch, lambda: lead.leadership_order_plain(*small), 1)
+    ms_small = statistics.median(
+        bench.event_ms(lambda: lead.leadership_order(*small), 5))
+    plain_ms = bench.event_ms(lambda: lead.leadership_order_plain(*small), 1)[0]
     b_, p_, rf_ = shape
     n_pad = k_args[2].shape[0]
     nbytes = 4 * (2 * b_ * p_ * rf_ + b_ * p_ + b_ + 2 * n_pad * rf_)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # The chain per step: compare the gather row with the last bump, select
+    # the key, ceil(log2 RF) levels of compare + select, then the bump's
+    # compare and select; each op waits on the one before.
+    steps = bench.chain_steps(b_ * p_, rf_)
+    chain_ops = 4 + 2 * math.ceil(math.log2(rf_)) if rf_ > 1 else 4
+    chain_bound_ms = steps * chain_ops * DEPENDENT_OP_CYCLES / max_sm_clock_hz() * 1e3
     small_shape = f"B=2 P={p_} RF={rf_} N_pad={n_pad}"
-    phase("timing", f"leadership kernel {ms:.3f} ms at {shape} (bound {bound_ms:.4f} ms, "
-          f"{nbytes} bytes); at {small_shape}: kernel {ms_small:.3f} ms, "
-          f"plain on the card {plain_ms:.1f} ms")
+    phase("timing", f"leadership kernel median {ms:.3f} ms of {KERNEL_REPS} launches "
+          f"(min {min(times):.3f}, max {max(times):.3f}) at {shape}; byte bound "
+          f"{bound_ms:.4f} ms ({nbytes} bytes); chain floor {chain_bound_ms:.3f} ms "
+          f"({steps} steps x {chain_ops} dependent ops x {DEPENDENT_OP_CYCLES} cycles); "
+          f"at {small_shape}: kernel {ms_small:.3f} ms, plain on the card {plain_ms:.1f} ms")
     phase("timing", f"whole smoke so far {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
@@ -328,6 +318,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "chain_steps": steps,
+        "chain_bound_ms": chain_bound_ms,
     }]}
     print(json.dumps(kernels))
     print(nvidia_smi())

@@ -14,14 +14,15 @@ pallas_leadership.py`` (the Pallas TPU kernel ``_kernel`` behind
   the kernel against it on the card.
 - :data:`launches` counts kernel launches (the wrapper adds one where it
   launches, and nowhere else), so a run can show its main path went through
-  the kernel.
+  the kernel. One launch is the kernel's two phases: the per-row prologue
+  and the chain.
 
 The kernel's design and what bounds it are in the header of the ``.cu``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,40 @@ I32 = torch.int32
 
 #: Kernel launches per kernel name; reset by whoever reads it.
 launches: Dict[str, int] = {"leadership": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_smem_limit: Dict[int, int] = {}
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    """The built kernel library, its C signatures declared once per process."""
+    global _lib
+    if _lib is None:
+        lib = build.load("leadership")
+        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+        for name, res, args in (
+            ("ka_smem_optin_limit", c_int, []),
+            ("ka_leadership_tile_rows", c_int, [c_int]),
+            ("ka_leadership_record_words", c_int, [c_int]),
+            ("ka_leadership_smem_bytes", ctypes.c_longlong, [c_int] * 3),
+            ("ka_leadership_order", c_int, [c_ptr] * 6 + [c_int] * 5 + [c_ptr]),
+        ):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
+        _lib = lib
+    return _lib
+
+
+def _optin_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
+    """The device's shared-memory opt-in limit, read once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _smem_limit:
+        with torch.cuda.device(idx):
+            limit = lib.ka_smem_optin_limit()
+        if limit < 0:
+            raise RuntimeError("could not read the device's shared-memory limit")
+        _smem_limit[idx] = limit
+    return _smem_limit[idx]
 
 
 def _check(acc_nodes, acc_count, counters, jhashes) -> None:
@@ -118,10 +153,10 @@ def leadership_order(
     RF), counters_after)``; ``counters`` is not mutated.
 
     CPU tensors take :func:`leadership_order_plain` (``chunk`` is its row
-    block). CUDA tensors take the kernel, in one launch on the current
-    stream; it keeps the counter slab in shared memory unless the slab
-    exceeds the device's opt-in limit or ``force_global_slab`` asks for the
-    global-memory variant."""
+    block). CUDA tensors take the kernel, in one launch (prologue and chain)
+    on the current stream; it keeps the counter slab in shared memory unless
+    slab and tile rings together exceed the device's opt-in limit or
+    ``force_global_slab`` asks for the global-memory variant."""
     _check(acc_nodes, acc_count, counters, jhashes)
     dev = acc_nodes.device
     if dev.type == "cpu":
@@ -135,27 +170,28 @@ def leadership_order(
     jhashes = jhashes.contiguous()
     b, p, rf = acc_nodes.shape
     n_pad = counters.shape[0]
-    lib = build.load("leadership")
-    lib.ka_smem_optin_limit.restype = ctypes.c_int
-    lib.ka_smem_optin_limit.argtypes = []
-    lib.ka_leadership_order.restype = ctypes.c_int
-    lib.ka_leadership_order.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    counters_out = counters.contiguous().clone()
+    rows = b * p
+    if rows == 0:
+        return torch.empty_like(acc_nodes), counters_out
+    lib = _kernel_lib()
+    use_global = force_global_slab or (
+        lib.ka_leadership_smem_bytes(rf, n_pad, 0) > _optin_limit(lib, dev)
     )
+    tile = lib.ka_leadership_tile_rows(rf)
+    rows_pad = -(-rows // tile) * tile
     with torch.cuda.device(dev):
-        limit = lib.ka_smem_optin_limit()
-        if limit < 0:
-            raise RuntimeError("could not read the device's shared-memory limit")
-        use_global = force_global_slab or n_pad * rf * 4 > limit
-        ordered = torch.empty_like(acc_nodes)
-        counters_out = counters.contiguous().clone()
+        records = torch.empty(
+            rows_pad * lib.ka_leadership_record_words(rf), dtype=I32, device=dev
+        )
+        ordered = torch.empty(rows_pad * rf, dtype=I32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ka_leadership_order(
             acc_nodes.data_ptr(), acc_count.data_ptr(), jhashes.data_ptr(),
-            counters_out.data_ptr(), ordered.data_ptr(),
+            counters_out.data_ptr(), ordered.data_ptr(), records.data_ptr(),
             b, p, rf, n_pad, int(use_global), stream,
         )
     if err != 0:
         raise RuntimeError(f"leadership kernel launch failed: cudaError {err}")
     launches["leadership"] += 1
-    return ordered, counters_out
+    return ordered[: rows * rf].view(b, p, rf), counters_out

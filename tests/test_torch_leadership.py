@@ -20,6 +20,7 @@ from kafka_assigner_tpu.ops.assignment import order_batched
 from kafka_assigner_tpu.ops.pallas_leadership import leadership_order_pallas
 from kafka_assigner_tpu_torch.carry import counters_to_torch, to_numpy, to_tensor
 from kafka_assigner_tpu_torch.ops import leadership as port
+from kafka_assigner_tpu_torch.ops.leadership_bench import check_case, stress_cases
 
 
 def _rows(rng, b, p, n, rf, partial=True):
@@ -182,6 +183,160 @@ def test_wrapper_rejects_bad_inputs(bad):
             )
 
 
+# --- the column decoupling the kernel's pipeline relies on -----------------
+
+
+def _column_major_order(acc, cnt, counters, jhs):
+    """Leadership ordering evaluated column by column: slot 0 of every row
+    (topics, then partitions, in order), then slot 1 of every row, and so
+    on. This is the order the CUDA kernel's pipeline relies on: slot r reads
+    and writes only column r of the slab, and meets the other slots only
+    through its own row's remaining set. Plain Python integers; the inputs'
+    counters stay far from int32 overflow."""
+    b, p, rf = acc.shape
+    n_pad = counters.shape[0]
+    cand = acc.reshape(-1, rf).tolist()
+    count = cnt.reshape(-1).tolist()
+    jh = np.repeat(np.asarray(jhs, np.int64), p).tolist()
+    slab = counters.astype(np.int64).tolist()
+    remaining = [[j < c for j in range(rf)] for c in count]
+    out = [[-1] * rf for _ in count]
+    for r in range(rf):
+        for i, (row, c) in enumerate(zip(cand, count)):
+            m = max(c - r, 1)
+            start = jh[i] % m  # floor modulo, as torch and XLA take it
+            rem = remaining[i]
+            best_key, choice = None, 0
+            for j in range(rf):
+                key = port.BIG
+                if rem[j]:
+                    rank = sum(rem[q] and row[q] < row[j] for q in range(rf))
+                    gather = min(max(row[j], 0), n_pad - 1)
+                    key = slab[gather][r] * m + (rank + start) % m
+                if best_key is None or key < best_key:
+                    best_key, choice = key, j
+            rem[choice] = False
+            if r < c:
+                out[i][r] = row[choice]
+                if row[choice] < n_pad:
+                    slab[max(row[choice], 0)][r] += 1
+    return np.array(out, np.int32).reshape(b, p, rf), np.array(slab, np.int32)
+
+
+def _same_brokers(rng, b, p, rf):
+    acc = np.stack([rng.permutation(rf) for _ in range(b * p)])
+    return acc.reshape(b, p, rf).astype(np.int32), np.full((b, p), rf, np.int32)
+
+
+def _adversarial(name):
+    """``(acc, count, counters, jhashes, valid)`` from a seed; ``valid``
+    says whether the host C++ ``order_many`` takes the input (distinct
+    in-range candidates, count <= RF)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("same-brokers"):
+        rf = 3
+        n = rf if name.endswith("npad-rf") else rf + 1
+        acc, cnt = _same_brokers(rng, 2, 60, rf)
+        return acc, cnt, rng.integers(0, 3, (n, rf)).astype(np.int32), \
+            rng.integers(0, 2**30, 2).astype(np.int32), True
+    if name in ("rf1", "rf32"):
+        rf = int(name[2:])
+        p, n = (40, 16) if rf == 1 else (6, 40)
+        acc, cnt = _rows(rng, 1, p, n, rf)
+    elif name == "mixed-rf":
+        rfs = np.array([2, 4, 3, 2], np.int32)
+        acc, cnt = _rows(rng, 4, 24, 30, 4)
+        cnt = np.minimum(cnt, rfs[:, None]).astype(np.int32)
+        acc = np.where(np.arange(4)[None, None, :] < cnt[..., None], acc, -1)
+        acc = acc.astype(np.int32)
+        rf, n = 4, 30
+    elif name == "p1":
+        rf, n = 3, 20
+        acc, cnt = _rows(rng, 5, 1, n, rf)
+    elif name == "p5000":
+        rf, n = 3, 200
+        acc, cnt = _rows(rng, 1, 5000, n, rf, partial=False)
+    elif name == "multi-topic-carry":
+        rf, n = 3, 12
+        acc, cnt = _rows(rng, 6, 20, n, rf, partial=False)
+    else:  # out-of-range: -1 and >= N_pad candidates, counts outside 0..RF
+        rf, n = 3, 10
+        acc = rng.integers(-1, 14, (2, 40, rf)).astype(np.int32)
+        cnt = rng.integers(-1, 5, (2, 40)).astype(np.int32)
+        jhs = np.array([7, -13], np.int32)
+        return acc, cnt, rng.integers(0, 3, (n, rf)).astype(np.int32), jhs, False
+    counters = rng.integers(0, 4, (n, rf)).astype(np.int32)
+    jhs = rng.integers(0, 2**30, acc.shape[0]).astype(np.int32)
+    return acc, cnt, counters, jhs, True
+
+
+ADVERSARIAL = [
+    "same-brokers-npad-rf", "same-brokers-npad-rf+1", "rf1", "rf32",
+    "mixed-rf", "p1", "p5000", "multi-topic-carry", "out-of-range",
+]
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_column_major_order_matches_jax_and_native(name):
+    from kafka_assigner_tpu.native.build import load_native_library
+    from kafka_assigner_tpu.native.leadership import order_many
+
+    acc, cnt, counters, jhs, valid = _adversarial(name)
+    b, p, rf = acc.shape
+    o_col, c_col = _column_major_order(acc, cnt, counters, jhs)
+    if b == 1:
+        o_jax, c_jax = jax_order(
+            jnp.asarray(acc[0]), jnp.asarray(cnt[0]), jnp.asarray(counters),
+            jnp.int32(jhs[0]), rf, chunk=1 if rf > 4 else None,
+        )
+        o_jax = np.asarray(o_jax)[None]
+    else:
+        o_jax, c_jax = order_batched(
+            jnp.asarray(acc), jnp.asarray(cnt), jnp.asarray(counters),
+            jnp.asarray(jhs), rf,
+        )
+    np.testing.assert_array_equal(o_col, np.asarray(o_jax))
+    np.testing.assert_array_equal(c_col, np.asarray(c_jax))
+    if valid:
+        load_native_library()  # the suite's conftest prebuilds it
+        o_nat, c_nat = order_many(
+            acc, cnt, jhs.astype(np.int64), np.full(b, p, np.int32), counters
+        )
+        np.testing.assert_array_equal(o_col, o_nat)
+        np.testing.assert_array_equal(c_col, c_nat)
+    if name != "p5000":  # the plain version walks rows one by one
+        o_port, c_port = _port(acc, cnt, counters, jhs)
+        np.testing.assert_array_equal(o_port, o_col)
+        np.testing.assert_array_equal(c_port, c_col)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_column_major_order_equals_row_major_plain(seed):
+    rng = np.random.default_rng(100 + seed)
+    acc, cnt = _rows(rng, 3, 30, 9, 4)
+    counters = rng.integers(0, 3, (9, 4)).astype(np.int32)
+    jhs = rng.integers(0, 2**30, 3).astype(np.int32)
+    o_col, c_col = _column_major_order(acc, cnt, counters, jhs)
+    o_port, c_port = _port(acc, cnt, counters, jhs)
+    np.testing.assert_array_equal(o_port, o_col)
+    np.testing.assert_array_equal(c_port, c_col)
+
+
+def test_stress_cases_are_well_formed():
+    # The card's stress cases (chip_smoke.py phase 3): names unique, int32
+    # inputs of consistent shapes, and a slab above the opt-in limit.
+    names = set()
+    for name, acc, cnt, counters, jhs, _ in stress_cases():
+        assert name not in names
+        names.add(name)
+        b, p, rf = acc.shape
+        assert cnt.shape == (b, p) and jhs.shape == (b,)
+        assert counters.shape[1] == rf
+        assert all(x.dtype == np.int32 for x in (acc, cnt, counters, jhs))
+    assert {"rf1-smem", "rf32-global", "one-topic-p5000", "out-of-range",
+            "same-brokers-rf3-npad3", "rf4-slab-over-optin-limit"} <= names
+
+
 # --- on the card ----------------------------------------------------------
 
 
@@ -193,7 +348,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rf,force_global", [(1, False), (3, False), (4, True), (3, True)])
+@pytest.mark.parametrize("rf,force_global", [
+    (1, False), (3, False), (4, True), (3, True), (5, False), (12, True),
+    (32, False), (32, True),
+])
 def test_kernel_matches_plain_on_card(cuda_device, rf, force_global):
     rng = np.random.default_rng(rf)
     b, p, n = 3, 45, 50  # P not a multiple of 8; partial and empty rows
@@ -220,3 +378,10 @@ def test_kernel_large_slab_takes_global_variant_on_card(cuda_device):
     o_k, c_k = port.leadership_order(*args)
     o_p, c_p = port.leadership_order_plain(*args)
     assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [case[0] for case in stress_cases()])
+def test_kernel_stress_cases_match_plain_on_card(cuda_device, name):
+    case = next(c for c in stress_cases() if c[0] == name)
+    assert check_case(case, str(cuda_device)) == 0
