@@ -13,7 +13,7 @@ Phases, each printing its own line; any failure exits non-zero:
    registers and shared memory ``-Xptxas -v`` reports per kernel;
 3. kernels — the leadership kernel against its plain PyTorch version,
    bit for bit, on the stress cases of
-   ``kafka_assigner_tpu_torch/ops/leadership_bench.py``: RF 1-5, 12 and
+   ``kafka_assigner_tpu_torch/ops/leadership_cases.py``: RF 1-5, 12 and
    32 with shared- and global-memory slabs, partial and empty rows, P not
    a multiple of 8, multi-topic counter carry; every row on the same
    brokers with N_pad = RF and RF + 1 (every step conflicts); a mixed-RF
@@ -32,9 +32,14 @@ Phases, each printing its own line; any failure exits non-zero:
 6. timing — warm median of 5 solves split into encode, placement,
    leadership and decode (host clocks ending in ``torch.cuda.synchronize``),
    the kernel alone at the config-4 shape (median of 10 launches, each
-   timed with CUDA events), its byte bound and its dependent-chain floor,
-   and the plain version on the card at a reduced shape (stated in the
-   output).
+   timed with CUDA events), its byte bound, its dependent-chain floor
+   (the chain's steps at this shape times the time per step of the chain
+   alone, measured here by the kernel's probe), and the plain version on
+   the card at a reduced shape (stated in the output).
+
+In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
+the memory rate); ``chain_bound_ms`` is the design's latency floor, which
+the throughput bound does not see.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -57,9 +62,6 @@ PREFIX_TOPICS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 LEADERSHIP_TPU_KERNEL = "kafka_assigner_tpu/ops/pallas_leadership.py:63"
 KERNEL_REPS = 10
-# Dependent-issue latency of an integer ALU op (compare, select, add), in
-# cycles: the figure microbenchmarks report for Volta through Hopper.
-DEPENDENT_OP_CYCLES = 4
 
 
 def fail(msg: str) -> None:
@@ -79,19 +81,13 @@ def nvidia_smi(fields: str = "name,power.limit") -> str:
     return out[0] if out else ""
 
 
-def max_sm_clock_hz() -> float:
-    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``)."""
-    mhz = nvidia_smi("clocks.max.sm").split()[0]
-    return float(mhz) * 1e6
-
-
-def kernel_cases(bench):
+def kernel_cases(cases):
     """Phase 3: kernel vs plain on the stress cases. Returns max |kernel -
     plain| over every case."""
     worst = 0
-    for case in bench.stress_cases():
+    for case in cases.stress_cases():
         name, acc, _, counters = case[:4]
-        err = bench.check_case(case)
+        err = cases.check_case(case)
         worst = max(worst, err)
         if err:
             fail(f"leadership kernel disagrees with plain on case {name}")
@@ -190,7 +186,7 @@ def main() -> int:
     from kafka_assigner_tpu_torch.models.problem import context_to_array, encode_topic_group
     from kafka_assigner_tpu_torch.ops import build
     from kafka_assigner_tpu_torch.ops import leadership as lead
-    from kafka_assigner_tpu_torch.ops import leadership_bench as bench
+    from kafka_assigner_tpu_torch.ops import leadership_cases as cases
     from kafka_assigner_tpu_torch.ops.assignment import place_batched
     from kafka_assigner_tpu_torch.solvers.base import Context
 
@@ -206,7 +202,7 @@ def main() -> int:
             if "Compiling entry function" in line or "Used" in line:
                 phase("build", f"{src}: {line.strip()}")
 
-    max_err = kernel_cases(bench)
+    max_err = kernel_cases(cases)
 
     # --- 4: main path at config 4 -------------------------------------
     topic_map, live, rack_map = build_config4()
@@ -278,28 +274,26 @@ def main() -> int:
         f"{k} {med[k]:.1f}" for k in ("total", "encode", "place", "leadership", "decode")
     ) + f"; waves {assigner.solver.last_waves}")
 
-    times = bench.event_ms(lambda: lead.leadership_order(*k_args), KERNEL_REPS)
+    times = cases.event_ms(lambda: lead.leadership_order(*k_args), KERNEL_REPS)
     ms = statistics.median(times)
     small = tuple(t[:2].contiguous() for t in (k_args[0], k_args[1])) + (
         k_args[2], k_args[3][:2].contiguous())
     ms_small = statistics.median(
-        bench.event_ms(lambda: lead.leadership_order(*small), 5))
-    plain_ms = bench.event_ms(lambda: lead.leadership_order_plain(*small), 1)[0]
+        cases.event_ms(lambda: lead.leadership_order(*small), 5))
+    plain_ms = cases.event_ms(lambda: lead.leadership_order_plain(*small), 1)[0]
     b_, p_, rf_ = shape
     n_pad = k_args[2].shape[0]
     nbytes = 4 * (2 * b_ * p_ * rf_ + b_ * p_ + b_ + 2 * n_pad * rf_)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # The chain per step: compare the gather row with the last bump, select
-    # the key, ceil(log2 RF) levels of compare + select, then the bump's
-    # compare and select; each op waits on the one before.
-    steps = bench.chain_steps(b_ * p_, rf_)
-    chain_ops = 4 + 2 * math.ceil(math.log2(rf_)) if rf_ > 1 else 4
-    chain_bound_ms = steps * chain_ops * DEPENDENT_OP_CYCLES / max_sm_clock_hz() * 1e3
+    steps = cases.chain_steps(b_ * p_, rf_)
+    step_ns, step_cycles = cases.chain_step_ns(rf_)
+    chain_bound_ms = steps * step_ns * 1e-6
     small_shape = f"B=2 P={p_} RF={rf_} N_pad={n_pad}"
     phase("timing", f"leadership kernel median {ms:.3f} ms of {KERNEL_REPS} launches "
           f"(min {min(times):.3f}, max {max(times):.3f}) at {shape}; byte bound "
           f"{bound_ms:.4f} ms ({nbytes} bytes); chain floor {chain_bound_ms:.3f} ms "
-          f"({steps} steps x {chain_ops} dependent ops x {DEPENDENT_OP_CYCLES} cycles); "
+          f"({steps} steps x {step_ns:.3f} ns, {step_cycles:.2f} cycles, per step of "
+          f"the chain alone, measured by the probe); "
           f"at {small_shape}: kernel {ms_small:.3f} ms, plain on the card {plain_ms:.1f} ms")
     phase("timing", f"whole smoke so far {time.perf_counter() - t_start:.1f} s")
 

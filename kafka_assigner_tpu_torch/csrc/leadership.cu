@@ -81,10 +81,10 @@ __host__ __device__ constexpr int record_words(int R) {
 }
 __host__ __device__ constexpr int tile_rows(int R) { return R <= 4 ? 128 : 64; }
 __host__ __device__ constexpr int ring_rows(int R) { return kStages * tile_rows(R); }
-// The RF widths the chain is compiled for; a narrower RF runs in the next
-// width up with its extra candidates never remaining.
+// The RF widths the chain is compiled for: each RF up to 4 (the common
+// ones) and 32 for every RF above, whose extra candidates never remain.
 __host__ __device__ constexpr int width_bucket(int rf) {
-  return rf <= 4 ? rf : rf <= 8 ? 8 : rf <= 16 ? 16 : 32;
+  return rf <= 4 ? rf : 32;
 }
 
 template <int R>
@@ -249,29 +249,27 @@ __device__ __forceinline__ void prepare(Slot<R>& s, const Rec<R>& x,
   }
 }
 
-// Order `cur` (row), prepare `nxt` (row + 1) from `x_next`, and load the
-// record of row + 2 into `x_after`.
-template <int R>
-__device__ __forceinline__ void step(Slot<R>& cur, Slot<R>& nxt,
-                                     const Rec<R>& x_next, Rec<R>& x_after,
-                                     Lane& ln, int row) {
-  load_record<R>(x_after, ln, row + 2);
-  // The next row's counter loads come before this step's bump in program
-  // order, so they see every bump but this step's; the next step corrects.
-  prepare<R>(nxt, x_next, ln, row + 1, ln.from_left);
+// What a slot chose.
+struct Pick {
+  int g, c, v;   // gather row, candidate, counter as loaded
+  unsigned bit;  // the candidate's bit in the remaining mask
+};
 
+// The part of a step that waits on the previous step: each key as loaded,
+// or as bumped when the previous step bumped its gather row, then the first
+// minimum in candidate order (a tree whose ties keep the lower index).
+template <int R>
+__device__ __forceinline__ Pick first_min(const Slot<R>& cur, int bumped) {
   int k[R], g[R], c[R], v[R];
   unsigned bit[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
-    k[j] = cur.g[j] == ln.bumped ? cur.hit[j] : cur.key[j];
+    k[j] = cur.g[j] == bumped ? cur.hit[j] : cur.key[j];
     bit[j] = 1u << j;
     g[j] = cur.g[j];
     c[j] = cur.c[j];
     v[j] = cur.v[j];
   }
-  // First minimum over the keys, in candidate order: a tree whose ties keep
-  // the lower index.
 #pragma unroll
   for (int d = 1; d < R; d *= 2) {
 #pragma unroll
@@ -285,13 +283,61 @@ __device__ __forceinline__ void step(Slot<R>& cur, Slot<R>& nxt,
       }
     }
   }
-  const bool bump = cur.slot && c[0] < ln.n_pad;
-  const int now = v[0] + (g[0] == ln.bumped ? 1 : 0);
-  if (bump) ln.slab[ln.col_off + g[0]] = now + 1;
-  ln.bumped = bump ? g[0] : -1;
+  return {g[0], c[0], v[0], bit[0]};
+}
+
+// Order `cur` (row), prepare `nxt` (row + 1) from `x_next`, and load the
+// record of row + 2 into `x_after`.
+template <int R>
+__device__ __forceinline__ void step(Slot<R>& cur, Slot<R>& nxt,
+                                     const Rec<R>& x_next, Rec<R>& x_after,
+                                     Lane& ln, int row) {
+  load_record<R>(x_after, ln, row + 2);
+  // The next row's counter loads come before this step's bump in program
+  // order, so they see every bump but this step's; the next step corrects.
+  prepare<R>(nxt, x_next, ln, row + 1, ln.from_left);
+
+  const Pick p = first_min<R>(cur, ln.bumped);
+  const bool bump = cur.slot && p.c < ln.n_pad;
+  const int now = p.v + (p.g == ln.bumped ? 1 : 0);
+  if (bump) ln.slab[ln.col_off + p.g] = now + 1;
+  ln.bumped = bump ? p.g : -1;
   if (cur.live)
-    ln.out[(row & (ring_rows(R) - 1)) * ln.rf + ln.lane] = cur.slot ? c[0] : -1;
-  ln.from_left = __shfl_up_sync(kFull, cur.rem & ~bit[0], 1);
+    ln.out[(row & (ring_rows(R) - 1)) * ln.rf + ln.lane] = cur.slot ? p.c : -1;
+  ln.from_left = __shfl_up_sync(kFull, cur.rem & ~p.bit, 1);
+}
+
+// The chain's floor, measured rather than assumed: one thread runs `steps`
+// steps of the chain alone (first_min, then the next bumped row) on one
+// slot read from `in` (key, hit, gather row, candidate and counter, `rf`
+// words each, then the slot flag and N_pad), and writes the last bumped row
+// and the clock64 cycles of the loop. Everything else a step does in
+// chain_kernel depends only on earlier steps' loads and shuffles.
+template <int R>
+__global__ void chain_probe_kernel(const int* __restrict__ in, long long* out,
+                                   int rf, long long steps) {
+  Slot<R> s;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const bool on = j < rf;
+    s.key[j] = on ? in[j] : kBig;
+    s.hit[j] = on ? in[rf + j] : kBig;
+    s.g[j] = on ? in[2 * rf + j] : 0;
+    s.c[j] = on ? in[3 * rf + j] : -1;
+    s.v[j] = on ? in[4 * rf + j] : 0;
+  }
+  s.slot = in[5 * rf] != 0;
+  const int n_pad = in[5 * rf + 1];
+  int bumped = -1;
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (long long i = 0; i < steps; ++i) {
+    const Pick p = first_min<R>(s, bumped);
+    bumped = s.slot && p.c < n_pad ? p.g : -1;
+  }
+  const long long t1 = clock64();
+  out[0] = bumped;
+  out[1] = t1 - t0;
 }
 
 template <int R, bool kShared>
@@ -437,7 +483,7 @@ size_t smem_bytes(int rf, int n_pad, bool global_slab) {
 template <int R>
 int launch(const int* cand, const int* count, const int* jhashes, int* counters,
            int* ordered, int* records, int b, int p, int rf, int n_pad,
-           bool global_slab, cudaStream_t s) {
+           bool global_slab, cudaStream_t s, cudaEvent_t mid) {
   const int rows = b * p;
   const int T = tile_rows(R);
   const int rows_pad = (rows + T - 1) / T * T;
@@ -447,6 +493,7 @@ int launch(const int* cand, const int* count, const int* jhashes, int* counters,
                                               global_slab ? rf : 1);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (mid != nullptr && (e = cudaEventRecord(mid, s)) != cudaSuccess) return (int)e;
   const size_t bytes = smem_bytes<R>(rf, n_pad, global_slab);
   if (global_slab) {
     if ((e = ensure_smem<R, false>(bytes)) != cudaSuccess) return (int)e;
@@ -492,32 +539,47 @@ long long ka_leadership_smem_bytes(int rf, int n_pad, int use_global_slab) {
     case 2: return (long long)smem_bytes<2>(rf, n_pad, g);
     case 3: return (long long)smem_bytes<3>(rf, n_pad, g);
     case 4: return (long long)smem_bytes<4>(rf, n_pad, g);
-    case 8: return (long long)smem_bytes<8>(rf, n_pad, g);
-    case 16: return (long long)smem_bytes<16>(rf, n_pad, g);
     default: return (long long)smem_bytes<32>(rf, n_pad, g);
   }
 }
 
 // One call orders the whole batch: the prologue over every row, then the
 // chain in one CTA. `counters` holds the slab before the call and after it;
-// `ordered` and `records` cover whole tiles. Returns the launches'
-// cudaError_t (0 on success).
+// `ordered` and `records` cover whole tiles. A non-null `mid_event` is
+// recorded on the stream between the two launches, so a caller can time
+// them apart. Returns the launches' cudaError_t (0 on success).
 int ka_leadership_order(const int* cand, const int* count, const int* jhashes,
                         int* counters, int* ordered, int* records, int b, int p,
-                        int rf, int n_pad, int use_global_slab, void* stream) {
+                        int rf, int n_pad, int use_global_slab, void* stream,
+                        void* mid_event) {
   if (rf < 1 || rf > 32 || n_pad < 1 || b < 1 || p < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaEvent_t mid = static_cast<cudaEvent_t>(mid_event);
   const bool g = use_global_slab != 0;
   switch (width_bucket(rf)) {
-    case 1: return launch<1>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    case 2: return launch<2>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    case 3: return launch<3>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    case 4: return launch<4>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    case 8: return launch<8>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    case 16: return launch<16>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
-    default: return launch<32>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s);
+    case 1: return launch<1>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s, mid);
+    case 2: return launch<2>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s, mid);
+    case 3: return launch<3>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s, mid);
+    case 4: return launch<4>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s, mid);
+    default: return launch<32>(cand, count, jhashes, counters, ordered, records, b, p, rf, n_pad, g, s, mid);
   }
+}
+
+// The chain-floor probe (chain_probe_kernel) for this RF: `in` holds
+// 5 * rf + 2 int32 words on the device, `out` two int64 words.
+int ka_leadership_chain_probe(int rf, const int* in, long long* out,
+                              long long steps, void* stream) {
+  if (rf < 1 || rf > 32 || steps < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width_bucket(rf)) {
+    case 1: chain_probe_kernel<1><<<1, 1, 0, s>>>(in, out, rf, steps); break;
+    case 2: chain_probe_kernel<2><<<1, 1, 0, s>>>(in, out, rf, steps); break;
+    case 3: chain_probe_kernel<3><<<1, 1, 0, s>>>(in, out, rf, steps); break;
+    case 4: chain_probe_kernel<4><<<1, 1, 0, s>>>(in, out, rf, steps); break;
+    default: chain_probe_kernel<32><<<1, 1, 0, s>>>(in, out, rf, steps); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

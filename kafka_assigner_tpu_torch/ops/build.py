@@ -47,7 +47,8 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built, named by a hash of source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -55,7 +56,7 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start one nvcc for ``csrc/<name>.cu``; None when already built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,6 +96,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib

@@ -49,7 +49,9 @@ def _kernel_lib() -> ctypes.CDLL:
             ("ka_leadership_tile_rows", c_int, [c_int]),
             ("ka_leadership_record_words", c_int, [c_int]),
             ("ka_leadership_smem_bytes", ctypes.c_longlong, [c_int] * 3),
-            ("ka_leadership_order", c_int, [c_ptr] * 6 + [c_int] * 5 + [c_ptr]),
+            ("ka_leadership_order", c_int, [c_ptr] * 6 + [c_int] * 5 + [c_ptr] * 2),
+            ("ka_leadership_chain_probe", c_int,
+             [c_int, c_ptr, c_ptr, ctypes.c_longlong, c_ptr]),
         ):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
@@ -148,6 +150,7 @@ def leadership_order(
     jhashes: torch.Tensor,
     force_global_slab: bool = False,
     chunk: int = 8,
+    mid_event: Optional[torch.cuda.Event] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Leadership ordering of a batch of placed topics: ``(ordered (B, P,
     RF), counters_after)``; ``counters`` is not mutated.
@@ -156,7 +159,9 @@ def leadership_order(
     block). CUDA tensors take the kernel, in one launch (prologue and chain)
     on the current stream; it keeps the counter slab in shared memory unless
     slab and tile rings together exceed the device's opt-in limit or
-    ``force_global_slab`` asks for the global-memory variant."""
+    ``force_global_slab`` asks for the global-memory variant. ``mid_event``,
+    when given, is recorded between the prologue and the chain, so events
+    around the call time the two apart."""
     _check(acc_nodes, acc_count, counters, jhashes)
     dev = acc_nodes.device
     if dev.type == "cpu":
@@ -186,12 +191,39 @@ def leadership_order(
         )
         ordered = torch.empty(rows_pad * rf, dtype=I32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        mid = None
+        if mid_event is not None:
+            mid_event.record()  # creates the event; the launch records it again
+            mid = mid_event.cuda_event
         err = lib.ka_leadership_order(
             acc_nodes.data_ptr(), acc_count.data_ptr(), jhashes.data_ptr(),
             counters_out.data_ptr(), ordered.data_ptr(), records.data_ptr(),
-            b, p, rf, n_pad, int(use_global), stream,
+            b, p, rf, n_pad, int(use_global), stream, mid,
         )
     if err != 0:
         raise RuntimeError(f"leadership kernel launch failed: cudaError {err}")
     launches["leadership"] += 1
     return ordered[: rows * rf].view(b, p, rf), counters_out
+
+
+def chain_probe(rf: int, slot: torch.Tensor, steps: int) -> torch.Tensor:
+    """Run the kernel's chain alone: one thread takes ``steps`` dependent
+    steps (the first minimum over the keys, then the next bumped row) on one
+    slot. ``slot`` is int32 on the card: key, hit key, gather row, candidate
+    and counter, ``rf`` words each, then the slot flag and N_pad. Returns
+    ``(last bumped row, clock64 cycles of the loop)`` as an int64 tensor on
+    the card. Events around the call give the chain's time per step; this is
+    a measurement, not a leadership launch, and counts none."""
+    if slot.device.type != "cuda" or slot.dtype != I32 or slot.numel() != 5 * rf + 2:
+        raise ValueError(f"slot must be {5 * rf + 2} int32 words on a CUDA device")
+    lib = _kernel_lib()
+    slot = slot.contiguous()
+    out = torch.zeros(2, dtype=torch.int64, device=slot.device)
+    with torch.cuda.device(slot.device):
+        err = lib.ka_leadership_chain_probe(
+            rf, slot.data_ptr(), out.data_ptr(), steps,
+            torch.cuda.current_stream(slot.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chain probe launch failed: cudaError {err}")
+    return out

@@ -20,7 +20,9 @@ from kafka_assigner_tpu.ops.assignment import order_batched
 from kafka_assigner_tpu.ops.pallas_leadership import leadership_order_pallas
 from kafka_assigner_tpu_torch.carry import counters_to_torch, to_numpy, to_tensor
 from kafka_assigner_tpu_torch.ops import leadership as port
-from kafka_assigner_tpu_torch.ops.leadership_bench import check_case, stress_cases
+from kafka_assigner_tpu_torch.ops.leadership_cases import (
+    chain_step_ns, check_case, stress_cases,
+)
 
 
 def _rows(rng, b, p, n, rf, partial=True):
@@ -163,6 +165,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert (counters == 0).all()  # the caller's slab is not mutated
 
 
+def test_chain_probe_takes_only_a_slot_on_the_card():
+    # The probe launches a CUDA kernel: it has no plain version to fall
+    # back to, so a CPU tensor (or a slot of the wrong size) is refused.
+    with pytest.raises(ValueError):
+        port.chain_probe(3, torch.zeros(17, dtype=torch.int32), 16)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "rf"])
 def test_wrapper_rejects_bad_inputs(bad):
     acc = torch.zeros((1, 4, 3), dtype=torch.int32)
@@ -223,88 +232,47 @@ def _column_major_order(acc, cnt, counters, jhs):
     return np.array(out, np.int32).reshape(b, p, rf), np.array(slab, np.int32)
 
 
-def _same_brokers(rng, b, p, rf):
-    acc = np.stack([rng.permutation(rf) for _ in range(b * p)])
-    return acc.reshape(b, p, rf).astype(np.int32), np.full((b, p), rf, np.int32)
+def _native_takes(acc, cnt, n_pad):
+    """Whether the host C++ ``order_many`` takes the input: counts in
+    0..RF, and distinct in-range candidates in each row's first ``count``
+    slots."""
+    rf = acc.shape[-1]
+    if cnt.min() < 0 or cnt.max() > rf:
+        return False
+    for row, c in zip(acc.reshape(-1, rf), cnt.reshape(-1)):
+        cands = row[:c]
+        if len(set(cands.tolist())) != c or (cands < 0).any() or (cands >= n_pad).any():
+            return False
+    return True
 
 
-def _adversarial(name):
-    """``(acc, count, counters, jhashes, valid)`` from a seed; ``valid``
-    says whether the host C++ ``order_many`` takes the input (distinct
-    in-range candidates, count <= RF)."""
-    rng = np.random.default_rng(sum(map(ord, name)))
-    if name.startswith("same-brokers"):
-        rf = 3
-        n = rf if name.endswith("npad-rf") else rf + 1
-        acc, cnt = _same_brokers(rng, 2, 60, rf)
-        return acc, cnt, rng.integers(0, 3, (n, rf)).astype(np.int32), \
-            rng.integers(0, 2**30, 2).astype(np.int32), True
-    if name in ("rf1", "rf32"):
-        rf = int(name[2:])
-        p, n = (40, 16) if rf == 1 else (6, 40)
-        acc, cnt = _rows(rng, 1, p, n, rf)
-    elif name == "mixed-rf":
-        rfs = np.array([2, 4, 3, 2], np.int32)
-        acc, cnt = _rows(rng, 4, 24, 30, 4)
-        cnt = np.minimum(cnt, rfs[:, None]).astype(np.int32)
-        acc = np.where(np.arange(4)[None, None, :] < cnt[..., None], acc, -1)
-        acc = acc.astype(np.int32)
-        rf, n = 4, 30
-    elif name == "p1":
-        rf, n = 3, 20
-        acc, cnt = _rows(rng, 5, 1, n, rf)
-    elif name == "p5000":
-        rf, n = 3, 200
-        acc, cnt = _rows(rng, 1, 5000, n, rf, partial=False)
-    elif name == "multi-topic-carry":
-        rf, n = 3, 12
-        acc, cnt = _rows(rng, 6, 20, n, rf, partial=False)
-    else:  # out-of-range: -1 and >= N_pad candidates, counts outside 0..RF
-        rf, n = 3, 10
-        acc = rng.integers(-1, 14, (2, 40, rf)).astype(np.int32)
-        cnt = rng.integers(-1, 5, (2, 40)).astype(np.int32)
-        jhs = np.array([7, -13], np.int32)
-        return acc, cnt, rng.integers(0, 3, (n, rf)).astype(np.int32), jhs, False
-    counters = rng.integers(0, 4, (n, rf)).astype(np.int32)
-    jhs = rng.integers(0, 2**30, acc.shape[0]).astype(np.int32)
-    return acc, cnt, counters, jhs, True
+STRESS = {case[0]: case for case in stress_cases()}
 
 
-ADVERSARIAL = [
-    "same-brokers-npad-rf", "same-brokers-npad-rf+1", "rf1", "rf32",
-    "mixed-rf", "p1", "p5000", "multi-topic-carry", "out-of-range",
-]
-
-
-@pytest.mark.parametrize("name", ADVERSARIAL)
+@pytest.mark.parametrize("name", list(STRESS))
 def test_column_major_order_matches_jax_and_native(name):
+    # The card's stress cases (chip_smoke.py phase 3), column by column,
+    # against the JAX package's scan and, where it takes them, order_many.
     from kafka_assigner_tpu.native.build import load_native_library
     from kafka_assigner_tpu.native.leadership import order_many
 
-    acc, cnt, counters, jhs, valid = _adversarial(name)
+    _, acc, cnt, counters, jhs, _ = STRESS[name]
     b, p, rf = acc.shape
     o_col, c_col = _column_major_order(acc, cnt, counters, jhs)
-    if b == 1:
-        o_jax, c_jax = jax_order(
-            jnp.asarray(acc[0]), jnp.asarray(cnt[0]), jnp.asarray(counters),
-            jnp.int32(jhs[0]), rf, chunk=1 if rf > 4 else None,
-        )
-        o_jax = np.asarray(o_jax)[None]
-    else:
-        o_jax, c_jax = order_batched(
-            jnp.asarray(acc), jnp.asarray(cnt), jnp.asarray(counters),
-            jnp.asarray(jhs), rf,
-        )
+    o_jax, c_jax = order_batched(
+        jnp.asarray(acc), jnp.asarray(cnt), jnp.asarray(counters),
+        jnp.asarray(jhs), rf, leader_chunk=1 if rf > 4 else None,
+    )
     np.testing.assert_array_equal(o_col, np.asarray(o_jax))
     np.testing.assert_array_equal(c_col, np.asarray(c_jax))
-    if valid:
+    if _native_takes(acc, cnt, counters.shape[0]):
         load_native_library()  # the suite's conftest prebuilds it
         o_nat, c_nat = order_many(
             acc, cnt, jhs.astype(np.int64), np.full(b, p, np.int32), counters
         )
         np.testing.assert_array_equal(o_col, o_nat)
         np.testing.assert_array_equal(c_col, c_nat)
-    if name != "p5000":  # the plain version walks rows one by one
+    if b * p <= 1000:  # the plain version walks rows one by one
         o_port, c_port = _port(acc, cnt, counters, jhs)
         np.testing.assert_array_equal(o_port, o_col)
         np.testing.assert_array_equal(c_port, c_col)
@@ -320,21 +288,6 @@ def test_column_major_order_equals_row_major_plain(seed):
     o_port, c_port = _port(acc, cnt, counters, jhs)
     np.testing.assert_array_equal(o_port, o_col)
     np.testing.assert_array_equal(c_port, c_col)
-
-
-def test_stress_cases_are_well_formed():
-    # The card's stress cases (chip_smoke.py phase 3): names unique, int32
-    # inputs of consistent shapes, and a slab above the opt-in limit.
-    names = set()
-    for name, acc, cnt, counters, jhs, _ in stress_cases():
-        assert name not in names
-        names.add(name)
-        b, p, rf = acc.shape
-        assert cnt.shape == (b, p) and jhs.shape == (b,)
-        assert counters.shape[1] == rf
-        assert all(x.dtype == np.int32 for x in (acc, cnt, counters, jhs))
-    assert {"rf1-smem", "rf32-global", "one-topic-p5000", "out-of-range",
-            "same-brokers-rf3-npad3", "rf4-slab-over-optin-limit"} <= names
 
 
 # --- on the card ----------------------------------------------------------
@@ -381,7 +334,29 @@ def test_kernel_large_slab_takes_global_variant_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [case[0] for case in stress_cases()])
+@pytest.mark.parametrize("name", list(STRESS))
 def test_kernel_stress_cases_match_plain_on_card(cuda_device, name):
-    case = next(c for c in stress_cases() if c[0] == name)
-    assert check_case(case, str(cuda_device)) == 0
+    assert check_case(STRESS[name], str(cuda_device)) == 0
+
+
+@pytest.mark.cuda
+def test_mid_event_splits_prologue_from_chain_on_card(cuda_device):
+    _, acc, cnt, counters, jhs, _ = STRESS["rf3-smem"]
+    args = [to_tensor(x, cuda_device) for x in (acc, cnt, counters, jhs)]
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    o_k, c_k = port.leadership_order(*args, mid_event=mid)
+    end.record()
+    end.synchronize()
+    assert start.elapsed_time(mid) >= 0 and mid.elapsed_time(end) >= 0
+    o_p, c_p = port.leadership_order_plain(*args)
+    assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rf", [1, 3, 32])
+def test_chain_probe_walks_the_chain_on_card(cuda_device, rf):
+    before = port.launches["leadership"]
+    ns, cycles = chain_step_ns(rf, steps=1 << 12, reps=2)
+    assert ns > 0 and cycles > 0
+    assert port.launches["leadership"] == before  # a measurement, not a launch
