@@ -18,8 +18,8 @@ Phases, each printing its own line; any failure exits non-zero:
    a multiple of 8, multi-topic counter carry; every row on the same
    brokers with N_pad = RF and RF + 1 (every step conflicts); a mixed-RF
    batch; P = 1; one topic of 5,000 partitions (many record tiles, a
-   partial last one); -1 and >= N_pad candidates; a slab over the
-   shared-memory opt-in limit;
+   partial last one); one topic of 20,000 rows on a warm slab; -1 and
+   >= N_pad candidates; a slab over the shared-memory opt-in limit;
 4. main path — BASELINE config 4 (5,000 brokers in 10 racks, 2,000 topics
    x 100 partitions at RF 3, brokers 0-99 replaced by 5000-5099, built as
    ``bench.py:build_headline`` does) written to a snapshot and solved by the
@@ -35,11 +35,43 @@ Phases, each printing its own line; any failure exits non-zero:
    timed with CUDA events), its byte bound, its dependent-chain floor
    (the chain's steps at this shape times the time per step of the chain
    alone, measured here by the kernel's probe), and the plain version on
-   the card at a reduced shape (stated in the output).
+   the card at a reduced shape (stated in the output);
+7. giant cells — one 200,000-partition RF-3 topic on 5,000 brokers in 10
+   racks plus 100 added brokers (``bench.py:472-538``), each through the
+   port's CLI on ``cuda``, with the kernel counts reset before and read
+   after each: (a) expansion, brokers 0-5,099 live: mode 3, cap 118,
+   exactly 10,000 replicas moved (each original broker sheds 2); (b)
+   saturated, brokers 100-5,099 live: mode 3, cap 120, exactly 12,000
+   moved; (c) fresh: ``PRINT_FRESH_ASSIGNMENT`` of a 200,000-partition
+   RF-3 topic on (a)'s brokers, cap 118. Each plan is checked for
+   rack-distinct RF-sized lists on live brokers under the cap; each
+   placement for the giant-shape chain with no dense or seq leg run; and
+   each leadership launch, at (1, 200000, 3) on the inputs the solver gave
+   it, against the plain version on all rows, bit-equal;
+8. cuda == cpu past a lowered ``KA_DENSE_MASK_BUDGET`` (the giant-shape
+   chain at a reduced size; knobs restored afterwards), plan text
+   byte-identical: a saturated replace-10 of 100 brokers in 5 racks with
+   one 2,000-partition topic, a fresh 2,000-partition plan, and an RF
+   decrease with orphans under ``KA_RF_DECREASE_COMPAT=1`` (auction and
+   seq chains). Each ``cuda`` run must launch the kernel, place through
+   the giant-shape chain (read from the solver's own placement call) and
+   agree with the plain version on every launch;
+9. giant timing — warm median of 3 solves of (a), (b) and (c) split by
+   phase, the waves of every leg that ran (no dense or seq leg may run),
+   and the kernel at (1, 200000, 3) on (a)'s inputs: median of 10 by CUDA
+   events, its byte bound and its chain floor, its result held against
+   the one checked in phase 7.
+
+Phases 7 and 8 read what the solver hands ``place_batched`` and
+``leadership_order`` through :func:`solver_probe`, which wraps the two names
+in ``solvers/torch_solver.py`` for the block; the kernel's wrapper and its
+launch count are untouched.
 
 In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
-the throughput bound does not see.
+the throughput bound does not see; ``launches`` sums the counts of every
+path driven (config 4, the three giant cells and the reduced ``cuda``
+runs), and ``launches_by_path`` gives each.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -47,6 +79,7 @@ the CPU and none to the plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -59,9 +92,16 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_BROKERS, N_RACKS, N_TOPICS, P_PER_TOPIC, RF, REPLACED = 5000, 10, 2000, 100, 3, 100
 PREFIX_TOPICS = 64
+GIANT_P = 200_000
+# Reduced giant-chain instance for cuda == cpu: 100 brokers in 5 racks, one
+# 2,000-partition topic, brokers 0-9 replaced; the budget sits under its
+# P_pad x N_pad (2,000 x 104), and under the compat instance's.
+REDUCED = dict(brokers=100, racks=5, partitions=2000, replaced=10, budget=1_000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 LEADERSHIP_TPU_KERNEL = "kafka_assigner_tpu/ops/pallas_leadership.py:63"
 KERNEL_REPS = 10
+SOLVE_REPS = 5
+GIANT_SOLVE_REPS = 3
 
 
 def fail(msg: str) -> None:
@@ -79,6 +119,91 @@ def nvidia_smi(fields: str = "name,power.limit") -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else ""
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set ``KA_*`` knobs for a block and restore them afterwards."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def solver_probe():
+    """Record, for a block, what the port's solver hands its placement and
+    the leadership kernel: per placement, ``(legs, giant, waves)`` (the
+    chain resolved for the placement's own mode and shape, whether it is
+    the giant-shape chain, and the waves of every leg that ran); per
+    ordering call, ``(inputs, outputs)``. Wraps the two names in
+    ``solvers/torch_solver.py`` and restores them afterwards."""
+    import inspect
+
+    from kafka_assigner_tpu_torch.ops.assignment import resolve_chain
+    from kafka_assigner_tpu_torch.solvers import torch_solver as ts
+
+    seen = {"chains": [], "orders": []}
+    place, order = ts.place_batched, ts.leadership_order
+    signature = inspect.signature(place)
+
+    def place_recorded(*args, **kw):
+        a = signature.bind(*args, **kw).arguments
+        placed = place(*args, **kw)
+        legs, _, giant = resolve_chain(a["wave_mode"], a["currents"].shape[1],
+                                       a["rack_idx"].shape[0], a.get("r_cap"))
+        seen["chains"].append((legs, giant, dict(placed.waves)))
+        return placed
+
+    def order_recorded(*args, **kw):
+        inputs = tuple(t.clone() for t in args[:4])
+        outputs = order(*args, **kw)
+        seen["orders"].append((inputs, outputs))
+        return outputs
+
+    ts.place_batched, ts.leadership_order = place_recorded, order_recorded
+    try:
+        yield seen
+    finally:
+        ts.place_batched, ts.leadership_order = place, order
+
+
+def check_orders(lead, orders, what):
+    """Each recorded kernel call against the plain version on the same
+    inputs (copied to the CPU); returns max |kernel - plain|."""
+    import torch
+
+    worst = 0
+    for inputs, (o_k, c_k) in orders:
+        torch.cuda.synchronize()
+        o_p, c_p = lead.leadership_order_plain(*(a.cpu() for a in inputs))
+        err = max(int((o_k.cpu() - o_p).abs().max()), int((c_k.cpu() - c_p).abs().max()))
+        if err:
+            fail(f"{what}: leadership kernel disagrees with plain at "
+                 f"{tuple(inputs[0].shape)}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_chains(chains, what, rescue_allowed=True):
+    """Every placement of the block ran the giant-shape chain, and only its
+    legs; without ``rescue_allowed``, neither dense nor seq ran."""
+    if not chains:
+        fail(f"{what}: the solver placed nothing")
+    for legs, giant, waves in chains:
+        if not giant:
+            fail(f"{what}: the placement did not take the giant-shape chain ({legs})")
+        if not set(waves) <= set(legs):
+            fail(f"{what}: legs {sorted(waves)} ran outside the chain {legs}")
+        if not rescue_allowed and ("dense" in waves or "seq" in waves):
+            fail(f"{what}: a rescue leg ran ({waves})")
+    return [waves for _, _, waves in chains]
 
 
 def kernel_cases(cases):
@@ -110,6 +235,31 @@ def build_config4():
     return topic_map, live, {b: racks[b] for b in live}
 
 
+def giant_cells(n_brokers=N_BROKERS, n_racks=N_RACKS, partitions=GIANT_P,
+                added=REPLACED, name="giant-{:04d}"):
+    """The giant topic and its three cells: ``{cell: (topic_map, live,
+    rack_map, cap, moved)}``, ``moved`` the replicas the plan must move."""
+    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+
+    topic_map, _, racks = rack_striped_cluster(
+        n_brokers, 1, partitions, RF, n_racks, name_fmt=name, extra_brokers=added,
+    )
+    load = partitions * RF // n_brokers  # replicas per original broker
+    cells = {}
+    for cell, live in (("expansion", set(range(n_brokers + added))),
+                       ("saturated", set(range(added, n_brokers + added)))):
+        cap = math.ceil(partitions * RF / len(live))
+        removed = n_brokers + added - len(live)
+        # Expansion: each original broker sheds load - cap; saturated:
+        # the removed brokers' replicas, and nothing else, move.
+        moved = removed * load if removed else n_brokers * (load - cap)
+        cells[cell] = (topic_map, live, {b: racks[b] for b in live}, cap, moved)
+    _, live, rack_map, cap, _ = cells["expansion"]
+    fresh = {"giant-fresh": {p: [] for p in range(partitions)}}
+    cells["fresh"] = (fresh, live, rack_map, cap, partitions * RF)
+    return cells
+
+
 def write_snapshot(path, topic_map, live, rack_map):
     data = {
         "brokers": [
@@ -134,40 +284,194 @@ def run_cli(argv):
     return buf.getvalue()
 
 
-def new_assignment(text):
+def plan_section(text, marker="NEW ASSIGNMENT:\n"):
     from kafka_assigner_tpu_torch.io.json_io import parse_reassignment_json
 
-    marker = "NEW ASSIGNMENT:\n"
     if marker not in text:
-        fail("no NEW ASSIGNMENT section in the plan")
+        fail(f"no {marker.strip()} section in the plan")
     return parse_reassignment_json(text.split(marker, 1)[1].strip())
 
 
-def check_plan(plan, topic_map, live, rack_map):
-    removed = set(range(REPLACED))
-    cap = math.ceil(P_PER_TOPIC * RF / len(live))
-    moved = expected = 0
+def check_plan(plan, topic_map, live, rack_map, cap, expected_moved, rf=RF):
+    """Every partition placed on ``rf`` live brokers of distinct racks, at
+    most ``cap`` replicas per node per topic, and exactly
+    ``expected_moved`` replicas on brokers that did not hold them."""
+    moved = 0
     for t, old in topic_map.items():
         new = plan.get(t)
         if new is None or set(new) != set(old):
             fail(f"topic {t}: partitions missing from the plan")
         per_node = {}
         for p, reps in new.items():
-            if len(reps) != RF or len(set(reps)) != RF:
-                fail(f"{t}/{p}: replica list {reps} is not {RF} distinct brokers")
-            if len({rack_map[b] for b in reps if b in rack_map}) != RF:
-                fail(f"{t}/{p}: replicas {reps} not on {RF} distinct racks")
+            if len(reps) != rf or len(set(reps)) != rf:
+                fail(f"{t}/{p}: replica list {reps} is not {rf} distinct brokers")
+            if len({rack_map[b] for b in reps if b in rack_map}) != rf:
+                fail(f"{t}/{p}: replicas {reps} not on {rf} distinct racks")
             if any(b not in live for b in reps):
                 fail(f"{t}/{p}: replica on a removed or unknown broker: {reps}")
             for b in reps:
                 per_node[b] = per_node.get(b, 0) + 1
             moved += len(set(reps) - set(old[p]))
-            expected += sum(1 for b in old[p] if b in removed)
         if max(per_node.values()) > cap:
             fail(f"topic {t}: a node holds more than cap={cap} replicas")
-    if moved != expected:
-        fail(f"moved {moved} replicas, but {expected} sat on brokers 0-{REPLACED - 1}")
-    return moved, cap
+    if moved != expected_moved:
+        fail(f"moved {moved} replicas, expected exactly {expected_moved}")
+    return moved
+
+
+def giant_main_paths(cells, work, lead):
+    """Phase 7: the three giant cells through the CLI on the card, the
+    kernel counts reset just before each and read just after; each
+    placement's chain and each kernel launch checked. Returns the launches
+    per cell, max |kernel - plain| and (a)'s kernel inputs and outputs."""
+    snaps = {}
+    for cell in ("expansion", "saturated"):
+        topic_map, live, rack_map, _, _ = cells[cell]
+        snaps[cell] = os.path.join(work, f"giant_{cell}.json")
+        write_snapshot(snaps[cell], topic_map, live, rack_map)
+    p = len(cells["fresh"][0]["giant-fresh"])
+    argvs = {
+        "expansion": ["--zk_string", f"file://{snaps['expansion']}",
+                      "--mode", "PRINT_REASSIGNMENT"],
+        "saturated": ["--zk_string", f"file://{snaps['saturated']}",
+                      "--mode", "PRINT_REASSIGNMENT"],
+        "fresh": ["--zk_string", f"file://{snaps['expansion']}",
+                  "--mode", "PRINT_FRESH_ASSIGNMENT", "--topics", "giant-fresh",
+                  "--partition_count", str(p), "--desired_replication_factor", str(RF)],
+    }
+    launches, worst, k_expansion = {}, 0, None
+    for cell, argv in argvs.items():
+        topic_map, live, rack_map, cap, expected = cells[cell]
+        with solver_probe() as seen:
+            lead.launches["leadership"] = 0
+            t0 = time.perf_counter()
+            text = run_cli(argv + ["--device", "cuda"])
+            wall_s = time.perf_counter() - t0
+            launches[cell] = lead.launches["leadership"]
+        if launches[cell] < 1:
+            fail(f"giant {cell} never launched the leadership kernel")
+        marker = "FRESH ASSIGNMENT:\n" if cell == "fresh" else "NEW ASSIGNMENT:\n"
+        moved = check_plan(plan_section(text, marker), topic_map, live, rack_map,
+                           cap, expected)
+        waves = check_chains(seen["chains"], f"giant {cell}", rescue_allowed=False)
+        phase("giant", f"({cell}) {argv[3]} on cuda: {wall_s:.2f} s wall, "
+              f"P={p} N={len(live)}, moved {moved} replicas (expected exactly "
+              f"{expected}), cap {cap}, giant-shape chain {seen['chains'][0][0]}, "
+              f"waves {waves}, leadership kernel launches {launches[cell]}")
+        t0 = time.perf_counter()
+        worst = max(worst, check_orders(lead, seen["orders"], f"giant {cell}"))
+        inputs, _ = seen["orders"][0]
+        phase("kernels", f"leadership at the giant {cell} cell's shape "
+              f"{tuple(inputs[0].shape)} N_pad={inputs[2].shape[0]}, on the inputs "
+              f"the solver gave it: bit-equal to plain on all rows (plain on CPU "
+              f"{time.perf_counter() - t0:.1f} s)")
+        if cell == "expansion":
+            k_expansion = seen["orders"][0]
+    return launches, worst, k_expansion
+
+
+def reduced_parity(work, lead):
+    """Phase 8: cuda == cpu, plan text byte-identical, past a lowered
+    KA_DENSE_MASK_BUDGET; each cuda run launches the kernel, places through
+    the giant-shape chain and agrees with plain. Returns the launches per
+    run and max |kernel - plain|."""
+    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+
+    r = REDUCED
+    cells = giant_cells(r["brokers"], r["racks"], r["partitions"], r["replaced"],
+                        name="reduced-{:02d}")
+    topic_map, live, rack_map, cap, moved = cells["saturated"]
+    snap = os.path.join(work, "reduced_saturated.json")
+    write_snapshot(snap, topic_map, live, rack_map)
+    base = ["--zk_string", f"file://{snap}"]
+    # An RF decrease 4 -> 2 on 25 brokers in 5 racks with brokers 0-4
+    # replaced: compat keeps every retained replica and re-places the
+    # orphans.
+    c_map, _, c_racks = rack_striped_cluster(25, 1, 50, 4, 5, name_fmt="compat-{:02d}",
+                                             extra_brokers=5)
+    c_live = set(range(5, 30))
+    c_snap = os.path.join(work, "compat.json")
+    write_snapshot(c_snap, c_map, c_live, {b: c_racks[b] for b in c_live})
+    c_argv = ["--zk_string", f"file://{c_snap}", "--mode", "PRINT_REASSIGNMENT",
+              "--desired_replication_factor", "2"]
+    # (path, what, argv, knobs)
+    runs = [
+        ("reduced_saturated", "saturated mode 3",
+         base + ["--mode", "PRINT_REASSIGNMENT"], {}),
+        ("reduced_fresh", "fresh",
+         base + ["--mode", "PRINT_FRESH_ASSIGNMENT", "--topics", "reduced-fresh",
+                 "--partition_count", str(r["partitions"]),
+                 "--desired_replication_factor", str(RF)], {}),
+        ("compat_auction", "compat RF 4->2, auction chain", c_argv,
+         {"KA_RF_DECREASE_COMPAT": 1, "KA_WAVE_MODE": "auto"}),
+        ("compat_seq", "compat RF 4->2, seq chain", c_argv,
+         {"KA_RF_DECREASE_COMPAT": 1}),
+    ]
+    launches, worst = {}, 0
+    for path, what, argv, extra in runs:
+        with knobs(KA_DENSE_MASK_BUDGET=r["budget"], **extra):
+            with solver_probe() as seen:
+                lead.launches["leadership"] = 0
+                a = run_cli(argv + ["--device", "cuda"])
+                launches[path] = lead.launches["leadership"]
+            c = run_cli(argv + ["--device", "cpu"])
+        if launches[path] < 1:
+            fail(f"reduced {what}: the cuda run never launched the leadership kernel")
+        if a != c:
+            fail(f"reduced {what}: cuda and cpu plans differ")
+        waves = check_chains(seen["chains"], f"reduced {what}")
+        worst = max(worst, check_orders(lead, seen["orders"], f"reduced {what}"))
+        if what == "saturated mode 3":
+            check_plan(plan_section(a), topic_map, live, rack_map, cap, moved)
+        if what.startswith("compat"):
+            old = c_map["compat-00"]
+            new = plan_section(a)["compat-00"]
+            if not any(set(v) - set(old[p]) for p, v in new.items()):
+                fail(f"reduced {what}: the decrease left no orphan to place")
+        k_shape = tuple(seen["orders"][0][0][0].shape)
+        phase("cuda==cpu", f"reduced {what} (budget {r['budget']}, chain "
+              f"{seen['chains'][0][0]}, waves {waves}): plan text byte-identical "
+              f"({len(a)} bytes); leadership kernel launches {launches[path]} at "
+              f"{k_shape}, bit-equal to plain")
+    return launches, worst
+
+
+def giant_timing(cells):
+    """Phase 9 (solves): warm median of GIANT_SOLVE_REPS per cell, split by
+    phase, with the waves of every leg that ran."""
+    from kafka_assigner_tpu_torch.assigner import TopicAssigner
+    from kafka_assigner_tpu_torch.solvers.base import Context
+
+    out = {}
+    for cell in ("expansion", "saturated", "fresh"):
+        topic_map, live, rack_map, _, _ = cells[cell]
+        assigner = TopicAssigner(device="cuda")
+        if cell == "fresh":
+            p = len(topic_map["giant-fresh"])
+            solve = lambda: assigner.solver.fresh_assignment(  # noqa: E731
+                "giant-fresh", p, live, rack_map, RF, Context())
+        else:
+            topics = list(topic_map.items())
+            solve = lambda: assigner.generate_assignments(  # noqa: E731
+                topics, live, rack_map)
+        runs = []
+        for i in range(GIANT_SOLVE_REPS + 1):  # 1 warm-up
+            assigner.context = Context()
+            t0 = time.perf_counter()
+            solve()
+            total = (time.perf_counter() - t0) * 1e3
+            if i:
+                runs.append(dict(assigner.solver.last_timers, total=total))
+        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        waves = dict(assigner.solver.last_waves)
+        if "dense" in waves or "seq" in waves:
+            fail(f"giant {cell}: a rescue leg ran ({waves})")
+        phase("timing", f"giant {cell} solve median of {GIANT_SOLVE_REPS} (ms): "
+              + ", ".join(f"{k} {med[k]:.1f}" for k in
+                          ("total", "encode", "place", "leadership", "decode"))
+              + f"; waves {waves}")
+        out[cell] = dict(med, waves=waves)
+    return out
 
 
 def main() -> int:
@@ -218,7 +522,11 @@ def main() -> int:
     launched = lead.launches["leadership"]
     if launched < 1:
         fail("the main path never launched the leadership kernel")
-    moved, cap = check_plan(new_assignment(text), topic_map, live, rack_map)
+    removed = set(range(REPLACED))
+    on_removed = sum(b in removed for old in topic_map.values()
+                     for reps in old.values() for b in reps)
+    cap = math.ceil(P_PER_TOPIC * RF / len(live))
+    moved = check_plan(plan_section(text), topic_map, live, rack_map, cap, on_removed)
     phase("main", f"config 4 mode 3 on cuda: {wall_s:.2f} s wall, moved {moved} "
           f"replicas (== replicas on brokers 0-{REPLACED - 1}), cap {cap}, "
           f"leadership kernel launches {launched}")
@@ -262,7 +570,7 @@ def main() -> int:
     # --- 6: timing ---------------------------------------------------------
     assigner = TopicAssigner(device="cuda")
     runs = []
-    for i in range(6):  # 1 warm-up + 5 timed
+    for i in range(SOLVE_REPS + 1):  # 1 warm-up
         assigner.context = Context()
         t0 = time.perf_counter()
         assigner.generate_assignments(topics, live, rack_map)
@@ -270,7 +578,7 @@ def main() -> int:
         if i:
             runs.append(dict(assigner.solver.last_timers, total=total))
     med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    phase("timing", "solve median of 5 (ms): " + ", ".join(
+    phase("timing", f"solve median of {SOLVE_REPS} (ms): " + ", ".join(
         f"{k} {med[k]:.1f}" for k in ("total", "encode", "place", "leadership", "decode")
     ) + f"; waves {assigner.solver.last_waves}")
 
@@ -283,7 +591,7 @@ def main() -> int:
     plain_ms = cases.event_ms(lambda: lead.leadership_order_plain(*small), 1)[0]
     b_, p_, rf_ = shape
     n_pad = k_args[2].shape[0]
-    nbytes = 4 * (2 * b_ * p_ * rf_ + b_ * p_ + b_ + 2 * n_pad * rf_)
+    nbytes = kernel_bytes(b_, p_, rf_, n_pad)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     steps = cases.chain_steps(b_ * p_, rf_)
     step_ns, step_cycles = cases.chain_step_ns(rf_)
@@ -297,12 +605,38 @@ def main() -> int:
           f"at {small_shape}: kernel {ms_small:.3f} ms, plain on the card {plain_ms:.1f} ms")
     phase("timing", f"whole smoke so far {time.perf_counter() - t_start:.1f} s")
 
+    # --- 7-9: the giant cells --------------------------------------------
+    cells = giant_cells()
+    launches, err, (k_giant, checked) = giant_main_paths(cells, work, lead)
+    max_err = max(max_err, err)
+    reduced, err = reduced_parity(work, lead)
+    max_err = max(max_err, err)
+    giant_timing(cells)
+    g_times = cases.event_ms(lambda: lead.leadership_order(*k_giant), KERNEL_REPS)
+    g_ms = statistics.median(g_times)
+    if any(not torch.equal(x, y) for x, y in zip(lead.leadership_order(*k_giant), checked)):
+        fail("the timed giant-shape launch differs from the one checked against plain")
+    g_shape = tuple(k_giant[0].shape)
+    g_bytes = kernel_bytes(*g_shape, k_giant[2].shape[0])
+    g_bound_ms = g_bytes / HBM_BYTES_PER_S * 1e3
+    g_steps = cases.chain_steps(g_shape[0] * g_shape[1], g_shape[2])
+    g_chain_ms = g_steps * step_ns * 1e-6
+    phase("timing", f"leadership kernel median {g_ms:.3f} ms of {KERNEL_REPS} launches "
+          f"(min {min(g_times):.3f}, max {max(g_times):.3f}) at the giant shape "
+          f"{g_shape} N_pad={k_giant[2].shape[0]}; byte bound {g_bound_ms:.4f} ms "
+          f"({g_bytes} bytes); chain floor {g_chain_ms:.3f} ms ({g_steps} steps x "
+          f"{step_ns:.3f} ns); result equal to the launch checked in phase 7")
+    phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
+
+    by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},
+               **reduced}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",
         "source": "kafka_assigner_tpu_torch/csrc/leadership.cu",
         "replaces": LEADERSHIP_TPU_KERNEL,
-        "launches": launched,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max_err,
         "tolerance": "exact (integer outputs)",
         "ms": ms,
@@ -314,6 +648,11 @@ def main() -> int:
         "library_ms": None,
         "chain_steps": steps,
         "chain_bound_ms": chain_bound_ms,
+        "giant_shape": list(g_shape),
+        "giant_ms": g_ms,
+        "giant_bound_ms": g_bound_ms,
+        "giant_chain_steps": g_steps,
+        "giant_chain_bound_ms": g_chain_ms,
     }]}
     print(json.dumps(kernels))
     print(nvidia_smi())
@@ -321,6 +660,13 @@ def main() -> int:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def kernel_bytes(b: int, p: int, rf: int, n_pad: int) -> int:
+    """Bytes the leadership function must move: candidates in and order out
+    (B x P x RF int32 each), counts, hashes, and the counter slab in and
+    out."""
+    return 4 * (2 * b * p * rf + b * p + b + 2 * n_pad * rf)
 
 
 if __name__ == "__main__":

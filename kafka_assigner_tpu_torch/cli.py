@@ -1,4 +1,5 @@
-"""Mode-3 CLI of the port::
+"""The port's CLI, modes ``PRINT_REASSIGNMENT`` and
+``PRINT_FRESH_ASSIGNMENT``::
 
     python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
         --mode PRINT_REASSIGNMENT [--topics a,b] [--integer_broker_ids 1,2 |
@@ -6,11 +7,16 @@
         [--desired_replication_factor N] [--disable_rack_awareness]
         [--leadership_context PATH] [--device {cuda,cpu}]
 
-The flags are the reference CLI's mode-3 flags (``kafka_assigner_tpu/
-cli.py:83-118``); ``--device`` takes the place of ``--solver``. Stdout is
-byte-identical to ``kafka_assigner_tpu.cli --solver tpu``. Exit codes follow
-the reference's documented ones: 1 usage, 3 metadata ingest, 5 validation
-(RF bounds, unknown hosts, infeasible plan).
+    python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
+        --mode PRINT_FRESH_ASSIGNMENT --topics a,b --partition_count P \
+        --desired_replication_factor N [broker selection as above]
+        [--device {cuda,cpu}]
+
+The flags are the reference CLI's flags for these modes
+(``kafka_assigner_tpu/cli.py:83-118``); ``--device`` takes the place of
+``--solver``. Stdout is byte-identical to ``kafka_assigner_tpu.cli --solver
+tpu``. Exit codes follow the reference's documented ones: 1 usage, 3
+metadata ingest, 5 validation (RF bounds, unknown hosts, infeasible plan).
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--zk_string", default=None,
                    help="a file://cluster.json snapshot")
-    p.add_argument("--mode", default=None, choices=("PRINT_REASSIGNMENT",),
+    p.add_argument("--mode", default=None,
+                   choices=("PRINT_REASSIGNMENT", "PRINT_FRESH_ASSIGNMENT"),
                    help="the mode to run")
     p.add_argument("--integer_broker_ids", default=None,
                    help="comma-separated list of Kafka broker IDs (integers)")
@@ -47,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "if not present it will use the existing number")
     p.add_argument("--disable_rack_awareness", action="store_true",
                    help="set to true to ignore rack configurations")
+    p.add_argument("--partition_count", type=int, default=None,
+                   help="PRINT_FRESH_ASSIGNMENT: number of partitions to "
+                        "place for each --topics entry")
     p.add_argument("--leadership_context", default=None, metavar="PATH",
                    help="persist cross-run leadership counters to PATH "
                         "(loaded if present, saved after the plan)")
@@ -56,11 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
-    """Parse, validate, load the snapshot, run mode 3. Raises the typed
+    """Parse, validate, load the snapshot, run the mode. Raises the typed
     errors (``ValueError``, ``KeyError``, ``OSError``); :func:`run` maps
     them to exit codes."""
     from .generator import (
         build_rack_assignment,
+        print_fresh_assignment,
         print_least_disruptive_reassignment,
         resolve_broker_ids,
         resolve_excluded_broker_ids,
@@ -86,12 +97,39 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
     topics = args.topics.split(",") if args.topics is not None else None
     backend = open_snapshot(args.zk_string)
     live_brokers = backend.brokers()
+    broker_ids = resolve_broker_ids(
+        live_brokers, args.integer_broker_ids, args.broker_hosts
+    )
+    excluded = resolve_excluded_broker_ids(live_brokers, args.broker_hosts_to_remove)
+    rack_assignment = build_rack_assignment(live_brokers, args.disable_rack_awareness)
+    if args.mode == "PRINT_FRESH_ASSIGNMENT":
+        if not topics or args.partition_count is None \
+                or args.partition_count <= 0 \
+                or args.desired_replication_factor <= 0:
+            print(
+                "error: PRINT_FRESH_ASSIGNMENT requires --topics, a "
+                "positive --partition_count and a positive "
+                "--desired_replication_factor",
+                file=sys.stderr,
+            )
+            return EXIT_USAGE
+        # Target set: the selected brokers (or all live ones) minus the
+        # excluded, as the reference's cli.py:305-313.
+        target = (broker_ids or {b.id for b in live_brokers}) - excluded
+        print_fresh_assignment(
+            topics, args.partition_count, args.desired_replication_factor,
+            [b for b in live_brokers if b.id in target],
+            {k: v for k, v in rack_assignment.items() if k in target},
+            device=args.device,
+            out=out,
+        )
+        return EXIT_OK
     print_least_disruptive_reassignment(
         backend,
         topics,
-        resolve_broker_ids(live_brokers, args.integer_broker_ids, args.broker_hosts),
-        resolve_excluded_broker_ids(live_brokers, args.broker_hosts_to_remove),
-        build_rack_assignment(live_brokers, args.disable_rack_awareness),
+        broker_ids,
+        excluded,
+        rack_assignment,
         args.desired_replication_factor,
         device=args.device,
         out=out,

@@ -1,8 +1,11 @@
-"""Mode 3 (``PRINT_REASSIGNMENT``) driver — the counterpart of
-``kafka_assigner_tpu/generator.py:print_least_disruptive_reassignment``
-(``KafkaAssignmentGenerator.java:131-187``): broker-set resolution, rack
-map, the rollback snapshot, the feasibility report, one shared-context
-solve and the byte-compatible "NEW ASSIGNMENT" emission.
+"""Plan entry points — the counterparts of ``kafka_assigner_tpu/generator.py``:
+
+- mode 3 (``PRINT_REASSIGNMENT``), ``print_least_disruptive_reassignment``
+  (``KafkaAssignmentGenerator.java:131-187``): broker-set resolution, rack
+  map, the rollback snapshot, the feasibility report, one shared-context
+  solve and the byte-compatible "NEW ASSIGNMENT" emission;
+- ``PRINT_FRESH_ASSIGNMENT``, ``print_fresh_assignment`` (:254): new topics
+  placed from scratch through one fresh ``Context``.
 
 JSON goes to stdout, diagnostics to stderr.
 """
@@ -16,6 +19,7 @@ from .assigner import TopicAssigner
 from .io.json_io import format_reassignment_json, format_reassignment_pairs
 from .io.snapshot import BrokerInfo
 from .solvers.base import Context
+from .solvers.torch_solver import TorchSolver
 from .validate import validate_cluster_feasibility
 
 
@@ -130,3 +134,33 @@ def print_least_disruptive_reassignment(
     if context_file is not None:
         assigner.context.save(context_file)
     return dict(final_pairs)
+
+
+def print_fresh_assignment(
+    topics: Sequence[str],
+    partition_count: int,
+    replication_factor: int,
+    live_brokers: Sequence[BrokerInfo],
+    rack_assignment: Dict[int, str],
+    device: str = "cuda",
+    out: Optional[TextIO] = None,
+) -> None:
+    """PRINT_FRESH_ASSIGNMENT: place each topic's ``partition_count``
+    partitions from scratch on ``live_brokers``, in order, through one
+    fresh ``Context`` (a ``--leadership_context`` file is not read), and
+    print "FRESH ASSIGNMENT:" and the plan."""
+    out = out if out is not None else sys.stdout
+    brokers = {b.id for b in live_brokers}
+    solver = TorchSolver(device)
+    context = Context()
+    pairs = [
+        (
+            topic,
+            solver.fresh_assignment(
+                topic, partition_count, brokers, rack_assignment,
+                replication_factor, context,
+            ),
+        )
+        for topic in topics
+    ]
+    print("FRESH ASSIGNMENT:\n" + format_reassignment_pairs(pairs), file=out)

@@ -1,8 +1,9 @@
 """Placement in plain PyTorch, batched over topics — the port of
 ``kafka_assigner_tpu/ops/assignment.py``'s sticky fill and orphan-spread
 leg chain (``sticky_fill`` :197, ``cluster_segments`` :331, ``_wave_body``
-:349, ``_wave_body_dense`` :257, ``_seq_fill`` :573, ``spread_orphans``
-:719), held byte-identical to ``place_scan`` (:1170).
+:349, ``_hybrid_quota_body`` :529, ``_wave_body_dense`` :257, ``_seq_fill``
+:573, ``spread_orphans`` :719), held byte-identical to ``place_scan``
+(:1170), giant-shape legs and the compat slot width included.
 
 Placement is independent per topic (only leadership carries state across
 topics), so where the reference scans topics and runs one ``while_loop`` per
@@ -27,10 +28,13 @@ Parity hazards the reference leaves to JAX semantics, handled explicitly:
 mask takes the first True (cast to int32 first); int32 ``cumsum`` is given
 its dtype; and every index JAX would clamp is clamped here.
 
-Not ported yet (a later slice): the giant-shape legs the reference switches
-to when ``P_pad * N_pad > KA_DENSE_MASK_BUDGET`` (``slot_pack``,
-``balance_slots``, ``balance_quota``). Such shapes raise
-``NotImplementedError`` — they never compute a different answer.
+Past ``KA_DENSE_MASK_BUDGET`` (``P_pad * N_pad`` over the budget, read per
+call) the chain is rewritten as the reference's ``spread_orphans`` does
+(:770-848): the fast leg hands out headroom slots, dense goes last,
+``balance_slots`` leads a chain that starts with ``balance``, and the quota
+leg ``balance_quota`` goes before every ``balance`` leg (see
+:func:`resolve_chain`). The quota leg picks its quota or endgame wave per
+topic, never once for the batch.
 """
 from __future__ import annotations
 
@@ -83,6 +87,18 @@ class PlaceResult(NamedTuple):
 def dense_mask_budget() -> int:
     """The reference's giant-shape gate (``KA_DENSE_MASK_BUDGET``)."""
     return env_int("KA_DENSE_MASK_BUDGET")
+
+
+def quota_wave_target() -> int:
+    """Per-wave drain divisor of the quota leg (``KA_QUOTA_WAVE_TARGET``):
+    a node offers ceil(headroom / target) slots per wave."""
+    return env_int("KA_QUOTA_WAVE_TARGET")
+
+
+def quota_endgame_headroom() -> int:
+    """The quota leg hands a topic to the node-per-wave balance wave once its
+    fullest rack's headroom is at most this (``KA_QUOTA_ENDGAME``)."""
+    return env_int("KA_QUOTA_ENDGAME")
 
 
 def default_alive(rack_idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -166,18 +182,26 @@ def sticky_fill(
     p_real: torch.Tensor,     # (B,) real partition counts; padded rows get no deficit
     alive: torch.Tensor,      # (N_pad,) bool
     rf_actual: torch.Tensor,  # (B,) per-topic RF <= rf
+    width: int | None = None,  # compat slot width > rf (RF decrease)
 ) -> AssignState:
     """Vectorized sticky fill (``fillNodesFromAssignment``, ``:101-131``):
     slot by slot (slot 0 of every partition before any slot 1), ascending
-    partition rows win capacity ties; a partition keeps at most its RF."""
+    partition rows win capacity ties; a partition keeps at most its RF.
+
+    ``width`` (``KA_RF_DECREASE_COMPAT=1`` on an RF decrease) makes the
+    state ``width`` slots wide and bounds retention by the slot width
+    instead of the RF, so every current replica that passes the node, rack
+    and capacity gates is kept, as in the reference (``:233-236``)."""
     b, p, hist_width = current.shape
     dev = current.device
     rows = torch.arange(p, device=dev)
     deficit = torch.where(
         rows[None, :] < p_real[:, None], rf_actual[:, None], 0
     ).to(I32)
+    w = rf if width is None else width
+    retain = rf_actual if width is None else torch.full_like(rf_actual, w)
     state = AssignState(
-        acc_nodes=torch.full((b, p, rf), -1, dtype=I32, device=dev),
+        acc_nodes=torch.full((b, p, w), -1, dtype=I32, device=dev),
         acc_count=torch.zeros((b, p), dtype=I32, device=dev),
         node_load=torch.zeros((b, n + 1), dtype=I32, device=dev),
         deficit=deficit,
@@ -185,7 +209,7 @@ def sticky_fill(
     )
     for s in range(hist_width):
         cand = current[:, :, s]
-        ok = _candidate_ok(state, cand, rack_idx, rf_actual, alive)
+        ok = _candidate_ok(state, cand, rack_idx, retain, alive)
         rank = _requests_rank(cand, ok, n)
         load = state.node_load.gather(1, cand.clamp(min=0).long())
         accept = ok & (load + rank < cap[:, None])
@@ -231,27 +255,54 @@ def _topk_stable(x: torch.Tensor, k: int, largest: bool) -> torch.Tensor:
     return idx[:, :k]
 
 
+def _headroom(state: AssignState, cap: torch.Tensor, n: int,
+              alive: torch.Tensor) -> torch.Tensor:
+    """(B, n) free slots per node: cap - load where the node is alive and
+    under cap, else 0."""
+    load_n = state.node_load[:, :n]
+    avail = alive[:n][None, :] & (load_n < cap[:, None])
+    return torch.where(avail, cap[:, None] - load_n, 0).to(I32)
+
+
+def _rack_room(headroom: torch.Tensor, rack_n: torch.Tensor, r_cap: int) -> torch.Tensor:
+    """(B, r_cap) summed headroom per rack."""
+    b, n = headroom.shape
+    return torch.zeros((b, r_cap), dtype=I32, device=headroom.device).scatter_add_(
+        1, rack_n.expand(b, n), headroom
+    )
+
+
 def _wave_body(
     rack_idx: torch.Tensor,
     cap: torch.Tensor,     # (B,)
     n: int,
     alive: torch.Tensor,
-    rf: int,
+    rf: int,               # slot width
     r_cap: int,
     seg: Segments,
     start: torch.Tensor,   # (B,) topic rotation start = jhash % n_alive
     n_alive: int,
     balance: bool = False,
+    slot_pack: bool = False,
+    quota: bool = False,
 ):
     """One rack-factored auction wave over every deficient partition of
-    every topic (the reference's ``_wave_body``, node-per-wave hand-out).
+    every topic (the reference's ``_wave_body``).
 
     A partition's first-fit node is the min-rotated-position available node
     of its best unblocked rack; the rotation within a rack's segment is a
     cut at live-rank ``n_alive - start``. ``balance=True`` ranks candidate
     racks by remaining capacity instead (ties to the lowest rack id). Among
-    the K = min(RF+1, r_cap) best racks at least one is unblocked."""
-    k = min(rf + 1, r_cap)
+    the K = min(RF+1, r_cap) best racks at least one is unblocked.
+
+    A unit handed out is one node per wave by default, one slot of headroom
+    under ``slot_pack``, and ceil(headroom / ``KA_QUOTA_WAVE_TARGET``) slots
+    under ``quota`` (with ``balance``), where K widens to min(r_cap,
+    max(RF+1, 16)) and each valid requester's dense rank among its topic's
+    valid requesters picks the candidate rack whose cumulative-allowance
+    interval holds it (the reference's :436-446, :485-500)."""
+    k = min(r_cap, max(rf + 1, 16)) if quota else min(rf + 1, r_cap)
+    t_div = quota_wave_target() if quota else 1
     order, sorted_key, sorted_rank, seg_start, seg_end = seg
     n_pad = rack_idx.shape[0]
     dev = rack_idx.device
@@ -264,21 +315,22 @@ def _wave_body(
     rack_n = rack_idx[:n].long()
 
     def body(state: AssignState) -> AssignState:
-        b = state.acc_nodes.shape[0]
-        load_n = state.node_load[:, :n]
-        avail = alive[:n][None, :] & (load_n < cap[:, None])
-        ca = torch.cumsum(avail.to(I32)[:, order], dim=1, dtype=I32)
+        headroom = _headroom(state, cap, n, alive)
+        if quota:
+            units = (headroom + t_div - 1) // t_div
+        elif slot_pack:
+            units = headroom
+        else:
+            units = (headroom > 0).to(I32)
+        ca = torch.cumsum(units[:, order], dim=1, dtype=I32)
         ca_pad = F.pad(ca, (1, 0))
         base = ca_pad[:, seg_start]                  # (B, r_cap)
         end = ca_pad[:, seg_end]
-        seg_avail = end - base                       # per-rack available count
+        seg_avail = end - base                       # per-rack available units
         cum_at_cut = ca_pad.gather(1, cut)
         a_after = end - cum_at_cut                   # available at/after the cut
         if balance:
-            headroom = torch.where(avail, cap[:, None] - load_n, 0).to(I32)
-            rack_room = torch.zeros((b, r_cap), dtype=I32, device=dev).scatter_add_(
-                1, rack_n.expand(b, n), headroom
-            )
+            rack_room = _rack_room(headroom, rack_n, r_cap)
             cand_racks = _topk_stable(rack_room, k, largest=True)
             cand_ok = rack_room.gather(1, cand_racks) > 0
         else:
@@ -298,7 +350,19 @@ def _wave_body(
         ok = ~blocked & cand_ok[:, None, :] & wanting[..., None]   # (B, P, K)
         has_choice = ok.any(2)
         valid = wanting & has_choice
-        first_ok = torch.argmax(ok.to(I32), dim=2)   # first True
+        if quota:
+            # Demand spread in proportion to allowance: a requester's dense
+            # rank among its topic's valid requesters, modulo the summed
+            # allowance of its eligible candidates, falls in one
+            # candidate's cumulative interval.
+            q_cand = torch.where(ok, seg_avail.gather(1, cand_racks)[:, None, :], 0)
+            cum_q = torch.cumsum(q_cand, dim=2, dtype=I32)
+            total_q = cum_q[:, :, -1]
+            rank_valid = torch.cumsum(valid.to(I32), dim=1, dtype=I32) - 1
+            choice = torch.where(valid, rank_valid % total_q.clamp(min=1), 0)
+            first_ok = torch.argmax((cum_q > choice[..., None]).to(I32), dim=2)
+        else:
+            first_ok = torch.argmax(ok.to(I32), dim=2)   # first True
         # Monotone eligibility: no eligible rack now means never again.
         infeasible = state.infeasible | (wanting & ~has_choice).any(1)
 
@@ -321,6 +385,52 @@ def _wave_body(
         return state._replace(infeasible=infeasible)
 
     return body
+
+
+def _hybrid_quota_body(
+    rack_idx: torch.Tensor,
+    cap: torch.Tensor,
+    n: int,
+    alive: torch.Tensor,
+    rf: int,
+    r_cap: int,
+    seg: Segments,
+    start: torch.Tensor,
+    n_alive: int,
+):
+    """The ``balance_quota`` leg (the reference's ``_hybrid_quota_body``):
+    quota waves while a topic's fullest rack has more headroom than
+    ``KA_QUOTA_ENDGAME``, then the node-per-wave balance wave. Headroom only
+    falls, so the switch is one-way. Each topic takes its own branch: a
+    batch with topics on both sides computes both waves and selects."""
+    quota_body = _wave_body(
+        rack_idx, cap, n, alive, rf, r_cap, seg, start, n_alive,
+        balance=True, quota=True,
+    )
+    endgame_body = _wave_body(
+        rack_idx, cap, n, alive, rf, r_cap, seg, start, n_alive, balance=True,
+    )
+    endgame = quota_endgame_headroom()
+    rack_n = rack_idx[:n].long()
+
+    def body(state: AssignState) -> AssignState:
+        room = _rack_room(_headroom(state, cap, n, alive), rack_n, r_cap)
+        bulk = room.amax(1) > endgame
+        if bool(bulk.all()):
+            return quota_body(state)
+        if not bool(bulk.any()):
+            return endgame_body(state)
+        return _select(bulk, quota_body(state), endgame_body(state))
+
+    return body
+
+
+def _select(mask: torch.Tensor, a: AssignState, b: AssignState) -> AssignState:
+    """Per topic: ``a``'s state where ``mask`` (B,) is set, else ``b``'s."""
+    return AssignState(*(
+        torch.where(mask.view(-1, *([1] * (x.dim() - 1))), x, y)
+        for x, y in zip(a, b)
+    ))
 
 
 def _wave_body_dense(
@@ -461,23 +571,26 @@ def _resolve_wave_plan(
     return legs, r_cap
 
 
-def _refuse_unported(legs: Tuple[str, ...], p_pad: int, n_pad: int) -> None:
-    """Raise where the reference would run a leg this port lacks. Past the
-    budget the reference slot-packs the fast leg, inserts the quota leg
-    before balance and demotes dense in multi-leg chains; only the
-    single-leg dense and seq chains are unchanged there."""
-    if "balance_quota" in legs:
-        raise NotImplementedError(
-            "wave mode 'balance_quota' (the quota-balance leg) is not ported "
-            "yet; it belongs to the giant-shape slice"
+def resolve_chain(
+    wave_mode: str, p_pad: int, n_pad: int, r_cap: int | None = None
+) -> Tuple[Tuple[str, ...], int, bool]:
+    """``(legs, r_cap, giant)``: the leg chain the reference's
+    ``spread_orphans`` runs (:759-848). Past ``KA_DENSE_MASK_BUDGET``
+    (``giant``): dense goes last in a multi-leg chain, the fast leg
+    slot-packs, ``balance_slots`` leads a chain that starts with
+    ``balance``, and ``balance_quota`` goes before every ``balance``."""
+    legs, r_cap = _resolve_wave_plan(wave_mode, n_pad, r_cap)
+    giant = p_pad * n_pad > dense_mask_budget()
+    if giant:
+        if len(legs) > 1 and "dense" in legs:
+            legs = tuple(leg for leg in legs if leg != "dense") + ("dense",)
+        if legs[0] == "balance":
+            legs = ("balance_slots",) + legs
+        legs = tuple(
+            x for leg in legs
+            for x in (("balance_quota", leg) if leg == "balance" else (leg,))
         )
-    if p_pad * n_pad > dense_mask_budget() and legs not in (("dense",), ("seq",)):
-        raise NotImplementedError(
-            f"P_pad x N_pad = {p_pad} x {n_pad} exceeds KA_DENSE_MASK_BUDGET "
-            f"({dense_mask_budget()}): the reference switches to its "
-            "giant-shape legs (slot_pack, balance_slots, balance_quota), "
-            "which the giant-shape slice of the port adds"
-        )
+    return legs, r_cap, giant
 
 
 def _positions(alive: torch.Tensor, start: torch.Tensor, n_alive: int) -> torch.Tensor:
@@ -496,11 +609,7 @@ def _wave_loop(body, state: AssignState) -> Tuple[AssignState, int]:
         active = (state.deficit > 0).any(1) & ~state.infeasible
         if not bool(active.any()):
             return state, waves
-        new = body(state)
-        state = AssignState(*(
-            torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
-            for nw, o in zip(new, state)
-        ))
+        state = _select(active, body(state), state)
         waves += 1
 
 
@@ -510,16 +619,18 @@ def place_batched(
     jhashes: torch.Tensor,    # (B,)
     p_reals: torch.Tensor,    # (B,)
     n: int,
-    rf: int,                  # batch-max RF (slot width)
+    rf: int,                  # batch-max RF
     wave_mode: str = "auto",
     rfs: torch.Tensor | None = None,  # (B,) per-topic RF (mixed-RF batches)
     r_cap: int | None = None,
+    width: int | None = None,  # compat slot width (see sticky_fill)
 ) -> PlaceResult:
     """Place every topic of the batch: the port of ``place_scan``.
 
-    Returns per topic the accepted nodes and counts, the infeasible flag
-    and the deficit vector (for the reference's error message). Inert
-    padding topics (p_real 0) have nothing to place."""
+    Returns per topic the accepted nodes and counts (``width`` slots wide
+    when given, else ``rf``), the infeasible flag and the deficit vector
+    (for the reference's error message); ``waves`` names every leg that
+    ran. Inert padding topics (p_real 0) have nothing to place."""
     dev = currents.device
     currents = currents.to(I32)
     rack_idx = rack_idx.to(I32)
@@ -527,8 +638,7 @@ def place_batched(
     p_reals = p_reals.to(I32)
     b, p_pad, _ = currents.shape
     n_pad = rack_idx.shape[0]
-    legs, r_cap = _resolve_wave_plan(wave_mode, n_pad, r_cap)
-    _refuse_unported(legs, p_pad, n_pad)
+    legs, r_cap, giant = resolve_chain(wave_mode, p_pad, n_pad, r_cap)
     rfs = torch.full((b,), rf, dtype=I32, device=dev) if rfs is None else rfs.to(I32)
     alive = default_alive(rack_idx, n)
     n_alive = max(n, 1)  # default liveness: the first n nodes
@@ -537,9 +647,10 @@ def place_batched(
     cap = (p_reals * rfs + n_alive - 1) // n_alive
     start = jhashes % n_alive
 
-    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, alive, rfs)
+    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, alive, rfs, width)
+    w = sticky.acc_nodes.shape[2]
     seg = None
-    if any(leg in ("fast", "balance") for leg in legs):
+    if any(leg in ("fast", "balance", "balance_quota") for leg in legs):
         seg = cluster_segments(rack_idx, n, alive, r_cap)
 
     result = sticky
@@ -563,16 +674,21 @@ def place_batched(
                     rack_idx, _positions(alive, start_t[sl], n_alive),
                     cap_t[sl], n, alive, r_cap,
                 )
-                part, w = _wave_loop(body, sub.take(sl))
+                part, k = _wave_loop(body, sub.take(sl))
                 parts.append(part)
-                trips += w
+                trips += k
             out = AssignState(*(torch.cat(ts) for ts in zip(*parts)))
             waves[leg] = trips
         else:
-            body = _wave_body(
-                rack_idx, cap_t, n, alive, rf, r_cap, seg, start_t, n_alive,
-                balance=(leg == "balance"),
-            )
+            args = (rack_idx, cap_t, n, alive, w, r_cap, seg, start_t, n_alive)
+            if leg == "balance_quota":
+                body = _hybrid_quota_body(*args)
+            else:
+                body = _wave_body(
+                    *args,
+                    balance=leg in ("balance", "balance_slots"),
+                    slot_pack=leg == "balance_slots" or (leg == "fast" and giant),
+                )
             out, waves[leg] = _wave_loop(body, sub)
         result = result.put(todo, out)
         todo = todo[out.infeasible]

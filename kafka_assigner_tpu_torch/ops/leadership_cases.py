@@ -62,6 +62,15 @@ def stress_cases(seed: int = 0) -> Iterator[Case]:
     yield ("p1", acc, cnt, slab(30, 3), jh(5), False)
     acc, cnt = random_rows(rng, 1, 5000, 200, 3, np.full((1, 5000), 3))
     yield ("one-topic-p5000", acc, cnt, slab(200, 3), jh(1), False)
+    # One long topic at the giant cells' N_pad, its counters carried in
+    # from a slab already deep in use: 20,000 full rows of distinct brokers.
+    n_pad, rows = 5104, 20000
+    first = rng.integers(0, n_pad, rows)
+    d1 = rng.integers(1, n_pad // 2, rows)
+    d2 = rng.integers(1, n_pad // 2, rows)
+    acc = np.stack([first, first + d1, first + d1 + d2], 1) % n_pad
+    yield ("one-topic-p20000-warm-slab", acc.astype(np.int32)[None],
+           np.full((1, rows), 3, np.int32), slab(n_pad, 3, 400), jh(1), False)
     # -1 and >= N_pad candidates, counts above RF, a negative hash.
     acc = rng.integers(-1, 14, (2, 40, 3)).astype(np.int32)
     cnt = rng.integers(-1, 5, (2, 40)).astype(np.int32)

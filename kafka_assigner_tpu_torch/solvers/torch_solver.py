@@ -9,12 +9,14 @@ leadership kernel → host decode. The counterpart of
 - leadership ordering is bit-identical (``ops/leadership.py``), carried
   across topics through one counter slab in topic order;
 - an infeasible solve raises "Partition N could not be fully assigned!"
-  and leaves the ``Context`` untouched.
-
-Not ported yet: the reference's ``KA_RF_DECREASE_COMPAT=1`` wide slots on
-an RF decrease (raises ``NotImplementedError``; the compat default wave
-chain ``seq`` is honored), and the giant-shape legs (see
-``ops/assignment.py``).
+  and leaves the ``Context`` untouched;
+- under ``KA_RF_DECREASE_COMPAT=1`` on an RF decrease, placement, the
+  counter slab, leadership and decode all run as wide as the current
+  replica lists (``solvers/tpu.py:495-507``). The reference orders such
+  rows off its Pallas kernel; the CUDA kernel here takes them at
+  ``rf = width`` (1..32), pinned against the plain version;
+- :meth:`TorchSolver.fresh_assignment` places a topic from scratch with the
+  ``fresh`` chain (``solvers/tpu.py:856``), ordered by the same kernel.
 """
 from __future__ import annotations
 
@@ -118,10 +120,7 @@ class TorchSolver:
             topic, current_assignment, rack_assignment, nodes, partitions,
             replication_factor,
         )
-        (_, out), = self._solve(
-            [enc], enc.current[None], np.array([enc.jhash], np.int32),
-            np.array([enc.p], np.int32), [replication_factor], context,
-        )
+        (_, out), = self._solve([enc], [replication_factor], context)
         return out
 
     def assign_many(
@@ -150,24 +149,66 @@ class TorchSolver:
             named_currents, rack_assignment, nodes, rf_list
         )
         return self._solve(
-            encs, currents, jhashes, p_reals, rf_list, context,
+            encs, rf_list, context, (currents, jhashes, p_reals),
             encode_ms=(time.perf_counter() - t0) * 1e3,
         )
 
-    def _solve(self, encs, currents, jhashes, p_reals, rf_list, context,
+    def fresh_assignment(
+        self,
+        topic: str,
+        partitions: Sequence[int] | int,
+        nodes: Set[int],
+        rack_assignment: Mapping[int, str],
+        replication_factor: int,
+        context: Context | None = None,
+    ) -> Dict[int, List[int]]:
+        """Place a topic from scratch (no current assignment): empty
+        replica lists through the same encode, the ``fresh`` leg chain
+        (capacity-greedy balance first, first-fit legs behind it), then the
+        leadership kernel against ``context``. ``partitions`` is a count or
+        the partition ids."""
+        if isinstance(partitions, int):
+            partitions = list(range(partitions))
+        if context is None:
+            context = Context()
+        t0 = time.perf_counter()
+        current = {int(p): [] for p in partitions}
+        enc = encode_problem(
+            topic, current, rack_assignment, nodes, set(current),
+            replication_factor,
+        )
+        (_, out), = self._solve(
+            [enc], [replication_factor], context, fresh=True,
+            encode_ms=(time.perf_counter() - t0) * 1e3,
+        )
+        return out
+
+    def _solve(self, encs, rf_list, context, batch=None, fresh: bool = False,
                encode_ms: float = 0.0) -> List[tuple]:
+        """Place, order and decode ``encs``. ``batch`` is
+        ``encode_topic_group``'s ``(currents, jhashes, p_reals)``; without
+        it ``encs`` is one topic from ``encode_problem``. ``fresh`` runs the
+        ``fresh`` chain and never the compat width, as the reference's
+        ``fresh_assignment`` does."""
         timers = {}
         self.last_timers = timers
-        rf_max = max(rf_list)
-        if rf_compat_enabled() and currents.shape[2] > rf_max:
-            raise NotImplementedError(
-                "KA_RF_DECREASE_COMPAT=1 on an RF decrease (wide compat "
-                "slots) is not ported yet; it belongs to the compat slice"
-            )
         t0 = time.perf_counter()
-        # The counter slab spans the widest RF of the group; a narrower
-        # topic touches only its own leading slots.
-        enc_slab = dataclasses.replace(encs[0], rf=rf_max)
+        if batch is None:
+            enc, = encs
+            batch = (enc.current[None], np.array([enc.jhash], np.int32),
+                     np.array([enc.p], np.int32))
+        currents, jhashes, p_reals = batch
+        rf_max = max(rf_list)
+        # Compat slot width: on an RF decrease under KA_RF_DECREASE_COMPAT
+        # the current lists are wider than rf_max and every slot can
+        # survive sticky, so the whole pipeline runs `width` wide.
+        width = None
+        if not fresh and rf_compat_enabled() and currents.shape[2] > rf_max:
+            width = currents.shape[2]
+        # The counter slab spans the widest RF of the group (the widest
+        # slot under compat); a narrower topic touches only its own
+        # leading slots.
+        enc_slab = dataclasses.replace(encs[0], rf=width or rf_max)
         counters_before = context_to_array(context, enc_slab)
         b_real = len(encs)
         rfs = None
@@ -183,8 +224,9 @@ class TorchSolver:
 
         t0 = time.perf_counter()
         placed = place_batched(
-            cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, wave_mode(), rfs,
-            r_cap=encs[0].r_cap,
+            cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max,
+            "fresh" if fresh else wave_mode(), rfs, r_cap=encs[0].r_cap,
+            width=width,
         )
         self.last_waves = placed.waves
         infeasible = placed.infeasible[:b_real].cpu().numpy()
@@ -211,6 +253,12 @@ class TorchSolver:
         ordered = ordered.cpu().numpy()
         counters_after = counters_after.cpu().numpy()
         apply_counter_updates(context, enc_slab, counters_before, counters_after)
-        decoded = decode_assignments_batched(encs, ordered)
+        # Compat decodes every slot, so retained replicas past the RF
+        # survive and rows shorter than `width` come out shorter.
+        decoded = decode_assignments_batched(
+            encs if width is None
+            else [dataclasses.replace(e, rf=width) for e in encs],
+            ordered,
+        )
         timers["decode"] = (time.perf_counter() - t0) * 1e3
         return [(enc.topic, a) for enc, a in zip(encs, decoded)]

@@ -3,10 +3,11 @@ defaults and house rule (``kafka_assigner_tpu/utils/env.py``): a mis-set
 knob never silently changes the configuration — an unparsable or unknown
 value is ignored LOUDLY on stderr and the declared default is used.
 
-Only the six knobs of the ported mode-3 path are declared, each with the
-reference's default and floor. ``KA_QUOTA_WAVE_TARGET`` and
-``KA_QUOTA_ENDGAME`` tune the reference's giant-shape quota leg, which
-this package refuses today (``ops/assignment.py:_refuse_unported``).
+Only the six knobs of the ported placement and solver paths are declared,
+each with the reference's default and floor. ``KA_QUOTA_WAVE_TARGET`` and
+``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
+(``ops/assignment.py:_hybrid_quota_body``). The port reads every knob per
+call, where the reference reads some at trace time.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ KNOBS = {
     # Leadership rows per plain-version step; semantics-invariant.
     "KA_LEADER_CHUNK": Knob(None, floor=1),
     "KA_RF_DECREASE_COMPAT": Knob(False),
-    # P_pad x N_pad gate past which the reference switches to its
-    # giant-shape legs.
+    # P_pad x N_pad gate past which the chain switches to its giant-shape
+    # legs.
     "KA_DENSE_MASK_BUDGET": Knob(1 << 27, floor=1),
     "KA_QUOTA_WAVE_TARGET": Knob(4, floor=1),
     "KA_QUOTA_ENDGAME": Knob(32, floor=1),

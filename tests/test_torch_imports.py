@@ -56,6 +56,44 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     assert proc.stdout.strip() == f"ok {len(mods)}"
 
 
+_PATHS = r"""
+import os
+from kafka_assigner_tpu_torch.assigner import TopicAssigner
+from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
+
+tm, _, racks = rack_striped_cluster(20, 2, 40, 3, 5, extra_brokers=2)
+live = set(range(2, 22))
+rack_map = {b: racks[b] for b in live}
+solver = TorchSolver("cpu")
+os.environ["KA_DENSE_MASK_BUDGET"] = "64"          # the giant-shape chain
+solver.assign_many(list(tm.items()), rack_map, live, 3)
+assert "fast" in solver.last_waves, solver.last_waves
+solver.fresh_assignment("fresh", 30, live, rack_map, 2)
+assert "balance_slots" in solver.last_waves, solver.last_waves
+del os.environ["KA_DENSE_MASK_BUDGET"]
+os.environ["KA_RF_DECREASE_COMPAT"] = "1"          # compat width on a decrease
+cur = {0: [1, 2, 3], 1: [4, 5, 6], 2: [1, 5, 6], 3: [2, 3, 4]}
+(_, out), = TopicAssigner(device="cpu").generate_assignments(
+    [("t", cur)], set(range(1, 7)), {b: f"r{b % 3}" for b in range(1, 7)}, 2)
+assert all(len(r) == 3 for r in out.values()), out
+print("paths ok")
+"""
+
+
+def test_new_paths_run_without_jax():
+    # The giant-shape chain, fresh placement and the compat width, run with
+    # jax and the JAX package blocked.
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    script = _BLOCKER.replace("for mod in sys.argv[1:]:", _PATHS + "\nfor mod in []:")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "paths ok" in proc.stdout
+
+
 def test_port_sources_never_name_the_jax_package():
     for path in (ROOT / "kafka_assigner_tpu_torch").rglob("*.py"):
         for line in path.read_text(encoding="utf-8").splitlines():

@@ -182,20 +182,6 @@ def test_infeasible_topic_flags_and_deficit_match():
     assert got[2][0]
 
 
-def test_giant_shape_and_quota_legs_refuse(monkeypatch):
-    topics, live, rack_map = _instance("expansion")
-    enc = _encode(topics, live, rack_map, 3)
-    monkeypatch.setenv("KA_DENSE_MASK_BUDGET", "64")
-    for mode in ("auto", "fast", "balance", "fresh"):
-        with pytest.raises(NotImplementedError, match="KA_DENSE_MASK_BUDGET"):
-            _port_place(*enc, 3, mode)
-    # Single-leg dense and seq behave the same past the budget: allowed.
-    _assert_same(_port_place(*enc, 3, "seq")[0], _jax_place(*enc, 3, "seq"))
-    monkeypatch.delenv("KA_DENSE_MASK_BUDGET")
-    with pytest.raises(NotImplementedError, match="balance_quota"):
-        _port_place(*enc, 3, "balance_quota")
-
-
 def test_requests_rank_counts_earlier_same_key_rows():
     pick = to_tensor([[2, 1, 2, 0, 2, 1], [0, 0, 0, 0, 0, 0]])
     valid = to_tensor([[1, 1, 1, 1, 0, 1], [1, 0, 1, 1, 1, 1]]).bool()

@@ -1,7 +1,9 @@
 """``TorchSolver(device="cpu")`` against the JAX package's ``TpuSolver`` on
 decommission, expansion and replacement clusters: identical plans, an
-identical ``Context`` afterwards, the same infeasibility error, and the
-guards on what this slice does not port yet. Exact equality throughout.
+identical ``Context`` afterwards, the same infeasibility error and the same
+wave-mode knob handling. Exact equality throughout. The giant-shape chain,
+fresh placement and the compat width have their own files
+(``test_torch_giant.py``, ``test_torch_fresh.py``, ``test_torch_compat.py``).
 """
 from __future__ import annotations
 
@@ -134,17 +136,6 @@ def test_compat_without_rf_decrease_uses_seq_like_the_reference(monkeypatch, kin
     ref = _outcome(TpuSolver(), topics[:3], live, rack_map, 3, JaxContext())
     got = _outcome(TorchSolver("cpu"), topics[:3], live, rack_map, 3, Context())
     assert got == ref
-
-
-def test_compat_rf_decrease_and_giant_shapes_refuse(monkeypatch):
-    topics, live, rack_map = _cluster("replacement")
-    monkeypatch.setenv("KA_RF_DECREASE_COMPAT", "1")
-    with pytest.raises(NotImplementedError, match="COMPAT"):
-        TorchSolver("cpu").assign_many(topics[:2], rack_map, live, 2)
-    monkeypatch.delenv("KA_RF_DECREASE_COMPAT")
-    monkeypatch.setenv("KA_DENSE_MASK_BUDGET", "128")
-    with pytest.raises(NotImplementedError, match="giant"):
-        TorchSolver("cpu").assign_many(topics[:2], rack_map, live, 3)
 
 
 @pytest.mark.parametrize("mode", ["fast_balance", "dense", "seq"])
