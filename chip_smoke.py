@@ -60,7 +60,37 @@ Phases, each printing its own line; any failure exits non-zero:
    phase, the waves of every leg that ran (no dense or seq leg may run),
    and the kernel at (1, 200000, 3) on (a)'s inputs: median of 10 by CUDA
    events, its byte bound and its chain floor, its result held against
-   the one checked in phase 7.
+   the one checked in phase 7;
+10. what-if at BASELINE config 5 (``rack_striped_cluster(1000, 100, 50, 3,
+    10)``, 256 singleton removals of brokers 0-255): the incremental and
+    the dense sweep on ``cuda``, equal to each other and to the port's
+    ``cpu`` run, every scenario feasible with moved == the replicas the
+    removed broker held; warm median of 3 per path split into host prep,
+    device sweep, rescue and compose, waves per leg, rows, chunks and peak
+    device memory;
+11. RANK_DECOMMISSION through the port's CLI on config 4's steady-state
+    cluster (5,000 brokers, 2,000 topics x 100 partitions at RF 3), every
+    live broker ranked: 5,000 feasible rows sorted least-disruptive-first
+    with moved == held; then 16 ``--integer_broker_ids`` candidates and a
+    ``--scenario_file`` (a same-rack pair, a cross-rack pair, a hostname,
+    the empty scenario), stdout byte-identical on ``cuda`` and ``cpu``;
+12. the rescue: 100 brokers in 5 racks, one 2,000-partition RF-3 topic,
+    scenarios removing 4 brokers of every rack (cap 75, no slack): the fast
+    sweep strands, the ``auto`` chain re-runs those scenarios; the rescued
+    count and every result equal on ``cuda`` and ``cpu``; then the
+    stranded scenarios' sweeps timed on ``cuda`` on the fast leg, the
+    ``auto`` chain and the ``seq`` leg alone;
+13. the host modes ``PRINT_CURRENT_ASSIGNMENT`` and ``PRINT_CURRENT_BROKERS``
+    on phase 11's snapshot: JSON with all 5,000 brokers and 200,000
+    partitions, byte-identical under ``--device cuda`` and ``cpu``.
+
+The what-if phases run placement only: the leadership kernel is not on
+their path, and the smoke checks that they launch it no time.
+
+The plain leadership checks of phases 4 and 7 (config 4's 208,000 rows and
+each giant cell's 200,000, a Python loop over rows on the host CPU) run in
+spawned worker processes, one thread each, while the later phases go on;
+their results are collected before the ``kernels`` line.
 
 Phases 7 and 8 read what the solver hands ``place_batched`` and
 ``leadership_order`` through :func:`solver_probe`, which wraps the two names
@@ -79,10 +109,13 @@ the CPU and none to the plain version.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -102,6 +135,11 @@ LEADERSHIP_TPU_KERNEL = "kafka_assigner_tpu/ops/pallas_leadership.py:63"
 KERNEL_REPS = 10
 SOLVE_REPS = 5
 GIANT_SOLVE_REPS = 3
+WHATIF_REPS = 3
+PLAIN_WORKERS = 4
+CONFIG5_SCENARIOS = 256
+# Phase 11's candidates: 16 brokers over every rack of config 4's cluster.
+RANK_CANDIDATES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 1234, 2500, 3001, 4444, 4998, 4999)
 
 
 def fail(msg: str) -> None:
@@ -189,6 +227,55 @@ def check_orders(lead, orders, what):
                  f"{tuple(inputs[0].shape)}")
         worst = max(worst, err)
     return worst
+
+
+def plain_check(inputs, outputs):
+    """Worker process: the plain leadership version on ``inputs`` (numpy
+    arrays), against the kernel's ``outputs``; returns (max |kernel -
+    plain|, seconds)."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    from kafka_assigner_tpu_torch.ops.leadership import leadership_order_plain
+
+    t0 = time.perf_counter()
+    plain = leadership_order_plain(*(torch.from_numpy(a) for a in inputs))
+    err = max(int(np.abs(k - p.numpy()).max()) for k, p in zip(outputs, plain))
+    return err, time.perf_counter() - t0
+
+
+class PlainChecks:
+    """Kernel launches held against the plain version in spawned worker
+    processes, so the host CPU checks run beside the later phases."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.pending = []
+
+    def submit(self, what, inputs, outputs):
+        inputs = tuple(a.cpu().numpy() for a in inputs)
+        outputs = tuple(a.cpu().numpy() for a in outputs)
+        shape = f"{inputs[0].shape} N_pad={inputs[2].shape[0]}"
+        self.pending.append((what, shape, self.pool.submit(plain_check, inputs, outputs)))
+
+    def collect(self):
+        """Every submitted check's result; fails on any disagreement.
+        Returns max |kernel - plain|."""
+        worst = 0
+        for what, shape, future in self.pending:
+            err, secs = future.result()
+            if err:
+                fail(f"{what}: leadership kernel disagrees with plain at {shape}")
+            worst = max(worst, err)
+            phase("kernels", f"leadership at {what} {shape}: bit-equal to plain on "
+                  f"all rows (plain on CPU {secs:.1f} s in a worker)")
+        self.pending = []
+        return worst
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def check_chains(chains, what, rescue_allowed=True):
@@ -319,11 +406,11 @@ def check_plan(plan, topic_map, live, rack_map, cap, expected_moved, rf=RF):
     return moved
 
 
-def giant_main_paths(cells, work, lead):
+def giant_main_paths(cells, work, lead, checks):
     """Phase 7: the three giant cells through the CLI on the card, the
     kernel counts reset just before each and read just after; each
-    placement's chain and each kernel launch checked. Returns the launches
-    per cell, max |kernel - plain| and (a)'s kernel inputs and outputs."""
+    placement's chain checked, and each kernel launch handed to ``checks``.
+    Returns the launches per cell and (a)'s kernel inputs and outputs."""
     snaps = {}
     for cell in ("expansion", "saturated"):
         topic_map, live, rack_map, _, _ = cells[cell]
@@ -339,7 +426,7 @@ def giant_main_paths(cells, work, lead):
                   "--mode", "PRINT_FRESH_ASSIGNMENT", "--topics", "giant-fresh",
                   "--partition_count", str(p), "--desired_replication_factor", str(RF)],
     }
-    launches, worst, k_expansion = {}, 0, None
+    launches, k_expansion = {}, None
     for cell, argv in argvs.items():
         topic_map, live, rack_map, cap, expected = cells[cell]
         with solver_probe() as seen:
@@ -358,16 +445,12 @@ def giant_main_paths(cells, work, lead):
               f"P={p} N={len(live)}, moved {moved} replicas (expected exactly "
               f"{expected}), cap {cap}, giant-shape chain {seen['chains'][0][0]}, "
               f"waves {waves}, leadership kernel launches {launches[cell]}")
-        t0 = time.perf_counter()
-        worst = max(worst, check_orders(lead, seen["orders"], f"giant {cell}"))
-        inputs, _ = seen["orders"][0]
-        phase("kernels", f"leadership at the giant {cell} cell's shape "
-              f"{tuple(inputs[0].shape)} N_pad={inputs[2].shape[0]}, on the inputs "
-              f"the solver gave it: bit-equal to plain on all rows (plain on CPU "
-              f"{time.perf_counter() - t0:.1f} s)")
+        for inputs, outputs in seen["orders"]:
+            checks.submit(f"the giant {cell} cell's launch, on the inputs the solver "
+                          "gave it,", inputs, outputs)
         if cell == "expansion":
             k_expansion = seen["orders"][0]
-    return launches, worst, k_expansion
+    return launches, k_expansion
 
 
 def reduced_parity(work, lead):
@@ -474,6 +557,206 @@ def giant_timing(cells):
     return out
 
 
+def replicas_held(topic_map):
+    held = {}
+    for cur in topic_map.values():
+        for reps in cur.values():
+            for b in reps:
+                held[b] = held.get(b, 0) + 1
+    return held
+
+
+def as_tuples(results):
+    return [dataclasses.astuple(r) for r in results]
+
+
+def whatif_config5():
+    """Phase 10: BASELINE config 5 on both sweep paths on the card, against
+    each other and the port's cpu run; warm medians by phase, waves, rows,
+    chunks and peak device memory per path."""
+    import torch
+
+    from kafka_assigner_tpu_torch.models.synthetic import build_config5
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    topic_map, live, racks = build_config5()
+    scenarios = [[b] for b in range(CONFIG5_SCENARIOS)]
+    held = replicas_held(topic_map)
+    results, out = {}, {}
+    for path, flag in (("incremental", 1), ("dense", 0)):
+        with knobs(KA_WHATIF_INCREMENTAL=flag):
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for i in range(WHATIF_REPS + 1):  # 1 cold
+                t0 = time.perf_counter()
+                res = whatif.evaluate_removal_scenarios(topic_map, live, racks,
+                                                        scenarios, 3, device="cuda")
+                total = (time.perf_counter() - t0) * 1e3
+                if i:
+                    runs.append(dict(whatif.last_sweep, total=total))
+            peak = torch.cuda.max_memory_allocated()
+        rec = runs[-1]
+        if rec["path"] != path:
+            fail(f"config 5: the {path} sweep did not run ({rec['path']} did)")
+        med = {k: statistics.median(r[k] for r in runs)
+               for k in ("total", "prep", "sweep", "rescue", "compose")}
+        host = med["prep"] + med["compose"]
+        phase("whatif", f"config 5 {path} on cuda, 256 scenarios, warm median of "
+              f"{WHATIF_REPS} (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+              + f"; host share {host / med['total']:.2f}; rows {rec['rows']}, "
+              f"t_pad {rec['t_pad']}, chunks {rec['chunks']}, waves {rec['waves']}, "
+              f"rescued {rec['rescued']}, peak device memory {peak / 2**20:.1f} MiB")
+        results[path] = as_tuples(res)
+        out[path] = dict(med, rows=rec["rows"], chunks=rec["chunks"],
+                         waves=rec["waves"], peak_bytes=peak)
+    t0 = time.perf_counter()
+    cpu = as_tuples(whatif.evaluate_removal_scenarios(topic_map, live, racks, scenarios,
+                                                      3, device="cpu"))
+    if not results["incremental"] == results["dense"] == cpu:
+        fail("config 5: incremental, dense and cpu sweeps differ")
+    for removed, moved, feasible, _ in cpu:
+        if not feasible or moved != held[removed[0]]:
+            fail(f"config 5: scenario {removed} feasible={feasible} moved {moved}, "
+                 f"expected {held[removed[0]]}")
+    span = sorted({held[b] for b in range(CONFIG5_SCENARIOS)})
+    phase("whatif", f"config 5: incremental == dense == cpu ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU) on all {CONFIG5_SCENARIOS} scenarios, all feasible, moved == "
+          f"replicas held ({span[0]}-{span[-1]})")
+    return out
+
+
+def rank_config4(work):
+    """Phase 11: RANK_DECOMMISSION of every live broker of config 4's
+    steady-state cluster through the CLI on cuda, then 16 candidates and a
+    scenario file on cuda and cpu. Returns the snapshot and the record."""
+    import torch
+
+    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    topic_map, live, racks = rack_striped_cluster(
+        N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, name_fmt="topic-{:04d}")
+    snap = os.path.join(work, "config4_steady.json")
+    write_snapshot(snap, topic_map, live, racks)
+    held = replicas_held(topic_map)
+    argv = ["--zk_string", f"file://{snap}", "--mode", "RANK_DECOMMISSION"]
+    marker = "DECOMMISSION RANKING:\n"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text = run_cli(argv + ["--device", "cuda"])
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(whatif.last_sweep)
+    rows = json.loads(text.split(marker, 1)[1])
+    if len(rows) != len(live) or not all(r["feasible"] for r in rows):
+        fail(f"rank: {len(rows)} rows for {len(live)} brokers, or an infeasible one")
+    keys = [(not r["feasible"], r["moved_replicas"], r["broker"]) for r in rows]
+    if keys != sorted(keys):
+        fail("rank: rows are not sorted least-disruptive-first")
+    for r in rows:
+        if r["moved_replicas"] != held[r["broker"]]:
+            fail(f"rank: broker {r['broker']} moved {r['moved_replicas']}, "
+                 f"held {held[r['broker']]}")
+    span = sorted(set(held.values()))
+    host = rec["prep"] + rec["compose"]
+    phase("whatif", f"RANK_DECOMMISSION of config 4's {len(live)} brokers on cuda: "
+          f"{wall_s:.2f} s wall; sweep (ms) prep {rec['prep']:.1f}, sweep "
+          f"{rec['sweep']:.1f}, rescue {rec['rescue']:.1f}, compose {rec['compose']:.1f}; "
+          f"host share {host / (host + rec['sweep'] + rec['rescue']):.2f}; path {rec['path']}, "
+          f"t_pad {rec['t_pad']}, rows {rec['rows']}, chunks {rec['chunks']}, waves "
+          f"{rec['waves']}, peak device memory {peak / 2**30:.2f} GiB; {len(rows)} rows "
+          f"feasible, sorted, moved == held ({span[0]}-{span[-1]})")
+
+    scen = os.path.join(work, "scenarios.json")
+    with open(scen, "w", encoding="utf-8") as f:
+        json.dump([[0, 10], [1, 2], ["b7"], []], f)  # same rack, cross rack
+    for what, extra in (
+        ("16 candidates", ["--integer_broker_ids", ",".join(map(str, RANK_CANDIDATES))]),
+        ("scenario file", ["--scenario_file", scen]),
+    ):
+        a = run_cli(argv + extra + ["--device", "cuda"])
+        c = run_cli(argv + extra + ["--device", "cpu"])
+        if a != c:
+            fail(f"rank {what}: cuda and cpu stdout differ")
+        phase("cuda==cpu", f"RANK_DECOMMISSION {what} on config 4's cluster: stdout "
+              f"byte-identical ({len(a)} bytes, path {whatif.last_sweep['path']})")
+    return snap, dict(rec, wall_s=wall_s, peak_bytes=peak)
+
+
+def rescue_parity():
+    """Phase 12: scenarios the fast sweep strands, re-run by the rescue on
+    the auto chain, on cuda and cpu (the instance of
+    ``tests/test_torch_whatif.py:rescue_cluster``)."""
+    import numpy as np
+
+    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    topic_map, live, racks = rack_striped_cluster(100, 1, 2000, RF, 5, name_fmt="rescue-{:02d}")
+    rng = np.random.default_rng(0)
+    by_rack = {}
+    for b in sorted(live):
+        by_rack.setdefault(racks[b], []).append(b)
+    # Four brokers of every rack: cap ceil(6,000 / 80) = 75, no slack.
+    scenarios = [sorted(int(x) for r in sorted(by_rack)
+                        for x in rng.choice(by_rack[r], 4, replace=False))
+                 for _ in range(4)] + [[0], []]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = whatif.evaluate_removal_scenarios(topic_map, live, racks, scenarios, RF,
+                                                device=dev)
+        out[dev] = (as_tuples(res), dict(whatif.last_sweep))
+    (a, rec), (c, rec_c) = out["cuda"], out["cpu"]
+    if rec["rescued"] < 1 or rec["rescued"] != rec_c["rescued"] or a != c:
+        fail(f"rescue: cuda rescued {rec['rescued']}, cpu {rec_c['rescued']}, "
+             f"results equal: {a == c}")
+    phase("cuda==cpu", f"what-if rescue: {rec['rescued']} of {len(scenarios)} scenarios "
+          f"stranded the fast sweep and re-ran on the auto chain ({rec['rescue']:.1f} ms "
+          f"on cuda, waves {rec['rescue_waves']}); results equal on cuda and cpu: "
+          + ", ".join(f"{m}{'' if f else ' infeasible'}" for _, m, f, _ in a))
+
+    # The four stranded scenarios' sweeps timed on the card: the fast leg,
+    # the auto chain the rescue runs, and the seq leg alone.
+    import torch
+
+    from kafka_assigner_tpu_torch.carry import to_tensor
+    from kafka_assigner_tpu_torch.models.problem import encode_topic_group
+    from kafka_assigner_tpu_torch.ops.assignment import whatif_sweep
+
+    encs, cur, jh, pr = encode_topic_group(list(topic_map.items()), racks, live, RF)
+    alive = np.zeros((4, encs[0].n_pad), bool)
+    alive[:, : encs[0].n] = True
+    for s, removed in enumerate(scenarios[:4]):
+        alive[s, np.searchsorted(encs[0].broker_ids, removed)] = False
+    args = [to_tensor(x, "cuda") for x in (cur, encs[0].rack_idx, jh, pr)]
+    args.append(torch.as_tensor(alive).cuda())
+    legs = []
+    for mode in ("fast", "auto", "seq"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = whatif_sweep(*args, encs[0].n, RF, mode, r_cap=encs[0].r_cap)
+        torch.cuda.synchronize()
+        legs.append(f"{mode} {(time.perf_counter() - t0) * 1e3:.1f} ms {res.waves}")
+    phase("whatif", "rescue instance, the 4 stranded scenarios on cuda: " + "; ".join(legs))
+
+
+def host_modes(snap, n_brokers, n_partitions):
+    """Phase 13: the two current-state modes on phase 11's snapshot."""
+    for mode, marker, count in (
+        ("PRINT_CURRENT_ASSIGNMENT", "CURRENT ASSIGNMENT:\n",
+         lambda d: len(d["partitions"])),
+        ("PRINT_CURRENT_BROKERS", "CURRENT BROKERS:\n", len),
+    ):
+        argv = ["--zk_string", f"file://{snap}", "--mode", mode]
+        a = run_cli(argv + ["--device", "cuda"])
+        c = run_cli(argv + ["--device", "cpu"])
+        got = count(json.loads(a.split(marker, 1)[1]))
+        want = n_partitions if mode == "PRINT_CURRENT_ASSIGNMENT" else n_brokers
+        if a != c or got != want:
+            fail(f"{mode}: {got} entries (expected {want}), or cuda and cpu differ")
+        phase("host", f"{mode}: {got} entries, {len(a)} bytes, identical on cuda and cpu")
+
+
 def main() -> int:
     import torch
 
@@ -484,6 +767,15 @@ def main() -> int:
         import kafka_assigner_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port package is not importable next to this script ({e})")
+    checks = PlainChecks()
+    try:
+        return smoke(checks)
+    finally:
+        checks.close()
+
+
+def smoke(checks) -> int:
+    import torch
 
     from kafka_assigner_tpu_torch.assigner import TopicAssigner
     from kafka_assigner_tpu_torch.carry import to_tensor
@@ -532,7 +824,7 @@ def main() -> int:
           f"leadership kernel launches {launched}")
 
     # The kernel at the main path's shape, on the main path's inputs,
-    # against the plain version on the same inputs (copied to the CPU).
+    # against the plain version on the same inputs (in a worker).
     topics = list(topic_map.items())
     encs, currents, jhashes, p_reals = encode_topic_group(topics, rack_map, live, RF)
     t32 = lambda a: to_tensor(a, "cuda")  # noqa: E731
@@ -545,18 +837,8 @@ def main() -> int:
         placed.acc_nodes[:b].contiguous(), placed.acc_count[:b].contiguous(),
         t32(context_to_array(Context(), encs[0])), t32(jhashes[:b]),
     )
-    o_k, c_k = lead.leadership_order(*k_args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    o_p, c_p = lead.leadership_order_plain(*(a.cpu() for a in k_args))
-    plain_cpu_s = time.perf_counter() - t0
-    err = max(int((o_k.cpu() - o_p).abs().max()), int((c_k.cpu() - c_p).abs().max()))
-    max_err = max(max_err, err)
-    if err:
-        fail("leadership kernel disagrees with plain at the config-4 shape")
+    checks.submit("the main-path shape", k_args, lead.leadership_order(*k_args))
     shape = tuple(k_args[0].shape)
-    phase("kernels", f"leadership at the main-path shape {shape} N_pad="
-          f"{k_args[2].shape[0]}: bit-equal to plain (plain on CPU {plain_cpu_s:.1f} s)")
 
     # --- 5: cuda == cpu on a prefix -------------------------------------
     prefix = ",".join(t for t, _ in topics[:PREFIX_TOPICS])
@@ -607,8 +889,7 @@ def main() -> int:
 
     # --- 7-9: the giant cells --------------------------------------------
     cells = giant_cells()
-    launches, err, (k_giant, checked) = giant_main_paths(cells, work, lead)
-    max_err = max(max_err, err)
+    launches, (k_giant, checked) = giant_main_paths(cells, work, lead, checks)
     reduced, err = reduced_parity(work, lead)
     max_err = max(max_err, err)
     giant_timing(cells)
@@ -626,6 +907,21 @@ def main() -> int:
           f"{g_shape} N_pad={k_giant[2].shape[0]}; byte bound {g_bound_ms:.4f} ms "
           f"({g_bytes} bytes); chain floor {g_chain_ms:.3f} ms ({g_steps} steps x "
           f"{step_ns:.3f} ns); result equal to the launch checked in phase 7")
+    phase("timing", f"whole smoke so far {time.perf_counter() - t_start:.1f} s")
+
+    # --- 10-13: what-if sweeps, RANK_DECOMMISSION, host modes -----------
+    # Placement only: the leadership kernel is not on these paths.
+    lead.launches["leadership"] = 0
+    whatif_config5()
+    steady_snap, _ = rank_config4(work)
+    rescue_parity()
+    host_modes(steady_snap, N_BROKERS, N_TOPICS * P_PER_TOPIC)
+    if lead.launches["leadership"]:
+        fail(f"the what-if phases launched the leadership kernel "
+             f"{lead.launches['leadership']} times")
+    phase("whatif", "phases 10-13 launched the leadership kernel 0 times")
+
+    max_err = max(max_err, checks.collect())
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},

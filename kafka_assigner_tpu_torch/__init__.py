@@ -4,17 +4,19 @@ The JAX package beside it is the reference; this package mirrors its layout
 so each module's counterpart sits at the same path, and its output is held
 byte-identical to the reference's ``--solver tpu`` path.
 
-What this package covers today is mode 3 (``PRINT_REASSIGNMENT``) on the
+What this package covers today is every mode of the reference CLI on the
 device solver:
 
 - ``models.problem``       — host encode/decode (numpy), a copy of the
   reference's numpy path;
 - ``ops.assignment``       — placement in plain PyTorch, batched over topics
-  (sticky fill, then the fast → dense → balance → seq leg chain);
+  (sticky fill, then the fast → dense → balance → seq leg chain), with a
+  liveness mask per row, and the what-if sweeps built on it;
 - ``ops.leadership``       — leadership ordering: a hand-written Hopper
   kernel (``csrc/leadership.cu``) and its plain PyTorch twin;
 - ``solvers.torch_solver`` — ``TorchSolver``, the ``TpuSolver`` counterpart;
-- ``assigner`` / ``generator`` / ``cli`` — the mode-3 surface.
+- ``parallel.whatif``      — batched broker-removal what-if sweeps;
+- ``assigner`` / ``generator`` / ``cli`` — the CLI surface.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``kafka_assigner_tpu``. Entry points run on ``cuda`` unless the caller

@@ -1,5 +1,4 @@
-"""The port's CLI, modes ``PRINT_REASSIGNMENT`` and
-``PRINT_FRESH_ASSIGNMENT``::
+"""The port's CLI, every mode of the reference CLI::
 
     python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
         --mode PRINT_REASSIGNMENT [--topics a,b] [--integer_broker_ids 1,2 |
@@ -12,11 +11,23 @@
         --desired_replication_factor N [broker selection as above]
         [--device {cuda,cpu}]
 
+    python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
+        --mode RANK_DECOMMISSION [--integer_broker_ids 1,2 | --broker_hosts
+        h1,h2 | --scenario_file PATH] [--broker_hosts_to_remove h3]
+        [--topics a,b] [--desired_replication_factor N] [--device {cuda,cpu}]
+
+    python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
+        --mode {PRINT_CURRENT_ASSIGNMENT [--topics a,b] | PRINT_CURRENT_BROKERS}
+
 The flags are the reference CLI's flags for these modes
 (``kafka_assigner_tpu/cli.py:83-118``); ``--device`` takes the place of
-``--solver``. Stdout is byte-identical to ``kafka_assigner_tpu.cli --solver
-tpu``. Exit codes follow the reference's documented ones: 1 usage, 3
-metadata ingest, 5 validation (RF bounds, unknown hosts, infeasible plan).
+``--solver``. RANK_DECOMMISSION ranks each candidate broker's removal (all
+live brokers by default), or each removal set of a ``--scenario_file``, in
+one sweep; the two current-state modes run on the host. Stdout is
+byte-identical to ``kafka_assigner_tpu.cli`` (``--solver tpu`` for the plan
+modes). Exit codes follow the reference's documented ones: 1 usage, 3
+metadata ingest, 5 validation (RF bounds, unknown hosts or scenario
+entries, infeasible plan).
 """
 from __future__ import annotations
 
@@ -29,6 +40,15 @@ EXIT_USAGE = 1
 EXIT_INGEST = 3
 EXIT_VALIDATION = 5
 
+#: The reference CLI's modes (``kafka_assigner_tpu/cli.py:67-73``).
+MODES = (
+    "PRINT_CURRENT_ASSIGNMENT",
+    "PRINT_CURRENT_BROKERS",
+    "PRINT_REASSIGNMENT",
+    "RANK_DECOMMISSION",
+    "PRINT_FRESH_ASSIGNMENT",
+)
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -38,8 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--zk_string", default=None,
                    help="a file://cluster.json snapshot")
-    p.add_argument("--mode", default=None,
-                   choices=("PRINT_REASSIGNMENT", "PRINT_FRESH_ASSIGNMENT"),
+    p.add_argument("--mode", default=None, choices=MODES,
                    help="the mode to run")
     p.add_argument("--integer_broker_ids", default=None,
                    help="comma-separated list of Kafka broker IDs (integers)")
@@ -57,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--partition_count", type=int, default=None,
                    help="PRINT_FRESH_ASSIGNMENT: number of partitions to "
                         "place for each --topics entry")
+    p.add_argument("--scenario_file", default=None, metavar="PATH",
+                   help="RANK_DECOMMISSION: JSON array of removal scenarios "
+                        "(arrays of broker ids and/or hostnames, e.g. "
+                        '[[1,2],["host7"]]) ranked in one batched sweep '
+                        "instead of the default per-broker singleton sweep")
     p.add_argument("--leadership_context", default=None, metavar="PATH",
                    help="persist cross-run leadership counters to PATH "
                         "(loaded if present, saved after the plan)")
@@ -71,6 +95,9 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
     them to exit codes."""
     from .generator import (
         build_rack_assignment,
+        print_current_assignment,
+        print_current_brokers,
+        print_decommission_ranking,
         print_fresh_assignment,
         print_least_disruptive_reassignment,
         resolve_broker_ids,
@@ -102,6 +129,24 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
     )
     excluded = resolve_excluded_broker_ids(live_brokers, args.broker_hosts_to_remove)
     rack_assignment = build_rack_assignment(live_brokers, args.disable_rack_awareness)
+    if args.mode == "PRINT_CURRENT_ASSIGNMENT":
+        print_current_assignment(backend, topics, out=out)
+        return EXIT_OK
+    if args.mode == "PRINT_CURRENT_BROKERS":
+        print_current_brokers(backend, out=out, live_brokers=live_brokers)
+        return EXIT_OK
+    if args.mode == "RANK_DECOMMISSION":
+        # --broker_hosts_to_remove narrows the cluster first (rank the
+        # remaining removals given those already gone); the selected
+        # brokers are the candidates (kafka_assigner_tpu/cli.py:323-331).
+        live = [b for b in live_brokers if b.id not in excluded]
+        print_decommission_ranking(
+            backend, topics, (broker_ids - excluded) or None,
+            {k: v for k, v in rack_assignment.items() if k not in excluded},
+            args.desired_replication_factor, device=args.device, out=out,
+            live_brokers=live, scenario_file=args.scenario_file,
+        )
+        return EXIT_OK
     if args.mode == "PRINT_FRESH_ASSIGNMENT":
         if not topics or args.partition_count is None \
                 or args.partition_count <= 0 \

@@ -5,18 +5,28 @@
   map, the rollback snapshot, the feasibility report, one shared-context
   solve and the byte-compatible "NEW ASSIGNMENT" emission;
 - ``PRINT_FRESH_ASSIGNMENT``, ``print_fresh_assignment`` (:254): new topics
-  placed from scratch through one fresh ``Context``.
+  placed from scratch through one fresh ``Context``;
+- the host-only modes ``PRINT_CURRENT_ASSIGNMENT`` and
+  ``PRINT_CURRENT_BROKERS`` (:90-115);
+- ``RANK_DECOMMISSION``, ``print_decommission_ranking`` (:167): one batched
+  what-if sweep over candidate removals (``parallel/whatif.py``), with
+  ``load_scenario_file`` (:118) for ``--scenario_file``.
 
 JSON goes to stdout, diagnostics to stderr.
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 from typing import Dict, List, Optional, Sequence, Set, TextIO
 
 from .assigner import TopicAssigner
-from .io.json_io import format_reassignment_json, format_reassignment_pairs
+from .io.json_io import (
+    format_brokers_json,
+    format_reassignment_json,
+    format_reassignment_pairs,
+)
 from .io.snapshot import BrokerInfo
 from .solvers.base import Context
 from .solvers.torch_solver import TorchSolver
@@ -74,6 +84,144 @@ def build_rack_assignment(
     if disable_rack_awareness:
         return {}
     return {b.id: b.rack for b in brokers if b.rack is not None}
+
+
+def print_current_assignment(
+    backend,
+    topics: Optional[Sequence[str]],
+    out: Optional[TextIO] = None,
+) -> None:
+    """Mode 1 (``KafkaAssignmentGenerator.java:103-111``): the existing
+    assignment in Kafka-parseable JSON, the rollback artifact."""
+    out = out if out is not None else sys.stdout
+    topic_list = list(topics) if topics is not None else backend.all_topics()
+    assignment = backend.partition_assignment(topic_list)
+    print("CURRENT ASSIGNMENT:", file=out)
+    print(format_reassignment_json(assignment, topic_order=topic_list), file=out)
+
+
+def print_current_brokers(
+    backend,
+    out: Optional[TextIO] = None,
+    live_brokers: Optional[Sequence[BrokerInfo]] = None,
+) -> None:
+    """Mode 2 (``KafkaAssignmentGenerator.java:113-129``)."""
+    out = out if out is not None else sys.stdout
+    if live_brokers is None:
+        live_brokers = backend.brokers()
+    print("CURRENT BROKERS:", file=out)
+    print(format_brokers_json(live_brokers), file=out)
+
+
+def load_scenario_file(
+    path: str, live_brokers: Sequence[BrokerInfo]
+) -> List[List[int]]:
+    """Parse a ``--scenario_file``: a JSON array of removal scenarios, each
+    an array of broker ids (integers) and/or hostnames (strings), e.g.
+    ``[[1,2],[3],["kafka7.example.com","kafka8.example.com"]]``.
+
+    Hostnames resolve strictly against the live broker list (the contract
+    of ``--broker_hosts``, ``KafkaAssignmentGenerator.java:189-204``);
+    unknown ids or hosts are errors — a silently dropped broker would rank
+    a different scenario than the operator asked about.
+    """
+    with open(path, "r", encoding="utf-8") as f:
+        data = json.load(f)
+    if not isinstance(data, list) or not all(isinstance(s, list) for s in data):
+        raise ValueError(
+            f"scenario file {path!r} must be a JSON array of arrays of "
+            "broker ids or hostnames"
+        )
+    by_host = {b.host: b.id for b in live_brokers}
+    known = {b.id for b in live_brokers}
+    scenarios: List[List[int]] = []
+    for s in data:
+        ids: List[int] = []
+        for entry in s:
+            if isinstance(entry, bool) or not isinstance(entry, (int, str)):
+                raise ValueError(
+                    f"scenario file {path!r}: invalid broker entry {entry!r}"
+                )
+            if isinstance(entry, str):
+                if entry not in by_host:
+                    raise ValueError(
+                        f"scenario file {path!r}: unknown broker host {entry!r}"
+                    )
+                ids.append(by_host[entry])
+            else:
+                if entry not in known:
+                    raise ValueError(
+                        f"scenario file {path!r}: unknown broker id {entry}"
+                    )
+                ids.append(int(entry))
+        scenarios.append(sorted(set(ids)))
+    return scenarios
+
+
+def print_decommission_ranking(
+    backend,
+    topics: Optional[Sequence[str]],
+    candidate_brokers: Optional[Set[int]],
+    rack_assignment: Dict[int, str],
+    desired_replication_factor: int,
+    device: str = "cuda",
+    out: Optional[TextIO] = None,
+    live_brokers: Optional[Sequence[BrokerInfo]] = None,
+    scenario_file: Optional[str] = None,
+) -> None:
+    """RANK_DECOMMISSION: one batched what-if sweep over candidate broker
+    removals on ``device``, printed least-disruptive-first as a JSON array.
+    Default: every live broker (or each of ``candidate_brokers``) as a
+    singleton scenario; ``scenario_file`` ranks arbitrary removal sets in
+    the same sweep."""
+    from .parallel.whatif import (
+        evaluate_removal_scenarios,
+        rank_decommission_candidates,
+    )
+
+    out = out if out is not None else sys.stdout
+    if live_brokers is None:
+        live_brokers = backend.brokers()
+    brokers = {b.id for b in live_brokers}
+    topic_list = list(topics) if topics is not None else backend.all_topics()
+    initial = backend.partition_assignment(topic_list)
+    topic_map = {t: initial[t] for t in topic_list}
+    racks = {k: v for k, v in rack_assignment.items() if k in brokers}
+    if scenario_file is not None:
+        scenarios = load_scenario_file(scenario_file, live_brokers)
+        results = evaluate_removal_scenarios(
+            topic_map, brokers, racks, scenarios, desired_replication_factor,
+            device=device,
+        )
+        ranked = sorted(
+            results, key=lambda r: (not r.feasible, r.moved_replicas, r.removed)
+        )
+        rows = [
+            {
+                "brokers": list(r.removed),
+                "moved_replicas": r.moved_replicas,
+                "feasible": r.feasible,
+                "max_node_load": r.max_node_load,
+            }
+            for r in ranked
+        ]
+    else:
+        ranked = rank_decommission_candidates(
+            topic_map, brokers, racks,
+            sorted(candidate_brokers) if candidate_brokers else None,
+            desired_replication_factor, device=device,
+        )
+        rows = [
+            {
+                "broker": r.removed[0],
+                "moved_replicas": r.moved_replicas,
+                "feasible": r.feasible,
+                "max_node_load": r.max_node_load,
+            }
+            for r in ranked
+        ]
+    print("DECOMMISSION RANKING:", file=out)
+    print(json.dumps(rows, separators=(",", ":")), file=out)
 
 
 def print_least_disruptive_reassignment(

@@ -1,5 +1,6 @@
 """Kafka reassignment-JSON formatting, byte-compatible with the reference
-(a copy of ``kafka_assigner_tpu/io/json_io.py``'s mode-3 serializers).
+(a copy of ``kafka_assigner_tpu/io/json_io.py``'s serializers of the
+plan and the live broker list).
 
 - The rollback section ("CURRENT ASSIGNMENT") follows Kafka 0.10's
   ``Json.encode``: insertion key order, ``{"version":1,"partitions":[{"topic":
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import json
 from typing import Dict, List, Mapping, Sequence
+
+from .snapshot import BrokerInfo
 
 KAFKA_FORMAT_VERSION = 1  # KafkaAssignmentGenerator.java:49
 
@@ -66,3 +69,17 @@ def parse_reassignment_json(payload: str) -> Dict[str, Dict[int, List[int]]]:
             int(r) for r in entry["replicas"]
         ]
     return out
+
+
+def format_brokers_json(brokers: Sequence[BrokerInfo]) -> str:
+    """PRINT_CURRENT_BROKERS payload: JSON array, one object per live broker,
+    rack omitted when undefined (``KafkaAssignmentGenerator.java:113-129``).
+
+    Key order is org.json-on-JDK8 bucket order (module docstring):
+    ``rack`` (when defined), ``port``, ``host``, ``id``."""
+    entries = []
+    for b in brokers:
+        entry = {} if b.rack is None else {"rack": b.rack}
+        entry.update({"port": b.port, "host": b.host, "id": b.id})
+        entries.append(entry)
+    return json.dumps(entries, separators=(",", ":"), ensure_ascii=False)

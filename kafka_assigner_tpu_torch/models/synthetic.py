@@ -42,3 +42,9 @@ def rack_striped_cluster(
             for p in range(p_per_topic)
         }
     return topics, set(range(n_brokers)), racks
+
+
+def build_config5():
+    """BASELINE config 5: 1k brokers / 100 topics x 50 partitions / RF=3 /
+    10 racks — the 256-scenario what-if fleet shape."""
+    return rack_striped_cluster(1000, 100, 50, 3, 10)

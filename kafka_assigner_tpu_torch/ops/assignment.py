@@ -35,6 +35,14 @@ call) the chain is rewritten as the reference's ``spread_orphans`` does
 leg ``balance_quota`` goes before every ``balance`` leg (see
 :func:`resolve_chain`). The quota leg picks its quota or endgame wave per
 topic, never once for the batch.
+
+Liveness is a per-row input: a batch row may be a (scenario, topic) pair of
+a what-if sweep, each scenario with its own mask of live brokers. Every
+liveness-derived tensor (mask, live count, segments) has a leading dim of 1,
+shared by every row and broadcast, or of the batch, one per row; capacity
+and rotation start are per row either way. :func:`whatif_sweep` and
+:func:`whatif_subset_sweep` (the reference's :1393 and :1458) flatten
+(scenario, topic) into the batch axis and reduce per scenario.
 """
 from __future__ import annotations
 
@@ -53,6 +61,12 @@ I32 = torch.int32
 #: dense leg builds (P x N) masks per topic, so it runs over the stranded
 #: topics in chunks of at most this many mask elements.
 DENSE_CHUNK_ELEMS = 1 << 26
+
+#: Elements (rows x N_pad) of one what-if sweep chunk: the node-load state
+#: and each row's segments are (rows x N_pad), so a sweep places whole
+#: scenarios in chunks of at most this many elements. Rows are independent:
+#: the chunking changes no value.
+SWEEP_CHUNK_ELEMS = 1 << 25
 
 
 class AssignState(NamedTuple):
@@ -104,6 +118,22 @@ def quota_endgame_headroom() -> int:
 def default_alive(rack_idx: torch.Tensor, n: int) -> torch.Tensor:
     """(N_pad,) liveness: the first n real nodes are alive, padding is not."""
     return torch.arange(rack_idx.shape[0], device=rack_idx.device) < n
+
+
+def _gather1(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, j]]``, where either side may have a leading dim of 1
+    (one tensor shared by every row)."""
+    if idx.shape[0] == 1 and x.shape[0] != 1:
+        return x[:, idx[0]]
+    if x.shape[0] == 1 and idx.shape[0] != 1:
+        return x[0][idx]
+    return x.gather(1, idx)
+
+
+def _rows(x: torch.Tensor, idx) -> torch.Tensor:
+    """The rows ``idx`` of a per-row tensor; a shared one (leading dim 1)
+    stays as it is."""
+    return x if x.shape[0] == 1 else x[idx]
 
 
 def _requests_rank(
@@ -160,13 +190,14 @@ def _candidate_ok(
     cand: torch.Tensor,       # (B, P)
     rack_idx: torch.Tensor,
     rf_actual: torch.Tensor,  # (B,)
-    alive: torch.Tensor,
+    alive: torch.Tensor,      # (N_pad,), or (1|B, N_pad) per row
 ) -> torch.Tensor:
     """Acceptability of one candidate per partition, sans capacity: node
-    exists and is alive, not already holding the partition, rack unused
-    (``Node.canAccept`` and ``Rack.canAccept``, ``:320-324, 346-348``)."""
+    exists and is alive in the row's scenario, not already holding the
+    partition, rack unused (``Node.canAccept`` and ``Rack.canAccept``,
+    ``:320-324, 346-348``)."""
     safe = cand.clamp(min=0).long()
-    exists = (cand >= 0) & alive[safe]
+    exists = (cand >= 0) & _gather1(alive.reshape(-1, alive.shape[-1]), safe)
     dup_node = (state.acc_nodes == cand[..., None]).any(-1)
     dup_rack = (_acc_racks(state, rack_idx) == rack_idx[safe][..., None]).any(-1)
     under_rf = state.acc_count < rf_actual[:, None]
@@ -180,7 +211,7 @@ def sticky_fill(
     cap: torch.Tensor,        # (B,) per-topic capacity
     n: int,
     p_real: torch.Tensor,     # (B,) real partition counts; padded rows get no deficit
-    alive: torch.Tensor,      # (N_pad,) bool
+    alive: torch.Tensor,      # (N_pad,), or (1|B, N_pad) per row, bool
     rf_actual: torch.Tensor,  # (B,) per-topic RF <= rf
     width: int | None = None,  # compat slot width > rf (RF decrease)
 ) -> AssignState:
@@ -219,8 +250,9 @@ def sticky_fill(
 
 class Segments(NamedTuple):
     """Live nodes sorted by (rack, live-rank), with per-rack [start, end)
-    bounds — shared by every topic of a batch (see the reference's
-    ``Segments``)."""
+    bounds (see the reference's ``Segments``). They depend on the liveness
+    mask only, so they are built once per mask; within a batch every field
+    has a leading dim of 1 (one mask for every topic) or one row per topic."""
 
     order: torch.Tensor        # (n,) int64 node indices
     sorted_key: torch.Tensor   # (n,) rack * n_pad + live-rank (BIG for dead)
@@ -232,16 +264,22 @@ class Segments(NamedTuple):
 def cluster_segments(
     rack_idx: torch.Tensor, n: int, alive: torch.Tensor, r_cap: int
 ) -> Segments:
+    """:class:`Segments` of one mask ``alive`` (N_pad,), with the shapes
+    above, or of M masks (M, N_pad), each field then with a leading dim M:
+    one stable sort per mask."""
+    if alive.dim() == 1:
+        return Segments(*(t[0] for t in cluster_segments(rack_idx, n, alive[None], r_cap)))
     n_pad = rack_idx.shape[0]
-    alive_n = alive[:n]
-    alive_rank = torch.cumsum(alive_n.to(I32), 0, dtype=I32) - 1
+    alive_n = alive[:, :n]
+    alive_rank = torch.cumsum(alive_n.to(I32), 1, dtype=I32) - 1
     key = torch.where(alive_n, rack_idx[:n] * n_pad + alive_rank, BIG).to(I32)
-    order = torch.argsort(key, stable=True)
-    sorted_key = key[order]
-    alive_s = alive_n[order]
+    order = torch.argsort(key, dim=1, stable=True)
+    sorted_key = key.gather(1, order)
+    alive_s = alive_n.gather(1, order)
     sorted_rack = torch.where(alive_s, rack_idx[:n][order], r_cap).to(I32)
-    sorted_rank = torch.where(alive_s, alive_rank[order], BIG).to(I32)
+    sorted_rank = torch.where(alive_s, alive_rank.gather(1, order), BIG).to(I32)
     rr = torch.arange(r_cap, dtype=I32, device=rack_idx.device)
+    rr = rr.expand(alive.shape[0], r_cap).contiguous()
     seg_start = torch.searchsorted(sorted_rack, rr, side="left")
     seg_end = torch.searchsorted(sorted_rack, rr, side="right")
     return Segments(order, sorted_key, sorted_rank, seg_start, seg_end)
@@ -260,7 +298,7 @@ def _headroom(state: AssignState, cap: torch.Tensor, n: int,
     """(B, n) free slots per node: cap - load where the node is alive and
     under cap, else 0."""
     load_n = state.node_load[:, :n]
-    avail = alive[:n][None, :] & (load_n < cap[:, None])
+    avail = alive[..., :n] & (load_n < cap[:, None])
     return torch.where(avail, cap[:, None] - load_n, 0).to(I32)
 
 
@@ -276,12 +314,12 @@ def _wave_body(
     rack_idx: torch.Tensor,
     cap: torch.Tensor,     # (B,)
     n: int,
-    alive: torch.Tensor,
+    alive: torch.Tensor,   # (1|B, N_pad)
     rf: int,               # slot width
     r_cap: int,
-    seg: Segments,
+    seg: Segments,         # fields (1|B, ...)
     start: torch.Tensor,   # (B,) topic rotation start = jhash % n_alive
-    n_alive: int,
+    n_alive: torch.Tensor,  # (1|B,) live nodes of the row's scenario
     balance: bool = False,
     slot_pack: bool = False,
     quota: bool = False,
@@ -310,8 +348,10 @@ def _wave_body(
     # Per-topic, per-rack rotation cut: first in-segment index whose
     # live-rank >= n_alive - start.
     cut = torch.searchsorted(
-        sorted_key, (rr[None, :] * n_pad + (n_alive - start[:, None])).to(I32)
+        sorted_key[0] if sorted_key.shape[0] == 1 else sorted_key,
+        (rr[None, :] * n_pad + (n_alive - start)[:, None]).to(I32),
     )
+    n_alive = n_alive[:, None]
     rack_n = rack_idx[:n].long()
 
     def body(state: AssignState) -> AssignState:
@@ -322,10 +362,10 @@ def _wave_body(
             units = headroom
         else:
             units = (headroom > 0).to(I32)
-        ca = torch.cumsum(units[:, order], dim=1, dtype=I32)
+        ca = torch.cumsum(_gather1(units, order), dim=1, dtype=I32)
         ca_pad = F.pad(ca, (1, 0))
-        base = ca_pad[:, seg_start]                  # (B, r_cap)
-        end = ca_pad[:, seg_end]
+        base = _gather1(ca_pad, seg_start)           # (B, r_cap)
+        end = _gather1(ca_pad, seg_end)
         seg_avail = end - base                       # per-rack available units
         cum_at_cut = ca_pad.gather(1, cut)
         a_after = end - cum_at_cut                   # available at/after the cut
@@ -339,7 +379,8 @@ def _wave_body(
             t_first = torch.where(a_after > 0, cum_at_cut + 1, base + 1)
             i_first = torch.searchsorted(ca, t_first).clamp(0, n - 1)
             rack_best = torch.where(
-                seg_avail > 0, (sorted_rank[i_first] + start[:, None]) % n_alive, BIG
+                seg_avail > 0,
+                (_gather1(sorted_rank, i_first) + start[:, None]) % n_alive, BIG,
             ).to(I32)
             cand_racks = _topk_stable(rack_best, k, largest=False)
             cand_ok = rack_best.gather(1, cand_racks) < BIG
@@ -380,7 +421,7 @@ def _wave_body(
             cum_at_cut.gather(1, pick) + j + 1,
         )
         slot = torch.searchsorted(ca, target).clamp(0, n - 1)
-        node = order[slot]
+        node = _gather1(order, slot)
         state = _accept_batch(state, node, accept)
         return state._replace(infeasible=infeasible)
 
@@ -396,7 +437,7 @@ def _hybrid_quota_body(
     r_cap: int,
     seg: Segments,
     start: torch.Tensor,
-    n_alive: int,
+    n_alive: torch.Tensor,
 ):
     """The ``balance_quota`` leg (the reference's ``_hybrid_quota_body``):
     quota waves while a topic's fullest rack has more headroom than
@@ -438,7 +479,7 @@ def _wave_body_dense(
     pos: torch.Tensor,     # (B, N_pad) rotated position per node (BIG for dead)
     cap: torch.Tensor,
     n: int,
-    alive: torch.Tensor,
+    alive: torch.Tensor,   # (1|B, N_pad)
     r_cap: int,
 ):
     """Dense-eligibility wave: every deficient partition bids for its best
@@ -459,7 +500,7 @@ def _wave_body_dense(
             2, racks, torch.ones_like(racks, dtype=torch.bool)
         )
         rack_blocked = rack_used[:, :, rack_n]
-        under_cap = (state.node_load[:, :n] < cap[:, None]) & alive[:n][None, :]
+        under_cap = (state.node_load[:, :n] < cap[:, None]) & alive[..., :n]
         wanting = state.deficit > 0
         eligible = ~assigned & ~rack_blocked & under_cap[:, None, :] & wanting[..., None]
 
@@ -484,7 +525,7 @@ def _seq_fill(
     pos: torch.Tensor,     # (B, N_pad)
     cap: torch.Tensor,
     n: int,
-    alive: torch.Tensor,
+    alive: torch.Tensor,   # (1|B, N_pad)
 ) -> AssignState:
     """The reference's ``assignOrphans`` verbatim (``:162-186``, the
     reference package's ``_seq_fill``): partitions in ascending row order,
@@ -499,7 +540,7 @@ def _seq_fill(
     rows_n = torch.arange(n, dtype=I32, device=dev)
     slots = torch.arange(w, dtype=I32, device=dev)
     rack_n = rack_idx[:n]
-    alive_n = alive[:n][None, :]
+    alive_n = alive[..., :n]
     acc_nodes = state.acc_nodes.clone()
     acc_count = state.acc_count.clone()
     deficit = state.deficit.clone()
@@ -593,11 +634,13 @@ def resolve_chain(
     return legs, r_cap, giant
 
 
-def _positions(alive: torch.Tensor, start: torch.Tensor, n_alive: int) -> torch.Tensor:
-    """(B, N_pad) topic-rotated position of every node (BIG for dead)."""
-    alive_rank = torch.cumsum(alive.to(I32), 0, dtype=I32) - 1
-    pos = (alive_rank[None, :] + start[:, None]) % n_alive
-    return torch.where(alive[None, :], pos, BIG).to(I32)
+def _positions(alive: torch.Tensor, start: torch.Tensor,
+               n_alive: torch.Tensor) -> torch.Tensor:
+    """(B, N_pad) topic-rotated position of every node (BIG for dead);
+    ``alive`` (1|B, N_pad) and ``n_alive`` (1|B,) per row or shared."""
+    alive_rank = torch.cumsum(alive.to(I32), 1, dtype=I32) - 1
+    pos = (alive_rank + start[:, None]) % n_alive[:, None]
+    return torch.where(alive, pos, BIG).to(I32)
 
 
 def _wave_loop(body, state: AssignState) -> Tuple[AssignState, int]:
@@ -624,8 +667,17 @@ def place_batched(
     rfs: torch.Tensor | None = None,  # (B,) per-topic RF (mixed-RF batches)
     r_cap: int | None = None,
     width: int | None = None,  # compat slot width (see sticky_fill)
+    alive: torch.Tensor | None = None,      # (M, N_pad) liveness masks
+    alive_row: torch.Tensor | None = None,  # (B,) each row's mask in `alive`
 ) -> PlaceResult:
     """Place every topic of the batch: the port of ``place_scan``.
+
+    ``alive`` is the liveness: by default the first ``n`` nodes, one mask
+    for every row; else ``(1, N_pad)`` shared, ``(B, N_pad)`` one mask per
+    row, or M masks with ``alive_row`` naming each row's. Each row's live
+    count, capacity and rotation start follow its mask, as the reference's
+    ``_place_one_topic`` derives them (:1003-1005); segments are built once
+    per mask and indexed per row.
 
     Returns per topic the accepted nodes and counts (``width`` slots wide
     when given, else ``rf``), the infeasible flag and the deficit vector
@@ -640,18 +692,28 @@ def place_batched(
     n_pad = rack_idx.shape[0]
     legs, r_cap, giant = resolve_chain(wave_mode, p_pad, n_pad, r_cap)
     rfs = torch.full((b,), rf, dtype=I32, device=dev) if rfs is None else rfs.to(I32)
-    alive = default_alive(rack_idx, n)
-    n_alive = max(n, 1)  # default liveness: the first n nodes
-    # Capacity ceil(P*RF/N_alive) (KafkaAssignmentStrategy.java:65-71) and
-    # rotation start abs(hash) % N_alive (:188-200), per topic.
+    masks = default_alive(rack_idx, n)[None] if alive is None else alive.to(torch.bool)
+    row = None if alive_row is None else alive_row.long()
+
+    def per_row(x):  # a per-mask tensor, (M, ...), to (1|B, ...)
+        return x if row is None else x[row]
+
+    def live(x, todo):  # a per-mask tensor for the rows `todo`
+        return _rows(x, todo) if row is None else x[row[todo]]
+
+    # Live nodes max(|alive[:n]|, 1), capacity ceil(P*RF/N_alive)
+    # (KafkaAssignmentStrategy.java:65-71) and rotation start
+    # abs(hash) % N_alive (:188-200), per row.
+    n_alive_m = masks[:, : max(n, 1)].sum(1, dtype=I32).clamp(min=1)
+    n_alive = per_row(n_alive_m)
     cap = (p_reals * rfs + n_alive - 1) // n_alive
     start = jhashes % n_alive
 
-    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, alive, rfs, width)
+    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, per_row(masks), rfs, width)
     w = sticky.acc_nodes.shape[2]
     seg = None
     if any(leg in ("fast", "balance", "balance_quota") for leg in legs):
-        seg = cluster_segments(rack_idx, n, alive, r_cap)
+        seg = cluster_segments(rack_idx, n, masks, r_cap)
 
     result = sticky
     todo = torch.arange(b, device=dev)
@@ -659,9 +721,11 @@ def place_batched(
     for leg in legs:
         sub = sticky.take(todo)
         cap_t, start_t = cap[todo], start[todo]
+        alive_t, n_alive_t = live(masks, todo), live(n_alive_m, todo)
         if leg == "seq":
             out = _seq_fill(
-                sub, rack_idx, _positions(alive, start_t, n_alive), cap_t, n, alive
+                sub, rack_idx, _positions(alive_t, start_t, n_alive_t), cap_t, n,
+                alive_t,
             )
             waves[leg] = 1
         elif leg == "dense":
@@ -670,9 +734,10 @@ def place_batched(
             parts, trips = [], 0
             for c0 in range(0, len(todo), chunk):
                 sl = slice(c0, c0 + chunk)
+                alive_c = _rows(alive_t, sl)
                 body = _wave_body_dense(
-                    rack_idx, _positions(alive, start_t[sl], n_alive),
-                    cap_t[sl], n, alive, r_cap,
+                    rack_idx, _positions(alive_c, start_t[sl], _rows(n_alive_t, sl)),
+                    cap_t[sl], n, alive_c, r_cap,
                 )
                 part, k = _wave_loop(body, sub.take(sl))
                 parts.append(part)
@@ -680,7 +745,8 @@ def place_batched(
             out = AssignState(*(torch.cat(ts) for ts in zip(*parts)))
             waves[leg] = trips
         else:
-            args = (rack_idx, cap_t, n, alive, w, r_cap, seg, start_t, n_alive)
+            seg_t = Segments(*(live(f, todo) for f in seg))
+            args = (rack_idx, cap_t, n, alive_t, w, r_cap, seg_t, start_t, n_alive_t)
             if leg == "balance_quota":
                 body = _hybrid_quota_body(*args)
             else:
@@ -698,3 +764,107 @@ def place_batched(
         result.acc_nodes, result.acc_count, result.infeasible, result.deficit,
         waves,
     )
+
+
+class SweepResult(NamedTuple):
+    """Per-scenario outcome of a what-if sweep."""
+
+    moved: torch.Tensor       # (S,) placed replicas not in the row's current list
+    infeasible: torch.Tensor  # (S,) bool: some topic of the scenario stranded
+    load: torch.Tensor        # (S,) max node load, or (S, n) node loads (subset)
+    waves: Dict[str, int]     # leg -> batched waves, summed over the chunks
+    rows: int                 # (scenario, topic) rows placed
+    chunks: int               # placement calls
+
+
+def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
+           n: int, rf: int, wave_mode: str, r_cap) -> SweepResult:
+    """Place every (scenario, topic) row and reduce per scenario. Scenario
+    s's rows are the topics ``topics[s]`` (``topics`` is (1|S, T); -1 is an
+    inert padding row) under the mask ``alive_masks[s]``. Whole scenarios
+    go to one ``place_batched`` call, at most ``SWEEP_CHUNK_ELEMS`` rows x
+    N_pad at a time. ``load`` is the (S, N_pad) node loads here."""
+    dev = currents.device
+    s, t = alive_masks.shape[0], topics.shape[1]
+    n_pad = rack_idx.shape[0]
+    per = max(1, SWEEP_CHUNK_ELEMS // (t * n_pad))
+    moved, infeasible, loads, waves = [], [], [], {}
+    for s0 in range(0, s, per):
+        k = min(per, s - s0)
+        idx = _rows(topics, slice(s0, s0 + k)).expand(k, t).reshape(-1).long()
+        real, safe = idx >= 0, idx.clamp(min=0)
+        cur = torch.where(real[:, None, None], currents[safe], -1)
+        scen = torch.arange(k, device=dev).repeat_interleave(t)
+        res = place_batched(
+            cur, rack_idx, jhashes[safe], torch.where(real, p_reals[safe], 0), n, rf,
+            wave_mode, rfs[safe], r_cap, alive=alive_masks[s0:s0 + k], alive_row=scen,
+        )
+        placed = res.acc_nodes
+        # Moved: a placed replica the row's current list does not hold (the
+        # reference's membership diff, :1441-1444).
+        in_old = (placed[..., None] == cur[:, :, None, :]).any(-1)
+        moved.append(((placed >= 0) & ~in_old).sum((1, 2)).view(k, t).sum(1))
+        infeasible.append(res.infeasible.view(k, t).any(1))
+        # Node loads: every placed replica of a row into its scenario's row.
+        node = torch.where(placed >= 0, placed, n_pad).long()
+        node = node + (scen * (n_pad + 1))[:, None, None]
+        loads.append(torch.bincount(node.view(-1), minlength=k * (n_pad + 1))
+                     .view(k, n_pad + 1)[:, :n_pad])
+        for leg, w in res.waves.items():
+            waves[leg] = waves.get(leg, 0) + w
+    return SweepResult(torch.cat(moved), torch.cat(infeasible), torch.cat(loads),
+                       waves, s * t, len(moved))
+
+
+def whatif_sweep(
+    currents: torch.Tensor,     # (B, P_pad, L) the cluster's topics
+    rack_idx: torch.Tensor,     # (N_pad,)
+    jhashes: torch.Tensor,      # (B,)
+    p_reals: torch.Tensor,      # (B,)
+    alive_masks: torch.Tensor,  # (S, N_pad) one liveness mask per scenario
+    n: int,
+    rf: int,                    # batch-max RF
+    wave_mode: str = "fast",
+    rfs: torch.Tensor | None = None,  # (B,) per-topic RF
+    r_cap: int | None = None,
+) -> SweepResult:
+    """S broker-removal scenarios over the whole cluster (the reference's
+    ``whatif_sweep``, :1393): every topic placed under every scenario's
+    mask, placement only (the metrics are set-based; leadership only
+    permutes a row). ``load`` is each scenario's max node load. The sweep
+    runs ``fast`` (a raised flag may be a strand; the caller re-runs such
+    scenarios with ``auto``) and the giant-shape chain where
+    :func:`resolve_chain` says so."""
+    b = currents.shape[0]
+    currents = currents.to(I32)
+    rfs = torch.full((b,), rf, dtype=I32, device=currents.device) if rfs is None else rfs
+    topics = torch.arange(b, device=currents.device)[None]
+    res = _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
+                 n, rf, wave_mode, r_cap)
+    return res._replace(load=res.load.amax(1))
+
+
+def whatif_subset_sweep(
+    currents: torch.Tensor,     # (B, P_pad, L) the cluster's topics
+    rack_idx: torch.Tensor,     # (N_pad,)
+    jhashes: torch.Tensor,      # (B,)
+    p_reals: torch.Tensor,      # (B,)
+    topics: torch.Tensor,       # (S, T_pad) each scenario's affected topics; -1 pads
+    alive_masks: torch.Tensor,  # (S, N_pad)
+    n: int,
+    rf: int,
+    rfs: torch.Tensor | None = None,  # (B,)
+    r_cap: int | None = None,
+) -> SweepResult:
+    """The sweep restricted to each scenario's own affected topics (the
+    reference's ``whatif_subset_sweep``, :1458; the device half of the
+    incremental sweep), on the ``fast`` leg. The (S, T_pad) index table
+    stands in for the reference's per-scenario copies of the topic
+    tensors; a -1 entry is an inert row, as the reference's zero padding
+    is. ``load`` is the (S, n) node loads of the subset's placements."""
+    b = currents.shape[0]
+    currents = currents.to(I32)
+    rfs = torch.full((b,), rf, dtype=I32, device=currents.device) if rfs is None else rfs
+    res = _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
+                 n, rf, "fast", r_cap)
+    return res._replace(load=res.load[:, :n])

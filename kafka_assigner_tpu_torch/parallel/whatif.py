@@ -1,0 +1,351 @@
+"""Batched what-if sweeps: many candidate broker removals evaluated at once
+— the port of ``kafka_assigner_tpu/parallel/whatif.py``, with the same names
+and semantics: ``evaluate_removal_scenarios`` (:431),
+``rank_decommission_candidates`` (:778), the incremental sweep
+``_evaluate_incremental`` (:273), the shared rescue ``_rescue_flagged``
+(:207), ``ScenarioResult``, ``_topic_rfs`` and ``_topic_stats``.
+
+A scenario is a liveness mask. The sweep places every topic under every
+scenario's mask in batched placement calls (``ops/assignment.py:
+whatif_sweep``: (scenario, topic) pairs are the batch rows), placement only,
+on the ``fast`` leg; scenarios it flags re-run through the full ``auto``
+chain. By default (``KA_WHATIF_INCREMENTAL``) only the topics a scenario can
+change are placed, and the rest is composed from host baseline loads; the
+dense sweep chunks scenarios under ``KA_WHATIF_MEMBUDGET``. Padding
+scenarios are never placed: the port has no compiled shapes to fill.
+
+Left for later slices: the reference's ``mesh`` argument (scenario rows
+sharded across cards), ``_submit_coalesced`` and the daemon's dispatcher,
+the persistent program store, and the ``obs`` counters and spans. In their
+place :data:`last_sweep` records what the most recent sweep did.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..assigner import infer_topic_rf
+from ..carry import to_tensor
+from ..models.problem import _pad8, encode_cluster, encode_topic_group
+from ..ops.assignment import whatif_subset_sweep, whatif_sweep
+from ..solvers.torch_solver import solve_device
+from ..utils.env import env_bool, env_int
+
+#: What the most recent sweep of this process did (read like
+#: ``TorchSolver.last_timers``): ``path`` ("incremental" or "dense"),
+#: ``scenarios``, ``rescued`` (scenarios re-run on the ``auto`` chain) and
+#: ``rescue_waves``, the main sweep's ``rows``, ``chunks`` (placement calls)
+#: and ``waves`` per leg, ``t_pad`` on the incremental path, and phase times
+#: in ms: ``prep`` (host encode, masks and topic facts, upload), ``sweep``
+#: (the device sweep, ending in a synchronize), ``rescue`` (the device
+#: re-run of flagged scenarios) and ``compose`` (host).
+last_sweep: Dict[str, object] = {}
+
+
+class _OnDevice(NamedTuple):
+    """One evaluation's encoded topics on the sweep's device."""
+
+    currents: torch.Tensor  # (B_pad, P_pad, L)
+    rack_idx: torch.Tensor  # (N_pad,)
+    jhashes: torch.Tensor   # (B_pad,)
+    p_reals: torch.Tensor   # (B_pad,)
+    rfs: torch.Tensor       # (B_pad,)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _topic_rfs(items, replication_factor):
+    """Per-topic RF: the desired override, else inferred from each topic's
+    own replica lists with the assigner's uniformity assertion (a topic
+    with non-uniform replica lists raises). Callers skip topics with no
+    partitions (rf <= 0 contributes nothing)."""
+    return [
+        infer_topic_rf(topic, cur, replication_factor) for topic, cur in items
+    ]
+
+
+@dataclass
+class ScenarioResult:
+    """Outcome metrics for one candidate change."""
+
+    removed: Tuple[int, ...]
+    moved_replicas: int
+    feasible: bool
+    max_node_load: int
+
+
+def _topic_stats(currents: np.ndarray, p_reals, rfs, rack_idx, n):
+    """Host-side per-topic facts the incremental sweep composes from.
+
+    Returns (clean (B,), loads (B, n), max_load (B,)) where ``clean[t]``
+    certifies that topic t's input assignment reproduces itself under ANY
+    scenario whose brokers it doesn't host and whose capacity bound covers
+    ``max_load[t]``: every real row has exactly rf live entries, no
+    duplicate broker in a row, and no rack repeated in a row. For such a
+    topic sticky re-accepts everything, no orphans exist, no waves run —
+    placement IS the input, zero movement.
+    """
+    b, p_pad, w = currents.shape
+    rows = np.arange(p_pad)[None, :] < np.asarray(p_reals)[:, None]  # (B,P)
+    ent = currents  # (B, P, W) broker index or -1
+    pos = ent >= 0
+    count = pos.sum(axis=2)  # (B, P)
+    full = np.where(rows, count == np.asarray(rfs)[:, None], True).all(axis=1)
+    dup = np.zeros((b, p_pad), dtype=bool)
+    rackdup = np.zeros((b, p_pad), dtype=bool)
+    rk = np.where(pos, np.asarray(rack_idx)[np.maximum(ent, 0)], -1)
+    for i in range(w):
+        for j in range(i + 1, w):
+            both = pos[:, :, i] & pos[:, :, j]
+            dup |= both & (ent[:, :, i] == ent[:, :, j])
+            rackdup |= both & (rk[:, :, i] == rk[:, :, j])
+    clean = (
+        full
+        & ~np.where(rows, dup, False).any(axis=1)
+        & ~np.where(rows, rackdup, False).any(axis=1)
+    )
+    loads = np.zeros((b, n), dtype=np.int64)
+    flat = ent[pos & rows[:, :, None]]
+    topic_of = np.broadcast_to(
+        np.arange(b)[:, None, None], ent.shape
+    )[pos & rows[:, :, None]]
+    np.add.at(loads, (topic_of, flat), 1)
+    return clean, loads, loads.max(axis=1)
+
+
+def _rescue_flagged(
+    flagged, alive, currents, rack_idx, jhashes, p_reals, rfs, n, rf, r_cap,
+    moved, infeasible, max_load,
+):
+    """Re-run flagged scenarios through the FULL auto-chain sweep and write
+    the results back in place. The fast-only sweep (dense or incremental)
+    raises its infeasible flag for both true infeasibility and fast-leg
+    strandings; this shared rescue tells them apart identically for both
+    paths, as the actual solver would for that scenario. ``alive`` is the
+    host (S, N_pad) mask matrix; the topic tensors are on the device.
+    Returns the rescue's waves per leg."""
+    sub = torch.as_tensor(np.asarray(alive)[flagged]).to(currents.device)
+    res = whatif_sweep(
+        currents, rack_idx, jhashes, p_reals, sub, n, rf, wave_mode="auto",
+        rfs=rfs, r_cap=r_cap,
+    )
+    moved2, infeasible2, max_load2 = (t.cpu().numpy() for t in res[:3])
+    for i, s in enumerate(flagged):
+        moved[s] = moved2[i]
+        infeasible[s] = infeasible2[i]
+        max_load[s] = max_load2[i]
+    return res.waves
+
+
+def _results(scenarios, alive, on, n, rf, r_cap, moved, infeasible, max_load):
+    """Rescue the flagged scenarios, then one :class:`ScenarioResult` per
+    scenario (both paths end here)."""
+    t0 = time.perf_counter()
+    flagged = [s for s in range(len(scenarios)) if infeasible[s]]
+    waves = {}
+    if flagged:
+        waves = _rescue_flagged(
+            flagged, alive, on.currents, on.rack_idx, on.jhashes, on.p_reals,
+            on.rfs, n, rf, r_cap, moved, infeasible, max_load,
+        )
+    last_sweep.update(rescued=len(flagged), rescue=_ms(t0), rescue_waves=waves)
+    return [
+        ScenarioResult(
+            removed=tuple(sorted(int(b) for b in scenarios[s])),
+            moved_replicas=int(moved[s]),
+            feasible=not bool(infeasible[s]),
+            max_node_load=int(max_load[s]),
+        )
+        for s in range(len(scenarios))
+    ]
+
+
+def _evaluate_incremental(
+    currents, jhashes, p_reals, rfs, cluster, alive, scenarios, s_real,
+    rf, r_cap, b_real, on, t_start,
+):
+    """Incremental sweep: solve only the (scenario, topic) pairs whose
+    outcome can differ from the input.
+
+    Placement has no cross-topic dependency, so a scenario's metrics
+    decompose per topic; a topic that hosts none of the removed brokers and
+    is *clean* under the scenario's capacity bound (``_topic_stats``)
+    provably reproduces its input — zero movement, unchanged loads. The
+    dense sweep remains the oracle, and this path declines (returns None)
+    when the affected fraction makes it unprofitable. ``on`` holds the
+    topics on the device; ``t_start`` is when the evaluation began (the
+    host prep clock).
+
+    Scenarios whose fast-leg pair solve strands re-run through the FULL
+    auto-chain sweep, exactly like the dense path's rescue.
+    """
+    n = cluster.n
+    clean, loads_t, maxload_t = _topic_stats(
+        currents[:b_real], p_reals[:b_real], rfs[:b_real], cluster.rack_idx, n
+    )
+    base_load = loads_t.sum(axis=0)  # (n,)
+    pr = np.asarray(p_reals[:b_real], dtype=np.int64)
+    rft = np.asarray(rfs[:b_real], dtype=np.int64)
+    affected = []  # per scenario: array of affected topic rows
+    for s in range(s_real):
+        ridx = np.where(~alive[s, :n])[0]
+        n_alive = n - len(ridx)
+        if n_alive <= 0:
+            return None  # degenerate; let the full sweep report it
+        caps = -(-(pr * rft) // n_alive)  # per-topic ceil(P*RF/N_alive)
+        hosts = (
+            loads_t[:, ridx].sum(axis=1) > 0
+            if len(ridx)
+            else np.zeros(b_real, dtype=bool)
+        )
+        affected.append(np.where(hosts | ~clean | (maxload_t > caps))[0])
+    # 8-granular pad (not power-of-2): the pad feeds the profitability gate,
+    # and a pow2 jump (34 -> 64) would decline sweeps that are profitably
+    # ~1/3 affected.
+    t_pad = _pad8(max((len(a) for a in affected), default=1), floor=8)
+    if 3 * t_pad > b_real:
+        return None  # mostly-affected scenarios: the dense sweep wins
+
+    topics = np.full((s_real, t_pad), -1, dtype=np.int32)
+    for s, tops in enumerate(affected):
+        topics[s, : len(tops)] = tops
+    dev = on.currents.device
+    topics_t = to_tensor(topics, dev)
+    alive_t = torch.as_tensor(alive).to(dev)
+    _sync(dev)
+    last_sweep.update(prep=_ms(t_start), t_pad=t_pad)
+
+    t0 = time.perf_counter()
+    res = whatif_subset_sweep(
+        on.currents, on.rack_idx, on.jhashes, on.p_reals, topics_t, alive_t,
+        n, rf, rfs=on.rfs, r_cap=r_cap,
+    )
+    moved_s, infeas_s, loads_s = (t.cpu().numpy() for t in res[:3])
+    last_sweep.update(sweep=_ms(t0), rows=res.rows, chunks=res.chunks,
+                      waves=res.waves)
+
+    t0 = time.perf_counter()
+    moved = moved_s.astype(np.int64)
+    infeasible = infeas_s.astype(bool)
+    load_vec = np.repeat(base_load[None, :], s_real, axis=0)
+    for s, tops in enumerate(affected):
+        load_vec[s] += loads_s[s] - loads_t[tops].sum(axis=0)
+    max_load = load_vec.max(axis=1) if n else np.zeros(s_real, dtype=np.int64)
+    last_sweep.update(compose=_ms(t0))
+    return _results(scenarios, alive, on, n, rf, r_cap, moved, infeasible, max_load)
+
+
+def evaluate_removal_scenarios(
+    topic_assignments: Mapping[str, Mapping[int, Sequence[int]]],
+    brokers: Set[int],
+    rack_assignment: Mapping[int, str],
+    scenarios: Sequence[Sequence[int]],
+    replication_factor: int = -1,
+    device: str | torch.device = "cuda",
+) -> List[ScenarioResult]:
+    """For each candidate broker-removal set, solve the full cluster
+    reassignment and report movement/feasibility/load metrics. The sweep
+    runs on ``device`` (``cuda`` by default; raises without a card)."""
+    t_start = time.perf_counter()
+    dev = solve_device(device, "evaluate_removal_scenarios")
+    last_sweep.clear()
+    all_items = list(topic_assignments.items())
+    all_rfs = _topic_rfs(all_items, replication_factor)
+    # Topics with no partitions contribute nothing to any scenario.
+    items = [it for it, r in zip(all_items, all_rfs) if r > 0 and it[1]]
+    topic_rfs = [r for it, r in zip(all_items, all_rfs) if r > 0 and it[1]]
+    if not items:
+        return []
+    rf = max(topic_rfs)
+    cluster = encode_cluster(rack_assignment, brokers)
+    encs, currents, jhashes, p_reals = encode_topic_group(
+        items, rack_assignment, brokers, topic_rfs, cluster=cluster
+    )
+    rfs = np.zeros(currents.shape[0], dtype=np.int32)
+    rfs[: len(topic_rfs)] = topic_rfs
+
+    enc0 = encs[0]
+    broker_to_idx = cluster.broker_to_idx
+    s_real = len(scenarios)
+    alive = np.zeros((s_real, enc0.n_pad), dtype=bool)
+    alive[:, : enc0.n] = True
+    for s, removed in enumerate(scenarios):
+        for b in removed:
+            idx = broker_to_idx.get(int(b))
+            if idx is None:
+                raise ValueError(f"scenario {s}: unknown broker {b}")
+            alive[s, idx] = False
+    if not s_real:
+        return []
+    on = _OnDevice(*(to_tensor(a, dev) for a in
+                     (currents, enc0.rack_idx, jhashes, p_reals, rfs)))
+    last_sweep.update(scenarios=s_real)
+
+    if env_bool("KA_WHATIF_INCREMENTAL"):
+        res = _evaluate_incremental(
+            currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
+            s_real, rf, enc0.r_cap, len(items), on, t_start,
+        )
+        if res is not None:
+            last_sweep["path"] = "incremental"
+            return res
+
+    # Scenario-axis memory chunking: one dispatch's (S, B, P_pad, RF) state
+    # stays under ~KA_WHATIF_MEMBUDGET int32 elements.
+    per_scenario = max(1, currents.shape[0] * currents.shape[1] * max(rf, 1))
+    s_chunk = max(1, env_int("KA_WHATIF_MEMBUDGET") // per_scenario)
+    alive_t = torch.as_tensor(alive).to(dev)
+    _sync(dev)
+    last_sweep.update(path="dense", prep=_ms(t_start), t_pad=None)
+
+    t0 = time.perf_counter()
+    blocks = [
+        whatif_sweep(on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                     alive_t[lo:lo + s_chunk], enc0.n, rf, rfs=on.rfs,
+                     r_cap=enc0.r_cap)
+        for lo in range(0, s_real, s_chunk)
+    ]
+    moved, infeasible, max_load = (
+        torch.cat([blk[i] for blk in blocks]).cpu().numpy() for i in range(3)
+    )
+    waves: Dict[str, int] = {}
+    for blk in blocks:
+        for leg, w in blk.waves.items():
+            waves[leg] = waves.get(leg, 0) + w
+    last_sweep.update(sweep=_ms(t0), rows=sum(blk.rows for blk in blocks),
+                      chunks=sum(blk.chunks for blk in blocks), waves=waves,
+                      compose=0.0)
+    return _results(scenarios, alive, on, enc0.n, rf, enc0.r_cap,
+                    moved, infeasible, max_load)
+
+
+def rank_decommission_candidates(
+    topic_assignments: Mapping[str, Mapping[int, Sequence[int]]],
+    brokers: Set[int],
+    rack_assignment: Mapping[int, str],
+    candidates: Optional[Sequence[int]] = None,
+    replication_factor: int = -1,
+    device: str | torch.device = "cuda",
+) -> List[ScenarioResult]:
+    """Rank single-broker removals by disruption (feasible first, then fewest
+    moved replicas) — the fleet-scale question the reference can only answer
+    one process run at a time."""
+    cands = sorted(candidates) if candidates is not None else sorted(brokers)
+    results = evaluate_removal_scenarios(
+        topic_assignments, brokers, rack_assignment,
+        [[c] for c in cands], replication_factor, device,
+    )
+    return sorted(
+        results, key=lambda r: (not r.feasible, r.moved_replicas, r.removed)
+    )

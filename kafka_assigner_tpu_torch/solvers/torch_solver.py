@@ -73,6 +73,20 @@ def leader_chunk(p_pad: int) -> int:
     return chunk
 
 
+def solve_device(device: str | torch.device, who: str = "TorchSolver") -> torch.device:
+    """``device`` as a ``torch.device``; raises when it is ``cuda`` and no
+    card is present, or neither ``cuda`` nor ``cpu``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' to run "
+            "on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {device}")
+    return device
+
+
 class TorchSolver:
     """Solver-protocol implementation on PyTorch tensors.
 
@@ -81,14 +95,7 @@ class TorchSolver:
     (the tests do)."""
 
     def __init__(self, device: str | torch.device = "cuda") -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchSolver: no CUDA device is available; pass "
-                "device='cpu' to run on the CPU"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchSolver runs on cuda or cpu, not {self.device}")
+        self.device = solve_device(device)
         #: phase wall-clock (ms) of the most recent solve: encode, place,
         #: leadership, decode; each phase ends in a device synchronize.
         self.last_timers: Dict[str, float] = {}

@@ -3,11 +3,13 @@ defaults and house rule (``kafka_assigner_tpu/utils/env.py``): a mis-set
 knob never silently changes the configuration — an unparsable or unknown
 value is ignored LOUDLY on stderr and the declared default is used.
 
-Only the six knobs of the ported placement and solver paths are declared,
-each with the reference's default and floor. ``KA_QUOTA_WAVE_TARGET`` and
-``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
-(``ops/assignment.py:_hybrid_quota_body``). The port reads every knob per
-call, where the reference reads some at trace time.
+Only the knobs of the ported placement, solver and what-if paths are
+declared, each with the reference's default and floor. ``KA_QUOTA_WAVE_TARGET``
+and ``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
+(``ops/assignment.py:_hybrid_quota_body``); ``KA_WHATIF_INCREMENTAL`` and
+``KA_WHATIF_MEMBUDGET`` steer the what-if sweep (``parallel/whatif.py``). The
+port reads every knob per call, where the reference reads some at trace
+time.
 """
 from __future__ import annotations
 
@@ -33,6 +35,12 @@ KNOBS = {
     "KA_DENSE_MASK_BUDGET": Knob(1 << 27, floor=1),
     "KA_QUOTA_WAVE_TARGET": Knob(4, floor=1),
     "KA_QUOTA_ENDGAME": Knob(32, floor=1),
+    # The incremental what-if sweep (only the topics a scenario can change
+    # are re-solved); 0 forces the dense sweep, the differential oracle.
+    "KA_WHATIF_INCREMENTAL": Knob(True),
+    # Dense what-if sweep: scenarios per dispatch keep the (S, B, P_pad, RF)
+    # state under this many int32 elements.
+    "KA_WHATIF_MEMBUDGET": Knob(1 << 28, floor=1),
 }
 
 _TRUE = frozenset({"1", "true", "yes", "on"})

@@ -107,6 +107,92 @@ def test_leadership_context_file_matches(replacement_snapshot, tmp_path):
         assert a.read() == b.read()
 
 
+@pytest.fixture()
+def scenario_file(tmp_path):
+    """Broker ids, hostnames, a same-rack pair, a cross-rack pair and the
+    empty scenario."""
+    return _snapshot(tmp_path, "scenarios.json",
+                     [[4, 8], [5, 6], ["h7"], ["h9", 10], [], [11]])
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("PRINT_CURRENT_ASSIGNMENT", []),
+    ("PRINT_CURRENT_ASSIGNMENT", ["--topics", "topic-4,topic-1"]),
+    ("PRINT_CURRENT_BROKERS", []),
+    ("RANK_DECOMMISSION", []),
+    ("RANK_DECOMMISSION", ["--integer_broker_ids", "4,5,6,17,39"]),
+    ("RANK_DECOMMISSION", ["--broker_hosts", "h8,h9,h30"]),
+    ("RANK_DECOMMISSION", ["--broker_hosts_to_remove", "h5,h6"]),
+    ("RANK_DECOMMISSION", ["--topics", "topic-2,topic-0",
+                           "--desired_replication_factor", "2"]),
+    ("RANK_DECOMMISSION", ["--scenario_file"]),
+    ("RANK_DECOMMISSION", ["--scenario_file", "--broker_hosts_to_remove", "h30"]),
+])
+def test_more_modes_match_jax_cli(replacement_snapshot, scenario_file, monkeypatch,
+                                  mode, extra):
+    if extra[:1] == ["--scenario_file"]:
+        extra = [extra[0], scenario_file, *extra[1:]]
+    argv = ["--zk_string", replacement_snapshot, "--mode", mode, *extra]
+    for incremental in ("1", "0"):
+        monkeypatch.setenv("KA_WHATIF_INCREMENTAL", incremental)
+        assert _port(*argv) == _jax(*argv)
+
+
+def test_rank_decommission_on_the_incremental_path_matches(tmp_path, monkeypatch):
+    # 64 topics x 4 partitions over 200 brokers: each broker sits in at most
+    # 4 topics, so the incremental sweep's gate admits it (3 x 8 <= 64).
+    from kafka_assigner_tpu.models.synthetic import rack_striped_cluster
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    tm, live, racks = rack_striped_cluster(200, 64, 4, 3, 5)
+    snap = _snapshot(tmp_path, "wide.json", {
+        "brokers": [{"id": b, "host": f"h{b}", "port": 9092, "rack": racks[b]}
+                    for b in sorted(live)],
+        "topics": {t: {str(p): r for p, r in cur.items()} for t, cur in tm.items()},
+    })
+    monkeypatch.delenv("KA_WHATIF_INCREMENTAL", raising=False)
+    argv = ["--zk_string", snap, "--mode", "RANK_DECOMMISSION"]
+    assert _port(*argv) == _jax(*argv)
+    assert whatif.last_sweep["path"] == "incremental"
+    assert whatif.last_sweep["scenarios"] == 200
+
+
+def test_current_brokers_without_racks_match(tmp_path):
+    snap = _snapshot(tmp_path, "rackless.json", {
+        "brokers": [{"id": 3, "host": "c", "port": 9093},
+                    {"id": 1, "host": "a", "port": 9092, "rack": "r1"},
+                    {"id": 2}],
+        "topics": {},
+    })
+    argv = ["--zk_string", f"file://{snap}", "--mode", "PRINT_CURRENT_BROKERS"]
+    assert _port(*argv) == _jax(*argv)
+
+
+@pytest.mark.parametrize("scenarios", [
+    [[4], [999]], [["h4", "nohost"]], [[True]], [[4.5]], {"a": [4]}, [4],
+])
+def test_scenario_file_errors_match(replacement_snapshot, tmp_path, scenarios):
+    path = _snapshot(tmp_path, "bad.json", scenarios)
+    argv = ["--zk_string", replacement_snapshot, "--mode", "RANK_DECOMMISSION",
+            "--scenario_file", path]
+    with pytest.raises(ValueError) as ref:
+        jax_run_tool(argv)
+    with pytest.raises(ValueError) as got:
+        cli.run_tool(argv + ["--device", "cpu"])
+    assert str(got.value) == str(ref.value)
+    assert cli.run(argv + ["--device", "cpu"]) == cli.EXIT_VALIDATION
+
+
+def test_rank_unknown_candidate_errors_match(replacement_snapshot):
+    argv = ["--zk_string", replacement_snapshot, "--mode", "RANK_DECOMMISSION",
+            "--integer_broker_ids", "4,77"]
+    with pytest.raises(ValueError) as ref:
+        jax_run_tool(argv)
+    with pytest.raises(ValueError) as got:
+        cli.run_tool(argv + ["--device", "cpu"])
+    assert str(got.value) == str(ref.value)
+
+
 def test_exit_codes(replacement_snapshot, capsys):
     assert cli.run(["--mode", "PRINT_REASSIGNMENT", "--device", "cpu"]) == cli.EXIT_USAGE
     assert cli.run(["--zk_string", replacement_snapshot, "--mode",

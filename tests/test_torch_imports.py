@@ -47,6 +47,7 @@ def _port_modules():
 def test_every_port_module_and_chip_smoke_import_without_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert "kafka_assigner_tpu_torch.ops.leadership" in mods
+    assert "kafka_assigner_tpu_torch.parallel.whatif" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT, env=env,
@@ -77,13 +78,21 @@ cur = {0: [1, 2, 3], 1: [4, 5, 6], 2: [1, 5, 6], 3: [2, 3, 4]}
 (_, out), = TopicAssigner(device="cpu").generate_assignments(
     [("t", cur)], set(range(1, 7)), {b: f"r{b % 3}" for b in range(1, 7)}, 2)
 assert all(len(r) == 3 for r in out.values()), out
+del os.environ["KA_RF_DECREASE_COMPAT"]
+from kafka_assigner_tpu_torch.parallel import whatif  # the what-if sweeps
+tm, live, racks = rack_striped_cluster(200, 64, 4, 3, 5)
+for flag in ("1", "0"):
+    os.environ["KA_WHATIF_INCREMENTAL"] = flag
+    res = whatif.rank_decommission_candidates(tm, live, racks, [0, 1, 2], device="cpu")
+    assert [r.removed for r in res] and all(r.feasible for r in res), res
+    assert whatif.last_sweep["path"] == ("incremental" if flag == "1" else "dense")
 print("paths ok")
 """
 
 
 def test_new_paths_run_without_jax():
-    # The giant-shape chain, fresh placement and the compat width, run with
-    # jax and the JAX package blocked.
+    # The giant-shape chain, fresh placement, the compat width and both
+    # what-if paths, run with jax and the JAX package blocked.
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     script = _BLOCKER.replace("for mod in sys.argv[1:]:", _PATHS + "\nfor mod in []:")
     proc = subprocess.run(
