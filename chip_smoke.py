@@ -82,13 +82,39 @@ Phases, each printing its own line; any failure exits non-zero:
     ``auto`` chain and the ``seq`` leg alone;
 13. the host modes ``PRINT_CURRENT_ASSIGNMENT`` and ``PRINT_CURRENT_BROKERS``
     on phase 11's snapshot: JSON with all 5,000 brokers and 200,000
-    partitions, byte-identical under ``--device cuda`` and ``cpu``.
+    partitions, byte-identical under ``--device cuda`` and ``cpu``;
+14. ``ka-groups`` plan on config 4's cluster: a lake-ingest group ``ingest``
+    subscribed to every topic, 256 live members of capacity null (fair share
+    x 1.25), row i of the 200,000 sorted (topic, partition) rows owned by
+    ``c-{i % 320:03d}`` (owners 256-319 have left), heavy-tailed lag from a
+    seed. Through ``python -m kafka_assigner_tpu_torch.groups``'s
+    ``run_groups`` on ``cuda`` and (in a worker) ``cpu``: stdout
+    byte-identical, every row on a live member, ``moves`` == the rows whose
+    owner changed, the group-pack kernel launched;
+15. ``ka-groups`` sweep on the same group: counts 32, 64, ..., 512 x scales
+    100, 150, 200, 300 (64 candidates, C_pad 512), stdout identical on
+    ``cuda`` and ``cpu``; then a warm median of 3 of the sweep split into
+    host encode, sticky, scan and decode, with the scan's steps and peak
+    device memory;
+16. ``ka-groups --synthetic --weight throughput --mode sweep`` on phase 11's
+    snapshot (no groups section): 8 synthetic members, 48 candidates, stdout
+    identical on ``cuda`` and ``cpu``; without ``--synthetic`` the refusal
+    (exit 1).
 
-The what-if phases run placement only: the leadership kernel is not on
-their path, and the smoke checks that they launch it no time.
+Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
+to its plain version on the stress cases of ``ops/group_pack_cases.py``;
+each of phases 14-16 holds its kernel launch bit-equal to the plain version
+on the inputs the main path gave it (in a worker) and times it alone
+(median of 10 by CUDA events) beside its byte bound and its chain floor (the
+largest orphan count of a candidate times the time of one step, measured by
+the kernel on one all-orphan candidate).
+
+The what-if and group phases do not order leaders: the leadership kernel is
+not on their path, and the smoke checks that they launch it no time.
 
 The plain leadership checks of phases 4 and 7 (config 4's 208,000 rows and
-each giant cell's 200,000, a Python loop over rows on the host CPU) run in
+each giant cell's 200,000, a Python loop over rows on the host CPU), and
+the plain group-pack checks and ``cpu`` runs of phases 14-16, run in
 spawned worker processes, one thread each, while the later phases go on;
 their results are collected before the ``kernels`` line.
 
@@ -101,7 +127,8 @@ In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells and the reduced ``cuda``
-runs), and ``launches_by_path`` gives each.
+runs), and ``launches_by_path`` gives each; the group-pack entry's counts
+are those of phases 14-16.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -140,6 +167,14 @@ PLAIN_WORKERS = 4
 CONFIG5_SCENARIOS = 256
 # Phase 11's candidates: 16 brokers over every rack of config 4's cluster.
 RANK_CANDIDATES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 1234, 2500, 3001, 4444, 4998, 4999)
+# Phases 14-16: the consumer group on config 4's cluster.
+GROUP_TPU_LOOP = "kafka_assigner_tpu/ops/assignment.py:1599"
+GROUP_MEMBERS, GROUP_OWNERS = 256, 320
+GROUP_COUNTS = tuple(range(32, 513, 32))
+GROUP_SCALES = (100, 150, 200, 300)
+GROUP_SWEEP_REPS = 3
+# The plain group-pack version timed on the card at this reduced shape.
+GROUP_PLAIN_SHAPE = dict(s=4, p=1024, c=512)
 
 
 def fail(msg: str) -> None:
@@ -246,31 +281,43 @@ def plain_check(inputs, outputs):
 
 
 class PlainChecks:
-    """Kernel launches held against the plain version in spawned worker
-    processes, so the host CPU checks run beside the later phases."""
+    """Host CPU work in spawned worker processes, so it runs beside the
+    later phases: kernel launches held against the plain version, and the
+    ``cpu`` runs that ``cuda`` output is compared with. Each job's result
+    goes to its ``done`` callback at :meth:`collect`."""
 
     def __init__(self):
         self.pool = concurrent.futures.ProcessPoolExecutor(
             PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
         self.pending = []
 
+    def job(self, kernel, done, fn, *args):
+        """Run ``fn(*args)`` in a worker; ``done(result)`` returns max
+        |kernel - plain| of ``kernel`` (0 for a job that compares no
+        kernel) and fails on any disagreement."""
+        self.pending.append((kernel, done, self.pool.submit(fn, *args)))
+
     def submit(self, what, inputs, outputs):
         inputs = tuple(a.cpu().numpy() for a in inputs)
         outputs = tuple(a.cpu().numpy() for a in outputs)
         shape = f"{inputs[0].shape} N_pad={inputs[2].shape[0]}"
-        self.pending.append((what, shape, self.pool.submit(plain_check, inputs, outputs)))
 
-    def collect(self):
-        """Every submitted check's result; fails on any disagreement.
-        Returns max |kernel - plain|."""
-        worst = 0
-        for what, shape, future in self.pending:
-            err, secs = future.result()
+        def done(result):
+            err, secs = result
             if err:
                 fail(f"{what}: leadership kernel disagrees with plain at {shape}")
-            worst = max(worst, err)
             phase("kernels", f"leadership at {what} {shape}: bit-equal to plain on "
                   f"all rows (plain on CPU {secs:.1f} s in a worker)")
+            return err
+
+        self.job("leadership", done, plain_check, inputs, outputs)
+
+    def collect(self):
+        """Every job's result; fails on any disagreement. Returns max
+        |kernel - plain| per kernel."""
+        worst = {}
+        for kernel, done, future in self.pending:
+            worst[kernel] = max(worst.get(kernel, 0), done(future.result()))
         self.pending = []
         return worst
 
@@ -757,6 +804,326 @@ def host_modes(snap, n_brokers, n_partitions):
         phase("host", f"{mode}: {got} entries, {len(a)} bytes, identical on cuda and cpu")
 
 
+def group_kernel_cases():
+    """Phase 3b: the group-pack kernel against its plain version on the
+    stress cases. Returns max |kernel - plain| over every case."""
+    from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
+
+    worst = 0
+    for case in gcases.stress_cases():
+        name, w, cap = case[:3]
+        err = gcases.check_case(case)
+        worst = max(worst, err)
+        if err:
+            fail(f"group-pack kernel disagrees with plain on case {name}")
+        phase("kernels", f"group_pack {name} (S={w.shape[0]} P_pad={w.shape[1]} "
+              f"C_pad={cap.shape[0]}{', global' if case[7] else ''}): bit-equal")
+    return worst
+
+
+def write_group_snapshot(path, topic_map, live, racks):
+    """Config 4's steady cluster with phase 14's ``groups`` section; returns
+    the old owner of every (topic, partition)."""
+    import numpy as np
+
+    rows = sorted((t, p) for t, parts in topic_map.items() for p in parts)
+    rng = np.random.default_rng(0)
+    lags = np.minimum((rng.pareto(1.2, len(rows)) * 100).astype(np.int64), 10**7)
+    owner, assignment, lag = {}, {}, {}
+    for i, (t, p) in enumerate(rows):
+        owner[t, p] = f"c-{i % GROUP_OWNERS:03d}"
+        assignment.setdefault(t, {})[str(p)] = owner[t, p]
+        lag.setdefault(t, {})[str(p)] = int(lags[i])
+    write_snapshot(path, topic_map, live, racks)
+    with open(path, encoding="utf-8") as f:
+        data = json.load(f)
+    data["groups"] = {"ingest": {
+        "members": {f"c-{m:03d}": None for m in range(GROUP_MEMBERS)},
+        "assignment": assignment, "lag": lag,
+    }}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f)
+    return owner
+
+
+def groups_cli(argv):
+    """``run_groups(argv)`` with stdout captured: ``(rc, stdout, stderr)``."""
+    from kafka_assigner_tpu_torch.cli import run_groups
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_groups(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def groups_cpu_run(argv):
+    """Worker process: the ``ka-groups`` run on ``cpu``; returns ``(rc,
+    stdout, seconds)``."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rc, out, _ = groups_cli(argv + ["--device", "cpu"])
+    return rc, out, time.perf_counter() - t0
+
+
+def group_plain_check(inputs, outputs):
+    """Worker process: the plain group-pack scan on ``inputs`` (numpy
+    arrays: weights, capacities, proc_order, alive, need, assigned, load),
+    against the kernel's ``outputs`` (assigned, load, overflowed); returns
+    (max |kernel - plain|, seconds)."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    from kafka_assigner_tpu_torch.ops.group_pack import pack_scan_plain
+
+    t0 = time.perf_counter()
+    t = [torch.from_numpy(a) for a in inputs]
+    over = pack_scan_plain(*t)
+    plain = (t[5].numpy(), t[6].numpy(), over.numpy())
+    err = max(int(np.abs(k.astype(np.int64) - p).max()) for k, p in zip(outputs, plain))
+    return err, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def scan_probe():
+    """Record, for a block, every group-pack scan call: ``(inputs,
+    outputs)``, inputs copied before the call (it updates ``assigned`` and
+    ``load`` in place). Wraps ``ops/group_pack.py:pack_scan`` and restores
+    it afterwards; the wrapper and its launch count are untouched."""
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+
+    seen = []
+    real = gp.pack_scan
+
+    def recorded(*args, **kw):
+        inputs = tuple(t.clone() for t in args[:7])
+        over = real(*args, **kw)
+        seen.append((inputs, (args[5].clone(), args[6].clone(), over.clone())))
+        return over
+
+    gp.pack_scan = recorded
+    try:
+        yield seen
+    finally:
+        gp.pack_scan = real
+
+
+def scan_timing(what, inputs, outputs):
+    """The kernel alone on a main path's inputs: median of KERNEL_REPS
+    launches by CUDA events (``assigned`` and ``load`` re-copied before
+    each, outside the events), its result held against the launch checked
+    against plain. Returns (ms, min, max)."""
+    import torch
+
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+
+    times = []
+    for i in range(KERNEL_REPS + 1):  # 1 warm-up
+        assigned, load = inputs[5].clone(), inputs[6].clone()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        over = gp.pack_scan(*inputs[:5], assigned, load)
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    if any(not torch.equal(x, y) for x, y in zip((assigned, load, over), outputs)):
+        fail(f"{what}: the timed group-pack launch differs from the checked one")
+    return statistics.median(times), min(times), max(times)
+
+
+def group_phases(work, steady_snap, checks):
+    """Phases 14-16: ``ka-groups`` plan, sweep and the synthetic sweep on
+    config 4's cluster, each ``cuda`` run with the kernel counts reset just
+    before and read just after; ``cpu`` runs and plain checks go to the
+    workers. Returns the group-pack kernel's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from kafka_assigner_tpu_torch.groups import solve as gsolve
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
+    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+    from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    topic_map, live, racks = rack_striped_cluster(
+        N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, name_fmt="topic-{:04d}")
+    snap = os.path.join(work, "config4_groups.json")
+    owner = write_group_snapshot(snap, topic_map, live, racks)
+    base = ["--zk_string", f"file://{snap}"]
+    counts = ",".join(map(str, GROUP_COUNTS))
+    scales = ",".join(map(str, GROUP_SCALES))
+    paths = {
+        "group_plan": base + ["--mode", "plan"],
+        "group_sweep": base + ["--mode", "sweep", "--counts", counts, "--scales", scales],
+        "group_synthetic": ["--zk_string", f"file://{steady_snap}", "--mode", "sweep",
+                            "--synthetic", "--weight", "throughput"],
+    }
+    by_path, records, texts, timed = {}, {}, {}, {}
+    for path, argv in paths.items():
+        with scan_probe() as seen:
+            gp.launches["group_pack"] = 0
+            t0 = time.perf_counter()
+            rc, text, err = groups_cli(argv + ["--device", "cuda"])
+            wall = time.perf_counter() - t0
+            by_path[path] = gp.launches["group_pack"]
+        if rc != 0:
+            fail(f"{path}: ka-groups exited {rc} on cuda: {err.strip()}")
+        if by_path[path] < 1 or len(seen) != by_path[path]:
+            fail(f"{path}: the group-pack kernel launched {by_path[path]} times")
+        records[path] = dict(whatif.last_groups, wall_s=wall)
+        texts[path] = text
+
+        def done(result, path=path, text=text):
+            rc_c, text_c, secs = result
+            if rc_c != 0 or text_c != text:
+                fail(f"{path}: ka-groups stdout differs on cuda and cpu (cpu rc {rc_c})")
+            phase("cuda==cpu", f"{path}: ka-groups stdout byte-identical on cuda and "
+                  f"cpu ({len(text)} bytes; the cpu run {secs:.1f} s in a worker)")
+            return 0
+
+        checks.job("group_pack", done, groups_cpu_run, argv)
+        inputs, outputs = seen[0]
+        shape = f"S={inputs[0].shape[0]} P_pad={inputs[0].shape[1]} C_pad={inputs[1].shape[0]}"
+
+        def checked(result, path=path, shape=shape):
+            err, secs = result
+            if err:
+                fail(f"{path}: group-pack kernel disagrees with plain at {shape}")
+            phase("kernels", f"group_pack at {path} {shape}: bit-equal to plain on "
+                  f"assigned, load and overflowed (plain on CPU {secs:.1f} s in a worker)")
+            return err
+
+        checks.job("group_pack", checked, group_plain_check,
+                   tuple(a.cpu().numpy() for a in inputs),
+                   tuple(a.cpu().numpy() for a in outputs))
+        timed[path] = (inputs, outputs, shape)
+        rec = records[path]
+        phase("groups", f"{path} on cuda: {wall:.2f} s wall; {shape}; steps (orphan "
+              f"rows) max {rec['steps_max']}, sum {rec['steps_sum']}; (ms) encode "
+              f"{rec['encode']:.1f}, upload {rec['upload']:.1f}, sticky {rec['sticky']:.1f}, "
+              f"scan {rec['scan']:.1f}, download {rec['download']:.1f}, decode "
+              f"{rec['decode']:.1f}; group-pack kernel launches {by_path[path]}")
+
+    # Phase 14: every row on a live member, moves == rows whose owner changed.
+    plan = json.loads(texts["group_plan"])
+    members = {f"c-{m:03d}" for m in range(GROUP_MEMBERS)}
+    placed = {(t, int(p)): m for t, per in plan["plan"].items() for p, m in per.items()}
+    if set(placed) != set(owner) or not set(placed.values()) <= members:
+        fail("group plan: a row is missing or sits on a member that left")
+    # A departed member's rows are unowned in the encoding: they are placed,
+    # not moved, so moves counts the rows taken off a live owner.
+    changed = sum(placed[k] != o for k, o in owner.items() if o in members)
+    departed = sum(o not in members for o in owner.values())
+    if plan["moves"] != changed:
+        fail(f"group plan: moves {plan['moves']} != {changed} rows taken off a live owner")
+    phase("groups", f"plan: {len(placed)} rows on {len(set(placed.values()))} live members; "
+          f"moves {plan['moves']} == rows taken off a live owner; {departed} rows of "
+          f"departed members placed; orphan rows "
+          f"{records['group_plan']['steps_sum']}; overflowed {plan['overflowed']}; "
+          f"feasible {plan['feasible']}")
+    # Phase 15: the cost curve.
+    sweep = json.loads(texts["group_sweep"])
+    if "recommended_consumers" not in sweep or len(sweep["candidates"]) != \
+            len(GROUP_COUNTS) * len(GROUP_SCALES):
+        fail("group sweep: no recommendation or a wrong candidate count")
+    feas = {s: min([c["consumers"] for c in sweep["candidates"]
+                    if c["scale_pct"] == s and c["feasible"]], default=None)
+            for s in GROUP_SCALES}
+    phase("groups", f"sweep: recommended_consumers {sweep['recommended_consumers']}; "
+          f"smallest feasible count per scale {feas}")
+    synth = json.loads(texts["group_synthetic"])
+    rc, out, err = groups_cli(["--zk_string", f"file://{steady_snap}", "--mode", "sweep",
+                               "--weight", "throughput", "--device", "cuda"])
+    if rc != 1 or out or "--synthetic" not in err:
+        fail(f"the refusal without --synthetic: exit {rc}, stdout {len(out)} bytes")
+    phase("groups", f"synthetic: {len(synth['candidates'])} candidates, "
+          f"recommended_consumers {synth['recommended_consumers']}; without "
+          "--synthetic: refused, exit 1")
+
+    # Phase 15's timing: the sweep through the library, warm median of 3.
+    backend = SnapshotBackend(snap)
+    part_map = {t: sorted(per) for t, per in
+                backend.partition_assignment(backend.all_topics()).items()}
+    states, real = gsolve.load_group_states(backend, part_map)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(GROUP_SWEEP_REPS + 1):  # 1 warm-up
+        t0 = time.perf_counter()
+        gsolve.build_group_bodies(states, real, part_map, "sweep", "lag", None,
+                                  list(GROUP_SCALES), 1.25, 256,
+                                  counts=list(GROUP_COUNTS), device="cuda")
+        if i:
+            runs.append(dict(whatif.last_groups, total=(time.perf_counter() - t0) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    keys = ("total", "encode", "upload", "sticky", "scan", "download", "decode")
+    med = {k: statistics.median(r[k] for r in runs) for k in keys}
+    phase("timing", f"group sweep median of {GROUP_SWEEP_REPS} (ms): "
+          + ", ".join(f"{k} {med[k]:.1f}" for k in keys)
+          + f"; steps max {runs[-1]['steps_max']}, sum {runs[-1]['steps_sum']}; "
+          f"peak device memory {peak / 2**20:.1f} MiB")
+
+    # The kernel alone at each path's shape, its bound and its chain floor.
+    out = {}
+    for path, (inputs, outputs, shape) in timed.items():
+        ms, lo, hi = scan_timing(path, inputs, outputs)
+        s_, p_ = inputs[0].shape
+        c_ = inputs[1].shape[0]
+        rec = records[path]
+        nbytes = gcases.scan_bytes(s_, p_, c_, rec["steps_sum"])
+        step = gcases.step_ns(c_)
+        out[path] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+                         chain_steps=rec["steps_max"], step_ns=step,
+                         chain_bound_ms=rec["steps_max"] * step * 1e-6)
+        phase("timing", f"group_pack kernel at {path} ({shape}): median {ms:.3f} ms of "
+              f"{KERNEL_REPS} (min {lo:.3f}, max {hi:.3f}); byte bound "
+              f"{out[path]['bound_ms']:.4f} ms ({nbytes} bytes); chain floor "
+              f"{out[path]['chain_bound_ms']:.3f} ms ({rec['steps_max']} steps x "
+              f"{step:.1f} ns, the kernel on one all-orphan candidate at C_pad {c_})")
+    r = GROUP_PLAIN_SHAPE
+    rng = np.random.default_rng(1)
+    w, cap, cur, order, alive = gcases.instance(rng, r["s"], r["p"], r["p"], r["c"], r["c"])
+    case = ("plain-shape", w, cap, cur, order, alive, r["p"], False)
+    small = gcases.scan_inputs(case, "cuda")
+    plain_in = tuple(x.clone() for x in small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    over_p = gp.pack_scan_plain(*plain_in)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # The timed launches are held against the plain version's result here.
+    small_ms, _, _ = scan_timing("the plain shape", small, (*plain_in[5:], over_p))
+    plain_shape = f"S={r['s']} P_pad={r['p']} C_pad={r['c']}"
+    phase("timing", f"group_pack at {plain_shape}: kernel {small_ms:.3f} ms, plain on "
+          f"the card {plain_ms:.1f} ms")
+    main = out["group_sweep"]
+    return {
+        "name": "group_pack",
+        "route": "cuda",
+        "source": "kafka_assigner_tpu_torch/csrc/group_pack.cu",
+        "replaces": GROUP_TPU_LOOP,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": 0,
+        "tolerance": "exact (integer outputs)",
+        "ms": main["ms"],
+        "plain_ms": plain_ms,
+        "plain_shape": plain_shape,
+        "ms_at_plain_shape": small_ms,
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "chain_steps": main["chain_steps"],
+        "chain_bound_ms": main["chain_bound_ms"],
+        "by_path": out,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -799,6 +1166,7 @@ def smoke(checks) -> int:
                 phase("build", f"{src}: {line.strip()}")
 
     max_err = kernel_cases(cases)
+    group_case_err = group_kernel_cases()
 
     # --- 4: main path at config 4 -------------------------------------
     topic_map, live, rack_map = build_config4()
@@ -921,7 +1289,18 @@ def smoke(checks) -> int:
              f"{lead.launches['leadership']} times")
     phase("whatif", "phases 10-13 launched the leadership kernel 0 times")
 
-    max_err = max(max_err, checks.collect())
+    # --- 14-16: consumer-group packing ------------------------------------
+    # The group phases do not order leaders either.
+    lead.launches["leadership"] = 0
+    gk = group_phases(work, steady_snap, checks)
+    if lead.launches["leadership"]:
+        fail(f"the group phases launched the leadership kernel "
+             f"{lead.launches['leadership']} times")
+    phase("groups", "phases 14-16 launched the leadership kernel 0 times")
+
+    worst = checks.collect()
+    max_err = max(max_err, worst.get("leadership", 0))
+    gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0))
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},
@@ -949,7 +1328,7 @@ def smoke(checks) -> int:
         "giant_bound_ms": g_bound_ms,
         "giant_chain_steps": g_steps,
         "giant_chain_bound_ms": g_chain_ms,
-    }]}
+    }, gk]}
     print(json.dumps(kernels))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,20 @@ byte-identical to ``kafka_assigner_tpu.cli`` (``--solver tpu`` for the plan
 modes). Exit codes follow the reference's documented ones: 1 usage, 3
 metadata ingest, 5 validation (RF bounds, unknown hosts or scenario
 entries, infeasible plan).
+
+The consumer-group tool ``ka-groups`` (:func:`run_groups`,
+``python -m kafka_assigner_tpu_torch.groups``)::
+
+    python -m kafka_assigner_tpu_torch.groups --zk_string file://cluster.json \
+        [--mode {plan,sweep}] [--group g1,g2] [--synthetic]
+        [--weight {lag,throughput}] [--counts 1,2,4] [--scales 100,150]
+        [--solver {device,greedy}] [--device {cuda,cpu}]
+
+takes the reference's flags (``kafka_assigner_tpu/cli.py:661-721``) but
+``--failure-policy`` (the port has only the strict lane) and
+``--report-json``, and prints the reference's JSON envelope byte for byte.
+Exit codes: 1 usage (and the refusal of a backend without groups), 3
+ingest, 4 solve, 5 validation.
 """
 from __future__ import annotations
 
@@ -38,6 +52,7 @@ from typing import List, Optional
 EXIT_OK = 0
 EXIT_USAGE = 1
 EXIT_INGEST = 3
+EXIT_SOLVE = 4
 EXIT_VALIDATION = 5
 
 #: The reference CLI's modes (``kafka_assigner_tpu/cli.py:67-73``).
@@ -200,6 +215,139 @@ def run(argv: Optional[List[str]] = None) -> int:
 
 def main() -> None:
     sys.exit(run())
+
+
+def build_groups_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ka-groups-torch",
+        description="Consumer-group packing: a sticky, movement-minimizing "
+        "rebalance plan per group (plan), or the autoscale cost curve over "
+        "every (consumer count x lag scale) candidate in one batched "
+        "device call (sweep). Prints a schema-versioned JSON envelope, "
+        "byte-stable across identical runs.",
+    )
+    p.add_argument("--zk_string", default=None,
+                   help="a file://cluster.json snapshot (group state needs a "
+                        "\"groups\" section, or --synthetic)")
+    p.add_argument("--mode", default="plan", choices=("plan", "sweep"),
+                   help="plan: per-group packing plan; sweep: the batched "
+                        "autoscale cost curve")
+    p.add_argument("--group", default=None,
+                   help="comma-separated group names (default: every group "
+                        "the snapshot records)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="explicit opt-in to the deterministic synthetic "
+                        "group family (envelopes carry groups_real=false)")
+    p.add_argument("--weight", default="lag", choices=("lag", "throughput"),
+                   help="packing weight column: per-partition lag, or "
+                        "produced-byte rate from the traffic section (the "
+                        "synthetic series where it has none)")
+    p.add_argument("--counts", default=None,
+                   help="sweep candidate consumer counts, comma-separated "
+                        "(default: 1..2x the current membership, capped by "
+                        "KA_GROUPS_MAX_CANDIDATES)")
+    p.add_argument("--scales", default=None,
+                   help="sweep weight scales in percent, comma-separated "
+                        "(default: the KA_GROUPS_DEFAULT_SCALES knob)")
+    p.add_argument("--solver", default="device", choices=("device", "greedy"),
+                   help="device: the packing program on --device; greedy: "
+                        "the host packing oracle (the same plans)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the device solver runs (default: cuda)")
+    return p
+
+
+def run_groups(argv: Optional[List[str]] = None) -> int:
+    """``ka-groups``: load the snapshot, refuse a backend without groups
+    unless ``--synthetic``, encode, pack, print the envelope. Raises the
+    typed errors; :func:`groups_main` maps them to exit codes."""
+    import json
+
+    from .groups.model import GROUPS_SCHEMA_VERSION
+    from .groups.solve import (
+        build_group_bodies,
+        load_group_states,
+        parse_int_list,
+        subscribed_partitions,
+        throughput_weights,
+    )
+    from .io.snapshot import open_snapshot
+    from .utils.env import env_float, env_int, env_str
+
+    parser = build_groups_parser()
+    args = parser.parse_args(argv)
+    if args.zk_string is None:
+        print("error: --zk_string is required", file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+    group_names = args.group.split(",") if args.group else None
+    scales = parse_int_list(args.scales, env_str("KA_GROUPS_DEFAULT_SCALES"))
+    counts = parse_int_list(args.counts)
+    headroom = env_float("KA_GROUPS_CAPACITY_HEADROOM")
+    max_cand = env_int("KA_GROUPS_MAX_CANDIDATES")
+
+    backend = open_snapshot(args.zk_string)
+    if not args.synthetic and not backend.supports_groups():
+        # The loud refusal: synthetic inputs never pass for cluster truth.
+        print(
+            "error: this metadata backend cannot read consumer "
+            "groups (no group membership/offset surface), so a "
+            "packing plan would be built on invented inputs. Re-run "
+            "with --synthetic to explicitly opt into the "
+            "deterministic synthetic family (marked "
+            "groups_real=false), or use a snapshot with a \"groups\" "
+            "section / an AdminClient with consumer-group offset "
+            "support.",
+            file=sys.stderr,
+        )
+        return EXIT_USAGE
+    partitions = backend.partition_assignment(backend.all_topics())
+    part_map = {t: sorted(per) for t, per in partitions.items()}
+    states, groups_real = load_group_states(
+        backend, part_map, groups=group_names, synthetic=args.synthetic,
+    )
+    if not states:
+        raise ValueError("the backend reports no consumer groups")
+    weight_values = (
+        throughput_weights(backend, subscribed_partitions(states, part_map))
+        if args.weight == "throughput" else None
+    )
+    bodies = build_group_bodies(
+        states, groups_real, part_map, args.mode, args.weight,
+        weight_values, scales, headroom, max_cand, counts=counts,
+        solver=args.solver, device=args.device,
+    )
+    if len(bodies) == 1:
+        payload = next(iter(bodies.values()))
+    else:
+        payload = {
+            "schema_version": GROUPS_SCHEMA_VERSION,
+            "kind": "groups-plan-set" if args.mode == "plan" else "groups-sweep-set",
+            "groups_real": groups_real,
+            "groups": bodies,
+        }
+    print(json.dumps(payload, indent=1, sort_keys=True))
+    return EXIT_OK
+
+
+def groups_main() -> None:
+    """:func:`run_groups` with the documented exit codes."""
+    from .errors import IngestError, SolveError
+
+    try:
+        sys.exit(run_groups())
+    except IngestError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_INGEST)
+    except SolveError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_SOLVE)
+    except OSError as e:
+        print(f"error: metadata ingest failed: {e}", file=sys.stderr)
+        sys.exit(EXIT_INGEST)
+    except (ValueError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_VALIDATION)
 
 
 if __name__ == "__main__":

@@ -43,9 +43,14 @@ shared by every row and broadcast, or of the batch, one per row; capacity
 and rotation start are per row either way. :func:`whatif_sweep` and
 :func:`whatif_subset_sweep` (the reference's :1393 and :1458) flatten
 (scenario, topic) into the batch axis and reduce per scenario.
+
+The consumer-group family's :func:`pack_group` and :func:`group_pack_sweep`
+(the reference's :1552 and :1638) close the module: sticky admission here,
+the orphan scan in ``ops/group_pack.py``.
 """
 from __future__ import annotations
 
+import time
 from types import MappingProxyType
 from typing import Dict, NamedTuple, Tuple
 
@@ -868,3 +873,128 @@ def whatif_subset_sweep(
     res = _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
                  n, rf, "fast", r_cap)
     return res._replace(load=res.load[:, :n])
+
+
+# ---------------------------------------------------------------------------
+# Consumer-group packing: the reference's K14 ``pack_group`` (:1552) and K15
+# ``group_pack_sweep`` (:1638), batched over a leading candidate axis S.
+#
+# 1. sticky admission, ascending partition row per owner: row p stays on
+#    its current owner c iff c is alive and the prefix weight of p and all
+#    earlier rows currently on c fits cap[c]; one segmented prefix sum
+#    (a stable sort on the owner key, an int32 cumsum, each segment's first
+#    index by searchsorted), in plain PyTorch as in the reference;
+# 2. orphan spread in ``proc_order``: the scan, ``ops/group_pack.py:
+#    pack_scan`` (the KG1 kernel on the card, its plain version on the CPU).
+#
+# Weights and capacities arrive as int32 in a domain groups/encode.py keeps
+# under 2^30, so every sum here stays int32.
+# ---------------------------------------------------------------------------
+
+
+def sticky_admission(
+    weights: torch.Tensor,     # (S, P_pad) int32 scaled weights (0 on pad rows)
+    capacities: torch.Tensor,  # (C_pad,) int32 scaled capacities
+    current: torch.Tensor,     # (P_pad,) int32 current consumer index or -1
+    alive: torch.Tensor,       # (S, C_pad) bool consumer liveness
+    p_real: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 1 of the packing for every candidate: ``(cur (P_pad,), assigned
+    (S, P_pad), load (S, C_pad), need (S, P_pad))``, with ``cur`` the
+    current owners masked to real rows, ``assigned`` the kept owners (-1
+    elsewhere), ``load`` their weight per consumer, and ``need`` the real
+    rows the orphan scan places. ``assigned`` and ``load`` are contiguous,
+    ready for the scan to update in place."""
+    s, p_pad = weights.shape
+    c_pad = capacities.shape[0]
+    dev = weights.device
+    rows_real = torch.arange(p_pad, dtype=I32, device=dev) < p_real
+    cur = torch.where(rows_real, current, -1)
+    safe_cur = cur.clamp(0, c_pad - 1).long()
+    sticky_cand = (cur >= 0)[None, :] & alive[:, safe_cur]
+
+    # One segmented prefix sum: a stable sort on the owner key groups each
+    # consumer's candidate rows in ascending row order; the inclusive
+    # in-segment prefix is the cumsum minus the total through the previous
+    # segment.
+    key = torch.where(sticky_cand, cur[None, :], c_pad)
+    sk, order = torch.sort(key, dim=1, stable=True)
+    csum = torch.cumsum(torch.where(sticky_cand, weights, 0).gather(1, order), 1,
+                        dtype=I32)
+    first = torch.searchsorted(sk, sk, side="left")
+    seg_base = torch.where(first > 0, csum.gather(1, (first - 1).clamp(min=0)), 0)
+    cap_of = capacities[sk.clamp(0, c_pad - 1).long()]
+    keep_sorted = sticky_cand.gather(1, order) & (csum - seg_base <= cap_of)
+    kept = torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
+
+    slot = torch.where(kept, safe_cur[None, :], c_pad)
+    load = torch.zeros((s, c_pad + 1), dtype=I32, device=dev).scatter_add_(
+        1, slot, torch.where(kept, weights, 0))[:, :c_pad].contiguous()
+    assigned = torch.where(kept, cur[None, :], -1).contiguous()
+    return cur, assigned, load, rows_real[None, :] & ~kept
+
+
+def pack_group(
+    weights: torch.Tensor,     # (S, P_pad) int32 scaled weights (0 on pad rows)
+    capacities: torch.Tensor,  # (C_pad,) int32 scaled capacities
+    current: torch.Tensor,     # (P_pad,) int32 current consumer index or -1
+    proc_order: torch.Tensor,  # (P_pad,) int32 rows by (-base weight, row)
+    alive: torch.Tensor,       # (S, C_pad) bool consumer liveness
+    p_real: int,
+    record: Dict[str, float] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each candidate's capacity-constrained partition-to-consumer packing:
+    :func:`sticky_admission`, then the orphan scan.
+
+    Returns ``(assigned (S, P_pad), load (S, C_pad), moved (S,), overflowed
+    (S,), infeasible (S,))``, the reference's tuple per candidate. With
+    ``record``, the sticky pass and the scan each end in a device sync and
+    their ms go to ``record["sticky"]`` and ``["scan"]``, and the scan's
+    steps (orphan rows per candidate) to ``["steps_max"]`` and
+    ``["steps_sum"]``."""
+    from .group_pack import pack_scan
+
+    t0 = time.perf_counter()
+    dev = weights.device
+    cur, assigned, load, need = sticky_admission(weights, capacities, current, alive,
+                                                 p_real)
+    if record is not None:
+        steps = need.sum(1)
+        record.update(steps_max=int(steps.max()), steps_sum=int(steps.sum()),
+                      sticky=_sync_ms(dev, t0))
+        t0 = time.perf_counter()
+    overflowed = pack_scan(weights, capacities, proc_order, alive, need, assigned, load)
+    if record is not None:
+        record["scan"] = _sync_ms(dev, t0)
+    moved = ((cur >= 0) & (assigned != cur)).sum(1, dtype=I32)
+    return assigned, load, moved, overflowed, overflowed > 0
+
+
+def group_pack_sweep(
+    weights: torch.Tensor,      # (P_pad,) int32 BASE weights
+    capacities: torch.Tensor,   # (C_pad,) int32
+    current: torch.Tensor,      # (P_pad,) int32
+    proc_order: torch.Tensor,   # (P_pad,) int32 (scale-invariant, host-built)
+    alive_masks: torch.Tensor,  # (S, C_pad) bool: "k consumers" = first k alive
+    scale_pcts: torch.Tensor,   # (S,) int32 weight scale, percent
+    p_real: int,
+    record: Dict[str, float] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The autoscale sweep: every (consumer count x weight scale) candidate
+    packed at once. Returns ``(moved (S,), overflowed (S,), infeasible
+    (S,), load (S, C_pad))``. Scaled weights are ``(w * scale) // 100``,
+    floored at 1 on real rows and 0 on pad rows; ``proc_order`` is shared,
+    since positive scaling never reorders descending weights."""
+    p_pad = weights.shape[0]
+    rows_real = torch.arange(p_pad, dtype=I32, device=weights.device) < p_real
+    w = (weights[None, :] * scale_pcts[:, None]) // 100
+    w = torch.maximum(w, rows_real.to(I32)[None, :])
+    _, load, moved, overflowed, infeasible = pack_group(
+        w, capacities, current, proc_order, alive_masks, p_real, record)
+    return moved, overflowed, infeasible, load
+
+
+def _sync_ms(dev: torch.device, t0: float) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3

@@ -14,10 +14,15 @@ change are placed, and the rest is composed from host baseline loads; the
 dense sweep chunks scenarios under ``KA_WHATIF_MEMBUDGET``. Padding
 scenarios are never placed: the port has no compiled shapes to fill.
 
+The consumer-group family's device half is here too, as in the reference:
+``pack_group_on_device`` (:664) and ``evaluate_group_candidates`` (:698),
+each on a ``device`` argument (``cuda`` by default).
+
 Left for later slices: the reference's ``mesh`` argument (scenario rows
 sharded across cards), ``_submit_coalesced`` and the daemon's dispatcher,
-the persistent program store, and the ``obs`` counters and spans. In their
-place :data:`last_sweep` records what the most recent sweep did.
+the persistent program store, the ``obs`` counters and spans, and the
+``fault_point("solve")`` seam. In their place :data:`last_sweep` and
+:data:`last_groups` record what the most recent call did.
 """
 from __future__ import annotations
 
@@ -31,7 +36,12 @@ import torch
 from ..assigner import infer_topic_rf
 from ..carry import to_tensor
 from ..models.problem import _pad8, encode_cluster, encode_topic_group
-from ..ops.assignment import whatif_subset_sweep, whatif_sweep
+from ..ops.assignment import (
+    group_pack_sweep,
+    pack_group,
+    whatif_subset_sweep,
+    whatif_sweep,
+)
 from ..solvers.torch_solver import solve_device
 from ..utils.env import env_bool, env_int
 
@@ -44,6 +54,14 @@ from ..utils.env import env_bool, env_int
 #: (the device sweep, ending in a synchronize), ``rescue`` (the device
 #: re-run of flagged scenarios) and ``compose`` (host).
 last_sweep: Dict[str, object] = {}
+
+#: What the most recent group packing call of this process did: ``kind``
+#: ("plan" or "sweep"), ``s`` (candidates), ``p_pad``, ``c_pad``, the scan's
+#: ``steps_max`` and ``steps_sum`` (orphan rows per candidate), and phase
+#: times in ms: ``upload``, ``sticky`` and ``scan`` (each ending in a device
+#: sync), ``download``; ``groups/solve.py`` adds the host ``encode`` and
+#: ``decode``.
+last_groups: Dict[str, object] = {}
 
 
 class _OnDevice(NamedTuple):
@@ -349,3 +367,68 @@ def rank_decommission_candidates(
     return sorted(
         results, key=lambda r: (not r.feasible, r.moved_replicas, r.removed)
     )
+
+
+def _group_tensors(dev, weights, capacities, current, proc_order):
+    return tuple(to_tensor(a, dev) for a in (weights, capacities, current, proc_order))
+
+
+def pack_group_on_device(
+    weights: np.ndarray,
+    capacities: np.ndarray,
+    current: np.ndarray,
+    proc_order: np.ndarray,
+    alive: np.ndarray,
+    p_real: int,
+    device: str | torch.device = "cuda",
+):
+    """One group's packing solve (``ops/assignment.py:pack_group`` at S =
+    1) on ``device`` (``cuda`` by default; raises without a card). Returns
+    host arrays ``(assigned (P_pad,), load (C_pad,), moved, overflowed,
+    infeasible)``, the tuple the host oracle (``solvers/greedypack.py``)
+    computes. Records its shapes, steps and phase times in
+    :data:`last_groups`."""
+    t0 = time.perf_counter()
+    dev = solve_device(device, "pack_group_on_device")
+    last_groups.clear()
+    w, cap, cur, order = _group_tensors(dev, weights, capacities, current, proc_order)
+    alive_t = torch.as_tensor(np.asarray(alive, dtype=bool)[None, :]).to(dev)
+    _sync(dev)
+    last_groups.update(kind="plan", s=1, p_pad=int(w.shape[0]), c_pad=int(cap.shape[0]),
+                       upload=_ms(t0))
+    out = pack_group(w[None, :], cap, cur, order, alive_t, int(p_real), last_groups)
+    t0 = time.perf_counter()
+    assigned, load, moved, overflowed, infeasible = (t[0].cpu().numpy() for t in out)
+    last_groups["download"] = _ms(t0)
+    return assigned, load, int(moved), int(overflowed), bool(infeasible)
+
+
+def evaluate_group_candidates(
+    weights: np.ndarray,
+    capacities: np.ndarray,
+    current: np.ndarray,
+    proc_order: np.ndarray,
+    alive_masks: np.ndarray,   # (S, C_pad) bool
+    scale_pcts,                # (S,) int
+    p_real: int,
+    device: str | torch.device = "cuda",
+):
+    """The autoscale sweep's device half: every candidate (consumer count x
+    weight scale) in one ``group_pack_sweep`` call on ``device``. Returns
+    host arrays ``(moved (S,), overflowed (S,), infeasible (S,), load (S,
+    C_pad))``. The batch is not padded (the port has no compiled shapes).
+    Records its shapes, steps and phase times in :data:`last_groups`."""
+    t0 = time.perf_counter()
+    dev = solve_device(device, "evaluate_group_candidates")
+    last_groups.clear()
+    w, cap, cur, order = _group_tensors(dev, weights, capacities, current, proc_order)
+    alive_t = torch.as_tensor(np.asarray(alive_masks, dtype=bool)).to(dev)
+    scales = to_tensor(np.asarray(scale_pcts), dev)
+    _sync(dev)
+    last_groups.update(kind="sweep", s=int(alive_t.shape[0]), p_pad=int(w.shape[0]),
+                       c_pad=int(cap.shape[0]), upload=_ms(t0))
+    out = group_pack_sweep(w, cap, cur, order, alive_t, scales, int(p_real), last_groups)
+    t0 = time.perf_counter()
+    moved, overflowed, infeasible, load = (t.cpu().numpy() for t in out)
+    last_groups["download"] = _ms(t0)
+    return moved, overflowed, infeasible, load

@@ -7,9 +7,10 @@ Only the knobs of the ported placement, solver and what-if paths are
 declared, each with the reference's default and floor. ``KA_QUOTA_WAVE_TARGET``
 and ``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
 (``ops/assignment.py:_hybrid_quota_body``); ``KA_WHATIF_INCREMENTAL`` and
-``KA_WHATIF_MEMBUDGET`` steer the what-if sweep (``parallel/whatif.py``). The
-port reads every knob per call, where the reference reads some at trace
-time.
+``KA_WHATIF_MEMBUDGET`` steer the what-if sweep (``parallel/whatif.py``); the
+three ``KA_GROUPS_*`` knobs set the consumer-group sweep's default scales,
+its fan-out cap and the capacity default (``groups/``). The port reads every
+knob per call, where the reference reads some at trace time.
 """
 from __future__ import annotations
 
@@ -41,6 +42,12 @@ KNOBS = {
     # Dense what-if sweep: scenarios per dispatch keep the (S, B, P_pad, RF)
     # state under this many int32 elements.
     "KA_WHATIF_MEMBUDGET": Knob(1 << 28, floor=1),
+    # Consumer-group packing (``ka-groups``): the sweep's default weight
+    # scales in percent, its (counts x scales) fan-out cap, and the factor
+    # on the fair share that members without a declared capacity get.
+    "KA_GROUPS_DEFAULT_SCALES": Knob("100,150,200"),
+    "KA_GROUPS_MAX_CANDIDATES": Knob(256, floor=1),
+    "KA_GROUPS_CAPACITY_HEADROOM": Knob(1.25, floor=1.0),
 }
 
 _TRUE = frozenset({"1", "true", "yes", "on"})
@@ -71,6 +78,28 @@ def env_int(name: str):
         _warn(f"ignoring non-integer {name}={raw!r}")
         return k.default
     return val if k.floor is None else max(k.floor, val)
+
+
+def env_float(name: str):
+    """``float(os.environ[name])`` clamped to the knob's floor; the declared
+    default when unset/empty or non-numeric (the latter with a warning)."""
+    k = _lookup(name)
+    raw = os.environ.get(name)
+    if not raw:
+        return k.default
+    try:
+        val = float(raw)
+    except ValueError:
+        _warn(f"ignoring non-numeric {name}={raw!r}")
+        return k.default
+    return val if k.floor is None else max(k.floor, val)
+
+
+def env_str(name: str):
+    """Free-form string knob; unset/empty means the declared default."""
+    k = _lookup(name)
+    raw = os.environ.get(name)
+    return raw if raw else k.default
 
 
 def env_bool(name: str) -> bool:

@@ -48,6 +48,10 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     mods = _port_modules() + ["chip_smoke"]
     assert "kafka_assigner_tpu_torch.ops.leadership" in mods
     assert "kafka_assigner_tpu_torch.parallel.whatif" in mods
+    for new in ("io.base", "obs.health", "solvers.greedypack", "groups", "groups.model",
+                "groups.encode", "groups.solve", "groups.__main__", "ops.group_pack",
+                "ops.group_pack_cases", "errors"):
+        assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *mods], cwd=ROOT, env=env,
@@ -86,6 +90,18 @@ for flag in ("1", "0"):
     res = whatif.rank_decommission_candidates(tm, live, racks, [0, 1, 2], device="cpu")
     assert [r.removed for r in res] and all(r.feasible for r in res), res
     assert whatif.last_sweep["path"] == ("incremental" if flag == "1" else "dense")
+import contextlib, io, json, tempfile                # consumer-group packing
+from kafka_assigner_tpu_torch.cli import run_groups
+snap = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+json.dump({"brokers": [], "topics": {"t": {str(p): [0] for p in range(9)}}}, snap)
+snap.close()
+for mode in ("plan", "sweep"):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run_groups(["--zk_string", snap.name, "--mode", mode, "--synthetic",
+                           "--device", "cpu"]) == 0
+    assert json.loads(buf.getvalue())["kind"] == f"groups-{mode}"
+os.unlink(snap.name)
 print("paths ok")
 """
 
