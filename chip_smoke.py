@@ -10,7 +10,10 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device — the card's name and power limit (``nvidia-smi``), torch/CUDA;
 2. build — every ``kafka_assigner_tpu_torch/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, started together), with the
-   registers and shared memory ``-Xptxas -v`` reports per kernel;
+   registers and shared memory ``-Xptxas -v`` reports per kernel; then the
+   native host libraries (``native/greedy.cpp`` with ``g++``,
+   ``native/hostcodec.c`` with ``gcc``), each loaded, with their paths and
+   build times;
 3. kernels — the leadership kernel against its plain PyTorch version,
    bit for bit, on the stress cases of
    ``kafka_assigner_tpu_torch/ops/leadership_cases.py``: RF 1-5, 12 and
@@ -25,12 +28,15 @@ Phases, each printing its own line; any failure exits non-zero:
    ``bench.py:build_headline`` does) written to a snapshot and solved by the
    port's mode-3 CLI on ``cuda``; checks rack-distinct RF-sized replica
    sets, no replica on a removed broker, at most ``cap`` replicas per node
-   per topic, moved replicas == the replicas that sat on brokers 0-99, and
-   that the main path launched the leadership kernel; then the kernel at the
-   main path's shape against the plain version on the same inputs;
+   per topic, moved replicas == the replicas that sat on brokers 0-99, that
+   the main path launched the leadership kernel and that its encode and
+   decode took the C codec; then the kernel at the main path's shape
+   against the plain version on the same inputs;
 5. cuda == cpu — a 64-topic prefix of config 4, plan text byte-identical;
 6. timing — warm median of 5 solves split into encode, placement,
    leadership and decode (host clocks ending in ``torch.cuda.synchronize``),
+   in turns with 5 under ``KA_HOSTCODEC=0`` (the codec A/B: plans
+   byte-identical, the C codec asserted to have run),
    the kernel alone at the config-4 shape (median of 10 launches, each
    timed with CUDA events), its byte bound, its dependent-chain floor
    (the chain's steps at this shape times the time per step of the chain
@@ -57,7 +63,8 @@ Phases, each printing its own line; any failure exits non-zero:
    the giant-shape chain (read from the solver's own placement call) and
    agree with the plain version on every launch;
 9. giant timing — warm median of 3 solves of (a), (b) and (c) split by
-   phase, the waves of every leg that ran (no dense or seq leg may run),
+   phase, in turns with 3 under ``KA_HOSTCODEC=0`` (the codec A/B), the
+   waves of every leg that ran (no dense or seq leg may run),
    and the kernel at (1, 200000, 3) on (a)'s inputs: median of 10 by CUDA
    events, its byte bound and its chain floor, its result held against
    the one checked in phase 7;
@@ -99,15 +106,29 @@ Phases, each printing its own line; any failure exits non-zero:
 16. ``ka-groups --synthetic --weight throughput --mode sweep`` on phase 11's
     snapshot (no groups section): 8 synthetic members, 48 candidates, stdout
     identical on ``cuda`` and ``cpu``; without ``--synthetic`` the refusal
-    (exit 1).
+    (exit 1);
+17. the leadership lanes — ``KA_LEADERSHIP=native`` (the host C++ pass,
+    ``native/leadership.py``) against ``device`` (the kernel) on config 4
+    and the giant expansion: CLI stdout byte-identical, the kernel launched
+    on the device lane only; then a warm median of each lane in turns, split
+    by phase (the native lane's leadership phase includes copying the
+    placement to the host);
+18. the solver lanes — ``--solver native`` (the C++ greedy) on config 4
+    through the CLI: the same checks as phase 4, moved == ``--solver
+    device``'s; ``--solver greedy`` and ``native`` on phase 5's prefix,
+    byte-identical, moved == the device's; neither launches the kernel
+    (the greedy lanes place orphans first-fit, the device solver by waves, so
+    their lists differ where orphans land, as the JAX package's lanes do);
+    then ``scripts/torch_bench.py`` in a subprocess, its JSON line printed.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``;
 each of phases 14-16 holds its kernel launch bit-equal to the plain version
 on the inputs the main path gave it (in a worker) and times it alone
 (median of 10 by CUDA events) beside its byte bound and its chain floor (the
-largest orphan count of a candidate times the time of one step, measured by
-the kernel on one all-orphan candidate).
+largest orphan count of a candidate times the time of one step of the chain
+alone, measured by the kernel's step probe), and the chain at the kernel's
+own time a step (on one all-orphan candidate).
 
 The what-if and group phases do not order leaders: the leadership kernel is
 not on their path, and the smoke checks that they launch it no time.
@@ -116,7 +137,8 @@ The plain leadership checks of phases 4 and 7 (config 4's 208,000 rows and
 each giant cell's 200,000, a Python loop over rows on the host CPU), and
 the plain group-pack checks and ``cpu`` runs of phases 14-16, run in
 spawned worker processes, one thread each, while the later phases go on;
-their results are collected before the ``kernels`` line.
+their results are collected after phase 16, so phases 17-18 time a quiet
+host.
 
 Phases 7 and 8 read what the solver hands ``place_batched`` and
 ``leadership_order`` through :func:`solver_probe`, which wraps the two names
@@ -126,9 +148,9 @@ launch count are untouched.
 In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
-path driven (config 4, the three giant cells and the reduced ``cuda``
-runs), and ``launches_by_path`` gives each; the group-pack entry's counts
-are those of phases 14-16.
+path driven (config 4, the three giant cells, the reduced ``cuda`` runs and
+phase 17's CLI runs on each lane), and ``launches_by_path`` gives each; the
+group-pack entry's counts are those of phases 14-16.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -340,6 +362,27 @@ def check_chains(chains, what, rescue_allowed=True):
     return [waves for _, _, waves in chains]
 
 
+def native_builds():
+    """Phase 2 (host): the greedy library with g++ and the boundary codec
+    with gcc, each loaded; a failed build fails the phase."""
+    from kafka_assigner_tpu_torch.native import build as nbuild
+
+    for what, make, path, load in (
+        ("greedy.cpp (g++)", nbuild.build_native_library, nbuild.greedy_lib_path,
+         nbuild.load_native_library),
+        ("hostcodec.c (gcc)", nbuild.build_hostcodec, nbuild.codec_lib_path,
+         nbuild.load_hostcodec),
+    ):
+        t0 = time.perf_counter()
+        try:
+            make()
+            load()
+        except nbuild.NativeBuildError as e:
+            fail(f"native build of {what}: {e}")
+        phase("build", f"{what}: {os.path.relpath(path(), ROOT)} built and loaded in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+
 def kernel_cases(cases):
     """Phase 3: kernel vs plain on the stress cases. Returns max |kernel -
     plain| over every case."""
@@ -357,16 +400,9 @@ def kernel_cases(cases):
 
 
 def build_config4():
-    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+    from kafka_assigner_tpu_torch.models.synthetic import build_config4
 
-    topic_map, _, racks = rack_striped_cluster(
-        N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS,
-        name_fmt="topic-{:04d}", extra_brokers=REPLACED,
-    )
-    live = set(range(REPLACED, N_BROKERS)) | set(
-        range(N_BROKERS, N_BROKERS + REPLACED)
-    )
-    return topic_map, live, {b: racks[b] for b in live}
+    return build_config4(N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, REPLACED)
 
 
 def giant_cells(n_brokers=N_BROKERS, n_racks=N_RACKS, partitions=GIANT_P,
@@ -567,8 +603,9 @@ def reduced_parity(work, lead):
 
 
 def giant_timing(cells):
-    """Phase 9 (solves): warm median of GIANT_SOLVE_REPS per cell, split by
-    phase, with the waves of every leg that ran."""
+    """Phase 9 (solves): the codec A/B of each cell, a warm median of
+    GIANT_SOLVE_REPS each in turns, split by phase, with the waves of every
+    leg that ran."""
     from kafka_assigner_tpu_torch.assigner import TopicAssigner
     from kafka_assigner_tpu_torch.solvers.base import Context
 
@@ -578,30 +615,80 @@ def giant_timing(cells):
         assigner = TopicAssigner(device="cuda")
         if cell == "fresh":
             p = len(topic_map["giant-fresh"])
-            solve = lambda: assigner.solver.fresh_assignment(  # noqa: E731
-                "giant-fresh", p, live, rack_map, RF, Context())
+
+            def plan():
+                return [("giant-fresh", assigner.solver.fresh_assignment(
+                    "giant-fresh", p, live, rack_map, RF, Context()))]
         else:
             topics = list(topic_map.items())
-            solve = lambda: assigner.generate_assignments(  # noqa: E731
-                topics, live, rack_map)
-        runs = []
-        for i in range(GIANT_SOLVE_REPS + 1):  # 1 warm-up
-            assigner.context = Context()
-            t0 = time.perf_counter()
-            solve()
-            total = (time.perf_counter() - t0) * 1e3
-            if i:
-                runs.append(dict(assigner.solver.last_timers, total=total))
-        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+            def plan():
+                assigner.context = Context()
+                return assigner.generate_assignments(topics, live, rack_map)
+
+        def solve():
+            return plan(), assigner.solver
+
+        med = codec_ab(f"giant {cell}", solve, GIANT_SOLVE_REPS)
         waves = dict(assigner.solver.last_waves)
         if "dense" in waves or "seq" in waves:
             fail(f"giant {cell}: a rescue leg ran ({waves})")
         phase("timing", f"giant {cell} solve median of {GIANT_SOLVE_REPS} (ms): "
-              + ", ".join(f"{k} {med[k]:.1f}" for k in
-                          ("total", "encode", "place", "leadership", "decode"))
-              + f"; waves {waves}")
+              f"{phase_ms(med['c'])}; waves {waves}")
         out[cell] = dict(med, waves=waves)
     return out
+
+
+def timed_turns(solve, variants, reps):
+    """``solve()`` under each variant's knobs in turns, ``reps + 1`` rounds,
+    the first a warm-up. ``solve()`` returns ``(plan pairs, solver)``.
+    Returns ``{variant: (medians of the total and of each phase (ms), the
+    plan's text of the last run, the solver's last_codec and last_leadership
+    of the last run, leadership kernel launches over every run)}``."""
+    from kafka_assigner_tpu_torch.io.json_io import format_reassignment_pairs
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    runs = {name: [] for name in variants}
+    last, launched = {}, dict.fromkeys(variants, 0)
+    for i in range(reps + 1):
+        for name, values in variants.items():
+            with knobs(**values):
+                before = lead.launches["leadership"]
+                t0 = time.perf_counter()
+                pairs, solver = solve()
+                total = (time.perf_counter() - t0) * 1e3
+                launched[name] += lead.launches["leadership"] - before
+            if i:
+                runs[name].append(dict(solver.last_timers, total=total))
+            last[name] = (pairs, dict(solver.last_codec), solver.last_leadership)
+    last = {name: (format_reassignment_pairs(pairs), *rest)
+            for name, (pairs, *rest) in last.items()}
+    return {name: ({k: statistics.median(r[k] for r in rs) for k in rs[0]}, *last[name],
+                   launched[name])
+            for name, rs in runs.items()}
+
+
+PHASES = ("total", "encode", "place", "leadership", "decode")
+
+
+def phase_ms(med):
+    return ", ".join(f"{k} {med[k]:.1f}" for k in PHASES)
+
+
+def codec_ab(what, solve, reps):
+    """The boundary codec A/B within one call: the C codec and
+    ``KA_HOSTCODEC=0`` in turns; fails unless the C codec ran where it is
+    on and the plans are byte-identical. Returns the medians of each."""
+    got = timed_turns(solve, {"c": {"KA_HOSTCODEC": 1}, "numpy": {"KA_HOSTCODEC": 0}}, reps)
+    (med_c, text_c, codec_c, _, _), (med_n, text_n, codec_n, _, _) = got["c"], got["numpy"]
+    if codec_c["decode"] != "c" or codec_n != {"encode": "numpy", "decode": "numpy"}:
+        fail(f"{what}: codec routes {codec_c} with KA_HOSTCODEC=1, {codec_n} with 0")
+    if text_c != text_n:
+        fail(f"{what}: the plans differ between the C codec and numpy")
+    phase("timing", f"codec A/B {what}, median of {reps} in turns (ms): C codec "
+          f"({codec_c['encode']} encode, c decode): {phase_ms(med_c)}; KA_HOSTCODEC=0: "
+          f"{phase_ms(med_n)}; plans byte-identical ({len(text_c)} bytes)")
+    return {"c": med_c, "numpy": med_n, "routes": codec_c}
 
 
 def replicas_held(topic_map):
@@ -1068,7 +1155,12 @@ def group_phases(work, steady_snap, checks):
           + f"; steps max {runs[-1]['steps_max']}, sum {runs[-1]['steps_sum']}; "
           f"peak device memory {peak / 2**20:.1f} MiB")
 
-    # The kernel alone at each path's shape, its bound and its chain floor.
+    # The kernel alone at each path's shape, its bound, its chain floor (the
+    # longest chain times the step probe's time a step) and the chain at the
+    # kernel's own time a step (one all-orphan candidate at the path's C_pad).
+    probe_ns, probe_cycles = gcases.probe_ns()
+    phase("timing", f"group_pack step probe: {probe_ns:.2f} ns, {probe_cycles:.2f} cycles "
+          "a step of the chain alone (two warp reductions and the bump, one warp)")
     out = {}
     for path, (inputs, outputs, shape) in timed.items():
         ms, lo, hi = scan_timing(path, inputs, outputs)
@@ -1078,13 +1170,17 @@ def group_phases(work, steady_snap, checks):
         nbytes = gcases.scan_bytes(s_, p_, c_, rec["steps_sum"])
         step = gcases.step_ns(c_)
         out[path] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
-                         chain_steps=rec["steps_max"], step_ns=step,
-                         chain_bound_ms=rec["steps_max"] * step * 1e-6)
+                         chain_steps=rec["steps_max"], step_probe_ns=probe_ns,
+                         chain_bound_ms=rec["steps_max"] * probe_ns * 1e-6,
+                         kernel_step_ns=step,
+                         chain_kernel_ms=rec["steps_max"] * step * 1e-6)
         phase("timing", f"group_pack kernel at {path} ({shape}): median {ms:.3f} ms of "
               f"{KERNEL_REPS} (min {lo:.3f}, max {hi:.3f}); byte bound "
               f"{out[path]['bound_ms']:.4f} ms ({nbytes} bytes); chain floor "
               f"{out[path]['chain_bound_ms']:.3f} ms ({rec['steps_max']} steps x "
-              f"{step:.1f} ns, the kernel on one all-orphan candidate at C_pad {c_})")
+              f"{probe_ns:.2f} ns of the probe); the chain at the kernel's own "
+              f"{step:.1f} ns a step (one all-orphan candidate at C_pad {c_}) "
+              f"{out[path]['chain_kernel_ms']:.3f} ms")
     r = GROUP_PLAIN_SHAPE
     rng = np.random.default_rng(1)
     w, cap, cur, order, alive = gcases.instance(rng, r["s"], r["p"], r["p"], r["c"], r["c"])
@@ -1120,8 +1216,125 @@ def group_phases(work, steady_snap, checks):
         "library_ms": None,
         "chain_steps": main["chain_steps"],
         "chain_bound_ms": main["chain_bound_ms"],
+        "step_probe_ns": probe_ns,
+        "step_probe_cycles": probe_cycles,
+        "chain_kernel_ms": main["chain_kernel_ms"],
         "by_path": out,
     }
+
+
+def leadership_lanes(argv4, config4, cells, work):
+    """Phase 17: ``KA_LEADERSHIP=native`` against ``device`` on config 4 and
+    the giant expansion. Through the CLI on cuda: stdout byte-identical, the
+    leadership kernel launched on the device lane only. Then a warm median
+    of each lane in turns, split by phase; the native lane's leadership
+    phase includes copying the placement to the host."""
+    from kafka_assigner_tpu_torch.assigner import TopicAssigner
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.solvers.base import Context
+
+    g_map, g_live, g_racks, _, _ = cells["expansion"]
+    g_argv = ["--zk_string", f"file://{os.path.join(work, 'giant_expansion.json')}",
+              "--mode", "PRINT_REASSIGNMENT"]
+    lanes = {"native": {"KA_LEADERSHIP": "native"}, "device": {"KA_LEADERSHIP": "device"}}
+    out = {}
+    for what, argv, (topics, live, rack_map), reps in (
+        ("config 4", argv4, config4, SOLVE_REPS),
+        ("giant expansion", g_argv, (list(g_map.items()), g_live, g_racks), GIANT_SOLVE_REPS),
+    ):
+        texts, launched = {}, {}
+        for lane, values in lanes.items():
+            with knobs(**values):
+                lead.launches["leadership"] = 0
+                texts[lane] = run_cli(argv + ["--device", "cuda"])
+                launched[lane] = lead.launches["leadership"]
+        if texts["native"] != texts["device"]:
+            fail(f"{what}: the plans differ on the native and device leadership lanes")
+        if launched["native"] or launched["device"] < 1:
+            fail(f"{what}: leadership kernel launches {launched} (native must be 0)")
+        assigner = TopicAssigner(device="cuda")
+
+        def solve(topics=topics, live=live, rack_map=rack_map):
+            assigner.context = Context()
+            return assigner.generate_assignments(topics, live, rack_map), assigner.solver
+
+        got = timed_turns(solve, lanes, reps)
+        (med_n, text_n, _, lane_n, k_n), (med_d, text_d, _, lane_d, k_d) = \
+            got["native"], got["device"]
+        if (lane_n, lane_d) != ("native", "cuda") or k_n or k_d != reps + 1 \
+                or text_n != text_d:
+            fail(f"{what}: lanes ran {lane_n}/{lane_d}, kernel launches {k_n}/{k_d}, "
+                 f"plans equal {text_n == text_d}")
+        phase("lanes", f"{what}: CLI stdout byte-identical on KA_LEADERSHIP=native and "
+              f"device ({len(texts['native'])} bytes); leadership kernel launches "
+              f"{launched['native']} / {launched['device']}; median of {reps} in turns "
+              f"(ms): native {phase_ms(med_n)}; device {phase_ms(med_d)}")
+        out[what] = {"native": med_n, "device": med_d, "cli_launches": launched}
+    return out
+
+
+def moved_count(plan, topic_map):
+    return sum(len(set(reps) - set(topic_map[t][p]))
+               for t, per in plan.items() for p, reps in per.items())
+
+
+def solver_lanes(argv4, device_text, prefix, prefix_text, topic_map, live, rack_map,
+                 cap, on_removed):
+    """Phase 18: ``--solver native`` on config 4 through the CLI, then
+    ``--solver greedy`` and ``native`` on phase 5's prefix; neither launches
+    the leadership kernel. The C++ greedy places orphans first-fit where the
+    device solver runs its waves, so the two NEW ASSIGNMENT sections agree
+    in what moves, not in every list (as in the JAX package's lanes, which
+    the CPU tests hold these to)."""
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    lead.launches["leadership"] = 0
+    t0 = time.perf_counter()
+    native = run_cli(argv4 + ["--solver", "native", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    marker = "NEW ASSIGNMENT:\n"
+    if native.split(marker)[0] != device_text.split(marker)[0]:
+        fail("--solver native: the CURRENT ASSIGNMENT section differs from --solver device's")
+    plan_n, plan_d = plan_section(native), plan_section(device_text)
+    moved = check_plan(plan_n, topic_map, live, rack_map, cap, on_removed)
+    differ = sum(plan_n[t][p] != plan_d[t][p] for t in plan_n for p in plan_n[t])
+    phase("solvers", f"--solver native on config 4 through the CLI: {wall:.2f} s wall, "
+          f"moved {moved} == --solver device's; {differ} of "
+          f"{sum(map(len, plan_n.values()))} lists differ from the device plan")
+    sub = {t: topic_map[t] for t in prefix.split(",")}
+    texts = {}
+    for solver in ("greedy", "native"):
+        t0 = time.perf_counter()
+        texts[solver] = run_cli(argv4 + ["--topics", prefix, "--solver", solver,
+                                         "--device", "cuda"])
+        texts[solver + "_s"] = time.perf_counter() - t0
+    if texts["greedy"] != texts["native"]:
+        fail(f"{PREFIX_TOPICS}-topic prefix: --solver greedy and native differ")
+    want = moved_count(plan_section(prefix_text), sub)
+    moved_p = check_plan(plan_section(texts["greedy"]), sub, live, rack_map, cap, want)
+    if lead.launches["leadership"]:
+        fail(f"the greedy lanes launched the leadership kernel {lead.launches['leadership']}"
+             " times")
+    phase("solvers", f"{PREFIX_TOPICS}-topic prefix: --solver greedy "
+          f"({texts['greedy_s']:.2f} s) and native ({texts['native_s']:.2f} s) "
+          f"byte-identical, moved {moved_p} == --solver device's; leadership kernel "
+          "launches 0 on the greedy lanes")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "torch_bench.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"scripts/torch_bench.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    extra = bench["extra"]
+    if extra["moved_replicas"] != on_removed or extra["codec"] != \
+            {"encode": "c", "decode": "c"} or extra["leadership"] != "cuda":
+        fail(f"scripts/torch_bench.py: unexpected run {extra}")
+    phase("solvers", f"scripts/torch_bench.py in a subprocess ({time.perf_counter() - t0:.1f} s), "
+          "its line:")
+    print(line, flush=True)
+    return bench
 
 
 def main() -> int:
@@ -1146,6 +1359,7 @@ def smoke(checks) -> int:
 
     from kafka_assigner_tpu_torch.assigner import TopicAssigner
     from kafka_assigner_tpu_torch.carry import to_tensor
+    from kafka_assigner_tpu_torch.models import problem
     from kafka_assigner_tpu_torch.models.problem import context_to_array, encode_topic_group
     from kafka_assigner_tpu_torch.ops import build
     from kafka_assigner_tpu_torch.ops import leadership as lead
@@ -1164,6 +1378,7 @@ def smoke(checks) -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line or "Used" in line:
                 phase("build", f"{src}: {line.strip()}")
+    native_builds()
 
     max_err = kernel_cases(cases)
     group_case_err = group_kernel_cases()
@@ -1182,6 +1397,9 @@ def smoke(checks) -> int:
     launched = lead.launches["leadership"]
     if launched < 1:
         fail("the main path never launched the leadership kernel")
+    if problem.last_codec != {"encode": "c", "decode": "c"}:
+        fail(f"the main path's encode and decode did not take the C codec "
+             f"({problem.last_codec})")
     removed = set(range(REPLACED))
     on_removed = sum(b in removed for old in topic_map.values()
                      for reps in old.values() for b in reps)
@@ -1189,7 +1407,7 @@ def smoke(checks) -> int:
     moved = check_plan(plan_section(text), topic_map, live, rack_map, cap, on_removed)
     phase("main", f"config 4 mode 3 on cuda: {wall_s:.2f} s wall, moved {moved} "
           f"replicas (== replicas on brokers 0-{REPLACED - 1}), cap {cap}, "
-          f"leadership kernel launches {launched}")
+          f"leadership kernel launches {launched}, encode and decode through the C codec")
 
     # The kernel at the main path's shape, on the main path's inputs,
     # against the plain version on the same inputs (in a worker).
@@ -1217,20 +1435,18 @@ def smoke(checks) -> int:
     phase("cuda==cpu", f"{PREFIX_TOPICS}-topic prefix of config 4: plan text "
           f"byte-identical ({len(a)} bytes)")
 
-    # --- 6: timing ---------------------------------------------------------
+    # --- 6: timing, with the codec A/B ---------------------------------------
     assigner = TopicAssigner(device="cuda")
-    runs = []
-    for i in range(SOLVE_REPS + 1):  # 1 warm-up
+
+    def solve_config4():
         assigner.context = Context()
-        t0 = time.perf_counter()
-        assigner.generate_assignments(topics, live, rack_map)
-        total = (time.perf_counter() - t0) * 1e3
-        if i:
-            runs.append(dict(assigner.solver.last_timers, total=total))
-    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    phase("timing", f"solve median of {SOLVE_REPS} (ms): " + ", ".join(
-        f"{k} {med[k]:.1f}" for k in ("total", "encode", "place", "leadership", "decode")
-    ) + f"; waves {assigner.solver.last_waves}")
+        return assigner.generate_assignments(topics, live, rack_map), assigner.solver
+
+    ab = codec_ab("config 4", solve_config4, SOLVE_REPS)
+    if ab["routes"] != {"encode": "c", "decode": "c"}:
+        fail(f"config 4: the C codec did not run under KA_HOSTCODEC=1 ({ab['routes']})")
+    phase("timing", f"solve median of {SOLVE_REPS} (ms): {phase_ms(ab['c'])}; waves "
+          f"{assigner.solver.last_waves}")
 
     times = cases.event_ms(lambda: lead.leadership_order(*k_args), KERNEL_REPS)
     ms = statistics.median(times)
@@ -1297,14 +1513,22 @@ def smoke(checks) -> int:
         fail(f"the group phases launched the leadership kernel "
              f"{lead.launches['leadership']} times")
     phase("groups", "phases 14-16 launched the leadership kernel 0 times")
-
+    # The workers' checks end here, so phases 17-18 time a quiet host.
     worst = checks.collect()
+    phase("timing", f"whole smoke so far {time.perf_counter() - t_start:.1f} s")
+
+    # --- 17-18: the leadership lanes and the solver lanes -------------------
+    lanes = leadership_lanes(argv, (topics, live, rack_map), cells, work)
+    solver_lanes(argv, text, prefix, a, topic_map, live, rack_map, cap, on_removed)
+
     max_err = max(max_err, worst.get("leadership", 0))
     gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0))
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},
-               **reduced}
+               **reduced,
+               **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
+                  for k, v in lanes.items() for lane in ("native", "device")}}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

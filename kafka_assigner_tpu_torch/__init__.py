@@ -4,17 +4,21 @@ The JAX package beside it is the reference; this package mirrors its layout
 so each module's counterpart sits at the same path, and its output is held
 byte-identical to the reference's ``--solver tpu`` path.
 
-What this package covers today is every mode of the reference CLI on the
-device solver:
+What this package covers today is every mode of the reference CLI, mode 3
+on each of the reference's solver lanes:
 
-- ``models.problem``       — host encode/decode (numpy), a copy of the
-  reference's numpy path;
+- ``models.problem``       — host encode/decode, through the C boundary
+  codec or its numpy twin;
+- ``native``               — the port's own copies of the reference's C
+  codec and C++ greedy / host leadership pass, built with gcc/g++;
 - ``ops.assignment``       — placement in plain PyTorch, batched over topics
   (sticky fill, then the fast → dense → balance → seq leg chain), with a
   liveness mask per row, and the what-if sweeps built on it;
 - ``ops.leadership``       — leadership ordering: a hand-written Hopper
   kernel (``csrc/leadership.cu``) and its plain PyTorch twin;
-- ``solvers.torch_solver`` — ``TorchSolver``, the ``TpuSolver`` counterpart;
+- ``solvers``              — ``TorchSolver`` (the ``TpuSolver`` counterpart,
+  ``--solver device``), the C++ greedy (``native``) and the Python oracle
+  (``greedy``);
 - ``parallel.whatif``      — batched broker-removal what-if sweeps;
 - ``assigner`` / ``generator`` / ``cli`` — the CLI surface.
 

@@ -8,8 +8,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Mapping, Sequence, Set, Tuple
 
-from .solvers.base import Context
-from .solvers.torch_solver import TorchSolver
+from .solvers.base import Context, Solver, get_solver
 
 
 def infer_topic_rf(
@@ -35,11 +34,12 @@ def infer_topic_rf(
 class TopicAssigner:
     """Minimal-movement assignments through one shared ``Context``.
 
-    ``solver``: a ``TorchSolver`` (or any object with its interface); by
-    default one on ``device`` (``cuda`` unless the caller says ``cpu``)."""
+    ``solver``: a name of ``solvers/base.py:get_solver`` (``device``, the
+    default, on ``device``: ``cuda`` unless the caller says ``cpu``;
+    ``native``; ``greedy``) or a solver object."""
 
-    def __init__(self, solver=None, device: str = "cuda") -> None:
-        self.solver = TorchSolver(device) if solver is None else solver
+    def __init__(self, solver: str | Solver = "device", device: str = "cuda") -> None:
+        self.solver = get_solver(solver, device) if isinstance(solver, str) else solver
         self.context = Context()
 
     def _infer_replication_factor(
@@ -90,11 +90,15 @@ class TopicAssigner:
         rack_assignment: Mapping[int, str],
         desired_replication_factor: int = -1,
     ) -> List[Tuple[str, Dict[int, List[int]]]]:
-        """Solve many topics through one shared Context in one batch,
-        returning ``[(topic, assignment), ...]`` in input order; a repeated
-        topic name is solved per occurrence, like the reference's topic
-        loop (``KafkaAssignmentGenerator.java:173-176``). Mixed replication
-        factors share the batch."""
+        """Solve many topics through one shared Context, returning
+        ``[(topic, assignment), ...]`` in input order; a repeated topic name
+        is solved per occurrence, like the reference's topic loop
+        (``KafkaAssignmentGenerator.java:173-176``). As the reference's
+        (``kafka_assigner_tpu/assigner.py:213``): a solver without
+        ``assign_many`` solves topic by topic; one that declares
+        ``supports_mixed_rf`` (the device solver) takes every topic in one
+        batch; any other gets one batch per run of consecutive topics of
+        one replication factor."""
         items = (
             list(topic_assignments.items())
             if isinstance(topic_assignments, Mapping)
@@ -108,8 +112,23 @@ class TopicAssigner:
         ]
         if not items:
             return []
-        return list(
-            self.solver.assign_many(
-                items, rack_assignment, set(brokers), rfs, self.context
-            )
-        )
+        assign_many = getattr(self.solver, "assign_many", None)
+        if assign_many is None:
+            return [
+                (topic, self.solver.assign(topic, cur, rack_assignment, set(brokers),
+                                           set(cur), rf, self.context))
+                for (topic, cur), rf in zip(items, rfs)
+            ]
+        if getattr(self.solver, "supports_mixed_rf", False):
+            return list(assign_many(items, rack_assignment, set(brokers), rfs,
+                                    self.context))
+        out: List[Tuple[str, Dict[int, List[int]]]] = []
+        i = 0
+        while i < len(items):
+            j = i
+            while j < len(items) and rfs[j] == rfs[i]:
+                j += 1
+            out.extend(assign_many(items[i:j], rack_assignment, set(brokers),
+                                   rfs[i], self.context))
+            i = j
+        return out

@@ -4,7 +4,8 @@
         --mode PRINT_REASSIGNMENT [--topics a,b] [--integer_broker_ids 1,2 |
         --broker_hosts h1,h2] [--broker_hosts_to_remove h3]
         [--desired_replication_factor N] [--disable_rack_awareness]
-        [--leadership_context PATH] [--device {cuda,cpu}]
+        [--leadership_context PATH] [--solver {device,native,greedy}]
+        [--device {cuda,cpu}]
 
     python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
         --mode PRINT_FRESH_ASSIGNMENT --topics a,b --partition_count P \
@@ -20,14 +21,20 @@
         --mode {PRINT_CURRENT_ASSIGNMENT [--topics a,b] | PRINT_CURRENT_BROKERS}
 
 The flags are the reference CLI's flags for these modes
-(``kafka_assigner_tpu/cli.py:83-118``); ``--device`` takes the place of
-``--solver``. RANK_DECOMMISSION ranks each candidate broker's removal (all
-live brokers by default), or each removal set of a ``--scenario_file``, in
-one sweep; the two current-state modes run on the host. Stdout is
-byte-identical to ``kafka_assigner_tpu.cli`` (``--solver tpu`` for the plan
-modes). Exit codes follow the reference's documented ones: 1 usage, 3
-metadata ingest, 5 validation (RF bounds, unknown hosts or scenario
-entries, infeasible plan).
+(``kafka_assigner_tpu/cli.py:83-118``). ``--solver`` picks mode 3's solver:
+``device`` (the default; the PyTorch/CUDA solver, in the place of the
+reference's ``tpu``), ``native`` (the C++ greedy) or ``greedy`` (the Python
+oracle); the other modes always run on the device and note a ``--solver``
+other than ``device`` on stderr, as the reference does. ``--device`` says
+where the device solver runs. RANK_DECOMMISSION ranks each candidate
+broker's removal (all live brokers by default), or each removal set of a
+``--scenario_file``, in one sweep; the two current-state modes run on the
+host. Stdout is byte-identical to ``kafka_assigner_tpu.cli`` (with
+``--solver tpu`` in the place of ``device``). Every entry first builds the
+native host libraries (``native/build.py``) when they are not built. Exit
+codes follow the reference's documented ones: 1 usage, 3 metadata ingest,
+5 validation (RF bounds, unknown hosts or scenario entries, infeasible
+plan).
 
 The consumer-group tool ``ka-groups`` (:func:`run_groups`,
 ``python -m kafka_assigner_tpu_torch.groups``)::
@@ -48,6 +55,8 @@ from __future__ import annotations
 import argparse
 import sys
 from typing import List, Optional
+
+from .solvers.base import SOLVER_NAMES
 
 EXIT_OK = 0
 EXIT_USAGE = 1
@@ -99,9 +108,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--leadership_context", default=None, metavar="PATH",
                    help="persist cross-run leadership counters to PATH "
                         "(loaded if present, saved after the plan)")
+    p.add_argument("--solver", default="device", choices=SOLVER_NAMES,
+                   help="PRINT_REASSIGNMENT's solver: the PyTorch/CUDA solver "
+                        "(device, the default), the C++ greedy (native) or "
+                        "the Python greedy oracle (greedy)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where the solve runs (default: cuda)")
+                   help="where the device solver runs (default: cuda)")
     return p
+
+
+def _prebuild_native() -> None:
+    """Build the native host libraries unless they are built: entry points
+    compile, the solve path only loads (``native/build.py``). A codec that
+    cannot be built warns once and the numpy codec stands in."""
+    from .native.build import prebuild_native_libraries
+
+    prebuild_native_libraries(err=sys.stderr)
+
+
+def _note_solver_ignored(args, why: str) -> None:
+    """The reference's stderr note for a mode that ignores ``--solver``
+    (``kafka_assigner_tpu/cli.py:299-322``)."""
+    if args.solver != "device":
+        print(f"note: --solver {args.solver} is ignored by {args.mode} ({why})",
+              file=sys.stderr)
 
 
 def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
@@ -120,6 +150,7 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
     )
     from .io.snapshot import open_snapshot
 
+    _prebuild_native()
     parser = build_parser()
     args = parser.parse_args(argv)
     try:
@@ -151,6 +182,7 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
         print_current_brokers(backend, out=out, live_brokers=live_brokers)
         return EXIT_OK
     if args.mode == "RANK_DECOMMISSION":
+        _note_solver_ignored(args, "always the batched device sweep")
         # --broker_hosts_to_remove narrows the cluster first (rank the
         # remaining removals given those already gone); the selected
         # brokers are the candidates (kafka_assigner_tpu/cli.py:323-331).
@@ -173,6 +205,7 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
                 file=sys.stderr,
             )
             return EXIT_USAGE
+        _note_solver_ignored(args, "always the device solver")
         # Target set: the selected brokers (or all live ones) minus the
         # excluded, as the reference's cli.py:305-313.
         target = (broker_ids or {b.id for b in live_brokers}) - excluded
@@ -195,6 +228,7 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
         out=out,
         live_brokers=live_brokers,
         context_file=args.leadership_context,
+        solver=args.solver,
     )
     return EXIT_OK
 
@@ -274,6 +308,7 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
     from .io.snapshot import open_snapshot
     from .utils.env import env_float, env_int, env_str
 
+    _prebuild_native()
     parser = build_groups_parser()
     args = parser.parse_args(argv)
     if args.zk_string is None:

@@ -21,7 +21,7 @@
 // fits mask, and the tests hold the two together on ties and dead columns.
 //
 // What bounds it: a dependent chain of one warp argmax per orphan row, not
-// bytes. Step t+1's argmax needs step t's headroom update, so a candidate's
+// bytes; step_probe_kernel below measures that chain's step alone. Step t+1's argmax needs step t's headroom update, so a candidate's
 // orphan rows run one after another; the bytes (weights, need flags and
 // assignments of the orphan rows, the loads) are a few MB at the largest
 // shape, microseconds at 3.35 TB/s.
@@ -159,6 +159,36 @@ __global__ void __launch_bounds__(kWarp) pack_scan_kernel(
   if (lane == 0) overflowed[s] = over;
 }
 
+// The step's floor, measured rather than assumed: one warp runs `steps`
+// steps of the chain alone, one consumer a lane (C_pad 32, all alive): a
+// step is the two warp reductions of pack_scan_kernel and the picking
+// lane's bump of its headroom. With one consumer a lane the bump is the
+// rescan, so the picks are KG1's own on that instance
+// (ops/group_pack_cases.py:probe_picks emulates them). `in` holds the 32
+// headrooms and the weight; `out` gets the last pick, the overflow count and
+// the clock64 cycles of the loop.
+__global__ void __launch_bounds__(kWarp) step_probe_kernel(
+    const int* __restrict__ in, long long* out, long long steps) {
+  const int lane = threadIdx.x;
+  int mv = in[lane];
+  const int w = in[kWarp];
+  int i = -1, over = 0;
+  const long long t0 = clock64();
+#pragma unroll 4
+  for (long long k = 0; k < steps; ++k) {
+    const int v = __reduce_max_sync(kFull, mv);
+    i = __reduce_min_sync(kFull, mv == v ? lane : INT_MAX);
+    over += v < w;
+    if (lane == i) mv -= w;
+  }
+  const long long t1 = clock64();
+  if (lane == 0) {
+    out[0] = i;
+    out[1] = over;
+    out[2] = t1 - t0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +233,15 @@ int ka_group_pack_scan(const int* weights, const int* capacities,
         overflowed, scratch, p, c);
   }
   return cudaGetLastError();
+}
+
+// The step-floor probe (step_probe_kernel): `in` holds 33 int32 words on
+// the device, `out` three int64 words.
+int ka_group_pack_step_probe(const int* in, long long* out, long long steps,
+                             cudaStream_t stream) {
+  if (steps < 1) return (int)cudaErrorInvalidValue;
+  step_probe_kernel<<<1, kWarp, 0, stream>>>(in, out, steps);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

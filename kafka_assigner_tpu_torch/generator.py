@@ -235,10 +235,12 @@ def print_least_disruptive_reassignment(
     out: Optional[TextIO] = None,
     live_brokers: Optional[Sequence[BrokerInfo]] = None,
     context_file: Optional[str] = None,
+    solver: str = "device",
 ) -> Dict[str, Dict[int, List[int]]]:
     """Mode 3: resolve the broker set (all live brokers by default, minus
     exclusions), print the current assignment for rollback, solve every
-    topic through one shared-context assigner in CLI order and emit the
+    topic through one shared-context assigner in CLI order with ``solver``
+    (``device`` on ``device``, ``native`` or ``greedy``) and emit the
     combined reassignment JSON. Metadata is read once; the rollback snapshot
     and the solver see the same read."""
     out = out if out is not None else sys.stdout
@@ -265,7 +267,7 @@ def print_least_disruptive_reassignment(
             file=sys.stderr,
         )
 
-    assigner = TopicAssigner(device=device)
+    assigner = TopicAssigner(solver, device=device)
     if context_file is not None and os.path.exists(context_file):
         try:
             assigner.context = Context.load(context_file)

@@ -1,7 +1,9 @@
 """Dense problem encoding: the bridge between ``{partition: [broker_id]}``
-maps and the index-space tensors the solver works on — the numpy path of
-``kafka_assigner_tpu/models/problem.py``, copied. (The reference's C host
-codec is documented there to give the same arrays as this numpy path.)
+maps and the index-space tensors the solver works on, a copy of
+``kafka_assigner_tpu/models/problem.py``. The batched encode and decode go
+through the C boundary codec (``native/hostcodec.c``) when ``KA_HOSTCODEC``
+is on (the default) and the codec is built, as the reference's do; the numpy
+bodies here are its twin, and give the same arrays and lists.
 
 Everything downstream works on int32 arrays over *index* space (broker row
 0..N-1, rack 0..R-1, partition row 0..P-1); ids appear only here. Shapes are
@@ -16,7 +18,12 @@ from typing import Dict, List, Mapping, Sequence, Set
 import numpy as np
 
 from ..solvers.base import Context
+from ..utils.env import env_bool
 from ..utils.javahash import java_string_hash
+
+#: Which codec the latest encode and decode of this process took: ``"c"``
+#: (the native codec) or ``"numpy"``. The solver copies it after each solve.
+last_codec: Dict[str, str] = {"encode": "", "decode": ""}
 
 
 def _checked_jhash(topic: str) -> int:
@@ -29,6 +36,20 @@ def _checked_jhash(topic: str) -> int:
             "tool crashes on this input (negative array index)"
         )
     return abs(h)
+
+
+def _hostcodec():
+    """The built C boundary codec, or None when ``KA_HOSTCODEC=0`` or it is
+    not built (``native/build.py:prebuild_native_libraries`` warns at
+    startup when it cannot be built); the numpy paths then run."""
+    if not env_bool("KA_HOSTCODEC"):
+        return None
+    from ..native.build import NativeBuildError, load_hostcodec
+
+    try:
+        return load_hostcodec()
+    except NativeBuildError:
+        return None
 
 
 def _next_bucket(n: int, floor: int = 8) -> int:
@@ -126,6 +147,7 @@ def encode_problem(
     ``current_assignment`` become empty (-1) rows."""
     if cluster is None:
         cluster = encode_cluster(rack_assignment, nodes)
+    last_codec["encode"] = "numpy"
     broker_ids = cluster.broker_ids
     n = cluster.n
     spids = sorted(partitions)
@@ -187,7 +209,9 @@ def encode_topic_group(
     (B_pad, P_pad, W) int32, jhashes (B_pad,) int32, p_reals (B_pad,) int32)``
     with the batch axis bucketed (padding topics inert). Every uniform
     topic's id -> index mapping is one ``searchsorted`` over the
-    concatenation; ragged replica lists take the general fill."""
+    concatenation; ragged replica lists take the general fill. With the C
+    codec on and every mapping a real ``dict``, the codec does the same in
+    one pass (:func:`_encode_topic_group_codec`)."""
     if cluster is None:
         cluster = encode_cluster(rack_assignment, nodes)
     broker_ids = cluster.broker_ids
@@ -198,6 +222,15 @@ def encode_topic_group(
         raise ValueError(
             f"rfs has {len(rfs)} entries for {len(named_currents)} topics"
         )
+
+    codec = _hostcodec()
+    if codec is not None and all(isinstance(c, dict) for _, c in named_currents):
+        # The codec walks real dicts (the PyDict API); other Mappings
+        # (MappingProxyType, ChainMap, ...) take the numpy path, so the
+        # accepted inputs do not depend on the codec being built.
+        last_codec["encode"] = "c"
+        return _encode_topic_group_codec(codec, named_currents, rfs, cluster)
+    last_codec["encode"] = "numpy"
 
     per = []  # (topic, spids, ids(ndarray)|None, cur, jhash)
     max_p, max_w = 0, 1
@@ -269,6 +302,48 @@ def encode_topic_group(
     return encs, currents, jhashes, p_reals
 
 
+def _encode_topic_group_codec(codec, named_currents, rfs, cluster):
+    """The C codec's encode: the same outputs as the numpy body of
+    :func:`encode_topic_group`, the dict walk, key sort, id -> index mapping
+    and row fills done in one C pass."""
+    n = cluster.n
+    jh_list = [_checked_jhash(topic) for topic, _ in named_currents]
+    curs = [cur for _, cur in named_currents]
+    max_p, max_w = codec.scan_dims(curs)
+    p_pad = _pad8(max_p)
+    width = max(max_w, 2)
+    b_pad = batch_bucket(len(curs))
+    currents = np.full((b_pad, p_pad, width), -1, dtype=np.int32)
+    jhashes = np.zeros(b_pad, dtype=np.int32)
+    p_reals = np.zeros(b_pad, dtype=np.int32)
+    part_ids = np.full((b_pad, p_pad), -1, dtype=np.int64)
+    codec.encode_rows(
+        curs, np.ascontiguousarray(cluster.broker_ids, dtype=np.int64),
+        currents, p_reals, part_ids,
+    )
+    jhashes[: len(jh_list)] = jh_list
+    encs = []
+    for i, ((topic, _), rf) in enumerate(zip(named_currents, rfs)):
+        p = int(p_reals[i])
+        encs.append(
+            ProblemEncoding(
+                topic=topic,
+                broker_ids=cluster.broker_ids,
+                partition_ids=part_ids[i, :p],
+                rack_idx=cluster.rack_idx,
+                current=currents[i],
+                rf=rf,
+                jhash=jh_list[i],
+                n=n,
+                p=p,
+                n_pad=cluster.n_pad,
+                p_pad=p_pad,
+                r_cap=rack_cap(cluster.n_racks),
+            )
+        )
+    return encs, currents, jhashes, p_reals
+
+
 def decode_assignment(
     enc: ProblemEncoding, ordered: np.ndarray
 ) -> Dict[int, List[int]]:
@@ -288,12 +363,28 @@ def decode_assignment(
 def decode_assignments_batched(
     encs: Sequence[ProblemEncoding], ordered: np.ndarray
 ) -> List[Dict[int, List[int]]]:
-    """Batched :func:`decode_assignment`: one gather + one bulk int
-    conversion per distinct RF over the whole (B, P_pad, RF) result."""
+    """Batched :func:`decode_assignment`: through the C codec when it is on
+    and built, else one gather + one bulk int conversion per distinct RF
+    over the whole (B, P_pad, RF) result. Both skip -1 slots, so a narrower
+    topic of a mixed-RF batch, and a compat row shorter than the slot
+    width, come out as short as they are."""
     if not encs:
         return []
     ordered = np.ascontiguousarray(ordered, dtype=np.int32)
     broker_ids = encs[0].broker_ids
+    codec = _hostcodec()
+    if codec is not None:
+        last_codec["decode"] = "c"
+        part_ids = np.full((len(encs), ordered.shape[1]), -1, dtype=np.int64)
+        for i, e in enumerate(encs):
+            part_ids[i, : e.p] = e.partition_ids
+        p_reals32 = np.fromiter((e.p for e in encs), dtype=np.int32, count=len(encs))
+        return codec.decode_rows(
+            ordered[: len(encs)],
+            np.ascontiguousarray(broker_ids, dtype=np.int64),
+            part_ids, p_reals32, len(encs),
+        )
+    last_codec["decode"] = "numpy"
     p_reals = np.fromiter((e.p for e in encs), dtype=np.int64, count=len(encs))
     rfs = np.fromiter((e.rf for e in encs), dtype=np.int64, count=len(encs))
     # Completeness over real rows and each topic's own slots (a narrower

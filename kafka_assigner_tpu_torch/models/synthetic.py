@@ -48,3 +48,18 @@ def build_config5():
     """BASELINE config 5: 1k brokers / 100 topics x 50 partitions / RF=3 /
     10 racks — the 256-scenario what-if fleet shape."""
     return rack_striped_cluster(1000, 100, 50, 3, 10)
+
+
+def build_config4(n_brokers=5000, n_topics=2000, p_per_topic=100, rf=3,
+                  n_racks=10, replaced=100):
+    """BASELINE config 4, as ``bench.py:build_headline`` builds it: 5k
+    brokers in 10 racks, 2,000 topics x 100 partitions at RF 3, brokers
+    0-99 replaced by 5000-5099. Returns ``(topic_map, live, rack_map)``."""
+    topic_map, _, racks = rack_striped_cluster(
+        n_brokers, n_topics, p_per_topic, rf, n_racks,
+        name_fmt="topic-{:04d}", extra_brokers=replaced,
+    )
+    live = set(range(replaced, n_brokers)) | set(
+        range(n_brokers, n_brokers + replaced)
+    )
+    return topic_map, live, {b: racks[b] for b in live}

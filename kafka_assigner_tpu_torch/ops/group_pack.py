@@ -12,6 +12,8 @@ loop of K14 ``pack_group`` and, through K15's vmap, ``group_pack_sweep``.
   the kernel against it on the card.
 - :data:`launches` counts kernel launches (the wrapper adds one where it
   launches, and nowhere else).
+- :func:`step_probe` runs the kernel's step alone as a dependent chain on
+  one warp: the floor of a step, a measurement that counts no launch.
 
 The kernel's design, the rule it picks by and what bounds it are in the
 header of the ``.cu``.
@@ -44,6 +46,7 @@ def _kernel_lib() -> ctypes.CDLL:
             ("ka_group_pack_smem_limit", c_int, []),
             ("ka_group_pack_smem_bytes", ctypes.c_longlong, [c_int]),
             ("ka_group_pack_scan", c_int, [c_ptr] * 9 + [c_int] * 4 + [c_ptr]),
+            ("ka_group_pack_step_probe", c_int, [c_ptr, c_ptr, ctypes.c_longlong, c_ptr]),
         ):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
@@ -178,3 +181,30 @@ def pack_scan(
         raise RuntimeError(f"group pack kernel launch failed: cudaError {err}")
     launches["group_pack"] += 1
     return over
+
+
+#: Words of the step probe's input: 32 headrooms, one a lane, and the weight.
+PROBE_WORDS = 33
+
+
+def step_probe(slot: torch.Tensor, steps: int) -> torch.Tensor:
+    """Run the kernel's step alone, ``steps`` times in a dependent chain on
+    one warp with one consumer a lane (C_pad 32, all alive): the two warp
+    reductions and the bump. ``slot`` is :data:`PROBE_WORDS` int32 words on
+    the card (the headrooms, then the weight). Returns ``(last pick,
+    overflow count, clock64 cycles of the loop)`` as an int64 tensor on the
+    card. Events around the call give the time a step; this is a
+    measurement, not a group-pack launch, and counts none."""
+    if slot.device.type != "cuda" or slot.dtype != I32 or slot.numel() != PROBE_WORDS:
+        raise ValueError(f"slot must be {PROBE_WORDS} int32 words on a CUDA device")
+    lib = _kernel_lib()
+    slot = slot.contiguous()
+    out = torch.zeros(3, dtype=torch.int64, device=slot.device)
+    with torch.cuda.device(slot.device):
+        err = lib.ka_group_pack_step_probe(
+            slot.data_ptr(), out.data_ptr(), steps,
+            torch.cuda.current_stream(slot.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"group-pack step probe launch failed: cudaError {err}")
+    return out

@@ -1,6 +1,6 @@
 """Stress cases of the group-pack kernel (KG1), the check that holds it
-against its plain version, and the timing helper that ``chip_smoke.py``
-uses. The CPU tests run the same cases through ``pack_group`` against the
+against its plain version, and the timing helpers that ``chip_smoke.py``
+uses: the kernel's own time a step, and the step probe's floor. The CPU tests run the same cases through ``pack_group`` against the
 JAX package and the host oracle.
 
 A case is a packing instance, ``(name, weights (S, P_pad), capacities
@@ -158,3 +158,39 @@ def step_ns(c_pad: int, steps: int = 1 << 18, reps: int = 5) -> float:
             times.append(start.elapsed_time(end))
     gp.launches["group_pack"] = before
     return float(np.median(times)) * 1e6 / steps
+
+
+def probe_slot(seed: int = 0, weight: int = 37) -> np.ndarray:
+    """The step probe's input: 32 headrooms, one a lane, drawn from a seed
+    in [2^28, 2^29) (room for 2^21 steps of ``weight`` without an overflow,
+    as a sweep's live consumers have), then the weight."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1 << 28, 1 << 29, gp.PROBE_WORDS - 1)
+    return np.append(head, weight).astype(np.int32)
+
+
+def probe_picks(slot: np.ndarray, steps: int) -> Tuple[int, int]:
+    """``(last pick, overflow count)`` of the probe's chain after ``steps``
+    steps, on the host: the first max of the headrooms, an overflow when it
+    is below the weight, the weight off the picked headroom."""
+    head = [int(h) for h in slot[:-1]]
+    w = int(slot[-1])
+    pick, over = -1, 0
+    for _ in range(steps):
+        v = max(head)
+        pick = head.index(v)
+        over += v < w
+        head[pick] -= w
+    return pick, over
+
+
+def probe_ns(steps: int = 1 << 21, reps: int = 5, seed: int = 0) -> Tuple[float, float]:
+    """``(ns, cycles)`` per step of KG1's chain alone: the step probe over
+    ``steps`` steps, the median of ``reps`` calls timed with CUDA events,
+    and its clock64 cycles over the same steps in the last call."""
+    from .leadership_cases import event_ms
+
+    slot = torch.as_tensor(probe_slot(seed), device="cuda")
+    out = []
+    times = event_ms(lambda: out.append(gp.step_probe(slot, steps)), reps)
+    return float(np.median(times)) * 1e6 / steps, int(out[-1][2]) / steps

@@ -1,6 +1,7 @@
-"""Solver seam: the cross-topic ``Context`` and the ``Solver`` protocol, a
-copy of ``kafka_assigner_tpu/solvers/base.py`` (the reference's
-``KafkaAssignmentStrategy.java:40-63, 360-369``).
+"""Solver seam: the cross-topic ``Context``, the ``Solver`` protocol and
+``get_solver``, a copy of ``kafka_assigner_tpu/solvers/base.py`` (the
+reference's ``KafkaAssignmentStrategy.java:40-63, 360-369``), with the
+``device`` solver in the place of ``tpu``.
 
 The ``Context`` file format is the reference package's, so a file written by
 either package loads in the other.
@@ -71,3 +72,37 @@ class Solver(Protocol):
         replication_factor: int,
         context: Context | None = None,
     ) -> Dict[int, List[int]]: ...
+
+
+#: ``--solver``'s names: the PyTorch/CUDA solver, the C++ greedy and the
+#: Python greedy oracle.
+SOLVER_NAMES = ("device", "native", "greedy")
+
+
+def get_solver(name: str, device: str = "cuda") -> Solver:
+    """The solver named ``name``; ``device`` is where the ``device`` solver
+    runs. Raises ``NotImplementedError`` when the ``native`` library is not
+    built, and ``ValueError`` for an unknown name."""
+    if name == "greedy":
+        from .greedy import GreedySolver
+
+        return GreedySolver()
+    if name == "device":
+        from .torch_solver import TorchSolver
+
+        return TorchSolver(device)
+    if name == "native":
+        from ..native.build import NativeBuildError
+
+        try:
+            from .native import NativeGreedySolver
+
+            return NativeGreedySolver()
+        except (NativeBuildError, OSError) as e:
+            # OSError: ctypes on a library built for another platform.
+            raise NotImplementedError(
+                f"the 'native' solver backend could not be built: {e}"
+            ) from e
+    raise ValueError(
+        f"unknown solver {name!r}; expected one of {', '.join(SOLVER_NAMES)}"
+    )

@@ -16,7 +16,13 @@ leadership kernel → host decode. The counterpart of
   rows off its Pallas kernel; the CUDA kernel here takes them at
   ``rf = width`` (1..32), pinned against the plain version;
 - :meth:`TorchSolver.fresh_assignment` places a topic from scratch with the
-  ``fresh`` chain (``solvers/tpu.py:856``), ordered by the same kernel.
+  ``fresh`` chain (``solvers/tpu.py:856``), ordered by the same kernel;
+- ``KA_LEADERSHIP=native`` orders on the host instead, through the C++ pass
+  ``native/leadership.py:order_many`` after a copy of the placement to the
+  host, as the reference's ``_order_placed`` (``solvers/tpu.py:826-845``)
+  and ``fresh_assignment`` (:893-925) do; the bytes are the same;
+- the batched encode and decode take the C boundary codec under
+  ``KA_HOSTCODEC`` (``models/problem.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ..carry import to_tensor
+from ..models import problem
 from ..models.problem import (
     apply_counter_updates,
     context_to_array,
@@ -36,6 +43,7 @@ from ..models.problem import (
     encode_problem,
     encode_topic_group,
 )
+from ..native.leadership import leadership_backend, order_many
 from ..ops.assignment import WAVE_MODES, place_batched
 from ..ops.leadership import leadership_order
 from ..utils.env import env_bool, env_choice, env_int
@@ -94,6 +102,10 @@ class TorchSolver:
     is present; pass ``device="cpu"`` to run the plain versions on the CPU
     (the tests do)."""
 
+    #: ``assign_many`` takes one batch of topics of different replication
+    #: factors (``TopicAssigner.generate_assignments`` reads this).
+    supports_mixed_rf = True
+
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = solve_device(device)
         #: phase wall-clock (ms) of the most recent solve: encode, place,
@@ -101,6 +113,13 @@ class TorchSolver:
         self.last_timers: Dict[str, float] = {}
         #: batched waves per leg of the most recent placement.
         self.last_waves: Dict[str, int] = {}
+        #: where the most recent solve ordered leaders: ``native`` (the host
+        #: C++ pass), ``cuda`` (the kernel) or ``plain`` (its plain version
+        #: on the CPU).
+        self.last_leadership: str | None = None
+        #: which codec the most recent solve's encode and decode took:
+        #: ``{"encode": "c" | "numpy", "decode": "c" | "numpy"}``.
+        self.last_codec: Dict[str, str] = {}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -199,6 +218,9 @@ class TorchSolver:
         ``fresh_assignment`` does."""
         timers = {}
         self.last_timers = timers
+        # Resolved first: KA_LEADERSHIP=native without its library raises
+        # before any placement work.
+        native_order = leadership_backend() == "native"
         t0 = time.perf_counter()
         if batch is None:
             enc, = encs
@@ -225,7 +247,7 @@ class TorchSolver:
             rfs = self._t(rfs_np)
         cur_t, rack_t = self._t(currents), self._t(encs[0].rack_idx)
         jh_t, pr_t = self._t(jhashes), self._t(p_reals)
-        counters_t = self._t(counters_before)
+        counters_t = None if native_order else self._t(counters_before)
         self._sync()
         timers["encode"] = encode_ms + (time.perf_counter() - t0) * 1e3
 
@@ -247,18 +269,32 @@ class TorchSolver:
             )
 
         t0 = time.perf_counter()
-        ordered, counters_after = leadership_order(
-            placed.acc_nodes[:b_real].contiguous(),
-            placed.acc_count[:b_real].contiguous(),
-            counters_t, jh_t[:b_real].contiguous(),
-            chunk=leader_chunk(currents.shape[1]),
-        )
-        self._sync()
+        if native_order:
+            # The host lane: the placement comes to the host (inside this
+            # phase's time), and the counter slab is the one built above,
+            # `width` wide under compat and rf_max wide in a mixed-RF batch.
+            self.last_leadership = "native"
+            ordered, counters_after = order_many(
+                placed.acc_nodes[:b_real].cpu().numpy(),
+                placed.acc_count[:b_real].cpu().numpy(),
+                jhashes[:b_real].astype(np.int64), p_reals[:b_real],
+                counters_before,
+            )
+        else:
+            self.last_leadership = "cuda" if self.device.type == "cuda" else "plain"
+            ordered, counters_after = leadership_order(
+                placed.acc_nodes[:b_real].contiguous(),
+                placed.acc_count[:b_real].contiguous(),
+                counters_t, jh_t[:b_real].contiguous(),
+                chunk=leader_chunk(currents.shape[1]),
+            )
+            self._sync()
         timers["leadership"] = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
-        ordered = ordered.cpu().numpy()
-        counters_after = counters_after.cpu().numpy()
+        if isinstance(ordered, torch.Tensor):
+            ordered = ordered.cpu().numpy()
+            counters_after = counters_after.cpu().numpy()
         apply_counter_updates(context, enc_slab, counters_before, counters_after)
         # Compat decodes every slot, so retained replicas past the RF
         # survive and rows shorter than `width` come out shorter.
@@ -268,4 +304,5 @@ class TorchSolver:
             ordered,
         )
         timers["decode"] = (time.perf_counter() - t0) * 1e3
+        self.last_codec = dict(problem.last_codec)
         return [(enc.topic, a) for enc, a in zip(encs, decoded)]

@@ -9,8 +9,10 @@ and ``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
 (``ops/assignment.py:_hybrid_quota_body``); ``KA_WHATIF_INCREMENTAL`` and
 ``KA_WHATIF_MEMBUDGET`` steer the what-if sweep (``parallel/whatif.py``); the
 three ``KA_GROUPS_*`` knobs set the consumer-group sweep's default scales,
-its fan-out cap and the capacity default (``groups/``). The port reads every
-knob per call, where the reference reads some at trace time.
+its fan-out cap and the capacity default (``groups/``); ``KA_HOSTCODEC`` and
+``KA_LEADERSHIP`` pick the boundary codec and the leadership lane
+(``native/``). The port reads every knob per call, where the reference reads
+some at trace time.
 """
 from __future__ import annotations
 
@@ -48,6 +50,18 @@ KNOBS = {
     "KA_GROUPS_DEFAULT_SCALES": Knob("100,150,200"),
     "KA_GROUPS_MAX_CANDIDATES": Knob(256, floor=1),
     "KA_GROUPS_CAPACITY_HEADROOM": Knob(1.25, floor=1.0),
+    # The C dict <-> tensor boundary codec (native/hostcodec.c); 0 selects
+    # the numpy encode and decode, which give the same arrays and lists.
+    "KA_HOSTCODEC": Knob(True),
+    # Where leadership ordering runs: auto | native | device
+    # (native/leadership.py:LEADERSHIP_CHOICES). auto and device take the
+    # device lane, the kernel on cuda and its plain version on cpu, as the
+    # port has since its first slice; native takes the host C++ pass after a
+    # copy of the placement to the host, and raises when its library is not
+    # built. The reference's auto takes the host lane; the port keeps the
+    # device lane until card numbers of both lanes (chip_smoke.py phase 17)
+    # decide.
+    "KA_LEADERSHIP": Knob("auto"),
 }
 
 _TRUE = frozenset({"1", "true", "yes", "on"})

@@ -1,7 +1,9 @@
-"""The port's mode-3 CLI (``python -m kafka_assigner_tpu_torch.cli``) on the
-CPU: stdout against the golden files and against the JAX package's
-``--solver tpu`` run, byte for byte; the ``--leadership_context`` file and
-the documented exit codes."""
+"""The port's CLI (``python -m kafka_assigner_tpu_torch.cli``) on the CPU:
+stdout against the golden files and against the JAX package's CLI, byte for
+byte, on every ``--solver`` lane (``device`` against the JAX ``tpu``, under
+each ``KA_LEADERSHIP`` lane and ``KA_HOSTCODEC`` codec; ``native`` and
+``greedy`` against the same lanes there); the ``--leadership_context`` file
+and the documented exit codes."""
 from __future__ import annotations
 
 import contextlib
@@ -34,25 +36,23 @@ def _port(*argv) -> str:
     return buf.getvalue()
 
 
-def _jax(*argv) -> str:
+def _jax(*argv, solver="tpu") -> str:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        assert jax_run_tool(list(argv) + ["--solver", "tpu"]) == 0
+        assert jax_run_tool(list(argv) + ["--solver", solver]) == 0
     return buf.getvalue()
 
 
-def test_golden_mode3_steady_state(tmp_path):
-    snap = _snapshot(tmp_path, "steady.json", {
+def _steady(tmp_path) -> str:
+    return _snapshot(tmp_path, "steady.json", {
         "brokers": [{"id": 1, "host": "h1", "port": 9092},
                     {"id": 2, "host": "h2", "port": 9092}],
         "topics": {"x": {"0": [1, 2]}},
     })
-    out = _port("--zk_string", snap, "--mode", "PRINT_REASSIGNMENT")
-    assert out == golden("mode3_steady_state.txt")
 
 
-def test_golden_mode3_multitopic(tmp_path):
-    # Same fixture and CLI topic order as tests/test_golden_output.py.
+def _multitopic(tmp_path) -> list:
+    """Same fixture and CLI topic order as tests/test_golden_output.py."""
     topics = {f"t{i:02d}": {str(p): [1 + (i + p) % 4, 1 + (i + p + 1) % 4]
                             for p in range(2)} for i in range(18)}
     snap = _snapshot(tmp_path, "multi.json", {
@@ -61,9 +61,47 @@ def test_golden_mode3_multitopic(tmp_path):
     })
     order = ",".join(f"t{i:02d}" for i in (
         17, 3, 0, 11, 5, 16, 8, 2, 14, 9, 1, 13, 7, 4, 15, 10, 6, 12))
-    out = _port("--zk_string", f"file://{snap}", "--mode", "PRINT_REASSIGNMENT",
-                "--topics", order)
+    return ["--zk_string", f"file://{snap}", "--mode", "PRINT_REASSIGNMENT",
+            "--topics", order]
+
+
+def test_golden_mode3_steady_state(tmp_path):
+    out = _port("--zk_string", _steady(tmp_path), "--mode", "PRINT_REASSIGNMENT")
+    assert out == golden("mode3_steady_state.txt")
+
+
+def test_golden_mode3_multitopic(tmp_path):
+    out = _port(*_multitopic(tmp_path))
     assert out == golden("mode3_multitopic.txt")
+
+
+@pytest.mark.parametrize("solver", ["greedy", "native"])
+def test_golden_mode3_on_the_greedy_lanes(tmp_path, solver):
+    # The steady-state and multi-topic goldens through --solver greedy and
+    # native, equal to the JAX CLI's same lane.
+    for argv, name in (
+        (["--zk_string", _steady(tmp_path), "--mode", "PRINT_REASSIGNMENT"],
+         "mode3_steady_state.txt"),
+        (_multitopic(tmp_path), "mode3_multitopic.txt"),
+    ):
+        out = _port(*argv, "--solver", solver)
+        assert out == golden(name)
+        assert out == _jax(*argv, solver=solver)
+
+
+@pytest.mark.parametrize("solver", ["greedy", "native"])
+def test_golden_mode3_replacement(tmp_path, solver):
+    # Broker 3 replaced by 4 (racks a/b/c), as tests/test_golden_output.py.
+    snap = _snapshot(tmp_path, "replacement3.json", {
+        "brokers": [{"id": b, "host": f"h{b}", "port": 9092, "rack": r}
+                    for b, r in ((1, "a"), (2, "b"), (4, "c"))],
+        "topics": {t: {str(p): [1 + (p + i) % 3 for i in range(2)] for p in range(n)}
+                   for t, n in (("events", 4), ("logs", 2))},
+    })
+    argv = ["--zk_string", snap, "--mode", "PRINT_REASSIGNMENT"]
+    out = _port(*argv, "--solver", solver)
+    assert out == golden("mode3_replacement.txt")
+    assert out == _jax(*argv, solver=solver)
 
 
 @pytest.fixture()
@@ -94,6 +132,51 @@ def replacement_snapshot(tmp_path):
 def test_stdout_matches_jax_tpu_solver(replacement_snapshot, extra):
     argv = ["--zk_string", replacement_snapshot, "--mode", "PRINT_REASSIGNMENT", *extra]
     assert _port(*argv) == _jax(*argv)
+
+
+@pytest.mark.parametrize("solver", ["greedy", "native"])
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--topics", "topic-4,topic-1,topic-4"],
+    ["--broker_hosts_to_remove", "h5,h6", "--desired_replication_factor", "2"],
+])
+def test_greedy_lanes_match_jax_cli(replacement_snapshot, solver, extra):
+    argv = ["--zk_string", replacement_snapshot, "--mode", "PRINT_REASSIGNMENT", *extra]
+    assert _port(*argv, "--solver", solver) == _jax(*argv, solver=solver)
+
+
+@pytest.mark.parametrize("codec", ["1", "0"])
+@pytest.mark.parametrize("lane", ["native", "device"])
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--broker_hosts_to_remove", "h5,h6", "--desired_replication_factor", "2"],
+])
+def test_device_solver_lanes_and_codecs_match_jax(replacement_snapshot, monkeypatch,
+                                                  lane, codec, extra):
+    # KA_LEADERSHIP picks where leaders are ordered, KA_HOSTCODEC the
+    # boundary codec: every combination prints the JAX CLI's bytes.
+    argv = ["--zk_string", replacement_snapshot, "--mode", "PRINT_REASSIGNMENT", *extra]
+    ref = _jax(*argv)
+    monkeypatch.setenv("KA_LEADERSHIP", lane)
+    monkeypatch.setenv("KA_HOSTCODEC", codec)
+    assert _port(*argv, "--solver", "device") == ref
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("PRINT_FRESH_ASSIGNMENT", ["--topics", "new", "--partition_count", "8",
+                                "--desired_replication_factor", "3"]),
+    ("RANK_DECOMMISSION", ["--integer_broker_ids", "4,5"]),
+])
+@pytest.mark.parametrize("solver", ["greedy", "native"])
+def test_modes_without_solver_note_it(replacement_snapshot, capsys, mode, extra, solver):
+    argv = ["--zk_string", replacement_snapshot, "--mode", mode, *extra]
+    want = _jax(*argv)
+    capsys.readouterr()
+    assert _port(*argv, "--solver", solver) == want
+    err = capsys.readouterr().err
+    why = "always the batched device sweep" if mode == "RANK_DECOMMISSION" \
+        else "always the device solver"
+    assert f"note: --solver {solver} is ignored by {mode} ({why})" in err
 
 
 def test_leadership_context_file_matches(replacement_snapshot, tmp_path):

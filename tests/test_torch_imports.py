@@ -1,7 +1,8 @@
-"""The port stands alone: every module of ``kafka_assigner_tpu_torch``, and
-``chip_smoke.py``, imports with ``jax`` and ``kafka_assigner_tpu`` blocked
-(checked in a fresh subprocess, since this test process has both loaded),
-and the entry points default to ``cuda``."""
+"""The port stands alone: every module of ``kafka_assigner_tpu_torch``,
+``chip_smoke.py`` and ``scripts/torch_bench.py`` imports with ``jax`` and
+``kafka_assigner_tpu`` blocked (checked in a fresh subprocess, since this
+test process has both loaded), the native libraries it loads are its own
+builds under ``build/``, and the entry points default to ``cuda``."""
 from __future__ import annotations
 
 import os
@@ -50,7 +51,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     assert "kafka_assigner_tpu_torch.parallel.whatif" in mods
     for new in ("io.base", "obs.health", "solvers.greedypack", "groups", "groups.model",
                 "groups.encode", "groups.solve", "groups.__main__", "ops.group_pack",
-                "ops.group_pack_cases", "errors"):
+                "ops.group_pack_cases", "errors", "native", "native.build",
+                "native.leadership", "solvers.greedy", "solvers.native"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -102,13 +104,44 @@ for mode in ("plan", "sweep"):
                            "--device", "cpu"]) == 0
     assert json.loads(buf.getvalue())["kind"] == f"groups-{mode}"
 os.unlink(snap.name)
+from kafka_assigner_tpu_torch import cli             # the native host layer
+from kafka_assigner_tpu_torch.native import build
+from kafka_assigner_tpu_torch.solvers.base import get_solver
+tm, _, racks = rack_striped_cluster(20, 3, 12, 3, 5, extra_brokers=2)
+snap = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+json.dump({"brokers": [{"id": b, "host": f"h{b}", "port": 1, "rack": racks[b]}
+                       for b in range(2, 22)],
+           "topics": {t: {str(p): r for p, r in c.items()} for t, c in tm.items()}}, snap)
+snap.close()
+plans = {}
+for solver in ("native", "greedy", "device"):
+    os.environ["KA_LEADERSHIP"] = "native" if solver == "device" else "auto"
+    buf = io.StringIO()
+    assert cli.run_tool(["--zk_string", snap.name, "--mode", "PRINT_REASSIGNMENT",
+                         "--solver", solver, "--device", "cpu"], out=buf) == 0
+    plans[solver] = buf.getvalue()
+os.unlink(snap.name)
+assert plans["native"] == plans["greedy"] and "NEW ASSIGNMENT" in plans["device"]
+assert get_solver("native").name == "native"
+from kafka_assigner_tpu_torch.models import problem
+assert problem.last_codec == {"encode": "c", "decode": "c"}, problem.last_codec
+build_dir = os.path.join(os.getcwd(), "build", "torch_native") + os.sep
+libs = [build.load_native_library()._name, build.load_hostcodec().__file__]
+assert all(p.startswith(build_dir) for p in libs), libs
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "kafka_assigner_tpu/native" not in maps, "a JAX package library is loaded"
+assert all(p in maps for p in libs), libs
 print("paths ok")
 """
 
 
 def test_new_paths_run_without_jax():
-    # The giant-shape chain, fresh placement, the compat width and both
-    # what-if paths, run with jax and the JAX package blocked.
+    # The giant-shape chain, fresh placement, the compat width, both
+    # what-if paths, ka-groups and the three --solver lanes (the device one
+    # on the host leadership lane, through the C codec), run with jax and
+    # the JAX package blocked; the native libraries loaded are the port's,
+    # from build/.
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     script = _BLOCKER.replace("for mod in sys.argv[1:]:", _PATHS + "\nfor mod in []:")
     proc = subprocess.run(
@@ -119,8 +152,26 @@ def test_new_paths_run_without_jax():
     assert "paths ok" in proc.stdout
 
 
+def test_torch_bench_imports_without_jax():
+    # The script's module body imports with jax and the JAX package blocked
+    # (its main needs a card).
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    loader = (
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('torch_bench', 'scripts/torch_bench.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+    )
+    script = _BLOCKER.replace("for mod in sys.argv[1:]:", loader + "for mod in []:")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_port_sources_never_name_the_jax_package():
-    for path in (ROOT / "kafka_assigner_tpu_torch").rglob("*.py"):
+    paths = list((ROOT / "kafka_assigner_tpu_torch").rglob("*.py"))
+    for path in paths + [ROOT / "scripts" / "torch_bench.py", ROOT / "chip_smoke.py"]:
         for line in path.read_text(encoding="utf-8").splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
