@@ -119,7 +119,37 @@ Phases, each printing its own line; any failure exits non-zero:
     byte-identical, moved == the device's; neither launches the kernel
     (the greedy lanes place orphans first-fit, the device solver by waves, so
     their lists differ where orphans land, as the JAX package's lanes do);
-    then ``scripts/torch_bench.py`` in a subprocess, its JSON line printed.
+    then ``scripts/torch_bench.py`` in a subprocess, its JSON line printed;
+19. observability and the failure policy (``obs/``, ``faults/``), on
+    ``cuda``: (a) config 4 through the CLI with ``--report-json``: the
+    report valid with status ok, the spans ``metadata/assignment``,
+    ``feasibility``, ``plan/solve/{encode,solve,decode}`` and
+    ``plan/emit``, ``plan.moves`` == phase 4's moved replicas, 200,000
+    partitions, the ``zk.*`` counters, the leadership kernel launched once,
+    stdout byte-identical to phase 4's; the span tree's times and the CLI
+    wall (host clock around the run) less the mode span printed; (b) one
+    warm config-4 solve through ``TopicAssigner.generate_assignments``
+    under ``KA_OBS_PROFILE_DIR``: the Chrome trace's dispatch window, the
+    device busy time (the union of kernel, memcpy and memset intervals in
+    it), the device idle share, the top 8 device ops, the leadership
+    kernel's traced time (its chain kernel exactly once) beside phase 6's
+    CUDA-events time and phase 6's unprofiled warm median; (c) the 64-topic
+    prefix with ``KA_FAULTS_SPEC=solve:0=crash``: ``--failure-policy
+    best-effort`` exits 6 with stdout byte-identical to phase 18's
+    ``--solver greedy``, the report degraded with ``solve.fallbacks`` 1 and
+    ``faults.injected`` 1, the kernel launched 0 times; the default policy
+    exits 4 with the report's error a ``SolveError``; with no spec,
+    best-effort is byte-identical to strict; (d) phase 14's plan with the
+    report (``groups.plans`` 1, ``groups.moves`` == the envelope's, the
+    group-pack kernel launched once, stdout == phase 14's), then phase 16's
+    synthetic sweep with the crash and best-effort: exit 6, ``"solver":
+    "greedy-fallback"``, the envelope == the ``--solver greedy`` run's but
+    that marker; (e) phase 11's 16 candidates with the report: the
+    ``whatif/rank`` span, ``whatif.scenarios`` 16, ``whatif.fanout``,
+    stdout == phase 11's. Phases 1-18 run strict and unprofiled: the smoke
+    fails at start when ``KA_FAILURE_POLICY``, ``KA_FAULTS_SPEC``,
+    ``KA_OBS_PROFILE_DIR``, ``KA_PROFILE``, ``KA_OBS_REPORT`` or
+    ``KA_OBS_ENABLE`` is set, and phase 19 sets them per run.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``;
@@ -148,9 +178,10 @@ launch count are untouched.
 In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
-path driven (config 4, the three giant cells, the reduced ``cuda`` runs and
-phase 17's CLI runs on each lane), and ``launches_by_path`` gives each; the
-group-pack entry's counts are those of phases 14-16.
+path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
+phase 17's CLI runs on each lane and phase 19's runs), and
+``launches_by_path`` gives each; the group-pack entry's counts are those of
+phases 14-16.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -804,6 +835,7 @@ def rank_config4(work):
     scen = os.path.join(work, "scenarios.json")
     with open(scen, "w", encoding="utf-8") as f:
         json.dump([[0, 10], [1, 2], ["b7"], []], f)  # same rack, cross rack
+    texts = {}
     for what, extra in (
         ("16 candidates", ["--integer_broker_ids", ",".join(map(str, RANK_CANDIDATES))]),
         ("scenario file", ["--scenario_file", scen]),
@@ -812,9 +844,11 @@ def rank_config4(work):
         c = run_cli(argv + extra + ["--device", "cpu"])
         if a != c:
             fail(f"rank {what}: cuda and cpu stdout differ")
+        texts[what] = a
         phase("cuda==cpu", f"RANK_DECOMMISSION {what} on config 4's cluster: stdout "
               f"byte-identical ({len(a)} bytes, path {whatif.last_sweep['path']})")
-    return snap, dict(rec, wall_s=wall_s, peak_bytes=peak)
+    return snap, dict(rec, wall_s=wall_s, peak_bytes=peak,
+                      candidates_text=texts["16 candidates"])
 
 
 def rescue_parity():
@@ -1027,7 +1061,8 @@ def group_phases(work, steady_snap, checks):
     """Phases 14-16: ``ka-groups`` plan, sweep and the synthetic sweep on
     config 4's cluster, each ``cuda`` run with the kernel counts reset just
     before and read just after; ``cpu`` runs and plain checks go to the
-    workers. Returns the group-pack kernel's entry of the ``kernels`` line."""
+    workers. Returns the group-pack kernel's entry of the ``kernels`` line,
+    and each path's argv and ``cuda`` stdout."""
     import numpy as np
     import torch
 
@@ -1220,7 +1255,7 @@ def group_phases(work, steady_snap, checks):
         "step_probe_cycles": probe_cycles,
         "chain_kernel_ms": main["chain_kernel_ms"],
         "by_path": out,
-    }
+    }, {path: (argv, texts[path]) for path, argv in paths.items()}
 
 
 def leadership_lanes(argv4, config4, cells, work):
@@ -1285,7 +1320,8 @@ def solver_lanes(argv4, device_text, prefix, prefix_text, topic_map, live, rack_
     the leadership kernel. The C++ greedy places orphans first-fit where the
     device solver runs its waves, so the two NEW ASSIGNMENT sections agree
     in what moves, not in every list (as in the JAX package's lanes, which
-    the CPU tests hold these to)."""
+    the CPU tests hold these to). Returns the ``--solver greedy`` prefix
+    text."""
     from kafka_assigner_tpu_torch.ops import leadership as lead
 
     lead.launches["leadership"] = 0
@@ -1334,7 +1370,256 @@ def solver_lanes(argv4, device_text, prefix, prefix_text, topic_map, live, rack_
     phase("solvers", f"scripts/torch_bench.py in a subprocess ({time.perf_counter() - t0:.1f} s), "
           "its line:")
     print(line, flush=True)
-    return bench
+    return texts["greedy"]
+
+
+#: The knobs phases 1-18 run without; phase 19 sets them per run.
+POLICY_KNOBS = ("KA_FAILURE_POLICY", "KA_FAULTS_SPEC", "KA_OBS_PROFILE_DIR", "KA_PROFILE",
+                "KA_OBS_REPORT", "KA_OBS_ENABLE")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def cli_run(fn, argv):
+    """``fn(argv)`` (the port's ``run`` or ``run_groups``) with stdout and
+    stderr captured: ``(rc, stdout, stderr, seconds)``; the fault injector
+    starts from a fresh schedule."""
+    from kafka_assigner_tpu_torch import faults
+
+    faults.reset()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(argv)
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def read_report(path, status):
+    from kafka_assigner_tpu_torch.obs.report import validate_report
+
+    with open(path, encoding="utf-8") as f:
+        report = json.load(f)
+    problems = validate_report(report)
+    if problems or report["status"] != status:
+        fail(f"{path}: status {report['status']} (want {status}), problems {problems}")
+    return report
+
+
+def busy_us(intervals, lo, hi):
+    """Length of the union of ``intervals`` (start, end) clipped to [lo, hi]."""
+    total, cur = 0.0, None
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi):
+        if cur is None or a > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def trace_window(path):
+    """The dispatch window of one ``dispatch_trace`` Chrome trace: ``(window
+    ms, device busy ms, device ops inside the window as (name, ms))``; the
+    busy time is the union of kernel, memcpy and memset intervals."""
+    from kafka_assigner_tpu_torch.obs.profile import DISPATCH_LABEL
+
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    wins = [e for e in events if e.get("name") == DISPATCH_LABEL and e.get("ph") == "X"
+            and e.get("cat") != "gpu_user_annotation"]
+    if len(wins) != 1:
+        fail(f"{path}: {len(wins)} dispatch windows, not 1")
+    lo = float(wins[0]["ts"])
+    hi = lo + float(wins[0]["dur"])
+    dev = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+           for e in events if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
+    inside = [(n, (min(b, hi) - max(a, lo)) / 1e3) for n, a, b in dev if b > lo and a < hi]
+    return (hi - lo) / 1e3, busy_us([(a, b) for _, a, b in dev], lo, hi) / 1e3, inside
+
+
+def obs_phases(work, argv4, text4, moved4, config4, k1_ms, warm_med, prefix, prefix_text,
+               greedy_prefix, group_runs, steady_snap, rank_text):
+    """Phase 19: the run report, the device trace and the failure policy on
+    cuda. (a) config 4 through the CLI with ``--report-json``; (b) one warm
+    config-4 solve traced under ``KA_OBS_PROFILE_DIR``; (c) the failure
+    policy on the 64-topic prefix with ``KA_FAULTS_SPEC=solve:0=crash``;
+    (d) ``ka-groups`` with the report, and the synthetic sweep's best-effort
+    fallback; (e) RANK_DECOMMISSION of the 16 candidates with the report.
+    Returns the leadership kernel's launches per run."""
+    from kafka_assigner_tpu_torch import cli
+    from kafka_assigner_tpu_torch.assigner import TopicAssigner
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    t_phase = time.perf_counter()
+    rdir = os.path.join(work, "reports")
+    os.makedirs(rdir, exist_ok=True)
+    launches = {}
+
+    # (a) the mode-3 report at config 4.
+    path = os.path.join(rdir, "config4.json")
+    lead.launches["leadership"] = 0
+    rc, out, err, wall = cli_run(cli.run, argv4 + ["--device", "cuda", "--report-json", path])
+    launches["obs_report_config4"] = lead.launches["leadership"]
+    if rc != 0 or out != text4:
+        fail(f"19a: exit {rc}; stdout equal to phase 4's: {out == text4}; {err[-500:]}")
+    report = read_report(path, "ok")
+    spans = {s["path"]: s for s in report["spans"]}
+    mode = "mode/PRINT_REASSIGNMENT"
+    want = [f"{mode}/{leaf}" for leaf in (
+        "metadata/assignment", "feasibility", "plan/solve", "plan/solve/encode",
+        "plan/solve/solve", "plan/solve/decode", "plan/emit")]
+    counters = report["metrics"]["counters"]
+    if [p for p in want if p not in spans] or report["plan"]["moves"] != moved4 \
+            or report["plan"]["partitions"] != N_TOPICS * P_PER_TOPIC \
+            or counters.get("zk.reads", 0) < 1 or counters.get("zk.bytes", 0) <= 0 \
+            or launches["obs_report_config4"] != 1:
+        fail(f"19a: spans {sorted(spans)}, plan {report['plan']}, counters {counters}, "
+             f"leadership launches {launches['obs_report_config4']}")
+    top = spans[mode]
+    kids = [s for s in report["spans"] if s["depth"] == 1]
+    solve_kids = [s for s in report["spans"] if s["path"].startswith(f"{mode}/plan/solve/")]
+    phase("obs", f"(a) config 4 mode 3 with --report-json on cuda: report valid, status ok; "
+          f"stdout byte-identical to phase 4's; plan moves {report['plan']['moves']}, "
+          f"partitions {report['plan']['partitions']}, leader churn "
+          f"{report['plan']['leader_churn']}; zk.reads {counters['zk.reads']}, zk.bytes "
+          f"{counters['zk.bytes']}; leadership kernel launches 1")
+    phase("obs", f"(a) span tree (ms): {top['path']} {top['ms']}: "
+          + ", ".join(f"{s['name']} {s['ms']}" for s in kids)
+          + f", not in a child span {top['ms'] - sum(s['ms'] for s in kids):.1f}; plan/solve: "
+          + ", ".join(f"{s['name']} {s['ms']}" for s in solve_kids)
+          + f"; CLI wall {wall * 1e3:.1f}, of it outside the mode span "
+          f"{wall * 1e3 - top['ms']:.1f}")
+
+    # (b) one warm config-4 solve under the profiler.
+    topics, live, rack_map = config4
+    assigner = TopicAssigner(device="cuda")
+    assigner.generate_assignments(topics, live, rack_map)  # warm
+    tdir = os.path.join(work, "traces")
+    if os.path.isdir(tdir):
+        for name in os.listdir(tdir):
+            os.unlink(os.path.join(tdir, name))
+    lead.launches["leadership"] = 0
+    with knobs(KA_OBS_PROFILE_DIR=tdir):
+        t0 = time.perf_counter()
+        assigner.generate_assignments(topics, live, rack_map)
+        traced_wall = (time.perf_counter() - t0) * 1e3
+    launches["obs_trace_warm"] = lead.launches["leadership"]
+    traces = os.listdir(tdir)
+    if len(traces) != 1 or launches["obs_trace_warm"] != 1:
+        fail(f"19b: {len(traces)} traces, {launches['obs_trace_warm']} kernel launches")
+    window, busy, inside = trace_window(os.path.join(tdir, traces[0]))
+    by_name = {}
+    for name, dur in inside:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + dur, n + 1)
+    chain = [d for n, d in inside if "chain_kernel" in n]
+    prologue = [d for n, d in inside if "prologue_kernel" in n]
+    timers = assigner.solver.last_timers
+    phase("obs", f"(b) warm config-4 solve under KA_OBS_PROFILE_DIR: dispatch window "
+          f"{window:.1f} ms (the call's host clock with the profiler's start and the trace's "
+          f"export {traced_wall:.1f} ms; the unprofiled warm median of "
+          f"phase 6 {warm_med['total']:.1f} ms); phases under the profiler (ms) "
+          + ", ".join(f"{k} {timers[k]:.1f}" for k in ("encode", "place", "leadership",
+                                                      "decode"))
+          + f"; {len(inside)} device events, trace {os.path.getsize(os.path.join(tdir, traces[0]))}"
+          " bytes")
+    if len(chain) != 1 or len(prologue) != 1:
+        fail(f"19b: the leadership kernel appears {len(chain)} (chain) / "
+             f"{len(prologue)} (prologue) times in the trace, not once "
+             f"({len(inside)} device events)")
+    topn = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    phase("obs", f"(b) device busy {busy:.2f} ms of the {window:.1f} ms window: "
+          f"idle share {1 - busy / window:.4f}; leadership kernel traced "
+          f"{chain[0] + prologue[0]:.3f} ms (chain {chain[0]:.3f}, prologue "
+          f"{prologue[0]:.3f}) against {k1_ms:.3f} ms by CUDA events in phase 6")
+    phase("obs", "(b) top device ops (total ms, launches): " + "; ".join(
+        f"{name[:70]} {tot:.3f} ({n})" for name, (tot, n) in topn))
+
+    # (c) the failure policy on the prefix.
+    base = argv4 + ["--topics", prefix, "--device", "cuda"]
+    path = os.path.join(rdir, "fallback.json")
+    lead.launches["leadership"] = 0
+    with knobs(KA_FAULTS_SPEC="solve:0=crash"):
+        rc, out, err, secs = cli_run(cli.run, base + ["--failure-policy", "best-effort",
+                                                      "--report-json", path])
+    launched = lead.launches["leadership"]
+    report = read_report(path, "degraded")
+    counters = report["metrics"]["counters"]
+    if rc != cli.EXIT_DEGRADED or "falling back to the greedy solver" not in err \
+            or out != greedy_prefix or counters.get("solve.fallbacks") != 1 \
+            or counters.get("faults.injected") != 1 or launched:
+        fail(f"19c best-effort: exit {rc}, stdout == phase 18's greedy prefix "
+             f"{out == greedy_prefix}, counters {counters}, kernel launches {launched}")
+    path = os.path.join(rdir, "strict.json")
+    with knobs(KA_FAULTS_SPEC="solve:0=crash"):
+        rc_s, out_s, err_s, _ = cli_run(cli.run, base + ["--report-json", path])
+    strict = read_report(path, "error")
+    if rc_s != cli.EXIT_SOLVE or strict.get("error", {}).get("type") != "SolveError":
+        fail(f"19c strict: exit {rc_s}, error {strict.get('error')}")
+    lead.launches["leadership"] = 0
+    rc_c, out_c, _, _ = cli_run(cli.run, base + ["--failure-policy", "best-effort"])
+    launches["obs_policy_clean"] = lead.launches["leadership"]
+    if rc_c != 0 or out_c != prefix_text or launches["obs_policy_clean"] != 1:
+        fail(f"19c clean best-effort: exit {rc_c}, stdout == strict {out_c == prefix_text}")
+    phase("obs", f"(c) {PREFIX_TOPICS}-topic prefix on cuda, KA_FAULTS_SPEC=solve:0=crash: "
+          f"best-effort exit 6 in {secs:.2f} s, stdout byte-identical to phase 18's "
+          "--solver greedy, report degraded, solve.fallbacks 1, faults.injected 1, "
+          "leadership kernel launches 0; strict exit 4, report error SolveError; no spec "
+          "+ best-effort: exit 0, stdout byte-identical to strict, kernel launches 1")
+
+    # (d) ka-groups with the report; the synthetic sweep's fallback.
+    argv, text = group_runs["group_plan"]
+    path = os.path.join(rdir, "groups_plan.json")
+    gp.launches["group_pack"] = 0
+    rc, out, err, secs = cli_run(cli.run_groups, argv + ["--device", "cuda",
+                                                        "--report-json", path])
+    kg1 = gp.launches["group_pack"]
+    report = read_report(path, "ok")
+    counters = report["metrics"]["counters"]
+    moves = json.loads(text)["moves"]
+    if rc != 0 or out != text or kg1 != 1 or counters.get("groups.plans") != 1 \
+            or counters.get("groups.moves") != moves:
+        fail(f"19d plan: exit {rc}, stdout == phase 14's {out == text}, KG1 launches "
+             f"{kg1}, counters {counters}")
+    argv, _ = group_runs["group_synthetic"]
+    rc_g, out_g, _, secs_g = cli_run(cli.run_groups, argv + ["--solver", "greedy",
+                                                            "--device", "cuda"])
+    gp.launches["group_pack"] = 0
+    with knobs(KA_FAULTS_SPEC="solve:0=crash"):
+        rc_f, out_f, err_f, secs_f = cli_run(
+            cli.run_groups, argv + ["--failure-policy", "best-effort", "--device", "cuda"])
+    body, oracle = json.loads(out_f or "{}"), json.loads(out_g or "{}")
+    if rc_g != 0 or rc_f != cli.EXIT_DEGRADED or body.get("solver") != "greedy-fallback" \
+            or dict(body, solver="greedy") != oracle or gp.launches["group_pack"]:
+        fail(f"19d synthetic fallback: exits {rc_g}/{rc_f}, solver {body.get('solver')}, "
+             f"envelopes equal but the marker {dict(body, solver='greedy') == oracle}")
+    phase("obs", f"(d) ka-groups plan with --report-json on cuda ({secs:.2f} s): stdout "
+          f"byte-identical to phase 14's, groups.plans 1, groups.moves {moves} == the "
+          f"envelope's, group-pack kernel launches 1; the synthetic sweep with "
+          f"solve:0=crash --failure-policy best-effort: exit 6 ({secs_f:.2f} s), solver "
+          f"greedy-fallback, the envelope == --solver greedy's ({secs_g:.2f} s) but the "
+          "marker")
+
+    # (e) RANK_DECOMMISSION of the 16 candidates with the report.
+    path = os.path.join(rdir, "rank.json")
+    argv = ["--zk_string", f"file://{steady_snap}", "--mode", "RANK_DECOMMISSION",
+            "--integer_broker_ids", ",".join(map(str, RANK_CANDIDATES))]
+    lead.launches["leadership"] = 0
+    rc, out, err, secs = cli_run(cli.run, argv + ["--device", "cuda", "--report-json", path])
+    report = read_report(path, "ok")
+    paths = {s["path"] for s in report["spans"]}
+    counters, gauges = report["metrics"]["counters"], report["metrics"]["gauges"]
+    if rc != 0 or out != rank_text or "mode/RANK_DECOMMISSION/whatif/rank" not in paths \
+            or counters.get("whatif.scenarios") != len(RANK_CANDIDATES) \
+            or "whatif.fanout" not in gauges or lead.launches["leadership"]:
+        fail(f"19e: exit {rc}, stdout == phase 11's {out == rank_text}, spans {sorted(paths)}, "
+             f"counters {counters}, gauges {gauges}")
+    phase("obs", f"(e) RANK_DECOMMISSION of {len(RANK_CANDIDATES)} candidates with "
+          f"--report-json on cuda ({secs:.2f} s): stdout byte-identical to phase 11's; "
+          f"whatif/rank span, whatif.scenarios {counters['whatif.scenarios']}, whatif.fanout "
+          f"{gauges['whatif.fanout']}, spans {sorted(p.split('/', 2)[-1] for p in paths)}")
+    phase("timing", f"phase 19 {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1368,6 +1653,9 @@ def smoke(checks) -> int:
     from kafka_assigner_tpu_torch.solvers.base import Context
 
     t_start = time.perf_counter()
+    set_knobs = [k for k in POLICY_KNOBS if os.environ.get(k)]
+    if set_knobs:
+        fail(f"phases 1-18 run strict and unprofiled; unset {set_knobs}")
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     phase("device", f"{smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
@@ -1497,7 +1785,7 @@ def smoke(checks) -> int:
     # Placement only: the leadership kernel is not on these paths.
     lead.launches["leadership"] = 0
     whatif_config5()
-    steady_snap, _ = rank_config4(work)
+    steady_snap, rank_rec = rank_config4(work)
     rescue_parity()
     host_modes(steady_snap, N_BROKERS, N_TOPICS * P_PER_TOPIC)
     if lead.launches["leadership"]:
@@ -1508,7 +1796,7 @@ def smoke(checks) -> int:
     # --- 14-16: consumer-group packing ------------------------------------
     # The group phases do not order leaders either.
     lead.launches["leadership"] = 0
-    gk = group_phases(work, steady_snap, checks)
+    gk, group_runs = group_phases(work, steady_snap, checks)
     if lead.launches["leadership"]:
         fail(f"the group phases launched the leadership kernel "
              f"{lead.launches['leadership']} times")
@@ -1519,7 +1807,13 @@ def smoke(checks) -> int:
 
     # --- 17-18: the leadership lanes and the solver lanes -------------------
     lanes = leadership_lanes(argv, (topics, live, rack_map), cells, work)
-    solver_lanes(argv, text, prefix, a, topic_map, live, rack_map, cap, on_removed)
+    greedy_prefix = solver_lanes(argv, text, prefix, a, topic_map, live, rack_map, cap,
+                                 on_removed)
+
+    # --- 19: the run report, the device trace and the failure policy --------
+    obs_launches = obs_phases(
+        work, argv, text, moved, (topics, live, rack_map), ms, ab["c"], prefix, a,
+        greedy_prefix, group_runs, steady_snap, rank_rec["candidates_text"])
 
     max_err = max(max_err, worst.get("leadership", 0))
     gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0))
@@ -1528,7 +1822,8 @@ def smoke(checks) -> int:
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},
                **reduced,
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
-                  for k, v in lanes.items() for lane in ("native", "device")}}
+                  for k, v in lanes.items() for lane in ("native", "device")},
+               **obs_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

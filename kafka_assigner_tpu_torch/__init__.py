@@ -20,6 +20,10 @@ on each of the reference's solver lanes:
   ``--solver device``), the C++ greedy (``native``) and the Python oracle
   (``greedy``);
 - ``parallel.whatif``      — batched broker-removal what-if sweeps;
+- ``obs``                  — spans, metrics, the schema-v1 run report and
+  the ``torch.profiler`` hook;
+- ``faults``               — deterministic fault injection; with the
+  ``--failure-policy`` of ``assigner`` and ``cli``, the best-effort lane;
 - ``assigner`` / ``generator`` / ``cli`` — the CLI surface.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of

@@ -6,8 +6,11 @@ every topic solved through it.
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict, List, Mapping, Sequence, Set, Tuple
 
+from .obs.metrics import counter_add
+from .obs.profile import dispatch_trace
 from .solvers.base import Context, Solver, get_solver
 
 
@@ -36,11 +39,69 @@ class TopicAssigner:
 
     ``solver``: a name of ``solvers/base.py:get_solver`` (``device``, the
     default, on ``device``: ``cuda`` unless the caller says ``cpu``;
-    ``native``; ``greedy``) or a solver object."""
+    ``native``; ``greedy``) or a solver object.
 
-    def __init__(self, solver: str | Solver = "device", device: str = "cuda") -> None:
+    ``failure_policy="best-effort"`` arms the reference's fallback
+    (``kafka_assigner_tpu/assigner.py:57-110``): a solver other than the
+    greedy one that crashes (any exception but ``ValueError``, which is
+    validation or infeasibility) is re-run on the greedy lane for the
+    crashed group, loudly on stderr and counted in ``solve.fallbacks``. The
+    shared ``Context`` is untouched by the crash: the solvers apply their
+    leadership counter updates only after a solve succeeds. ``strict``, the
+    default, re-raises."""
+
+    def __init__(self, solver: str | Solver = "device", device: str = "cuda",
+                 failure_policy: str = "strict") -> None:
         self.solver = get_solver(solver, device) if isinstance(solver, str) else solver
         self.context = Context()
+        self.failure_policy = failure_policy
+        #: How many groups fell back to the greedy lane in the most recent
+        #: ``generate_assignments`` call.
+        self.fallbacks = 0
+        self._greedy_fallback: Solver | None = None
+
+    def _should_fallback(self, exc: Exception) -> bool:
+        """Crash classes only: a ``ValueError`` is input validation or
+        infeasibility (the greedy lane would refuse it the same way), and a
+        greedy solver has no lane left to fall back to."""
+        return (
+            self.failure_policy == "best-effort"
+            and not isinstance(exc, ValueError)
+            and getattr(self.solver, "name", None) != "greedy"
+        )
+
+    def _fallback_group(
+        self,
+        items: Sequence[Tuple[str, Mapping[int, Sequence[int]]]],
+        rfs: Sequence[int],
+        rack_assignment: Mapping[int, str],
+        brokers: Set[int],
+        exc: Exception,
+    ) -> List[Tuple[str, Dict[int, List[int]]]]:
+        """Re-solve one crashed group on the greedy lane, loudly."""
+        counter_add("solve.fallbacks")
+        self.fallbacks += 1
+        print(
+            f"kafka-assigner: best-effort: "
+            f"{getattr(self.solver, 'name', type(self.solver).__name__)} "
+            f"solver crashed ({type(exc).__name__}: {exc}); falling back to "
+            f"the greedy solver for {len(items)} topic(s)",
+            file=sys.stderr,
+        )
+        if self._greedy_fallback is None:
+            from .solvers.greedy import GreedySolver
+
+            self._greedy_fallback = GreedySolver()
+        return [
+            (
+                topic,
+                self._greedy_fallback.assign(
+                    topic, cur, rack_assignment, set(brokers), set(cur),
+                    rf, self.context,
+                ),
+            )
+            for (topic, cur), rf in zip(items, rfs)
+        ]
 
     def _infer_replication_factor(
         self,
@@ -98,7 +159,21 @@ class TopicAssigner:
         ``assign_many`` solves topic by topic; one that declares
         ``supports_mixed_rf`` (the device solver) takes every topic in one
         batch; any other gets one batch per run of consecutive topics of
-        one replication factor."""
+        one replication factor. Each batch is a crash group of the
+        best-effort fallback.
+
+        Under ``KA_OBS_PROFILE_DIR`` (or ``KA_PROFILE``) the call is one
+        ``torch.profiler`` trace (``obs/profile.py:dispatch_trace``)."""
+        with dispatch_trace():
+            return self._generate_assignments(
+                topic_assignments, brokers, rack_assignment,
+                desired_replication_factor,
+            )
+
+    def _generate_assignments(
+        self, topic_assignments, brokers, rack_assignment,
+        desired_replication_factor,
+    ) -> List[Tuple[str, Dict[int, List[int]]]]:
         items = (
             list(topic_assignments.items())
             if isinstance(topic_assignments, Mapping)
@@ -110,25 +185,40 @@ class TopicAssigner:
             )
             for topic, cur in items
         ]
+        self.fallbacks = 0
         if not items:
             return []
         assign_many = getattr(self.solver, "assign_many", None)
         if assign_many is None:
-            return [
-                (topic, self.solver.assign(topic, cur, rack_assignment, set(brokers),
-                                           set(cur), rf, self.context))
-                for (topic, cur), rf in zip(items, rfs)
-            ]
-        if getattr(self.solver, "supports_mixed_rf", False):
-            return list(assign_many(items, rack_assignment, set(brokers), rfs,
-                                    self.context))
+            groups = [([it], [rf]) for it, rf in zip(items, rfs)]
+        elif getattr(self.solver, "supports_mixed_rf", False):
+            groups = [(items, rfs)]
+        else:
+            groups = []
+            i = 0
+            while i < len(items):
+                j = i
+                while j < len(items) and rfs[j] == rfs[i]:
+                    j += 1
+                groups.append((items[i:j], rfs[i:j]))
+                i = j
         out: List[Tuple[str, Dict[int, List[int]]]] = []
-        i = 0
-        while i < len(items):
-            j = i
-            while j < len(items) and rfs[j] == rfs[i]:
-                j += 1
-            out.extend(assign_many(items[i:j], rack_assignment, set(brokers),
-                                   rfs[i], self.context))
-            i = j
+        for group, group_rfs in groups:
+            try:
+                if assign_many is None:
+                    (topic, cur), = group
+                    solved = [(topic, self.solver.assign(
+                        topic, cur, rack_assignment, set(brokers), set(cur),
+                        group_rfs[0], self.context))]
+                else:
+                    rf = (group_rfs if getattr(self.solver, "supports_mixed_rf", False)
+                          else group_rfs[0])
+                    solved = list(assign_many(group, rack_assignment, set(brokers),
+                                              rf, self.context))
+            except Exception as e:
+                if not self._should_fallback(e):
+                    raise
+                solved = self._fallback_group(group, group_rfs, rack_assignment,
+                                              brokers, e)
+            out.extend(solved)
         return out

@@ -5,6 +5,7 @@
         --broker_hosts h1,h2] [--broker_hosts_to_remove h3]
         [--desired_replication_factor N] [--disable_rack_awareness]
         [--leadership_context PATH] [--solver {device,native,greedy}]
+        [--failure-policy {strict,best-effort}] [--report-json PATH]
         [--device {cuda,cpu}]
 
     python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
@@ -31,10 +32,20 @@ broker's removal (all live brokers by default), or each removal set of a
 ``--scenario_file``, in one sweep; the two current-state modes run on the
 host. Stdout is byte-identical to ``kafka_assigner_tpu.cli`` (with
 ``--solver tpu`` in the place of ``device``). Every entry first builds the
-native host libraries (``native/build.py``) when they are not built. Exit
-codes follow the reference's documented ones: 1 usage, 3 metadata ingest,
-5 validation (RF bounds, unknown hosts or scenario entries, infeasible
-plan).
+native host libraries (``native/build.py``) when they are not built.
+
+Every mode takes the reference's ``--report-json PATH`` (default: the
+``KA_OBS_REPORT`` knob; ``KA_OBS_ENABLE=1`` collects without a file): the
+schema-v1 run report of ``obs/report.py`` with its spans, counters, gauges
+and ``plan`` section, and a summary on stderr. ``--failure-policy`` (default:
+the ``KA_FAILURE_POLICY`` knob, ``strict``) is mode 3's: ``best-effort``
+skips ``--topics`` entries the snapshot lacks and re-runs a crashed device
+solve on the greedy lane, and the run exits 6 (degraded success).
+
+Exit codes follow the reference's documented ones: 1 usage, 3 metadata
+ingest, 4 solve (a device crash under ``strict``), 5 validation (RF
+bounds, unknown hosts or scenario entries, infeasible plan, a topic the
+snapshot lacks under ``strict``), 6 degraded success.
 
 The consumer-group tool ``ka-groups`` (:func:`run_groups`,
 ``python -m kafka_assigner_tpu_torch.groups``)::
@@ -42,13 +53,15 @@ The consumer-group tool ``ka-groups`` (:func:`run_groups`,
     python -m kafka_assigner_tpu_torch.groups --zk_string file://cluster.json \
         [--mode {plan,sweep}] [--group g1,g2] [--synthetic]
         [--weight {lag,throughput}] [--counts 1,2,4] [--scales 100,150]
-        [--solver {device,greedy}] [--device {cuda,cpu}]
+        [--solver {device,greedy}] [--failure-policy {strict,best-effort}]
+        [--report-json PATH] [--device {cuda,cpu}]
 
-takes the reference's flags (``kafka_assigner_tpu/cli.py:661-721``) but
-``--failure-policy`` (the port has only the strict lane) and
-``--report-json``, and prints the reference's JSON envelope byte for byte.
-Exit codes: 1 usage (and the refusal of a backend without groups), 3
-ingest, 4 solve, 5 validation.
+takes the reference's flags (``kafka_assigner_tpu/cli.py:661-721``) and
+prints the reference's JSON envelope byte for byte. Under ``best-effort`` a
+crashed device solve re-runs on the host packing oracle (the same plan,
+marked ``"solver": "greedy-fallback"``) and the run exits 6. Exit codes: 1
+usage (and the refusal of a backend without groups), 3 ingest, 4 solve, 5
+validation, 6 degraded success.
 """
 from __future__ import annotations
 
@@ -63,6 +76,7 @@ EXIT_USAGE = 1
 EXIT_INGEST = 3
 EXIT_SOLVE = 4
 EXIT_VALIDATION = 5
+EXIT_DEGRADED = 6
 
 #: The reference CLI's modes (``kafka_assigner_tpu/cli.py:67-73``).
 MODES = (
@@ -112,9 +126,75 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PRINT_REASSIGNMENT's solver: the PyTorch/CUDA solver "
                         "(device, the default), the C++ greedy (native) or "
                         "the Python greedy oracle (greedy)")
+    p.add_argument("--failure-policy", dest="failure_policy", default=None,
+                   choices=("strict", "best-effort"),
+                   help="strict (default): abort on the first unrecoverable "
+                        "failure. best-effort: skip topics the snapshot lacks "
+                        "and fall back to the greedy solver when the device "
+                        "solve crashes, reported on stderr and in the run "
+                        "report, exiting 6 (default: the KA_FAILURE_POLICY "
+                        "knob)")
+    _add_report_flag(p)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the device solver runs (default: cuda)")
     return p
+
+
+def _add_report_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--report-json", dest="report_json", default=None,
+                   metavar="PATH",
+                   help="emit the schema-versioned run report (spans, "
+                        "metrics, plan stats) to PATH, plus a summary on "
+                        "stderr (default: the KA_OBS_REPORT knob)")
+
+
+def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
+    """Run ``dispatch()`` (returning an exit code) under an obs capture when
+    a report is asked for (``--report-json``, ``KA_OBS_REPORT``) or
+    ``KA_OBS_ENABLE=1``, inside a ``mode/<mode>`` span, and emit the report
+    (``kafka_assigner_tpu/cli.py:182-237``). Its status is ``ok`` on exit 0,
+    ``degraded`` on exit 6, else ``error`` (with the exception's type and
+    message when one escaped). A report that cannot be built or written is
+    reported on stderr and never masks the run's own outcome. Without
+    collection the dispatch runs with the obs no-ops: byte-identical output,
+    no files."""
+    from . import obs
+    from .utils.env import env_bool, env_str
+
+    report_path = report_json or env_str("KA_OBS_REPORT")
+    if report_path is None and not env_bool("KA_OBS_ENABLE"):
+        return dispatch()
+    with obs.run_capture() as run:
+        status, error, rc = "error", None, EXIT_USAGE
+        try:
+            with obs.span(f"mode/{mode}") as sp:
+                rc = dispatch()
+                if rc not in (EXIT_OK, EXIT_DEGRADED):
+                    # A failure signaled by return code: the span agrees
+                    # with the report's status. Degraded success is not a
+                    # span failure: the plan was emitted.
+                    sp.fail()
+            status = (
+                "ok" if rc == EXIT_OK
+                else "degraded" if rc == EXIT_DEGRADED
+                else "error"
+            )
+            return rc
+        except BaseException as e:
+            # A run that raises still flushes its spans (marked error) and
+            # emits its report.
+            error = e
+            raise
+        finally:
+            try:
+                report = obs.build_report(
+                    run, status=status, mode=mode,
+                    argv=list(argv) if argv is not None else sys.argv[1:],
+                    error=error,
+                )
+                obs.emit_report(report, report_path)
+            except Exception as e:
+                print(f"obs: could not emit run report: {e}", file=sys.stderr)
 
 
 def _prebuild_native() -> None:
@@ -136,20 +216,8 @@ def _note_solver_ignored(args, why: str) -> None:
 
 def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
     """Parse, validate, load the snapshot, run the mode. Raises the typed
-    errors (``ValueError``, ``KeyError``, ``OSError``); :func:`run` maps
-    them to exit codes."""
-    from .generator import (
-        build_rack_assignment,
-        print_current_assignment,
-        print_current_brokers,
-        print_decommission_ranking,
-        print_fresh_assignment,
-        print_least_disruptive_reassignment,
-        resolve_broker_ids,
-        resolve_excluded_broker_ids,
-    )
-    from .io.snapshot import open_snapshot
-
+    errors (``ValueError``, ``KeyError``, ``OSError``, ``SolveError``);
+    :func:`run` maps them to exit codes."""
     _prebuild_native()
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -168,6 +236,26 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
         return EXIT_USAGE
 
     topics = args.topics.split(",") if args.topics is not None else None
+    return _captured(args.mode, args.report_json, argv,
+                     lambda: _dispatch_mode(args, topics, out))
+
+
+def _dispatch_mode(args, topics, out) -> int:
+    """Snapshot open, then the mode."""
+    from .generator import (
+        Degradation,
+        build_rack_assignment,
+        print_current_assignment,
+        print_current_brokers,
+        print_decommission_ranking,
+        print_fresh_assignment,
+        print_least_disruptive_reassignment,
+        resolve_broker_ids,
+        resolve_excluded_broker_ids,
+    )
+    from .io.snapshot import open_snapshot
+    from .utils.env import env_choice
+
     backend = open_snapshot(args.zk_string)
     live_brokers = backend.brokers()
     broker_ids = resolve_broker_ids(
@@ -217,6 +305,7 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
             out=out,
         )
         return EXIT_OK
+    degradation = Degradation()
     print_least_disruptive_reassignment(
         backend,
         topics,
@@ -229,14 +318,35 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
         live_brokers=live_brokers,
         context_file=args.leadership_context,
         solver=args.solver,
+        failure_policy=args.failure_policy or env_choice("KA_FAILURE_POLICY"),
+        degradation=degradation,
     )
+    if degradation.any():
+        # The plan on stdout is complete for what it covers; the exit code
+        # tells this run from a clean one without parsing stderr.
+        print(
+            f"kafka-assigner: degraded success: "
+            f"{len(degradation.topics_skipped)} topic(s) skipped, "
+            f"{degradation.solve_fallbacks} solver fallback(s); "
+            f"exiting {EXIT_DEGRADED}",
+            file=sys.stderr,
+        )
+        return EXIT_DEGRADED
     return EXIT_OK
 
 
-def run(argv: Optional[List[str]] = None) -> int:
+def run(argv: Optional[List[str]] = None, out=None) -> int:
     """:func:`run_tool` with the documented exit-code mapping."""
+    from .errors import IngestError, SolveError
+
     try:
-        return run_tool(argv)
+        return run_tool(argv, out=out)
+    except IngestError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_INGEST
+    except SolveError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_SOLVE
     except BrokenPipeError:
         raise
     except OSError as e:
@@ -286,6 +396,14 @@ def build_groups_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver", default="device", choices=("device", "greedy"),
                    help="device: the packing program on --device; greedy: "
                         "the host packing oracle (the same plans)")
+    p.add_argument("--failure-policy", dest="failure_policy", default=None,
+                   choices=("strict", "best-effort"),
+                   help="strict (default): a crashed device solve exits "
+                        "with the solve code. best-effort: it falls back "
+                        "to the host packing oracle (the same plan bytes) "
+                        "and the run exits 6 (default: the "
+                        "KA_FAILURE_POLICY knob)")
+    _add_report_flag(p)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the device solver runs (default: cuda)")
     return p
@@ -295,6 +413,20 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
     """``ka-groups``: load the snapshot, refuse a backend without groups
     unless ``--synthetic``, encode, pack, print the envelope. Raises the
     typed errors; :func:`groups_main` maps them to exit codes."""
+    _prebuild_native()
+    parser = build_groups_parser()
+    args = parser.parse_args(argv)
+    if args.zk_string is None:
+        print("error: --zk_string is required", file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+    mode = "GROUPS_PLAN" if args.mode == "plan" else "GROUPS_SWEEP"
+    return _captured(mode, args.report_json, argv, lambda: _dispatch_groups(args))
+
+
+def _dispatch_groups(args) -> int:
+    """Snapshot open, group ingest (or the loud refusal), encode, solve, the
+    envelope and the ``groups.*`` counters."""
     import json
 
     from .groups.model import GROUPS_SCHEMA_VERSION
@@ -306,15 +438,10 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
         throughput_weights,
     )
     from .io.snapshot import open_snapshot
-    from .utils.env import env_float, env_int, env_str
+    from .obs.metrics import counter_add
+    from .utils.env import env_choice, env_float, env_int, env_str
 
-    _prebuild_native()
-    parser = build_groups_parser()
-    args = parser.parse_args(argv)
-    if args.zk_string is None:
-        print("error: --zk_string is required", file=sys.stderr)
-        parser.print_usage(sys.stderr)
-        return EXIT_USAGE
+    policy = args.failure_policy or env_choice("KA_FAILURE_POLICY")
     group_names = args.group.split(",") if args.group else None
     scales = parse_int_list(args.scales, env_str("KA_GROUPS_DEFAULT_SCALES"))
     counts = parse_int_list(args.counts)
@@ -324,6 +451,7 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
     backend = open_snapshot(args.zk_string)
     if not args.synthetic and not backend.supports_groups():
         # The loud refusal: synthetic inputs never pass for cluster truth.
+        counter_add("groups.refusals")
         print(
             "error: this metadata backend cannot read consumer "
             "groups (no group membership/offset surface), so a "
@@ -351,7 +479,18 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
         states, groups_real, part_map, args.mode, args.weight,
         weight_values, scales, headroom, max_cand, counts=counts,
         solver=args.solver, device=args.device,
+        fallback="greedy" if policy == "best-effort" else "raise",
     )
+    degraded_any = False
+    for body in bodies.values():
+        if args.mode == "sweep":
+            counter_add("groups.sweeps")
+        else:
+            counter_add("groups.plans")
+            counter_add("groups.moves", body["moves"])
+        if body["solver"] == "greedy-fallback":
+            counter_add("groups.solve_fallbacks")
+            degraded_any = True
     if len(bodies) == 1:
         payload = next(iter(bodies.values()))
     else:
@@ -362,6 +501,13 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
             "groups": bodies,
         }
     print(json.dumps(payload, indent=1, sort_keys=True))
+    if degraded_any:
+        print(
+            "ka-groups: degraded success: device solve fell back to the "
+            f"greedy packing oracle; exiting {EXIT_DEGRADED}",
+            file=sys.stderr,
+        )
+        return EXIT_DEGRADED
     return EXIT_OK
 
 

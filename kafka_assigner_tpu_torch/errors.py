@@ -1,16 +1,23 @@
 """Phase-tagged failures the CLI maps to its documented exit codes, copies
-of the reference's ``kafka_assigner_tpu/errors.py:42-50``: an
+of the reference's ``kafka_assigner_tpu/errors.py``: an
 :class:`IngestError` exits 3, a :class:`SolveError` exits 4. Input and
 validation failures keep their stdlib types (``ValueError``, ``KeyError``)
-and exit 5.
+and exit 5. Both types chain the original exception (``raise ... from e``),
+so a library caller still reaches it via ``__cause__``.
 """
 from __future__ import annotations
 
 
-class IngestError(RuntimeError):
+class KafkaAssignerError(RuntimeError):
+    """Base for phase-tagged unrecoverable failures of a CLI run."""
+
+
+class IngestError(KafkaAssignerError):
     """Cluster-metadata ingest failed (a snapshot without the section a mode
     needs)."""
 
 
-class SolveError(RuntimeError):
-    """The device solve failed; the port has no fallback that hides it."""
+class SolveError(KafkaAssignerError):
+    """A solver backend crashed and no fallback produced a plan: under the
+    default ``strict`` policy every device crash, under ``best-effort`` a
+    crash of the greedy lane it fell back to."""

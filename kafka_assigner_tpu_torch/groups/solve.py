@@ -6,9 +6,13 @@ Ingest (backend hook, or the explicit synthetic opt-in) -> :mod:`.encode`
 sticky rebalance plan or a cost curve. ``solver="greedy"`` runs the host
 oracle (``solvers/greedypack.py``) instead.
 
-There is no crash fallback: a device failure raises :class:`SolveError`,
-the reference's strict policy (``KA_FAILURE_POLICY=strict``). Malformed
-inputs keep their ``ValueError`` / ``KeyError``.
+A device failure raises :class:`SolveError` under ``fallback="raise"`` (the
+default here, the reference's strict policy); under ``fallback="greedy"``
+(``--failure-policy best-effort``) the crashed solve re-runs on the host
+oracle, the same plan, and the envelope says ``"solver":
+"greedy-fallback"``. Malformed inputs keep their ``ValueError`` /
+``KeyError``. The solves are the ``groups/plan`` and ``groups/sweep``
+spans.
 
 Every envelope is byte-stable for identical inputs: no timestamps, no
 elapsed times, keys emitted sorted.
@@ -21,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..errors import SolveError
+from ..obs.trace import span
 from .encode import GroupEncoding, decode_plan, encode_group
 from .model import GROUPS_SCHEMA_VERSION, synthetic_group_state
 
@@ -79,9 +84,11 @@ def build_group_bodies(
     counts: Optional[Sequence[int]] = None,
     solver: str = "device",
     device: str = "cuda",
+    fallback: str = "raise",
 ) -> Dict[str, dict]:
     """Per group in sorted order: row universe -> candidate counts ->
-    fan-out cap -> encode -> envelope. Returns ``{group: body}``. With the
+    fan-out cap -> encode -> envelope. Returns ``{group: body}``; a body
+    whose ``solver`` is ``greedy-fallback`` is a degraded one. With the
     device solver, the host encode's and decode's ms go to
     ``parallel/whatif.py:last_groups`` beside the device phases."""
     from ..parallel import whatif
@@ -110,6 +117,7 @@ def build_group_bodies(
             encode_ms = (time.perf_counter() - t0) * 1e3
             body = group_sweep_envelope(
                 enc, counts_g, scales, groups_real, solver=solver, device=device,
+                fallback=fallback,
             )
         else:
             enc = encode_group(
@@ -117,7 +125,8 @@ def build_group_bodies(
                 weight_values=weight_values, capacity_headroom=headroom,
             )
             encode_ms = (time.perf_counter() - t0) * 1e3
-            body = group_plan_envelope(enc, groups_real, solver=solver, device=device)
+            body = group_plan_envelope(enc, groups_real, solver=solver, device=device,
+                                       fallback=fallback)
         if solver == "device":
             whatif.last_groups["encode"] = encode_ms
         bodies[g] = body
@@ -177,15 +186,21 @@ def _host_pack(enc: GroupEncoding, alive, scale_pct: int = 100):
     )
 
 
-def _device_call(what: str, fn, *args):
-    """A device solve; its failure is a :class:`SolveError` unless it is a
-    malformed input (``ValueError``, ``KeyError``)."""
+def _device_call(what: str, fallback: str, fn, *args):
+    """A device solve. A malformed input (``ValueError``, ``KeyError``)
+    raises as it is; any other failure is a :class:`SolveError`, or, under
+    ``fallback="greedy"``, returns None for the caller to re-run on the
+    host oracle."""
     try:
         return fn(*args)
     except (ValueError, KeyError):
         raise
     except Exception as e:
-        raise SolveError(f"groups {what} crashed ({type(e).__name__}: {e})") from e
+        if fallback != "greedy":
+            raise SolveError(
+                f"groups {what} crashed ({type(e).__name__}: {e})"
+            ) from e
+        return None
 
 
 def group_plan_envelope(
@@ -193,21 +208,28 @@ def group_plan_envelope(
     groups_real: bool,
     solver: str = "device",
     device: str = "cuda",
+    fallback: str = "raise",
 ) -> dict:
     """One group's sticky, movement-minimizing rebalance plan body:
     ``solver="device"`` packs on ``device``, ``"greedy"`` runs the host
-    oracle."""
+    oracle; ``fallback`` as in :func:`build_group_bodies`."""
     from ..parallel import whatif
 
     alive = enc.alive(enc.c if enc.real_members == 0 else enc.real_members)
-    if solver == "device":
-        assigned, load, moved, overflowed, infeasible = _device_call(
-            "packing solve", whatif.pack_group_on_device,
-            enc.weights, enc.capacities, enc.current, enc.proc_order, alive,
-            enc.p, device,
-        )
-    else:
-        assigned, load, moved, overflowed, infeasible = _host_pack(enc, alive)
+    used = solver
+    with span("groups/plan"):
+        got = None
+        if solver == "device":
+            got = _device_call(
+                "packing solve", fallback, whatif.pack_group_on_device,
+                enc.weights, enc.capacities, enc.current, enc.proc_order,
+                alive, enc.p, device,
+            )
+            if got is None:
+                used = "greedy-fallback"
+        if got is None:
+            got = _host_pack(enc, alive)
+    assigned, load, moved, overflowed, infeasible = got
     t0 = time.perf_counter()
     plan = {
         t: {str(p): m for p, m in sorted(per.items())}
@@ -219,7 +241,7 @@ def group_plan_envelope(
         "group": enc.group,
         "groups_real": groups_real,
         "weight": enc.weight_kind,
-        "solver": solver,
+        "solver": used,
         "members": _member_view(enc, load),
         "plan": plan,
         "moves": int(moved),
@@ -241,12 +263,13 @@ def group_sweep_envelope(
     groups_real: bool,
     solver: str = "device",
     device: str = "cuda",
+    fallback: str = "raise",
 ) -> dict:
     """The autoscale cost curve for one group: every (consumer count x
     weight scale) candidate in one batched call. Candidates are emitted
     sorted by (scale, consumers); ``recommended_consumers`` is the smallest
     count that packs feasibly at the lowest swept scale (None when none
-    does)."""
+    does). ``fallback`` as in :func:`build_group_bodies`."""
     from ..parallel import whatif
 
     counts = sorted({int(k) for k in counts if int(k) >= 1})
@@ -266,14 +289,20 @@ def group_sweep_envelope(
         alive_masks[i, :k] = True
     scales = np.array([s for s, _k in cand], dtype=np.int32)
 
-    if solver == "device":
-        moved, overflowed, infeasible, load = _device_call(
-            "autoscale sweep", whatif.evaluate_group_candidates,
-            enc.weights, enc.capacities, enc.current, enc.proc_order,
-            alive_masks, scales, enc.p, device,
-        )
-    else:
-        moved, overflowed, infeasible, load = _host_sweep(enc, alive_masks, scales)
+    used = solver
+    with span("groups/sweep"):
+        got = None
+        if solver == "device":
+            got = _device_call(
+                "autoscale sweep", fallback, whatif.evaluate_group_candidates,
+                enc.weights, enc.capacities, enc.current, enc.proc_order,
+                alive_masks, scales, enc.p, device,
+            )
+            if got is None:
+                used = "greedy-fallback"
+        if got is None:
+            got = _host_sweep(enc, alive_masks, scales)
+    moved, overflowed, infeasible, load = got
     t0 = time.perf_counter()
     candidates = []
     for i, (s, k) in enumerate(cand):
@@ -301,7 +330,7 @@ def group_sweep_envelope(
         "group": enc.group,
         "groups_real": groups_real,
         "weight": enc.weight_kind,
-        "solver": solver,
+        "solver": used,
         "candidates": candidates,
         "recommended_consumers": (
             feasible_at_base[0] if feasible_at_base else None

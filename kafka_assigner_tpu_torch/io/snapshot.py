@@ -30,6 +30,7 @@ import json
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from ..obs.metrics import counter_add
 from .base import ConsumerGroupState, GroupMember, PartitionTraffic
 
 
@@ -47,7 +48,11 @@ class SnapshotBackend:
     def __init__(self, path: str) -> None:
         self.path = path
         with open(path, "rb") as f:
-            data = json.loads(f.read())
+            raw = f.read()
+        # zk.* counts metadata reads for every backend, as the reference's.
+        counter_add("zk.reads")
+        counter_add("zk.bytes", len(raw))
+        data = json.loads(raw)
         self._brokers = [
             BrokerInfo(
                 id=int(b["id"]),
@@ -138,6 +143,7 @@ class SnapshotBackend:
         """``{group: ConsumerGroupState}`` for the named groups (all, sorted,
         when ``groups`` is None). Raises :class:`IngestError` when the file
         has no ``groups`` section and ``KeyError`` for an unknown group."""
+        counter_add("zk.reads")
         if not self._groups:
             from ..errors import IngestError
 

@@ -1,0 +1,54 @@
+"""The declared metric and span names this package writes, a subset of the
+reference's registry (``kafka_assigner_tpu/obs/names.py``), each with the
+reference's meaning, so a port report reads like the reference's.
+
+Every metric and span name the package writes with a literal first
+argument is declared here, in the change that adds the write
+(``tests/test_torch_obs.py`` sweeps the package's sources and fails on an
+undeclared literal). Dynamic names compose on declared bases: the CLI's
+``mode/<MODE>`` span and the per-kind fault counters
+``faults.injected.<kind>``.
+"""
+from __future__ import annotations
+
+#: Counter / gauge / histogram names (the write API's first argument).
+METRIC_NAMES: frozenset = frozenset({
+    # zk.* — metadata reads (the snapshot backend counts here)
+    "zk.reads", "zk.bytes",
+    # ingest.* — topics read, and skipped under best-effort
+    "ingest.topics", "ingest.topics_skipped",
+    # encode.* — the batched host encode
+    "encode.topics", "encode.p_pad", "encode.pad_waste_frac",
+    # plan.* — lifted into the report's plan section
+    "plan.moves", "plan.leader_churn", "plan.topics", "plan.partitions",
+    "plan.unplanned_topics",
+    # whatif.* — scenario-sweep fan-out
+    "whatif.scenarios", "whatif.fanout", "whatif.dispatch_ms",
+    "whatif.incremental_sweeps", "whatif.rescued",
+    # per-lane solve counters and the best-effort fallbacks
+    "greedy.assigns", "greedy.partitions",
+    "native.assigns", "native.partitions",
+    "solver.assign_calls", "solver.fresh_calls", "solve.fallbacks",
+    # faults.* — injection accounting ("faults.injected.<kind>" composes)
+    "faults.injected",
+    # groups.* — consumer-group plans, sweeps, dispatches, fallbacks and
+    # the refusal of a backend without groups
+    "groups.plans", "groups.sweeps", "groups.moves",
+    "groups.candidates", "groups.dispatches", "groups.fanout",
+    "groups.solve_fallbacks", "groups.refusals",
+})
+
+#: Span names (``span(...)`` first argument). Paths derive from nesting at
+#: run time; "mode/<MODE>" composes from the CLI mode.
+SPAN_NAMES: frozenset = frozenset({
+    "metadata/assignment", "feasibility",
+    "plan/solve", "plan/fresh", "plan/emit",
+    "encode", "solve", "decode",
+    "whatif/rank", "whatif/incremental", "whatif/dispatch",
+    "whatif/rescue",
+    "native/assign_many",
+    "groups/plan", "groups/sweep", "groups/dispatch",
+})
+
+#: Both namespaces.
+ALL_NAMES: frozenset = METRIC_NAMES | SPAN_NAMES

@@ -18,10 +18,19 @@ The consumer-group family's device half is here too, as in the reference:
 ``pack_group_on_device`` (:664) and ``evaluate_group_candidates`` (:698),
 each on a ``device`` argument (``cuda`` by default).
 
+The reference's counters and spans are recorded while an obs capture is
+active (``whatif.*``: scenarios, fan-out, incremental sweeps, rescued
+scenarios, the ``whatif/incremental``, ``whatif/dispatch`` and
+``whatif/rescue`` spans and the ``whatif.dispatch_ms`` histogram;
+``groups.*``: candidates, dispatches, fan-out and the ``groups/dispatch``
+span), and the group calls consult ``fault_point("solve")`` before any
+device work. The fan-out gauges keep the reference's definition, the
+power-of-two bucket of the scenario or candidate count, though the port
+places no padding rows.
+
 Left for later slices: the reference's ``mesh`` argument (scenario rows
 sharded across cards), ``_submit_coalesced`` and the daemon's dispatcher,
-the persistent program store, the ``obs`` counters and spans, and the
-``fault_point("solve")`` seam. In their place :data:`last_sweep` and
+and the persistent program store. :data:`last_sweep` and
 :data:`last_groups` record what the most recent call did.
 """
 from __future__ import annotations
@@ -35,7 +44,10 @@ import torch
 
 from ..assigner import infer_topic_rf
 from ..carry import to_tensor
-from ..models.problem import _pad8, encode_cluster, encode_topic_group
+from ..faults.inject import fault_point
+from ..models.problem import _pad8, batch_bucket, encode_cluster, encode_topic_group
+from ..obs.metrics import counter_add, gauge_set
+from ..obs.trace import span
 from ..ops.assignment import (
     group_pack_sweep,
     pack_group,
@@ -153,12 +165,14 @@ def _rescue_flagged(
     paths, as the actual solver would for that scenario. ``alive`` is the
     host (S, N_pad) mask matrix; the topic tensors are on the device.
     Returns the rescue's waves per leg."""
-    sub = torch.as_tensor(np.asarray(alive)[flagged]).to(currents.device)
-    res = whatif_sweep(
-        currents, rack_idx, jhashes, p_reals, sub, n, rf, wave_mode="auto",
-        rfs=rfs, r_cap=r_cap,
-    )
-    moved2, infeasible2, max_load2 = (t.cpu().numpy() for t in res[:3])
+    counter_add("whatif.rescued", len(flagged))
+    with span("whatif/rescue", hist="whatif.dispatch_ms"):
+        sub = torch.as_tensor(np.asarray(alive)[flagged]).to(currents.device)
+        res = whatif_sweep(
+            currents, rack_idx, jhashes, p_reals, sub, n, rf, wave_mode="auto",
+            rfs=rfs, r_cap=r_cap,
+        )
+        moved2, infeasible2, max_load2 = (t.cpu().numpy() for t in res[:3])
     for i, s in enumerate(flagged):
         moved[s] = moved2[i]
         infeasible[s] = infeasible2[i]
@@ -304,6 +318,10 @@ def evaluate_removal_scenarios(
             if idx is None:
                 raise ValueError(f"scenario {s}: unknown broker {b}")
             alive[s, idx] = False
+    # Fan-out telemetry: the scenario count, and the reference's padded
+    # batch width for it.
+    counter_add("whatif.scenarios", s_real)
+    gauge_set("whatif.fanout", int(batch_bucket(s_real)))
     if not s_real:
         return []
     on = _OnDevice(*(to_tensor(a, dev) for a in
@@ -311,11 +329,13 @@ def evaluate_removal_scenarios(
     last_sweep.update(scenarios=s_real)
 
     if env_bool("KA_WHATIF_INCREMENTAL"):
-        res = _evaluate_incremental(
-            currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
-            s_real, rf, enc0.r_cap, len(items), on, t_start,
-        )
+        with span("whatif/incremental"):
+            res = _evaluate_incremental(
+                currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
+                s_real, rf, enc0.r_cap, len(items), on, t_start,
+            )
         if res is not None:
+            counter_add("whatif.incremental_sweeps")
             last_sweep["path"] = "incremental"
             return res
 
@@ -328,12 +348,15 @@ def evaluate_removal_scenarios(
     last_sweep.update(path="dense", prep=_ms(t_start), t_pad=None)
 
     t0 = time.perf_counter()
-    blocks = [
-        whatif_sweep(on.currents, on.rack_idx, on.jhashes, on.p_reals,
-                     alive_t[lo:lo + s_chunk], enc0.n, rf, rfs=on.rfs,
-                     r_cap=enc0.r_cap)
-        for lo in range(0, s_real, s_chunk)
-    ]
+    blocks = []
+    for lo in range(0, s_real, s_chunk):
+        with span("whatif/dispatch", hist="whatif.dispatch_ms"):
+            blocks.append(whatif_sweep(
+                on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                alive_t[lo:lo + s_chunk], enc0.n, rf, rfs=on.rfs,
+                r_cap=enc0.r_cap,
+            ))
+            _sync(dev)
     moved, infeasible, max_load = (
         torch.cat([blk[i] for blk in blocks]).cpu().numpy() for i in range(3)
     )
@@ -387,19 +410,26 @@ def pack_group_on_device(
     host arrays ``(assigned (P_pad,), load (C_pad,), moved, overflowed,
     infeasible)``, the tuple the host oracle (``solvers/greedypack.py``)
     computes. Records its shapes, steps and phase times in
-    :data:`last_groups`."""
-    t0 = time.perf_counter()
-    dev = solve_device(device, "pack_group_on_device")
-    last_groups.clear()
-    w, cap, cur, order = _group_tensors(dev, weights, capacities, current, proc_order)
-    alive_t = torch.as_tensor(np.asarray(alive, dtype=bool)[None, :]).to(dev)
-    _sync(dev)
-    last_groups.update(kind="plan", s=1, p_pad=int(w.shape[0]), c_pad=int(cap.shape[0]),
-                       upload=_ms(t0))
-    out = pack_group(w[None, :], cap, cur, order, alive_t, int(p_real), last_groups)
-    t0 = time.perf_counter()
-    assigned, load, moved, overflowed, infeasible = (t[0].cpu().numpy() for t in out)
-    last_groups["download"] = _ms(t0)
+    :data:`last_groups`. The ``solve`` fault point fires first, as at the
+    placement solver's dispatch."""
+    fault_point("solve")
+    counter_add("groups.dispatches")
+    with span("groups/dispatch", hist="whatif.dispatch_ms"):
+        t0 = time.perf_counter()
+        dev = solve_device(device, "pack_group_on_device")
+        last_groups.clear()
+        w, cap, cur, order = _group_tensors(dev, weights, capacities, current,
+                                            proc_order)
+        alive_t = torch.as_tensor(np.asarray(alive, dtype=bool)[None, :]).to(dev)
+        _sync(dev)
+        last_groups.update(kind="plan", s=1, p_pad=int(w.shape[0]),
+                           c_pad=int(cap.shape[0]), upload=_ms(t0))
+        out = pack_group(w[None, :], cap, cur, order, alive_t, int(p_real),
+                         last_groups)
+        t0 = time.perf_counter()
+        assigned, load, moved, overflowed, infeasible = (
+            t[0].cpu().numpy() for t in out)
+        last_groups["download"] = _ms(t0)
     return assigned, load, int(moved), int(overflowed), bool(infeasible)
 
 
@@ -417,18 +447,28 @@ def evaluate_group_candidates(
     weight scale) in one ``group_pack_sweep`` call on ``device``. Returns
     host arrays ``(moved (S,), overflowed (S,), infeasible (S,), load (S,
     C_pad))``. The batch is not padded (the port has no compiled shapes).
-    Records its shapes, steps and phase times in :data:`last_groups`."""
-    t0 = time.perf_counter()
-    dev = solve_device(device, "evaluate_group_candidates")
-    last_groups.clear()
-    w, cap, cur, order = _group_tensors(dev, weights, capacities, current, proc_order)
-    alive_t = torch.as_tensor(np.asarray(alive_masks, dtype=bool)).to(dev)
-    scales = to_tensor(np.asarray(scale_pcts), dev)
-    _sync(dev)
-    last_groups.update(kind="sweep", s=int(alive_t.shape[0]), p_pad=int(w.shape[0]),
-                       c_pad=int(cap.shape[0]), upload=_ms(t0))
-    out = group_pack_sweep(w, cap, cur, order, alive_t, scales, int(p_real), last_groups)
-    t0 = time.perf_counter()
-    moved, overflowed, infeasible, load = (t.cpu().numpy() for t in out)
-    last_groups["download"] = _ms(t0)
+    Records its shapes, steps and phase times in :data:`last_groups`. The
+    ``solve`` fault point fires before any device work."""
+    s_real = len(alive_masks)
+    counter_add("groups.candidates", s_real)
+    fault_point("solve")
+    counter_add("groups.dispatches")
+    gauge_set("groups.fanout", int(batch_bucket(s_real)))
+    with span("groups/dispatch", hist="whatif.dispatch_ms"):
+        t0 = time.perf_counter()
+        dev = solve_device(device, "evaluate_group_candidates")
+        last_groups.clear()
+        w, cap, cur, order = _group_tensors(dev, weights, capacities, current,
+                                            proc_order)
+        alive_t = torch.as_tensor(np.asarray(alive_masks, dtype=bool)).to(dev)
+        scales = to_tensor(np.asarray(scale_pcts), dev)
+        _sync(dev)
+        last_groups.update(kind="sweep", s=int(alive_t.shape[0]),
+                           p_pad=int(w.shape[0]), c_pad=int(cap.shape[0]),
+                           upload=_ms(t0))
+        out = group_pack_sweep(w, cap, cur, order, alive_t, scales, int(p_real),
+                               last_groups)
+        t0 = time.perf_counter()
+        moved, overflowed, infeasible, load = (t.cpu().numpy() for t in out)
+        last_groups["download"] = _ms(t0)
     return moved, overflowed, infeasible, load

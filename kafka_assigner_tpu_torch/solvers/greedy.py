@@ -1,7 +1,7 @@
 """The greedy oracle (``--solver greedy``): a semantics-faithful
 reimplementation of the reference's five-phase algorithm
 (``KafkaAssignmentStrategy.java:40-63``), a copy of
-``kafka_assigner_tpu/solvers/greedy.py`` without its metrics counters.
+``kafka_assigner_tpu/solvers/greedy.py`` with its ``greedy.*`` counters.
 
 This is the correctness oracle for differential testing, in Python; the C++
 greedy (``solvers/native.py``) is the baseline whose moved-replica count and
@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Set
 
+from ..obs.metrics import counter_add
 from ..utils.javahash import topic_start_index
 from .base import Context
 
@@ -282,6 +283,10 @@ class GreedySolver:
         replication_factor: int,
         context: Context | None = None,
     ) -> Dict[int, List[int]]:
+        # Counters, not per-topic spans: mode 3 loops this over every topic,
+        # and the span log is capped.
+        counter_add("greedy.assigns")
+        counter_add("greedy.partitions", len(partitions))
         return rack_aware_assignment(
             topic,
             current_assignment,

@@ -1,6 +1,6 @@
 """The C++ greedy solver (``--solver native``): ``native/greedy.cpp`` behind
 the solver interface, a copy of ``kafka_assigner_tpu/solvers/native.py``
-without its metrics counters and spans.
+with its ``native.*`` counters and ``native/assign_many`` span.
 
 Its choices are the Python oracle's (``solvers/greedy.py``: the same five
 phases and tie-breaks), but for the RF-decrease clamp it shares with the
@@ -25,6 +25,8 @@ from ..models.problem import (
     encode_problem,
 )
 from ..native.build import load_native_library
+from ..obs.metrics import counter_add
+from ..obs.trace import span
 from .base import Context
 from .torch_solver import rf_compat_enabled
 
@@ -66,6 +68,8 @@ class NativeGreedySolver:
         replication_factor: int,
         context: Context | None = None,
     ) -> Dict[int, List[int]]:
+        counter_add("native.assigns")
+        counter_add("native.partitions", len(partitions))
         if context is None:
             context = Context()
         enc = encode_problem(
@@ -113,6 +117,16 @@ class NativeGreedySolver:
             context = Context()
         if not named_currents:
             return []
+        with span("native/assign_many"):
+            return self._assign_many(
+                named_currents, rack_assignment, nodes, replication_factor,
+                context,
+            )
+
+    def _assign_many(
+        self, named_currents, rack_assignment, nodes, replication_factor,
+        context,
+    ) -> List[Tuple[str, Dict[int, List[int]]]]:
         cluster = encode_cluster(rack_assignment, nodes)
         rf = replication_factor
         encs = [

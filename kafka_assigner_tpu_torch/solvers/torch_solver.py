@@ -22,10 +22,18 @@ leadership kernel → host decode. The counterpart of
   host, as the reference's ``_order_placed`` (``solvers/tpu.py:826-845``)
   and ``fresh_assignment`` (:893-925) do; the bytes are the same;
 - the batched encode and decode take the C boundary codec under
-  ``KA_HOSTCODEC`` (``models/problem.py``).
+  ``KA_HOSTCODEC`` (``models/problem.py``);
+- observability as the reference's (``solvers/tpu.py:321-329``, :414-494,
+  :552, :612, :878-880): ``fault_point("solve")`` before any work of
+  ``assign`` and ``assign_many``, the ``solver.assign_calls`` and
+  ``solver.fresh_calls`` counters, and on the batched path the spans
+  ``encode`` (the same clock as ``last_timers["encode"]``), ``solve``
+  (placement and leadership) and ``decode`` (the same clock as
+  ``last_timers["decode"]``), with the ``encode.*`` gauges.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from ..carry import to_tensor
+from ..faults.inject import fault_point
 from ..models import problem
 from ..models.problem import (
     apply_counter_updates,
@@ -44,9 +53,12 @@ from ..models.problem import (
     encode_topic_group,
 )
 from ..native.leadership import leadership_backend, order_many
+from ..obs.metrics import counter_add, gauge_set, obs_active
+from ..obs.trace import span
 from ..ops.assignment import WAVE_MODES, place_batched
 from ..ops.leadership import leadership_order
 from ..utils.env import env_bool, env_choice, env_int
+from ..utils.logging import get_logger
 from .base import Context
 
 
@@ -95,6 +107,23 @@ def solve_device(device: str | torch.device, who: str = "TorchSolver") -> torch.
     return device
 
 
+@contextlib.contextmanager
+def _phase(name: str, sink, record: bool, log=None):
+    """One solve phase: an obs span on the batched path (``record``), where
+    the reference's ``assign_many`` has one, else a plain timer; either way
+    the phase's wall ms land in ``sink`` (``last_timers``) when given."""
+    if record:
+        with span(name, sink=sink, log=log):
+            yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if sink is not None:
+            sink[name] = sink.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
 class TorchSolver:
     """Solver-protocol implementation on PyTorch tensors.
 
@@ -105,6 +134,9 @@ class TorchSolver:
     #: ``assign_many`` takes one batch of topics of different replication
     #: factors (``TopicAssigner.generate_assignments`` reads this).
     supports_mixed_rf = True
+
+    #: The lane's name in the best-effort fallback's stderr line.
+    name = "device"
 
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = solve_device(device)
@@ -140,13 +172,21 @@ class TorchSolver:
     ) -> Dict[int, List[int]]:
         """Solve one topic (``partitions`` missing from the current
         assignment are placed from scratch)."""
+        # Crash injection (KA_FAULTS_SPEC solve:i=crash): the device-failure
+        # stand-in the fallback chain is tested against.
+        fault_point("solve")
+        counter_add("solver.assign_calls")
         if context is None:
             context = Context()
-        enc = encode_problem(
-            topic, current_assignment, rack_assignment, nodes, partitions,
-            replication_factor,
-        )
-        (_, out), = self._solve([enc], [replication_factor], context)
+
+        def encode():
+            enc = encode_problem(
+                topic, current_assignment, rack_assignment, nodes, partitions,
+                replication_factor,
+            )
+            return [enc], _single(enc)
+
+        (_, out), = self._solve(encode, [replication_factor], context)
         return out
 
     def assign_many(
@@ -162,6 +202,7 @@ class TorchSolver:
         serially in that order (the leadership counters carry across
         topics). Topics of different replication factors share the batch
         through the per-topic ``rfs`` lane."""
+        fault_point("solve")
         if context is None:
             context = Context()
         if not named_currents:
@@ -170,14 +211,25 @@ class TorchSolver:
             rf_list = [replication_factor] * len(named_currents)
         else:
             rf_list = [int(r) for r in replication_factor]
-        t0 = time.perf_counter()
-        encs, currents, jhashes, p_reals = encode_topic_group(
-            named_currents, rack_assignment, nodes, rf_list
-        )
-        return self._solve(
-            encs, rf_list, context, (currents, jhashes, p_reals),
-            encode_ms=(time.perf_counter() - t0) * 1e3,
-        )
+
+        def encode():
+            encs, currents, jhashes, p_reals = encode_topic_group(
+                named_currents, rack_assignment, nodes, rf_list
+            )
+            if obs_active():
+                # Bucketing cost, per run: the padding share of the (B, P)
+                # slab.
+                cells = int(currents.shape[0]) * int(currents.shape[1])
+                real = int(np.asarray(p_reals, dtype=np.int64).sum())
+                gauge_set(
+                    "encode.pad_waste_frac",
+                    round(1.0 - real / cells, 6) if cells else 0.0,
+                )
+                gauge_set("encode.topics", len(encs))
+                gauge_set("encode.p_pad", int(currents.shape[1]))
+            return encs, (currents, jhashes, p_reals)
+
+        return self._solve(encode, rf_list, context, record=True)
 
     def fresh_assignment(
         self,
@@ -193,74 +245,78 @@ class TorchSolver:
         (capacity-greedy balance first, first-fit legs behind it), then the
         leadership kernel against ``context``. ``partitions`` is a count or
         the partition ids."""
+        counter_add("solver.fresh_calls")
         if isinstance(partitions, int):
             partitions = list(range(partitions))
         if context is None:
             context = Context()
-        t0 = time.perf_counter()
-        current = {int(p): [] for p in partitions}
-        enc = encode_problem(
-            topic, current, rack_assignment, nodes, set(current),
-            replication_factor,
-        )
-        (_, out), = self._solve(
-            [enc], [replication_factor], context, fresh=True,
-            encode_ms=(time.perf_counter() - t0) * 1e3,
-        )
+
+        def encode():
+            current = {int(p): [] for p in partitions}
+            enc = encode_problem(
+                topic, current, rack_assignment, nodes, set(current),
+                replication_factor,
+            )
+            return [enc], _single(enc)
+
+        (_, out), = self._solve(encode, [replication_factor], context, fresh=True)
         return out
 
-    def _solve(self, encs, rf_list, context, batch=None, fresh: bool = False,
-               encode_ms: float = 0.0) -> List[tuple]:
-        """Place, order and decode ``encs``. ``batch`` is
-        ``encode_topic_group``'s ``(currents, jhashes, p_reals)``; without
-        it ``encs`` is one topic from ``encode_problem``. ``fresh`` runs the
-        ``fresh`` chain and never the compat width, as the reference's
-        ``fresh_assignment`` does."""
+    def _solve(self, encode, rf_list, context, fresh: bool = False,
+               record: bool = False) -> List[tuple]:
+        """Encode, place, order and decode. ``encode()`` returns ``(encs,
+        (currents, jhashes, p_reals))``. ``fresh`` runs the ``fresh`` chain
+        and never the compat width, as the reference's ``fresh_assignment``
+        does. ``record`` makes the phases obs spans (the batched path)."""
         timers = {}
         self.last_timers = timers
+        log = get_logger("timers") if record else None
         # Resolved first: KA_LEADERSHIP=native without its library raises
         # before any placement work.
         native_order = leadership_backend() == "native"
-        t0 = time.perf_counter()
-        if batch is None:
-            enc, = encs
-            batch = (enc.current[None], np.array([enc.jhash], np.int32),
-                     np.array([enc.p], np.int32))
-        currents, jhashes, p_reals = batch
-        rf_max = max(rf_list)
-        # Compat slot width: on an RF decrease under KA_RF_DECREASE_COMPAT
-        # the current lists are wider than rf_max and every slot can
-        # survive sticky, so the whole pipeline runs `width` wide.
-        width = None
-        if not fresh and rf_compat_enabled() and currents.shape[2] > rf_max:
-            width = currents.shape[2]
-        # The counter slab spans the widest RF of the group (the widest
-        # slot under compat); a narrower topic touches only its own
-        # leading slots.
-        enc_slab = dataclasses.replace(encs[0], rf=width or rf_max)
-        counters_before = context_to_array(context, enc_slab)
-        b_real = len(encs)
-        rfs = None
-        if any(r != rf_max for r in rf_list):
-            rfs_np = np.full(currents.shape[0], rf_max, dtype=np.int32)
-            rfs_np[:b_real] = rf_list
-            rfs = self._t(rfs_np)
-        cur_t, rack_t = self._t(currents), self._t(encs[0].rack_idx)
-        jh_t, pr_t = self._t(jhashes), self._t(p_reals)
-        counters_t = None if native_order else self._t(counters_before)
-        self._sync()
-        timers["encode"] = encode_ms + (time.perf_counter() - t0) * 1e3
+        with _phase("encode", timers, record, log):
+            encs, (currents, jhashes, p_reals) = encode()
+            rf_max = max(rf_list)
+            # Compat slot width: on an RF decrease under
+            # KA_RF_DECREASE_COMPAT the current lists are wider than rf_max
+            # and every slot can survive sticky, so the whole pipeline runs
+            # `width` wide.
+            width = None
+            if not fresh and rf_compat_enabled() and currents.shape[2] > rf_max:
+                width = currents.shape[2]
+            # The counter slab spans the widest RF of the group (the widest
+            # slot under compat); a narrower topic touches only its own
+            # leading slots.
+            enc_slab = dataclasses.replace(encs[0], rf=width or rf_max)
+            counters_before = context_to_array(context, enc_slab)
+            b_real = len(encs)
+            rfs = None
+            if any(r != rf_max for r in rf_list):
+                rfs_np = np.full(currents.shape[0], rf_max, dtype=np.int32)
+                rfs_np[:b_real] = rf_list
+                rfs = self._t(rfs_np)
+            cur_t, rack_t = self._t(currents), self._t(encs[0].rack_idx)
+            jh_t, pr_t = self._t(jhashes), self._t(p_reals)
+            counters_t = None if native_order else self._t(counters_before)
+            self._sync()
 
-        t0 = time.perf_counter()
-        placed = place_batched(
-            cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max,
-            "fresh" if fresh else wave_mode(), rfs, r_cap=encs[0].r_cap,
-            width=width,
-        )
-        self.last_waves = placed.waves
-        infeasible = placed.infeasible[:b_real].cpu().numpy()
-        timers["place"] = (time.perf_counter() - t0) * 1e3
+        with _phase("solve", None, record, log):
+            t0 = time.perf_counter()
+            placed = place_batched(
+                cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max,
+                "fresh" if fresh else wave_mode(), rfs, r_cap=encs[0].r_cap,
+                width=width,
+            )
+            self.last_waves = placed.waves
+            infeasible = placed.infeasible[:b_real].cpu().numpy()
+            timers["place"] = (time.perf_counter() - t0) * 1e3
+            if not infeasible.any():
+                ordered, counters_after = self._order(
+                    placed, b_real, jhashes, p_reals, counters_before,
+                    counters_t, jh_t, native_order, currents.shape[1],
+                )
         if infeasible.any():
+            # Raised after the solve phase, as the reference raises it.
             b = int(np.argmax(infeasible))
             bad = int(np.argmax(placed.deficit[b].cpu().numpy() > 0))
             raise ValueError(
@@ -268,13 +324,33 @@ class TorchSolver:
                 "fully assigned!"
             )
 
+        with _phase("decode", timers, record, log):
+            if isinstance(ordered, torch.Tensor):
+                ordered = ordered.cpu().numpy()
+                counters_after = counters_after.cpu().numpy()
+            apply_counter_updates(context, enc_slab, counters_before, counters_after)
+            # Compat decodes every slot, so retained replicas past the RF
+            # survive and rows shorter than `width` come out shorter.
+            decoded = decode_assignments_batched(
+                encs if width is None
+                else [dataclasses.replace(e, rf=width) for e in encs],
+                ordered,
+            )
+        self.last_codec = dict(problem.last_codec)
+        return [(enc.topic, a) for enc, a in zip(encs, decoded)]
+
+    def _order(self, placed, b_real, jhashes, p_reals, counters_before,
+               counters_t, jh_t, native_order, p_pad):
+        """The leadership phase (``last_timers["leadership"]``): the host C++
+        lane or the device lane (the kernel on cuda, its plain version on
+        cpu). Returns ``(ordered, counters_after)``."""
         t0 = time.perf_counter()
         if native_order:
             # The host lane: the placement comes to the host (inside this
             # phase's time), and the counter slab is the one built above,
             # `width` wide under compat and rf_max wide in a mixed-RF batch.
             self.last_leadership = "native"
-            ordered, counters_after = order_many(
+            out = order_many(
                 placed.acc_nodes[:b_real].cpu().numpy(),
                 placed.acc_count[:b_real].cpu().numpy(),
                 jhashes[:b_real].astype(np.int64), p_reals[:b_real],
@@ -282,27 +358,19 @@ class TorchSolver:
             )
         else:
             self.last_leadership = "cuda" if self.device.type == "cuda" else "plain"
-            ordered, counters_after = leadership_order(
+            out = leadership_order(
                 placed.acc_nodes[:b_real].contiguous(),
                 placed.acc_count[:b_real].contiguous(),
                 counters_t, jh_t[:b_real].contiguous(),
-                chunk=leader_chunk(currents.shape[1]),
+                chunk=leader_chunk(p_pad),
             )
             self._sync()
-        timers["leadership"] = (time.perf_counter() - t0) * 1e3
+        self.last_timers["leadership"] = (time.perf_counter() - t0) * 1e3
+        return out
 
-        t0 = time.perf_counter()
-        if isinstance(ordered, torch.Tensor):
-            ordered = ordered.cpu().numpy()
-            counters_after = counters_after.cpu().numpy()
-        apply_counter_updates(context, enc_slab, counters_before, counters_after)
-        # Compat decodes every slot, so retained replicas past the RF
-        # survive and rows shorter than `width` come out shorter.
-        decoded = decode_assignments_batched(
-            encs if width is None
-            else [dataclasses.replace(e, rf=width) for e in encs],
-            ordered,
-        )
-        timers["decode"] = (time.perf_counter() - t0) * 1e3
-        self.last_codec = dict(problem.last_codec)
-        return [(enc.topic, a) for enc, a in zip(encs, decoded)]
+
+def _single(enc) -> tuple:
+    """One ``encode_problem`` topic as a batch of one: ``(currents, jhashes,
+    p_reals)``."""
+    return (enc.current[None], np.array([enc.jhash], np.int32),
+            np.array([enc.p], np.int32))

@@ -11,8 +11,11 @@ and ``KA_QUOTA_ENDGAME`` tune the giant-shape quota leg
 three ``KA_GROUPS_*`` knobs set the consumer-group sweep's default scales,
 its fan-out cap and the capacity default (``groups/``); ``KA_HOSTCODEC`` and
 ``KA_LEADERSHIP`` pick the boundary codec and the leadership lane
-(``native/``). The port reads every knob per call, where the reference reads
-some at trace time.
+(``native/``). The run report, the device profiler hook and the failure
+policy read the reference's ``KA_OBS_*``, ``KA_PROFILE``, ``KA_LOG``,
+``KA_FAILURE_POLICY`` and ``KA_FAULTS_*`` knobs (``obs/``, ``faults/``,
+``utils/logging.py``). The port reads every knob per call, where the
+reference reads some at trace time.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any, NamedTuple
 class Knob(NamedTuple):
     default: Any
     floor: Any = None  # numeric clamp (min), None = unclamped
+    choices: Any = None  # the accepted values of a choice knob
 
 
 KNOBS = {
@@ -62,6 +66,29 @@ KNOBS = {
     # device lane until card numbers of both lanes (chip_smoke.py phase 17)
     # decide.
     "KA_LEADERSHIP": Knob("auto"),
+    # Failure policy (cli.py): strict aborts on the first unrecoverable
+    # failure; best-effort skips vanished topics and re-runs a crashed
+    # device solve on the greedy lane, exiting 6.
+    "KA_FAILURE_POLICY": Knob("strict", choices=("strict", "best-effort")),
+    # Fault injection (faults/inject.py): the spec, and the seed and rate
+    # of a `random` schedule.
+    "KA_FAULTS_SPEC": Knob(None),
+    "KA_FAULTS_SEED": Knob(0),
+    "KA_FAULTS_RATE": Knob(0.05, floor=0.0),
+    # stderr diagnostics level (utils/logging.py).
+    "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
+    # Observability (obs/): collect spans and metrics, the default report
+    # path, the histogram edges, the flight ring and its dump, the access
+    # log's rollover cap, and the device profiler's trace directory
+    # (KA_PROFILE is its older name).
+    "KA_OBS_ENABLE": Knob(False),
+    "KA_OBS_REPORT": Knob(None),
+    "KA_OBS_HIST_EDGES": Knob(None),
+    "KA_OBS_ACCESS_LOG_MAX_MB": Knob(0, floor=0),
+    "KA_OBS_FLIGHT_EVENTS": Knob(512, floor=0),
+    "KA_OBS_FLIGHT_DUMP": Knob(None),
+    "KA_OBS_PROFILE_DIR": Knob(None),
+    "KA_PROFILE": Knob(None),
 }
 
 _TRUE = frozenset({"1", "true", "yes", "on"})
@@ -135,11 +162,22 @@ def env_bool(name: str) -> bool:
     return default
 
 
-def env_choice(name: str, choices, default):
-    """Enumerated knob: the raw value must be one of ``choices``; case and
-    surrounding whitespace are forgiven; unknown values warn and fall back
-    to ``default`` (the call site's, for knobs whose default is computed)."""
-    _lookup(name)
+_UNSET = object()
+
+
+def env_choice(name: str, choices=None, default=_UNSET):
+    """Enumerated knob: the raw value must be one of ``choices`` (the
+    knob's declared set when not given); case and surrounding whitespace
+    are forgiven; unknown values warn and fall back to ``default`` (the
+    knob's, or the call site's for knobs whose default is computed)."""
+    k = _lookup(name)
+    if choices is None:
+        choices = k.choices
+    if not choices:
+        raise KeyError(f"{name} is a choice knob with no declared choice set; "
+                       "pass choices= at the call site")
+    if default is _UNSET:
+        default = k.default
     raw = os.environ.get(name)
     if not raw or not raw.strip():
         return default

@@ -52,7 +52,10 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     for new in ("io.base", "obs.health", "solvers.greedypack", "groups", "groups.model",
                 "groups.encode", "groups.solve", "groups.__main__", "ops.group_pack",
                 "ops.group_pack_cases", "errors", "native", "native.build",
-                "native.leadership", "solvers.greedy", "solvers.native"):
+                "native.leadership", "solvers.greedy", "solvers.native", "obs",
+                "obs.trace", "obs.metrics", "obs.report", "obs.flight", "obs.names",
+                "obs.profile", "faults", "faults.inject", "utils.logging",
+                "utils.timers"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -132,6 +135,26 @@ with open("/proc/self/maps") as f:
     maps = f.read()
 assert "kafka_assigner_tpu/native" not in maps, "a JAX package library is loaded"
 assert all(p in maps for p in libs), libs
+from kafka_assigner_tpu_torch import faults          # the report, the profiler
+from kafka_assigner_tpu_torch.obs.profile import capture_window  # and the policy
+tm, _, racks = rack_striped_cluster(20, 2, 12, 3, 5)
+snap = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+json.dump({"brokers": [{"id": b, "host": f"h{b}", "port": 1, "rack": racks[b]}
+                       for b in range(20)],
+           "topics": {t: {str(p): r for p, r in c.items()} for t, c in tm.items()}}, snap)
+snap.close()
+tmp = tempfile.mkdtemp()
+os.environ["KA_FAULTS_SPEC"] = "solve:0=crash"
+with contextlib.redirect_stderr(io.StringIO()):
+    rc = cli.run(["--zk_string", snap.name, "--mode", "PRINT_REASSIGNMENT", "--device",
+                  "cpu", "--failure-policy", "best-effort", "--report-json",
+                  os.path.join(tmp, "r.json")], out=io.StringIO())
+assert rc == cli.EXIT_DEGRADED, rc
+report = json.load(open(os.path.join(tmp, "r.json")))
+assert report["status"] == "degraded" and report["metrics"]["counters"]["solve.fallbacks"] == 1
+del os.environ["KA_FAULTS_SPEC"]
+assert capture_window(0.05, os.path.join(tmp, "trace")) and os.listdir(os.path.join(tmp, "trace"))
+os.unlink(snap.name)
 print("paths ok")
 """
 
@@ -141,7 +164,8 @@ def test_new_paths_run_without_jax():
     # what-if paths, ka-groups and the three --solver lanes (the device one
     # on the host leadership lane, through the C codec), run with jax and
     # the JAX package blocked; the native libraries loaded are the port's,
-    # from build/.
+    # from build/. Then a best-effort run with a crash injected and its
+    # report, and a profiler window.
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     script = _BLOCKER.replace("for mod in sys.argv[1:]:", _PATHS + "\nfor mod in []:")
     proc = subprocess.run(
