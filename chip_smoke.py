@@ -152,13 +152,19 @@ Phases, each printing its own line; any failure exits non-zero:
     ``KA_OBS_ENABLE`` is set, and phase 19 sets them per run.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
-to its plain version on the stress cases of ``ops/group_pack_cases.py``;
+to its plain version on the stress cases of ``ops/group_pack_cases.py``,
+with the variant each launched (``registers``, ``shared``, ``global``) and,
+in the register variant, the consumers a lane (K) its candidates took;
 each of phases 14-16 holds its kernel launch bit-equal to the plain version
 on the inputs the main path gave it (in a worker) and times it alone
-(median of 10 by CUDA events) beside its byte bound and its chain floor (the
-largest orphan count of a candidate times the time of one step of the chain
-alone, measured by the kernel's step probe), and the chain at the kernel's
-own time a step (on one all-orphan candidate).
+(median of 10 by CUDA events) beside its C_pad and variant, its byte bound,
+its chain floor (the largest orphan count of a candidate times the time of
+one step of two warp reductions and a bump alone, measured by the step
+probe) and the ratio of the two, the same over the register variant's
+floor (the probe's chain with one reduction and a ballot a step), and the
+chain at the kernel's own time a step (on one all-orphan candidate at the
+K of the longest chain); the kernel's own time a step is also printed at
+each K's largest C_pad (32 to 1,024) and at 2,048 (the shared variant).
 
 The what-if and group phases do not order leaders: the leadership kernel is
 not on their path, and the smoke checks that they launch it no time.
@@ -928,6 +934,7 @@ def host_modes(snap, n_brokers, n_partitions):
 def group_kernel_cases():
     """Phase 3b: the group-pack kernel against its plain version on the
     stress cases. Returns max |kernel - plain| over every case."""
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
     from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
 
     worst = 0
@@ -938,8 +945,19 @@ def group_kernel_cases():
         if err:
             fail(f"group-pack kernel disagrees with plain on case {name}")
         phase("kernels", f"group_pack {name} (S={w.shape[0]} P_pad={w.shape[1]} "
-              f"C_pad={cap.shape[0]}{', global' if case[7] else ''}): bit-equal")
+              f"C_pad={cap.shape[0]}{', forced global' if case[7] else ''}; "
+              f"variant {variant_name(gp.last_variant, case[5])}): bit-equal")
     return worst
+
+
+def variant_name(variant, alive):
+    """``registers/K`` (the consumers a lane of the candidates, ``alive``
+    their liveness), ``shared`` or ``global``."""
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+
+    if variant != "registers":
+        return variant
+    return "registers/" + ",".join(map(str, sorted({gp.span_slots(row) for row in alive})))
 
 
 def write_group_snapshot(path, topic_map, live, racks):
@@ -1191,31 +1209,65 @@ def group_phases(work, steady_snap, checks):
           f"peak device memory {peak / 2**20:.1f} MiB")
 
     # The kernel alone at each path's shape, its bound, its chain floor (the
-    # longest chain times the step probe's time a step) and the chain at the
-    # kernel's own time a step (one all-orphan candidate at the path's C_pad).
+    # longest chain times the step probe's time a step) and the register
+    # variant's (times the ballot probe's), the ratios to them, and the
+    # chain at the kernel's own time a step (one all-orphan candidate, every
+    # consumer alive, at the longest chain's K in the register variant).
     probe_ns, probe_cycles = gcases.probe_ns()
     phase("timing", f"group_pack step probe: {probe_ns:.2f} ns, {probe_cycles:.2f} cycles "
           "a step of the chain alone (two warp reductions and the bump, one warp)")
+    ballot_ns, ballot_cycles = gcases.probe_ns(ballot=True)
+    phase("timing", f"group_pack ballot probe: {ballot_ns:.2f} ns, {ballot_cycles:.2f} "
+          "cycles a step of the chain alone (one warp reduction, a ballot and the bump, "
+          "one warp): the register variant's floor")
+    step_by_c = {}
+    for c_pad in gcases.BUCKET_C_PADS + (gcases.SHARED_C_PAD,):
+        step_by_c[c_pad] = gcases.step_ns(c_pad)
+        label = variant_name(gp.last_variant, [[True] * c_pad])
+        phase("timing", f"group_pack kernel's own step at C_pad {c_pad} (variant "
+              f"{label}, one all-orphan candidate): {step_by_c[c_pad]:.1f} ns, "
+              f"{step_by_c[c_pad] / probe_ns:.2f}x the probe, "
+              f"{step_by_c[c_pad] / ballot_ns:.2f}x the ballot probe")
     out = {}
     for path, (inputs, outputs, shape) in timed.items():
         ms, lo, hi = scan_timing(path, inputs, outputs)
+        variant = gp.last_variant
         s_, p_ = inputs[0].shape
         c_ = inputs[1].shape[0]
         rec = records[path]
         nbytes = gcases.scan_bytes(s_, p_, c_, rec["steps_sum"])
-        step = gcases.step_ns(c_)
+        orphans = inputs[4].sum(1).tolist()
+        longest = max(range(s_), key=orphans.__getitem__)
+        slots = gp.span_slots(inputs[3][longest].tolist()) if variant == "registers" else 0
+        step_c = 32 * slots if slots else c_
+        step = step_by_c.get(step_c) or gcases.step_ns(step_c)
+        # Each candidate's chain at its own K's step: the slowest of them.
+        slowest_ms = max(n * (step_by_c[32 * gp.span_slots(row)] if slots else step)
+                         for n, row in zip(orphans, inputs[3].tolist())) * 1e-6
+        chain_bound_ms = rec["steps_max"] * probe_ns * 1e-6
+        register_floor_ms = rec["steps_max"] * ballot_ns * 1e-6
         out[path] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+                         c_pad=c_, variant=variant, longest_chain_slots=slots,
                          chain_steps=rec["steps_max"], step_probe_ns=probe_ns,
-                         chain_bound_ms=rec["steps_max"] * probe_ns * 1e-6,
-                         kernel_step_ns=step,
-                         chain_kernel_ms=rec["steps_max"] * step * 1e-6)
-        phase("timing", f"group_pack kernel at {path} ({shape}): median {ms:.3f} ms of "
+                         chain_bound_ms=chain_bound_ms,
+                         ratio_to_chain_floor=ms / chain_bound_ms,
+                         register_floor_ms=register_floor_ms,
+                         ratio_to_register_floor=ms / register_floor_ms,
+                         kernel_step_ns=step, kernel_step_c_pad=step_c,
+                         chain_kernel_ms=rec["steps_max"] * step * 1e-6,
+                         slowest_chain_kernel_ms=slowest_ms)
+        phase("timing", f"group_pack kernel at {path} ({shape}, variant "
+              f"{variant_name(variant, inputs[3].tolist())}; the longest chain's "
+              f"candidate at {slots} consumers a lane): median {ms:.3f} ms of "
               f"{KERNEL_REPS} (min {lo:.3f}, max {hi:.3f}); byte bound "
               f"{out[path]['bound_ms']:.4f} ms ({nbytes} bytes); chain floor "
-              f"{out[path]['chain_bound_ms']:.3f} ms ({rec['steps_max']} steps x "
-              f"{probe_ns:.2f} ns of the probe); the chain at the kernel's own "
-              f"{step:.1f} ns a step (one all-orphan candidate at C_pad {c_}) "
-              f"{out[path]['chain_kernel_ms']:.3f} ms")
+              f"{chain_bound_ms:.3f} ms ({rec['steps_max']} steps x {probe_ns:.2f} ns of "
+              f"the probe); ms / chain floor {out[path]['ratio_to_chain_floor']:.3f}; "
+              f"register floor {register_floor_ms:.3f} ms (x {ballot_ns:.2f} ns of the "
+              f"ballot probe), ms / it {out[path]['ratio_to_register_floor']:.3f}; the "
+              f"chain at the kernel's own {step:.1f} ns a step (one all-orphan "
+              f"candidate at C_pad {step_c}) {out[path]['chain_kernel_ms']:.3f} ms; the "
+              f"slowest candidate's chain at its own K's step {slowest_ms:.3f} ms")
     r = GROUP_PLAIN_SHAPE
     rng = np.random.default_rng(1)
     w, cap, cur, order, alive = gcases.instance(rng, r["s"], r["p"], r["p"], r["c"], r["c"])
@@ -1253,7 +1305,15 @@ def group_phases(work, steady_snap, checks):
         "chain_bound_ms": main["chain_bound_ms"],
         "step_probe_ns": probe_ns,
         "step_probe_cycles": probe_cycles,
+        "ballot_probe_ns": ballot_ns,
+        "ballot_probe_cycles": ballot_cycles,
         "chain_kernel_ms": main["chain_kernel_ms"],
+        "variant": main["variant"],
+        "longest_chain_slots": main["longest_chain_slots"],
+        "ratio_to_chain_floor": main["ratio_to_chain_floor"],
+        "register_floor_ms": main["register_floor_ms"],
+        "ratio_to_register_floor": main["ratio_to_register_floor"],
+        "step_ns_by_c_pad": {str(c): v for c, v in step_by_c.items()},
         "by_path": out,
     }, {path: (argv, texts[path]) for path, argv in paths.items()}
 
@@ -1663,9 +1723,10 @@ def smoke(checks) -> int:
     built = build.build_all()
     phase("build", f"nvcc sm_90a: {built['seconds']:.2f} s for {sorted(built['ptxas'])}")
     for src, log in built["ptxas"].items():
-        for line in log.splitlines():
-            if "Compiling entry function" in line or "Used" in line:
-                phase("build", f"{src}: {line.strip()}")
+        for kernel, stats in build.kernel_resources(log).items():
+            phase("build", f"{src}: {kernel}: {stats.get('registers')} registers, "
+                  f"{stats.get('stack')} bytes stack frame, {stats.get('spill_stores')} "
+                  f"bytes spill stores, {stats.get('spill_loads')} bytes spill loads")
     native_builds()
 
     max_err = kernel_cases(cases)

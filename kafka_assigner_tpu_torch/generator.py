@@ -20,8 +20,10 @@ an obs capture is active. Mode 3 takes the reference's failure policy
 snapshot is skipped (the reference's ``stream_initial_assignment`` skip,
 :496-555, on this package's one-shot read) and a crashed solve falls back
 to the greedy lane; what the run survived lands in a :class:`Degradation`.
-Under ``strict`` a missing topic keeps its ``KeyError``, and a solver
-crash is a :class:`~.errors.SolveError`.
+Under ``strict`` a failed metadata read (a missing topic's ``KeyError``,
+a file error) is an :class:`~.errors.IngestError` as in the reference
+(:688-702), and a solver crash is a :class:`~.errors.SolveError`. The other
+modes leave their read's ``KeyError`` untagged, as the reference does.
 
 JSON goes to stdout, diagnostics to stderr.
 """
@@ -34,7 +36,7 @@ import sys
 from typing import Dict, List, Optional, Sequence, Set, TextIO
 
 from .assigner import TopicAssigner
-from .errors import SolveError
+from .errors import IngestError, SolveError
 from .io.json_io import (
     format_brokers_json,
     format_reassignment_json,
@@ -290,6 +292,13 @@ def _note_skipped(topic: str, skipped: List[str]) -> None:
     )
 
 
+def _is_ingest_failure(e: BaseException) -> bool:
+    """Failure classes mode 3's metadata read tags as :class:`IngestError`,
+    as ``kafka_assigner_tpu/generator.py:315`` does: file errors and the
+    snapshot's ``KeyError`` (the port has no wire client)."""
+    return isinstance(e, (OSError, KeyError))
+
+
 def read_initial_assignment(
     backend, topic_list: Sequence[str], failure_policy: str = "strict",
     skipped: Optional[List[str]] = None,
@@ -299,7 +308,8 @@ def read_initial_assignment(
     backend does not know is skipped, as the reference's streamed read
     skips a topic that vanished mid-scan: appended to ``skipped`` per
     occurrence (and warned on stderr), left out of the result. Under
-    ``strict`` the backend's ``KeyError`` stands. Sets the
+    ``strict`` the backend's ``KeyError`` stands; mode 3 tags it (see
+    :func:`_is_ingest_failure`). Sets the
     ``ingest.topics`` gauge (topic reads that resolved) and, under
     best-effort, ``ingest.topics_skipped``."""
     best_effort = failure_policy == "best-effort"
@@ -357,9 +367,14 @@ def print_least_disruptive_reassignment(
     topic_list = list(topics) if topics is not None else backend.all_topics()
     skipped: List[str] = []
     with span("metadata/assignment"):
-        initial = read_initial_assignment(
-            backend, topic_list, failure_policy, skipped
-        )
+        try:
+            initial = read_initial_assignment(
+                backend, topic_list, failure_policy, skipped
+            )
+        except Exception as e:
+            if not _is_ingest_failure(e):
+                raise
+            raise IngestError(f"metadata ingest failed: {e}") from e
     if skipped:
         # The plan covers what the read resolved; a name both missing and
         # present cannot occur on a one-shot read, so every skip is lost.

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -89,6 +90,43 @@ def build_all() -> Dict[str, object]:
     started = {name: _start(name) for name in names}
     logs = {name: _finish(name, started[name]) for name in names}
     return {"seconds": time.perf_counter() - t0, "ptxas": logs}
+
+
+def _short_name(mangled: str) -> str:
+    """``kernel<template arguments>`` of an Itanium-mangled kernel name whose
+    template arguments are integer or bool literals; the name as given if it
+    is not one."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if name is None:
+        return mangled
+    m = re.match(r"I((?:L[ib]\d+E)+)", mangled[i:])
+    args = re.findall(r"\d+", m.group(1)) if m else []
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of one ``-Xptxas -v`` log: ``{name: {"registers",
+    "stack", "spill_stores", "spill_loads"}}``, the name shortened to
+    ``kernel<template arguments>`` (``pack_scan_kernel<1>``)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        stats = {}
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            found = re.search(pat, chunk)
+            if found:
+                stats[key] = int(found.group(1))
+        out[_short_name(chunk.split("'", 1)[0])] = stats
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,15 +5,19 @@ loop of K14 ``pack_group`` and, through K15's vmap, ``group_pack_sweep``.
 - :func:`pack_scan` is the wrapper: on CUDA tensors it launches the
   hand-written Hopper kernel (``csrc/group_pack.cu``) once for every
   candidate, or raises; on CPU tensors, and only there, it runs the plain
-  version.
+  version. :func:`variant_of` picks the kernel's variant from C_pad and the
+  device's shared-memory limit alone; :data:`last_variant` says which one
+  the last launch took.
 - :func:`pack_scan_plain` is the plain PyTorch version on any device: the
   reference's step, vectorized over the candidates, walking ``proc_order``
   on the host. The CPU path and the tests run it; ``chip_smoke.py`` holds
   the kernel against it on the card.
 - :data:`launches` counts kernel launches (the wrapper adds one where it
   launches, and nowhere else).
-- :func:`step_probe` runs the kernel's step alone as a dependent chain on
-  one warp: the floor of a step, a measurement that counts no launch.
+- :func:`step_probe` runs a step of two warp reductions and a bump alone
+  as a dependent chain on one warp: the chain's yardstick, a measurement
+  that counts no launch; with ``ballot`` the step is the register
+  variant's, one reduction and a ballot.
 
 The kernel's design, the rule it picks by and what bounds it are in the
 header of the ``.cu``.
@@ -33,6 +37,18 @@ I32 = torch.int32
 #: Kernel launches per kernel name; reset by whoever reads it.
 launches: Dict[str, int] = {"group_pack": 0}
 
+#: The kernel's variants, by their code in ``ka_group_pack_scan``.
+VARIANTS = ("registers", "shared", "global")
+#: The register variant's most consumers a lane (``kMaxSlots``): it runs
+#: at C_pad <= 32 x this.
+MAX_SLOTS = 32
+#: Shared-memory bytes a consumer of the shared variant: headroom, load
+#: (int32 each) and liveness (``csrc/group_pack.cu:smem_bytes``).
+SMEM_BYTES_PER_CONSUMER = 9
+
+#: The variant of the last launch; None before the first.
+last_variant: Optional[str] = None
+
 _lib: Optional[ctypes.CDLL] = None
 _smem_limit: Dict[int, int] = {}
 
@@ -44,9 +60,9 @@ def _kernel_lib() -> ctypes.CDLL:
         c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
         for name, res, args in (
             ("ka_group_pack_smem_limit", c_int, []),
-            ("ka_group_pack_smem_bytes", ctypes.c_longlong, [c_int]),
             ("ka_group_pack_scan", c_int, [c_ptr] * 9 + [c_int] * 4 + [c_ptr]),
-            ("ka_group_pack_step_probe", c_int, [c_ptr, c_ptr, ctypes.c_longlong, c_ptr]),
+            ("ka_group_pack_step_probe", c_int,
+             [c_ptr, c_ptr, ctypes.c_longlong, c_int, c_ptr]),
         ):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
@@ -63,6 +79,31 @@ def _optin_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
             raise RuntimeError("could not read the device's shared-memory limit")
         _smem_limit[idx] = limit
     return _smem_limit[idx]
+
+
+def variant_of(c_pad: int, smem_limit: int, force_global: bool = False) -> str:
+    """The kernel's variant at ``c_pad`` consumers on a device whose
+    shared-memory opt-in limit is ``smem_limit`` bytes: ``"registers"``
+    up to 32 x :data:`MAX_SLOTS`; past it ``"shared"`` while the state fits
+    the limit; else, or when ``force_global``, ``"global"``."""
+    if not force_global:
+        if c_pad <= 32 * MAX_SLOTS:
+            return "registers"
+        if c_pad * SMEM_BYTES_PER_CONSUMER <= smem_limit:
+            return "shared"
+    return "global"
+
+
+def span_slots(alive_row) -> int:
+    """Consumers a lane that the register variant gives one candidate
+    (``alive_row``: its liveness over C_pad): the smallest of 1, 2, 4, ...,
+    :data:`MAX_SLOTS` whose 32 lanes hold every column up to its last live
+    consumer (``csrc/group_pack.cu:scan_span``)."""
+    span = max((j + 1 for j, a in enumerate(alive_row) if a), default=1)
+    slots = MAX_SLOTS
+    while slots > 1 and span <= 32 * (slots // 2):
+        slots //= 2
+    return slots
 
 
 def _check(weights, capacities, proc_order, alive, need, assigned, load) -> None:
@@ -149,10 +190,11 @@ def pack_scan(
     ``load`` in place and returns ``overflowed (S,)`` int32.
 
     CPU tensors take :func:`pack_scan_plain`. CUDA tensors take the kernel,
-    one launch on the current stream; ``assigned`` and ``load`` must be
-    contiguous, since the kernel writes them in place. It keeps headroom,
-    load and liveness in shared memory unless that exceeds the device's
-    opt-in limit or ``force_global`` asks for the global-memory variant."""
+    one launch on the current stream in the variant :func:`variant_of`
+    gives (``force_global`` asks for the global-memory one); ``assigned``
+    and ``load`` must be contiguous, since the kernel writes them in place.
+    A launch that fails raises; no other variant stands in."""
+    global last_variant
     _check(weights, capacities, proc_order, alive, need, assigned, load)
     dev = weights.device
     if dev.type == "cpu":
@@ -167,19 +209,23 @@ def pack_scan(
     s, p = weights.shape
     c = capacities.shape[0]
     lib = _kernel_lib()
-    use_global = force_global or lib.ka_group_pack_smem_bytes(c) > _optin_limit(lib, dev)
+    variant = variant_of(c, _optin_limit(lib, dev), force_global)
     with torch.cuda.device(dev):
         over = torch.empty(s, dtype=I32, device=dev)
-        scratch = torch.empty((s, c) if use_global else (1,), dtype=I32, device=dev)
+        scratch = torch.empty((s, c) if variant == "global" else (1,), dtype=I32,
+                              device=dev)
         err = lib.ka_group_pack_scan(
             weights.data_ptr(), capacities.data_ptr(), proc_order.data_ptr(),
             alive.data_ptr(), need.data_ptr(), assigned.data_ptr(), load.data_ptr(),
-            over.data_ptr(), scratch.data_ptr(), s, p, c, int(use_global),
+            over.data_ptr(), scratch.data_ptr(), s, p, c, VARIANTS.index(variant),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"group pack kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"group pack kernel launch failed ({variant} variant, C_pad {c}): "
+            f"cudaError {err}")
     launches["group_pack"] += 1
+    last_variant = variant
     return over
 
 
@@ -187,14 +233,18 @@ def pack_scan(
 PROBE_WORDS = 33
 
 
-def step_probe(slot: torch.Tensor, steps: int) -> torch.Tensor:
-    """Run the kernel's step alone, ``steps`` times in a dependent chain on
-    one warp with one consumer a lane (C_pad 32, all alive): the two warp
-    reductions and the bump. ``slot`` is :data:`PROBE_WORDS` int32 words on
-    the card (the headrooms, then the weight). Returns ``(last pick,
-    overflow count, clock64 cycles of the loop)`` as an int64 tensor on the
-    card. Events around the call give the time a step; this is a
-    measurement, not a group-pack launch, and counts none."""
+def step_probe(slot: torch.Tensor, steps: int, ballot: bool = False) -> torch.Tensor:
+    """Run a step of the scan alone, ``steps`` times in a dependent chain
+    on one warp with one consumer a lane (C_pad 32, all alive): two warp
+    reductions (the max, then the lowest lane holding it) and the bump, the
+    shared variant's step without its rescan; with ``ballot``, one warp
+    reduction and a ballot of the lanes holding the max, then the bump, the
+    register variant's step without its slice work. ``slot`` is
+    :data:`PROBE_WORDS` int32 words on the card (the headrooms, then the
+    weight). Returns ``(last pick, overflow count, clock64 cycles of the
+    loop)`` as an int64 tensor on the card. Events around the call give the
+    time a step; this is a measurement, not a group-pack launch, and counts
+    none."""
     if slot.device.type != "cuda" or slot.dtype != I32 or slot.numel() != PROBE_WORDS:
         raise ValueError(f"slot must be {PROBE_WORDS} int32 words on a CUDA device")
     lib = _kernel_lib()
@@ -202,7 +252,7 @@ def step_probe(slot: torch.Tensor, steps: int) -> torch.Tensor:
     out = torch.zeros(3, dtype=torch.int64, device=slot.device)
     with torch.cuda.device(slot.device):
         err = lib.ka_group_pack_step_probe(
-            slot.data_ptr(), out.data_ptr(), steps,
+            slot.data_ptr(), out.data_ptr(), steps, int(ballot),
             torch.cuda.current_stream(slot.device).cuda_stream,
         )
     if err != 0:

@@ -23,6 +23,16 @@ Case = Tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, in
 #: C_pad past the shared-memory opt-in limit (9 bytes a consumer over
 #: 232,448 bytes on an H100): the global-memory variant.
 GLOBAL_C_PAD = 32768
+#: The largest C_pad of each of the register variant's K (consumers a
+#: lane: 1, 2, 4, ..., 32) for a candidate whose last column is alive, and
+#: a C_pad of the shared variant beyond them.
+BUCKET_C_PADS = tuple(32 << i for i in range(gp.MAX_SLOTS.bit_length()))
+SHARED_C_PAD = 2048
+#: Real rows of a ring case: more orphans than the register variant's ring
+#: holds (1,024 entries, ``csrc/group_pack.cu:kRing``), in each candidate.
+RING_ROWS = 3000
+#: The orphan share of the rows of the sparse step time (``step_ns``).
+SPARSE_ORPHAN_SHARE = 0.2
 
 
 def proc_order_of(weights: np.ndarray, p_real: int) -> np.ndarray:
@@ -52,9 +62,53 @@ def instance(rng, s: int, p_pad: int, p_real: int, c_pad: int, n_live: int,
     return w, cap, cur.astype(np.int32), order, alive
 
 
+def boundary_case(rng, c_pad: int) -> Case:
+    """A case at one C_pad of the variants' boundaries, three candidates
+    on equal capacities (ties within a lane's slice and across lanes): all
+    live consumers alive; a third of them dead, the last three real columns
+    (inside the last lane's slice) among them; none alive. The last four
+    columns are the encoding's pad columns (dead, capacity 0), and the
+    register variant pads its slots past C_pad: neither may be picked while
+    a consumer lives."""
+    s, p_pad, p_real = 3, 160, 150
+    n_live = c_pad - 4
+    w, _, cur, order, alive = instance(rng, s, p_pad, p_real, c_pad, n_live,
+                                       weights=(1, 2, 3, 5), owned=0.3, dead=0.0)
+    cap = np.zeros(c_pad, np.int32)
+    cap[:n_live] = 60
+    cur = np.where(cur < n_live, cur, -1).astype(np.int32)
+    alive[1] = alive[0] & (rng.random(c_pad) >= 1 / 3)
+    alive[1, n_live - 3:n_live] = False
+    alive[2] = False
+    return (f"bucket-{c_pad}", w, cap, cur, order, alive, p_real, False)
+
+
+def ring_case(rng, c_pad: int) -> Case:
+    """A case at one C_pad whose two candidates each have over 1,024 orphan
+    rows, so that the register variant's ring wraps and its producer waits
+    for room: every row of the first is an orphan (the owners, all in the
+    lower half of the columns, are dead), the second keeps about half its
+    rows on their owners, so its orphans are sparse in ``proc_order``. The
+    last column is alive in both, so both run at K = C_pad / 32 consumers a
+    lane; capacities fall short of the first's weight, so rows overflow."""
+    p_pad, p_real = RING_ROWS + 72, RING_ROWS
+    half = max(c_pad // 2, 1)
+    base = rng.choice((1, 2, 3, 5, 8), p_real).astype(np.int32)
+    w = np.zeros((2, p_pad), np.int32)
+    w[0, :p_real] = base
+    w[1, :p_real] = np.maximum(base * 3 // 2, 1)
+    cur = np.where(rng.random(p_pad) < 0.55, rng.integers(0, half, p_pad), -1)
+    mean = int(w[1].sum()) // c_pad
+    cap = rng.integers(mean // 2, mean + 2, c_pad).astype(np.int32)
+    alive = np.ones((2, c_pad), bool)
+    alive[0, :half] = False
+    order = proc_order_of(np.pad(base, (0, p_pad - p_real)), p_real)
+    return (f"ring-{c_pad}", w, cap, cur.astype(np.int32), order, alive, p_real, False)
+
+
 def stress_cases(seed: int = 0) -> Iterator[Case]:
-    """The cases of the kernel's rule, its lanes, its variants and its
-    skips."""
+    """The cases of the kernel's rule, its lanes, its variants and their
+    boundaries, and its skips."""
     rng = np.random.default_rng(seed)
     p = 64
     # Every headroom tied at every step: equal capacities, equal weights,
@@ -96,6 +150,23 @@ def stress_cases(seed: int = 0) -> Iterator[Case]:
     w = rng.integers(1, 5, (2, p)).astype(np.int32)
     yield ("need-none", w, np.full(8, 10_000, np.int32), cur,
            proc_order_of(w[0], p), np.ones((2, 8), bool), p, False)
+    # Each register bucket's largest C_pad and just past it (1,032 crosses
+    # into the shared variant).
+    rng = np.random.default_rng(seed + 1)
+    for c_pad in BUCKET_C_PADS:
+        yield boundary_case(rng, c_pad)
+        yield boundary_case(rng, c_pad + 8)
+    # Live consumers on a prefix of C_pad 1,024, of a length per candidate
+    # (a sweep's counts): the register variant narrows each candidate's
+    # slices to its span, from one consumer a lane to 32.
+    spans = (1, 2, 33, 64, 100, 129, 256, 300, 512, 700, 1020)
+    w, cap, cur, order, _ = instance(rng, len(spans), 160, 150, 1024, 1024,
+                                     weights=(1, 2, 3, 5), caps=(60,), owned=0.3)
+    alive = np.arange(1024)[None, :] < np.array(spans)[:, None]
+    yield ("live-spans-1024", w, cap, cur, order, alive, 150, False)
+    # More orphan rows than the register variant's ring holds, at each K.
+    for c_pad in BUCKET_C_PADS:
+        yield ring_case(rng, c_pad)
 
 
 def scan_inputs(case: Case, device: str = "cpu"):
@@ -129,19 +200,28 @@ def scan_bytes(s: int, p_pad: int, c_pad: int, orphans: int) -> int:
         + 8 * orphans + 4 * s
 
 
-def step_ns(c_pad: int, steps: int = 1 << 18, reps: int = 5) -> float:
+def step_ns(c_pad: int, steps: int = 1 << 18, reps: int = 5, sparse: bool = False) -> float:
     """ns per orphan row of one candidate's chain at ``c_pad``: the kernel
-    on one candidate whose every row is an orphan (``steps`` rows, all
-    consumers alive with room), the median of ``reps`` launches by CUDA
-    events over the rows. The inputs are re-made before each launch, since
-    the scan updates them in place; the launches count as none."""
+    on one candidate with ``steps`` orphan rows (all consumers alive with
+    room), the median of ``reps`` launches by CUDA events over the orphan
+    rows. Every row is an orphan; with ``sparse`` the orphans are a
+    :data:`SPARSE_ORPHAN_SHARE` of the rows, drawn from a seed, so the time
+    includes the row stream over the rows that need nothing. The inputs are
+    re-made before each launch, since the scan updates them in place; the
+    launches count as none."""
     rng = np.random.default_rng(0)
-    w = torch.as_tensor(rng.integers(1, 100, (1, steps)).astype(np.int32), device="cuda")
+    density = SPARSE_ORPHAN_SHARE if sparse else 1.0
+    rows = int(round(steps / density))
+    w = torch.as_tensor(rng.integers(1, 100, (1, rows)).astype(np.int32), device="cuda")
     cap = torch.full((c_pad,), 1 << 29, dtype=torch.int32, device="cuda")
-    order = torch.as_tensor(proc_order_of(w[0].cpu().numpy(), steps), device="cuda")
+    order = torch.as_tensor(proc_order_of(w[0].cpu().numpy(), rows), device="cuda")
     alive = torch.ones((1, c_pad), dtype=torch.bool, device="cuda")
-    need = torch.ones((1, steps), dtype=torch.bool, device="cuda")
-    assigned = torch.empty((1, steps), dtype=torch.int32, device="cuda")
+    flags = np.ones(rows, bool)
+    if sparse:
+        flags[:] = False
+        flags[rng.choice(rows, steps, replace=False)] = True
+    need = torch.as_tensor(flags[None, :], device="cuda")
+    assigned = torch.empty((1, rows), dtype=torch.int32, device="cuda")
     load = torch.empty((1, c_pad), dtype=torch.int32, device="cuda")
     before = gp.launches["group_pack"]
     times: List[float] = []
@@ -184,13 +264,15 @@ def probe_picks(slot: np.ndarray, steps: int) -> Tuple[int, int]:
     return pick, over
 
 
-def probe_ns(steps: int = 1 << 21, reps: int = 5, seed: int = 0) -> Tuple[float, float]:
+def probe_ns(steps: int = 1 << 21, reps: int = 5, seed: int = 0,
+             ballot: bool = False) -> Tuple[float, float]:
     """``(ns, cycles)`` per step of KG1's chain alone: the step probe over
-    ``steps`` steps, the median of ``reps`` calls timed with CUDA events,
-    and its clock64 cycles over the same steps in the last call."""
+    ``steps`` steps (with ``ballot``, the register variant's step), the
+    median of ``reps`` calls timed with CUDA events, and its clock64 cycles
+    over the same steps in the last call."""
     from .leadership_cases import event_ms
 
     slot = torch.as_tensor(probe_slot(seed), device="cuda")
     out = []
-    times = event_ms(lambda: out.append(gp.step_probe(slot, steps)), reps)
+    times = event_ms(lambda: out.append(gp.step_probe(slot, steps, ballot)), reps)
     return float(np.median(times)) * 1e6 / steps, int(out[-1][2]) / steps

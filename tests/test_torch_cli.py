@@ -278,9 +278,11 @@ def test_rank_unknown_candidate_errors_match(replacement_snapshot):
 
 def test_exit_codes(replacement_snapshot, capsys):
     assert cli.run(["--mode", "PRINT_REASSIGNMENT", "--device", "cpu"]) == cli.EXIT_USAGE
+    # A --topics entry the snapshot lacks is an ingest failure, as in the
+    # reference (kafka_assigner_tpu/generator.py:697-702).
     assert cli.run(["--zk_string", replacement_snapshot, "--mode",
                     "PRINT_REASSIGNMENT", "--topics", "nope", "--device", "cpu"]
-                   ) == cli.EXIT_VALIDATION
+                   ) == cli.EXIT_INGEST
     assert cli.run(["--zk_string", replacement_snapshot, "--mode",
                     "PRINT_REASSIGNMENT", "--desired_replication_factor", "99",
                     "--device", "cpu"]) == cli.EXIT_VALIDATION

@@ -13,8 +13,10 @@ fake, execution engine or daemon.
   ``best-effort`` gives exit 6 with stdout byte-identical to ``--solver
   greedy``, and the report's ``solve.fallbacks`` and ``faults.injected``
   equal the reference's; under ``strict``, exit 4;
-- the skipped topic on the one-shot read, and best-effort with nothing
-  injected byte-identical to strict and to the JAX package;
+- the skipped topic on the one-shot read, the missing topic under strict
+  (mode 3 tags it an ingest failure, exit 3; the other modes do not), and
+  best-effort with nothing injected byte-identical to strict and to the
+  JAX package;
 - ``ka-groups`` best-effort plan and sweep against the reference's
   envelopes.
 """
@@ -472,18 +474,45 @@ def test_exit_code_degraded_skipped_topic(snapshot, monkeypatch, tmp_path):
     assert rb["plan"]["unplanned_topics"] == ["ghost"]
 
 
-def test_missing_topic_under_strict_keeps_its_key_error(snapshot):
-    """The port's one-shot read keeps the ``KeyError`` under strict (exit 5);
-    the reference tags it an ingest failure (exit 3). ROADMAP §3 records it
-    until the streamed ingest is ported."""
+def test_missing_topic_under_strict_keeps_its_key_error(snapshot, tmp_path):
+    """The read keeps the snapshot's ``KeyError`` under strict; mode 3 tags
+    it as the reference does: exit 3, stderr ``error: metadata ingest
+    failed: ...`` equal to the reference's, the report's error an
+    ``IngestError`` with the reference's message, nothing on stdout."""
     from kafka_assigner_tpu_torch.generator import read_initial_assignment
     from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
 
     with pytest.raises(KeyError, match="ghost"):
         read_initial_assignment(SnapshotBackend(snapshot), ["events", "ghost"])
-    argv = ["--zk_string", snapshot, "--mode", "PRINT_REASSIGNMENT", "--topics", "ghost"]
-    assert _run(cli.run, argv + ["--device", "cpu"])[0] == cli.EXIT_VALIDATION
-    assert _run(jax_run, argv)[0] == 3
+    argv = ["--zk_string", snapshot, "--mode", "PRINT_REASSIGNMENT", "--topics", "events,ghost"]
+    a, b = tmp_path / "ref.json", tmp_path / "port.json"
+    ref = _run(jax_run, argv + ["--report-json", str(a)])
+    got = _run(cli.run, argv + ["--device", "cpu", "--report-json", str(b)])
+    assert got[0] == ref[0] == cli.EXIT_INGEST
+    assert got[1] == ref[1] == ""
+    assert got[2].splitlines()[-1] == ref[2].splitlines()[-1] \
+        == "error: metadata ingest failed: \"topics not in snapshot: ['ghost']\""
+    ra, rb = json.loads(a.read_text()), json.loads(b.read_text())
+    assert rb["status"] == ra["status"] == "error"
+    assert rb["error"] == ra["error"]
+    assert rb["error"]["type"] == "IngestError"
+    plain = argv[:-1] + ["ghost"]
+    assert _run(cli.run, plain + ["--device", "cpu"])[2] == _run(jax_run, plain)[2]
+
+
+@pytest.mark.parametrize("mode", [
+    ["--mode", "PRINT_CURRENT_ASSIGNMENT"],
+    ["--mode", "RANK_DECOMMISSION", "--integer_broker_ids", "100"],
+])
+def test_missing_topic_in_other_modes_stays_untagged(snapshot, mode):
+    """The reference tags mode 3's read only: the other modes' read of a
+    missing topic keeps its ``KeyError`` (exit 5) in both packages, with
+    equal stdout and stderr."""
+    argv = ["--zk_string", snapshot, "--topics", "events,ghost"] + mode
+    ref = _run(jax_run, argv)
+    got = _run(cli.run, argv + ["--device", "cpu"])
+    assert got[0] == ref[0] == cli.EXIT_VALIDATION
+    assert got[1:] == ref[1:]
 
 
 def test_read_skips_a_missing_topic_as_the_reference_stream_does(snapshot):

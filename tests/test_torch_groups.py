@@ -228,48 +228,155 @@ def test_stress_cases_match_jax_and_oracle(name):
 
 # --- the kernel's pick rule, emulated lane by lane ----------------------------
 
-def _kernel_rule(weights, capacities, proc_order, alive, need, assigned, load):
-    """``csrc/group_pack.cu``'s loop in Python for one candidate: lane l owns
-    columns l, l + 32, ...; a step takes the largest lane maximum and the
-    lowest first index holding it; the row overflows when that maximum is
-    below its weight; only a live pick's headroom moves."""
+#: An H100's shared-memory opt-in limit per block (bytes).
+H100_SMEM_OPTIN = 232448
+INT_MIN = -(2**31)
+
+
+def _tree_max(vals):
+    """``csrc/group_pack.cu:slice_max``: (max, first slot) of a power-of-two
+    slice by a tree over adjacent pairs, a tie keeping the left slot."""
+    v, ix = list(vals), list(range(len(vals)))
+    step = 1
+    while step < len(v):
+        for k in range(0, len(v), 2 * step):
+            if v[k + step] > v[k]:
+                v[k], ix[k] = v[k + step], ix[k + step]
+        step *= 2
+    return v[0], ix[0]
+
+
+def _kernel_rule(weights, capacities, proc_order, alive, need, assigned, load, variant):
+    """``csrc/group_pack.cu``'s loop in Python for one candidate in
+    ``variant`` (``ops/group_pack.py:variant_of``).
+
+    - ``"registers"``: lane l holds slots l*K .. l*K + K - 1, INT_MIN past
+      C_pad, with K the smallest of 1, 2, ..., 32 whose lanes hold the
+      candidate's live span (the columns up to its last live consumer); its
+      (max, first slot) comes from the tree; a step takes the largest lane
+      maximum and the lowest lane holding it (a ballot); after a live pick
+      the lane's new (max, first slot) is the bumped slot or the tree's best
+      of the rest, whichever is larger, ties to the lower slot.
+    - ``"shared"`` / ``"global"``: lane l owns columns l, l + 32,
+      ...; a step takes the largest lane maximum and the lowest first index
+      holding it (two reductions).
+
+    The row overflows when that maximum is below its weight; only a live
+    pick's headroom moves, its load always."""
     c = len(capacities)
     hr = [capacities[j] - load[j] if alive[j] else -gp.BIG for j in range(c)]
+    if variant == "registers":
+        # The candidate's slices: the narrowest K holding its live span.
+        k_slots = gp.span_slots(alive)
+        hr = hr[:32 * k_slots] + [INT_MIN] * (32 * k_slots - c)
 
-    def lane_max(lane):
-        best = (-(2**31), 2**31 - 1)
-        for j in range(lane, c, 32):
-            if hr[j] > best[0]:
-                best = (hr[j], j)
-        return best
+        def lane_max(lane, skip=None):
+            part = hr[lane * k_slots:(lane + 1) * k_slots]
+            if skip is not None:
+                part[skip - lane * k_slots] = INT_MIN
+            m, k = _tree_max(part)
+            return m, lane * k_slots + k
+
+        def pick(lanes, v):
+            return next(j for m, j in lanes if m == v)  # the lowest lane
+    else:
+        def lane_max(lane):
+            best = (INT_MIN, 2**31 - 1)
+            for j in range(lane, c, 32):
+                if hr[j] > best[0]:
+                    best = (hr[j], j)
+            return best
+
+        def pick(lanes, v):
+            return min(j for m, j in lanes if m == v)
 
     lanes = [lane_max(lane) for lane in range(32)]
+    owner = (lambda i: i // k_slots) if variant == "registers" else (lambda i: i % 32)
     over = 0
     for base in range(0, len(proc_order), 32):
         for row in proc_order[base:base + 32]:
             if not need[row]:
                 continue
             v = max(m for m, _ in lanes)
-            i = min(j for m, j in lanes if m == v)
+            i = pick(lanes, v)
+            assert i < c, "a pad slot was picked"
             over += v < weights[row]
             assigned[row] = i
             load[i] += weights[row]
-            if alive[i]:
-                hr[i] -= weights[row]
-            lanes[i % 32] = lane_max(i % 32)
+            if not alive[i]:
+                continue
+            hr[i] -= weights[row]
+            if variant == "registers":
+                sv, sk = lane_max(owner(i), skip=i)
+                lanes[owner(i)] = (sv, sk) if sv > hr[i] or (sv == hr[i] and sk < i) \
+                    else (hr[i], i)
+            else:
+                lanes[owner(i)] = lane_max(owner(i))
     return over
 
 
 @pytest.mark.parametrize("name", sorted(n for n in CASES if "32768" not in n))
 def test_kernel_rule_equals_the_plain_scan(name):
-    inputs = gcases.scan_inputs(CASES[name])
+    """The rule of the variant the case launches on an H100, and the shared
+    variant's rule, each equal to the plain scan."""
+    case = CASES[name]
+    inputs = gcases.scan_inputs(case)
     plain_in = [x.clone() for x in inputs]
     over = gp.pack_scan_plain(*plain_in)
-    w, cap, order, alive, need, assigned, load = (x.tolist() for x in inputs)
-    for s in range(len(w)):
-        o = _kernel_rule(w[s], cap, order, alive[s], need[s], assigned[s], load[s])
-        assert o == int(over[s])
-    assert assigned == plain_in[5].tolist() and load == plain_in[6].tolist()
+    launched = gp.variant_of(case[2].shape[0], H100_SMEM_OPTIN, case[7])
+    for variant in {launched, "shared"}:
+        w, cap, order, alive, need, assigned, load = (x.tolist() for x in inputs)
+        for s in range(len(w)):
+            o = _kernel_rule(w[s], cap, order, alive[s], need[s], assigned[s], load[s],
+                             variant)
+            assert o == int(over[s]), variant
+        assert assigned == plain_in[5].tolist() and load == plain_in[6].tolist(), variant
+
+
+@pytest.mark.parametrize("c_pad, force_global, expected", [
+    (1, False, "registers"), (32, False, "registers"),
+    (40, False, "registers"), (64, False, "registers"),
+    (72, False, "registers"), (128, False, "registers"),
+    (136, False, "registers"), (256, False, "registers"),
+    (264, False, "registers"), (512, False, "registers"),
+    (520, False, "registers"), (1024, False, "registers"),
+    (1032, False, "shared"), (2048, False, "shared"),
+    (4096, False, "shared"), (H100_SMEM_OPTIN // 9, False, "shared"),
+    (H100_SMEM_OPTIN // 9 + 1, False, "global"), (32768, False, "global"),
+    (8, True, "global"), (512, True, "global"), (4096, True, "global"),
+])
+def test_variant_selection_maps_each_boundary_to_its_variant(c_pad, force_global, expected):
+    assert gp.variant_of(c_pad, H100_SMEM_OPTIN, force_global) == expected
+
+
+@pytest.mark.parametrize("spans, expected", [
+    ([0] * 64, 1), ([1] + [0] * 63, 1), ([0] * 31 + [1] + [0] * 32, 1),
+    ([0] * 32 + [1] + [0] * 31, 2), ([1] * 100 + [0] * 412, 4),
+    ([0] * 511 + [1], 16), ([0] * 256 + [1] + [0] * 255, 16),
+    ([1] * 256 + [0] * 256, 8),
+])
+def test_span_slots_narrow_to_the_last_live_consumer(spans, expected):
+    assert gp.span_slots(spans) == expected
+
+
+def test_stress_cases_cover_every_variant_and_bucket():
+    launched = {gp.variant_of(c[2].shape[0], H100_SMEM_OPTIN, c[7]) for c in CASES.values()}
+    assert launched == set(gp.VARIANTS)
+    slots = {gp.span_slots(row) for c in CASES.values()
+             if gp.variant_of(c[2].shape[0], H100_SMEM_OPTIN, c[7]) == "registers"
+             for row in c[5]}
+    assert slots == {1, 2, 4, 8, 16, 32}
+    for c_pad in gcases.BUCKET_C_PADS:
+        # Each K with more orphans than the ring holds, dense and sparse.
+        case = CASES[f"ring-{c_pad}"]
+        need = gcases.scan_inputs(case)[4].sum(1)
+        assert (need > 1024).all() and need[0] > need[1]
+        assert {gp.span_slots(row) for row in case[5]} == {c_pad // 32}
+        for c in (c_pad, c_pad + 8):
+            _, w, cap, _, _, alive, p_real, _ = CASES[f"bucket-{c}"]
+            assert cap.shape == (c,) and not alive[2].any() and alive[0].any()
+            assert not alive[1, c - 7:].any() and (cap[c - 4:] == 0).all()
+            assert len(set(cap[:c - 4])) == 1  # every live capacity tied
 
 
 def test_pack_scan_takes_the_plain_version_only_on_the_cpu():

@@ -586,11 +586,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ballot", [False, True])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_step_probe_walks_the_chain_on_card(cuda_device, seed):
+def test_step_probe_walks_the_chain_on_card(cuda_device, seed, ballot):
+    # Both steps, two reductions or a reduction and a ballot, pick alike.
     slot = gcases.probe_slot(seed)
     before = gp.launches["group_pack"]
-    out = gp.step_probe(torch.as_tensor(slot, device=cuda_device), 1000).cpu()
+    out = gp.step_probe(torch.as_tensor(slot, device=cuda_device), 1000, ballot).cpu()
     assert (int(out[0]), int(out[1])) == gcases.probe_picks(slot, 1000)
     assert int(out[2]) > 0 and gp.launches["group_pack"] == before
 

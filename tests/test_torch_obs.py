@@ -236,21 +236,24 @@ def test_mode3_report_smoke(snapshot, tmp_path, capsys):
 
 def test_error_path_still_emits_report(snapshot, tmp_path, capsys):
     """A run that raises mid-phase still flushes its spans (marked error)
-    and emits the report with ``"status": "error"``. The port keeps a
-    missing topic's ``KeyError`` under ``strict`` (the reference tags it
-    ``IngestError``; ROADMAP §3)."""
+    and emits the report with ``"status": "error"``. A missing topic under
+    ``strict`` is an ingest failure, as in the reference: an
+    ``IngestError`` with the snapshot's ``KeyError`` as its cause."""
+    from kafka_assigner_tpu_torch.errors import IngestError
+
     report_path = tmp_path / "report.json"
-    with pytest.raises(KeyError, match="no_such_topic"):
+    with pytest.raises(IngestError, match="no_such_topic") as exc_info:
         cli.run_tool([
             "--zk_string", f"file://{snapshot}", "--mode", "PRINT_REASSIGNMENT",
             "--topics", "no_such_topic", "--report-json", str(report_path),
             "--device", "cpu",
         ])
+    assert isinstance(exc_info.value.__cause__, KeyError)
     capsys.readouterr()
     report = json.loads(report_path.read_text())
     assert _package("torch").report.validate_report(report) == []
     assert report["status"] == "error"
-    assert report["error"]["type"] == "KeyError"
+    assert report["error"]["type"] == "IngestError"
     assert "no_such_topic" in report["error"]["message"]
     assert report["spans"], "spans lost on the failure path"
     assert {s["path"]: s["status"] for s in report["spans"]} == {
