@@ -149,7 +149,26 @@ Phases, each printing its own line; any failure exits non-zero:
     stdout == phase 11's. Phases 1-18 run strict and unprofiled: the smoke
     fails at start when ``KA_FAILURE_POLICY``, ``KA_FAULTS_SPEC``,
     ``KA_OBS_PROFILE_DIR``, ``KA_PROFILE``, ``KA_OBS_REPORT`` or
-    ``KA_OBS_ENABLE`` is set, and phase 19 sets them per run.
+    ``KA_OBS_ENABLE`` is set, and phase 19 sets them per run;
+20. live ZooKeeper (``io/zkwire.py``, ``io/zk.py``, the streamed ingest of
+    ``generator.py``), on ``cuda``: ``tests/jute_server.py`` serves config
+    4's tree from a spawned process (5,100 znodes ``/brokers/ids/<id>``,
+    brokers 0-99 still registered, and the 2,000 topic znodes); (a) the
+    port's mode-3 CLI with ``--zk_string 127.0.0.1:<port>``,
+    ``KA_ZK_CLIENT=wire`` and ``--broker_hosts_to_remove b0,...,b99``:
+    stdout byte-identical to phase 4's snapshot plan, the same replicas
+    moved, the accumulator's encode on the C codec, the solve on its
+    preencode (no encode of its own), the leadership kernel launched once
+    and that launch held against the plain version on the same inputs (in a
+    worker); (b) the same under ``KA_ZK_OVERLAP=0`` (the solve encodes) and
+    under ``KA_ZK_INGEST_CHUNK=7``, the same bytes; (c) the 64-topic prefix
+    over ZooKeeper on ``cuda`` and ``cpu``, byte-identical and equal to
+    phase 5's; (d) with a 1 ms reply delay (``reply_delay_s=0.001``, as
+    ``scripts/bench_zk_ingest.py``), in turns: the overlap on, ``KA_ZK_
+    OVERLAP=0`` and serial reads (``KA_ZK_PIPELINE=1``), each with
+    ``--report-json``: the CLI wall, ``zk/brokers``, ``metadata/assignment``,
+    ``ingest.encode_ms`` and ``ingest.overlap_ms``, ``zk.pipeline.*`` and
+    ``plan/solve``, each line with the card's name and power limit.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -185,7 +204,7 @@ In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
-phase 17's CLI runs on each lane and phase 19's runs), and
+phase 17's CLI runs on each lane, phase 19's and phase 20's runs), and
 ``launches_by_path`` gives each; the group-pack entry's counts are those of
 phases 14-16.
 
@@ -1682,6 +1701,205 @@ def obs_phases(work, argv4, text4, moved4, config4, k1_ms, warm_med, prefix, pre
     return launches
 
 
+#: Phase 20: the reply delay of the timed runs (1 ms, as
+#: scripts/bench_zk_ingest.py:82 models a round trip) and their turns.
+ZK_REPLY_DELAY_S = 0.001
+ZK_TIMING_TURNS = 2
+
+
+def zk_tree(n_brokers, n_topics, p_per_topic, rf, n_racks, replaced):
+    """Config 4's znode tree: every broker (the replaced ones too, still
+    registered) as ``/brokers/ids/<id>`` with host ``b<id>`` and its rack,
+    and every topic as ``/brokers/topics/<t>``."""
+    from kafka_assigner_tpu_torch.models.synthetic import (
+        build_config4,
+        rack_striped_cluster,
+    )
+
+    topic_map, _, _ = build_config4(n_brokers, n_topics, p_per_topic, rf, n_racks,
+                                    replaced)
+    _, _, racks = rack_striped_cluster(n_brokers, 0, 0, rf, n_racks,
+                                       extra_brokers=replaced)
+    tree = {f"/brokers/ids/{b}": json.dumps(
+        {"host": f"b{b}", "port": 9092, "rack": racks[b]}).encode() for b in sorted(racks)}
+    for t, parts in topic_map.items():
+        tree[f"/brokers/topics/{t}"] = json.dumps(
+            {"partitions": {str(p): r for p, r in parts.items()}}).encode()
+    return tree
+
+
+def zk_server_main(conn, shape, reply_delay_s):
+    """Worker process: serve config 4's tree (:func:`zk_tree` of ``shape``)
+    with ``tests/jute_server.py`` until the parent writes to or closes
+    ``conn``; sends ``(port, znodes, bytes)`` once listening."""
+    import importlib.util
+
+    sys.path.insert(0, ROOT)
+    spec = importlib.util.spec_from_file_location(
+        "jute_server", os.path.join(ROOT, "tests", "jute_server.py"))
+    jute = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jute)
+    tree = zk_tree(*shape)
+    server = jute.JuteZkServer(tree, reply_delay_s=reply_delay_s)
+    server.start()
+    conn.send((server.port, len(tree), sum(len(v) for v in tree.values())))
+    try:
+        conn.recv()
+    except EOFError:
+        pass
+    server.shutdown()
+
+
+@contextlib.contextmanager
+def zk_quorum(reply_delay_s=0.0):
+    """Config 4's ZooKeeper tree served from a spawned process (its own
+    interpreter, so the server's threads do not share the CLI's); yields
+    ``(port, znodes, bytes)`` and stops the process afterwards."""
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    shape = (N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, REPLACED)
+    proc = ctx.Process(target=zk_server_main, args=(child, shape, reply_delay_s),
+                       daemon=True)
+    proc.start()
+    child.close()
+    try:
+        if not parent.poll(300):
+            fail("the jute server process did not report a port within 300 s")
+        yield parent.recv()
+    finally:
+        with contextlib.suppress(OSError):
+            parent.send("stop")
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+
+
+def zk_phases(work, checks, argv4, text4, prefix, prefix_text, topic_map, live,
+              rack_map, cap, on_removed):
+    """Phase 20: config 4 over ZooKeeper through the wire client and the
+    streamed ingest, on cuda. Returns the leadership kernel's launches per
+    run."""
+    from kafka_assigner_tpu_torch import cli, generator
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    rdir = os.path.join(work, "reports")
+    os.makedirs(rdir, exist_ok=True)
+    launches = {}
+    removed = ",".join(f"b{b}" for b in range(REPLACED))
+
+    def zk_argv(port):
+        return ["--zk_string", f"127.0.0.1:{port}", "--mode", "PRINT_REASSIGNMENT",
+                "--broker_hosts_to_remove", removed]
+
+    def run(key, argv, what, want=text4):
+        lead.launches["leadership"] = 0
+        rc, out, err, wall = cli_run(cli.run, argv)
+        launches[key] = lead.launches["leadership"]
+        ingest = dict(generator.last_ingest)
+        if rc != 0 or out != want:
+            fail(f"20 {what}: exit {rc}, stdout equal to the snapshot run's "
+                 f"{out == want}; {err[-800:]}")
+        return wall, ingest
+
+    with knobs(KA_ZK_CLIENT="wire"), zk_quorum() as (port, znodes, nbytes):
+        # (a) config 4 over the socket: the snapshot plan's bytes, the
+        # preencode, the C codec, one kernel launch held against plain.
+        with solver_probe() as seen:
+            wall, ingest = run("zk_config4", zk_argv(port) + ["--device", "cuda"],
+                               "(a) config 4")
+        orders = seen["orders"]
+        if launches["zk_config4"] != 1 or len(orders) != 1:
+            fail(f"20 (a): the leadership kernel launched {launches['zk_config4']} times "
+                 f"({len(orders)} ordering calls), not once")
+        if ingest.get("solve_encode") != "preencoded" or ingest.get("codecs") != ["c"]:
+            fail(f"20 (a): the solve did not take a C-codec preencode ({ingest})")
+        moved = check_plan(plan_section(text4), topic_map, live, rack_map, cap, on_removed)
+        (inputs, outputs), = orders
+        checks.submit("phase 20's streamed config-4 solve", inputs, outputs)
+        phase("zk", f"(a) config 4 over ZooKeeper ({znodes} znodes, {nbytes} bytes, port "
+              f"{port}) on cuda: {wall:.2f} s CLI wall; stdout byte-identical to phase "
+              f"4's snapshot plan; moved {moved}; {ingest['topics']} topics streamed in "
+              f"{ingest['chunks']} chunks, encode {ingest['encode_ms']:.1f} ms on the "
+              f"{'/'.join(ingest['codecs'])} codec ({ingest['overlap_ms']:.1f} ms of it "
+              f"while replies were in flight); the solve took the preencode; leadership "
+              f"kernel launches 1 at {tuple(inputs[0].shape)}")
+
+        # (b) the overlap off, and a 7-topic chunk: the same bytes.
+        with knobs(KA_ZK_OVERLAP=0):
+            wall_off, ingest = run("zk_overlap_off", zk_argv(port) + ["--device", "cuda"],
+                                   "(b) KA_ZK_OVERLAP=0")
+        if ingest.get("preencoded") or ingest.get("solve_encode") != "c":
+            fail(f"20 (b): KA_ZK_OVERLAP=0 still streamed an encode ({ingest})")
+        with knobs(KA_ZK_INGEST_CHUNK=7):
+            wall_7, ingest = run("zk_chunk7", zk_argv(port) + ["--device", "cuda"],
+                                 "(b) KA_ZK_INGEST_CHUNK=7")
+        if ingest.get("chunks") != -(-N_TOPICS // 7) or ingest.get("solve_encode") != "preencoded":
+            fail(f"20 (b): KA_ZK_INGEST_CHUNK=7 gave {ingest}")
+        phase("zk", f"(b) KA_ZK_OVERLAP=0 ({wall_off:.2f} s, the solve encoded on the C "
+              f"codec) and KA_ZK_INGEST_CHUNK=7 ({wall_7:.2f} s, {ingest['chunks']} "
+              "chunks): stdout byte-identical to (a); kernel launches 1 each")
+
+        # (c) the prefix over ZooKeeper, cuda == cpu == phase 5's.
+        argv = zk_argv(port) + ["--topics", prefix]
+        run("zk_prefix", argv + ["--device", "cuda"], "(c) prefix on cuda", prefix_text)
+        run("zk_prefix_cpu", argv + ["--device", "cpu"], "(c) prefix on cpu", prefix_text)
+        launches.pop("zk_prefix_cpu")
+        phase("zk", f"(c) {PREFIX_TOPICS}-topic prefix over ZooKeeper: cuda and cpu "
+              "byte-identical, equal to phase 5's snapshot plan")
+
+    # (d) a 1 ms reply delay: the overlap on, off, and serial reads.
+    variants = (("overlap on", {}), ("overlap off", {"KA_ZK_OVERLAP": "0"}),
+                ("serial", {"KA_ZK_PIPELINE": "1"}))
+    mode = "mode/PRINT_REASSIGNMENT"
+    rows = {name: [] for name, _ in variants}
+    with knobs(KA_ZK_CLIENT="wire"), zk_quorum(ZK_REPLY_DELAY_S) as (port, _, _):
+        for turn in range(ZK_TIMING_TURNS):
+            for name, env in variants:
+                path = os.path.join(rdir, f"zk_{name.replace(' ', '_')}_{turn}.json")
+                with knobs(**env):
+                    wall, _ = run(f"zk_delay_{name.replace(' ', '_')}_{turn}",
+                                  zk_argv(port) + ["--device", "cuda", "--report-json", path],
+                                  f"(d) {name}")
+                report = read_report(path, "ok")
+                spans = {sp["path"]: sp["ms"] for sp in report["spans"]}
+                c, g = report["metrics"]["counters"], report["metrics"]["gauges"]
+                h = report["metrics"]["histograms"].get("zk.pipeline.batch_ms", {})
+                row = {
+                    "wall_ms": wall * 1e3,
+                    "metadata_ms": spans[f"{mode}/metadata/assignment"],
+                    "brokers_ms": spans.get(f"{mode}/zk/brokers"),
+                    "solve_ms": spans[f"{mode}/plan/solve"],
+                    "encode_ms": g.get("ingest.encode_ms"),
+                    "overlap_ms": g.get("ingest.overlap_ms"),
+                    "batches": c.get("zk.pipeline.batches"),
+                    "rtts_saved": c.get("zk.pipeline.rtts_saved"),
+                    "in_flight": g.get("zk.pipeline.in_flight"),
+                    "batch_ms": h.get("sum"),
+                    "solve_encode_ms": spans.get(f"{mode}/plan/solve/encode"),
+                }
+                rows[name].append(row)
+                phase("zk", f"(d) 1 ms reply delay, {name}, turn {turn + 1}: CLI wall "
+                      f"{row['wall_ms']:.1f} ms; zk/brokers {row['brokers_ms']} ms; "
+                      f"metadata/assignment {row['metadata_ms']} ms; "
+                      f"ingest.encode_ms {row['encode_ms']}, ingest.overlap_ms "
+                      f"{row['overlap_ms']}; zk.pipeline batches {row['batches']}, "
+                      f"rtts_saved {row['rtts_saved']}, in_flight {row['in_flight']}, "
+                      f"batch_ms sum {row['batch_ms']}; plan/solve {row['solve_ms']} ms "
+                      f"(its encode {row['solve_encode_ms']} ms) | {smi}")
+    for name, _ in variants:
+        med = {k: statistics.median(r[k] for r in rows[name])
+               for k in ("wall_ms", "brokers_ms", "metadata_ms", "solve_ms")}
+        phase("zk", f"(d) {name}, median of {ZK_TIMING_TURNS}: CLI wall "
+              f"{med['wall_ms']:.1f} ms, zk/brokers {med['brokers_ms']:.1f} ms, "
+              f"metadata/assignment {med['metadata_ms']:.1f} ms, "
+              f"plan/solve {med['solve_ms']:.1f} ms | {smi}")
+    phase("timing", f"phase 20 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1876,7 +2094,12 @@ def smoke(checks) -> int:
         work, argv, text, moved, (topics, live, rack_map), ms, ab["c"], prefix, a,
         greedy_prefix, group_runs, steady_snap, rank_rec["candidates_text"])
 
-    max_err = max(max_err, worst.get("leadership", 0))
+    # --- 20: live ZooKeeper and the streamed ingest --------------------------
+    zk_launches = zk_phases(work, checks, argv, text, prefix, a, topic_map, live,
+                            rack_map, cap, on_removed)
+    late = checks.collect()
+
+    max_err = max(max_err, worst.get("leadership", 0), late.get("leadership", 0))
     gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0))
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
@@ -1884,7 +2107,7 @@ def smoke(checks) -> int:
                **reduced,
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
                   for k, v in lanes.items() for lane in ("native", "device")},
-               **obs_launches}
+               **obs_launches, **zk_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

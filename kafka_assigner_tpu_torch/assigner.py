@@ -150,6 +150,7 @@ class TopicAssigner:
         brokers: Set[int],
         rack_assignment: Mapping[int, str],
         desired_replication_factor: int = -1,
+        preencoded: tuple | None = None,
     ) -> List[Tuple[str, Dict[int, List[int]]]]:
         """Solve many topics through one shared Context, returning
         ``[(topic, assignment), ...]`` in input order; a repeated topic name
@@ -162,17 +163,23 @@ class TopicAssigner:
         one replication factor. Each batch is a crash group of the
         best-effort fallback.
 
+        ``preencoded``: an ``encode_topic_group`` result for exactly these
+        topics in this order (mode 3's streamed ingest builds it,
+        ``generator.py``), forwarded to a mixed-RF batching solver so it
+        skips its own encode (``kafka_assigner_tpu/assigner.py:176-219``);
+        ignored by solvers that cannot take it.
+
         Under ``KA_OBS_PROFILE_DIR`` (or ``KA_PROFILE``) the call is one
         ``torch.profiler`` trace (``obs/profile.py:dispatch_trace``)."""
         with dispatch_trace():
             return self._generate_assignments(
                 topic_assignments, brokers, rack_assignment,
-                desired_replication_factor,
+                desired_replication_factor, preencoded,
             )
 
     def _generate_assignments(
         self, topic_assignments, brokers, rack_assignment,
-        desired_replication_factor,
+        desired_replication_factor, preencoded=None,
     ) -> List[Tuple[str, Dict[int, List[int]]]]:
         items = (
             list(topic_assignments.items())
@@ -210,11 +217,15 @@ class TopicAssigner:
                     solved = [(topic, self.solver.assign(
                         topic, cur, rack_assignment, set(brokers), set(cur),
                         group_rfs[0], self.context))]
-                else:
-                    rf = (group_rfs if getattr(self.solver, "supports_mixed_rf", False)
-                          else group_rfs[0])
+                elif getattr(self.solver, "supports_mixed_rf", False):
+                    # The keyword only when there is a preencode: a mixed-RF
+                    # solver predating the parameter keeps working.
+                    kwargs = {} if preencoded is None else {"preencoded": preencoded}
                     solved = list(assign_many(group, rack_assignment, set(brokers),
-                                              rf, self.context))
+                                              group_rfs, self.context, **kwargs))
+                else:
+                    solved = list(assign_many(group, rack_assignment, set(brokers),
+                                              group_rfs[0], self.context))
             except Exception as e:
                 if not self._should_fallback(e):
                     raise

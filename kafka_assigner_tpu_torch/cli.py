@@ -21,7 +21,14 @@
     python -m kafka_assigner_tpu_torch.cli --zk_string file://cluster.json \
         --mode {PRINT_CURRENT_ASSIGNMENT [--topics a,b] | PRINT_CURRENT_BROKERS}
 
-The flags are the reference CLI's flags for these modes
+``--zk_string`` takes what the reference CLI takes (``io/base.py:
+open_backend``): a ZooKeeper quorum ``host:port,...[/chroot]`` (the
+reference tool's only mode; the in-tree wire client unless ``kazoo`` is
+installed, ``KA_ZK_CLIENT`` picks), ``kafka://host:port,...`` for the Kafka
+AdminClient bridge, or a ``file://cluster.json`` snapshot. A rack-blind
+backend (confluent-kafka's AdminClient) is refused by the plan modes unless
+``--disable_rack_awareness`` opts out explicitly (exit 1). The flags are
+the reference CLI's flags for these modes
 (``kafka_assigner_tpu/cli.py:83-118``). ``--solver`` picks mode 3's solver:
 ``device`` (the default; the PyTorch/CUDA solver, in the place of the
 reference's ``tpu``), ``native`` (the C++ greedy) or ``greedy`` (the Python
@@ -39,13 +46,14 @@ Every mode takes the reference's ``--report-json PATH`` (default: the
 schema-v1 run report of ``obs/report.py`` with its spans, counters, gauges
 and ``plan`` section, and a summary on stderr. ``--failure-policy`` (default:
 the ``KA_FAILURE_POLICY`` knob, ``strict``) is mode 3's: ``best-effort``
-skips ``--topics`` entries the snapshot lacks and re-runs a crashed device
+skips topics that vanish mid-scan and re-runs a crashed device
 solve on the greedy lane, and the run exits 6 (degraded success).
 
 Exit codes follow the reference's documented ones: 1 usage, 3 metadata
-ingest, 4 solve (a device crash under ``strict``), 5 validation (RF
-bounds, unknown hosts or scenario entries, infeasible plan, a topic the
-snapshot lacks under ``strict``), 6 degraded success.
+ingest (an unreachable quorum, a session lost past its retries, a topic
+missing under ``strict`` in mode 3), 4 solve (a device crash under
+``strict``), 5 validation (RF bounds, unknown hosts or scenario entries,
+infeasible plan), 6 degraded success.
 
 The consumer-group tool ``ka-groups`` (:func:`run_groups`,
 ``python -m kafka_assigner_tpu_torch.groups``)::
@@ -95,7 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
         "partition replicas to brokers in Kafka-parseable JSON.",
     )
     p.add_argument("--zk_string", default=None,
-                   help="a file://cluster.json snapshot")
+                   help="ZK quorum as comma-separated host:port pairs "
+                        "(optionally /chroot), kafka://host:port for the "
+                        "Kafka AdminClient bridge, or a file://cluster.json "
+                        "snapshot")
     p.add_argument("--mode", default=None, choices=MODES,
                    help="the mode to run")
     p.add_argument("--integer_broker_ids", default=None,
@@ -129,8 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--failure-policy", dest="failure_policy", default=None,
                    choices=("strict", "best-effort"),
                    help="strict (default): abort on the first unrecoverable "
-                        "failure. best-effort: skip topics the snapshot lacks "
-                        "and fall back to the greedy solver when the device "
+                        "failure. best-effort: skip topics that vanish "
+                        "mid-scan and fall back to the greedy solver when the device "
                         "solve crashes, reported on stderr and in the run "
                         "report, exiting 6 (default: the KA_FAILURE_POLICY "
                         "knob)")
@@ -215,9 +226,10 @@ def _note_solver_ignored(args, why: str) -> None:
 
 
 def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
-    """Parse, validate, load the snapshot, run the mode. Raises the typed
-    errors (``ValueError``, ``KeyError``, ``OSError``, ``SolveError``);
-    :func:`run` maps them to exit codes."""
+    """Parse, validate, open the backend, run the mode. Raises the typed
+    errors (``ValueError``, ``KeyError``, ``OSError``, ``ZkWireError``,
+    ``IngestError``, ``SolveError``); :func:`run` maps them to exit
+    codes."""
     _prebuild_native()
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -241,7 +253,21 @@ def run_tool(argv: Optional[List[str]] = None, out=None) -> int:
 
 
 def _dispatch_mode(args, topics, out) -> int:
-    """Snapshot open, then the mode."""
+    """Backend open, the mode, backend close."""
+    from .io.base import open_backend
+
+    backend = open_backend(args.zk_string)
+    try:
+        return _run_mode(args, topics, out, backend)
+    finally:
+        backend.close()
+
+
+#: The modes that emit a plan, refused on a rack-blind backend.
+PLAN_MODES = ("PRINT_REASSIGNMENT", "RANK_DECOMMISSION", "PRINT_FRESH_ASSIGNMENT")
+
+
+def _run_mode(args, topics, out, backend) -> int:
     from .generator import (
         Degradation,
         build_rack_assignment,
@@ -253,16 +279,28 @@ def _dispatch_mode(args, topics, out) -> int:
         resolve_broker_ids,
         resolve_excluded_broker_ids,
     )
-    from .io.snapshot import open_snapshot
     from .utils.env import env_choice
 
-    backend = open_snapshot(args.zk_string)
     live_brokers = backend.brokers()
     broker_ids = resolve_broker_ids(
         live_brokers, args.integer_broker_ids, args.broker_hosts
     )
     excluded = resolve_excluded_broker_ids(live_brokers, args.broker_hosts_to_remove)
     rack_assignment = build_rack_assignment(live_brokers, args.disable_rack_awareness)
+    if (args.mode in PLAN_MODES and getattr(backend, "rack_blind", False)
+            and not args.disable_rack_awareness):
+        # A backend that cannot report racks must not silently produce a
+        # rack-unsafe plan (kafka_assigner_tpu/cli.py:262-279).
+        print(
+            "error: this metadata backend cannot supply broker rack info "
+            "(confluent-kafka's AdminClient is rack-blind), so a "
+            "rack-aware assignment cannot be guaranteed. Re-run with "
+            "--disable_rack_awareness to explicitly opt out of rack "
+            "diversity, or use the zk:// or file:// backend (or install "
+            "kafka-python, whose AdminClient carries racks).",
+            file=sys.stderr,
+        )
+        return EXIT_USAGE
     if args.mode == "PRINT_CURRENT_ASSIGNMENT":
         print_current_assignment(backend, topics, out=out)
         return EXIT_OK
@@ -338,6 +376,7 @@ def _dispatch_mode(args, topics, out) -> int:
 def run(argv: Optional[List[str]] = None, out=None) -> int:
     """:func:`run_tool` with the documented exit-code mapping."""
     from .errors import IngestError, SolveError
+    from .io.zkwire import ZkWireError
 
     try:
         return run_tool(argv, out=out)
@@ -349,7 +388,9 @@ def run(argv: Optional[List[str]] = None, out=None) -> int:
         return EXIT_SOLVE
     except BrokenPipeError:
         raise
-    except OSError as e:
+    except (ZkWireError, OSError) as e:
+        # Connect and read failures before mode 3 tags them (backend open,
+        # the broker listing, the other modes' reads).
         print(f"error: metadata ingest failed: {e}", file=sys.stderr)
         return EXIT_INGEST
     except (ValueError, KeyError) as e:
@@ -371,8 +412,10 @@ def build_groups_parser() -> argparse.ArgumentParser:
         "byte-stable across identical runs.",
     )
     p.add_argument("--zk_string", default=None,
-                   help="a file://cluster.json snapshot (group state needs a "
-                        "\"groups\" section, or --synthetic)")
+                   help="ZK quorum host:port pairs, kafka://host:port or a "
+                        "file://cluster.json snapshot (group state needs a "
+                        "snapshot \"groups\" section or an AdminClient with "
+                        "consumer-group offsets, else --synthetic)")
     p.add_argument("--mode", default="plan", choices=("plan", "sweep"),
                    help="plan: per-group packing plan; sweep: the batched "
                         "autoscale cost curve")
@@ -410,7 +453,7 @@ def build_groups_parser() -> argparse.ArgumentParser:
 
 
 def run_groups(argv: Optional[List[str]] = None) -> int:
-    """``ka-groups``: load the snapshot, refuse a backend without groups
+    """``ka-groups``: open the backend, refuse one without groups
     unless ``--synthetic``, encode, pack, print the envelope. Raises the
     typed errors; :func:`groups_main` maps them to exit codes."""
     _prebuild_native()
@@ -425,8 +468,8 @@ def run_groups(argv: Optional[List[str]] = None) -> int:
 
 
 def _dispatch_groups(args) -> int:
-    """Snapshot open, group ingest (or the loud refusal), encode, solve, the
-    envelope and the ``groups.*`` counters."""
+    """Backend open, group ingest (or the loud refusal), backend close,
+    encode, solve, the envelope and the ``groups.*`` counters."""
     import json
 
     from .groups.model import GROUPS_SCHEMA_VERSION
@@ -437,7 +480,7 @@ def _dispatch_groups(args) -> int:
         subscribed_partitions,
         throughput_weights,
     )
-    from .io.snapshot import open_snapshot
+    from .io.base import open_backend
     from .obs.metrics import counter_add
     from .utils.env import env_choice, env_float, env_int, env_str
 
@@ -448,33 +491,38 @@ def _dispatch_groups(args) -> int:
     headroom = env_float("KA_GROUPS_CAPACITY_HEADROOM")
     max_cand = env_int("KA_GROUPS_MAX_CANDIDATES")
 
-    backend = open_snapshot(args.zk_string)
-    if not args.synthetic and not backend.supports_groups():
-        # The loud refusal: synthetic inputs never pass for cluster truth.
-        counter_add("groups.refusals")
-        print(
-            "error: this metadata backend cannot read consumer "
-            "groups (no group membership/offset surface), so a "
-            "packing plan would be built on invented inputs. Re-run "
-            "with --synthetic to explicitly opt into the "
-            "deterministic synthetic family (marked "
-            "groups_real=false), or use a snapshot with a \"groups\" "
-            "section / an AdminClient with consumer-group offset "
-            "support.",
-            file=sys.stderr,
+    backend = open_backend(args.zk_string)
+    try:
+        if not args.synthetic and not getattr(backend, "supports_groups",
+                                              lambda: False)():
+            # The loud refusal: synthetic inputs never pass for cluster
+            # truth.
+            counter_add("groups.refusals")
+            print(
+                "error: this metadata backend cannot read consumer "
+                "groups (no group membership/offset surface), so a "
+                "packing plan would be built on invented inputs. Re-run "
+                "with --synthetic to explicitly opt into the "
+                "deterministic synthetic family (marked "
+                "groups_real=false), or use a snapshot with a \"groups\" "
+                "section / an AdminClient with consumer-group offset "
+                "support.",
+                file=sys.stderr,
+            )
+            return EXIT_USAGE
+        partitions = backend.partition_assignment(backend.all_topics())
+        part_map = {t: sorted(per) for t, per in partitions.items()}
+        states, groups_real = load_group_states(
+            backend, part_map, groups=group_names, synthetic=args.synthetic,
         )
-        return EXIT_USAGE
-    partitions = backend.partition_assignment(backend.all_topics())
-    part_map = {t: sorted(per) for t, per in partitions.items()}
-    states, groups_real = load_group_states(
-        backend, part_map, groups=group_names, synthetic=args.synthetic,
-    )
-    if not states:
-        raise ValueError("the backend reports no consumer groups")
-    weight_values = (
-        throughput_weights(backend, subscribed_partitions(states, part_map))
-        if args.weight == "throughput" else None
-    )
+        if not states:
+            raise ValueError("the backend reports no consumer groups")
+        weight_values = (
+            throughput_weights(backend, subscribed_partitions(states, part_map))
+            if args.weight == "throughput" else None
+        )
+    finally:
+        backend.close()
     bodies = build_group_bodies(
         states, groups_real, part_map, args.mode, args.weight,
         weight_values, scales, headroom, max_cand, counts=counts,
@@ -514,6 +562,7 @@ def _dispatch_groups(args) -> int:
 def groups_main() -> None:
     """:func:`run_groups` with the documented exit codes."""
     from .errors import IngestError, SolveError
+    from .io.zkwire import ZkWireError
 
     try:
         sys.exit(run_groups())
@@ -523,7 +572,7 @@ def groups_main() -> None:
     except SolveError as e:
         print(f"error: {e}", file=sys.stderr)
         sys.exit(EXIT_SOLVE)
-    except OSError as e:
+    except (ZkWireError, OSError) as e:
         print(f"error: metadata ingest failed: {e}", file=sys.stderr)
         sys.exit(EXIT_INGEST)
     except (ValueError, KeyError) as e:

@@ -9,10 +9,14 @@ scope's current index and fires at most one event. In this package the
 and ``assign_many``) and by the consumer-group device calls
 (``parallel/whatif.py``); a ``crash`` there raises
 :class:`InjectedSolverCrash` before any device work, the stand-in for a
-device OOM or a failed kernel build. The hooks of the other scopes
-(metadata wire, writes and convergence, execution waves, the resident
-daemon, the controller, the fleet scheduler) are here with the reference's
-semantics; the modules that consult them are not part of this package yet.
+device OOM or a failed kernel build. The metadata seams are consulted by
+the live backends: ``connect``, ``handshake`` and ``reply`` by the wire
+client (``io/zkwire.py``) at its socket, and ``connect`` and
+:meth:`FaultInjector.backend_reply` by the kazoo and AdminClient backends
+(``io/zk.py``, ``io/kafka_admin.py``). The hooks of the other scopes
+(writes and convergence, execution waves, the resident daemon, the
+controller, the fleet scheduler) are here with the reference's semantics;
+the modules that consult them are not part of this package yet.
 
 Fault taxonomy (``FAULT_KINDS``; scope: kinds): connect: blackhole;
 handshake: expire; reply: drop, trunc, slow, nonode; solve: crash; warmup:
@@ -397,7 +401,7 @@ class FaultInjector:
         delays the op, ``drop``/``trunc`` become a connection loss, and
         ``nonode`` becomes the adapter's missing-entity error
         (``missing_exc``; default ``KeyError``, the snapshot backend's
-        missing-topic class: this package has no wire client)."""
+        missing-topic class)."""
         ev = self._next("reply")
         if ev is None:
             return

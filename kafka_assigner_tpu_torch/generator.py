@@ -13,17 +13,20 @@
   ``load_scenario_file`` (:118) for ``--scenario_file``.
 
 Each entry records the reference's spans (``metadata/assignment``,
-``feasibility``, ``plan/solve``, ``plan/emit``, ``plan/fresh``,
-``whatif/rank``) and ``plan.*`` gauges (:func:`record_plan_stats`) while
-an obs capture is active. Mode 3 takes the reference's failure policy
-(:684-790): under ``best-effort`` a ``--topics`` entry missing from the
-snapshot is skipped (the reference's ``stream_initial_assignment`` skip,
-:496-555, on this package's one-shot read) and a crashed solve falls back
-to the greedy lane; what the run survived lands in a :class:`Degradation`.
-Under ``strict`` a failed metadata read (a missing topic's ``KeyError``,
-a file error) is an :class:`~.errors.IngestError` as in the reference
-(:688-702), and a solver crash is a :class:`~.errors.SolveError`. The other
-modes leave their read's ``KeyError`` untagged, as the reference does.
+``ingest/stream``, ``feasibility``, ``plan/solve``, ``plan/emit``,
+``plan/fresh``, ``whatif/rank``) and ``plan.*`` gauges
+(:func:`record_plan_stats`) while an obs capture is active. Mode 3 reads
+its metadata through :func:`stream_initial_assignment`, the reference's
+streamed ingest (:446-629): pipelined reads on a live backend, and on the
+device lane the group encode built while the replies arrive, handed to the
+solve as its ``preencoded`` group. Mode 3 takes the reference's failure
+policy (:684-790): under ``best-effort`` a topic that vanished mid-scan is
+skipped and a crashed solve falls back to the greedy lane; what the run
+survived lands in a :class:`Degradation`. Under ``strict`` a failed metadata
+read (a missing topic, a refused endpoint, a dropped session) is an
+:class:`~.errors.IngestError` as in the reference (:688-702), and a solver
+crash is a :class:`~.errors.SolveError`. The other modes leave their read's
+``KeyError`` untagged, as the reference does.
 
 JSON goes to stdout, diagnostics to stderr.
 """
@@ -32,8 +35,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import sys
-from typing import Dict, List, Optional, Sequence, Set, TextIO
+import threading
+from typing import Dict, List, Optional, Sequence, Set, TextIO, Tuple
 
 from .assigner import TopicAssigner
 from .errors import IngestError, SolveError
@@ -42,7 +47,8 @@ from .io.json_io import (
     format_reassignment_json,
     format_reassignment_pairs,
 )
-from .io.snapshot import BrokerInfo
+from .io.base import BrokerInfo
+from .io.zkwire import ZkWireError
 from .obs.metrics import gauge_set, obs_active
 from .obs.trace import span
 from .solvers.base import Context
@@ -294,39 +300,185 @@ def _note_skipped(topic: str, skipped: List[str]) -> None:
 
 def _is_ingest_failure(e: BaseException) -> bool:
     """Failure classes mode 3's metadata read tags as :class:`IngestError`,
-    as ``kafka_assigner_tpu/generator.py:315`` does: file errors and the
-    snapshot's ``KeyError`` (the port has no wire client)."""
-    return isinstance(e, (OSError, KeyError))
+    as ``kafka_assigner_tpu/generator.py:315-322`` does: the wire client's
+    errors, socket and file errors, the snapshot's ``KeyError``, and kazoo's
+    exception tree, matched by ancestor name (kazoo may not be installed)."""
+    if isinstance(e, (ZkWireError, OSError, KeyError)):
+        return True
+    return any(c.__name__ == "KazooException" for c in type(e).__mro__)
 
 
-def read_initial_assignment(
-    backend, topic_list: Sequence[str], failure_policy: str = "strict",
+#: Sentinel closing the ingest stream (the producer finished cleanly).
+_INGEST_DONE = object()
+
+#: What the latest streamed ingest of this process did: ``topics``
+#: streamed, encode ``chunks`` and the ``codecs`` they took, ``encode_ms``
+#: and ``overlap_ms`` (the share of it done while replies were still in
+#: flight), whether a ``preencoded`` group came out, and ``solve_encode``,
+#: what the solve's encode then did (``"preencoded"`` when it took the
+#: group; set by mode 3 after its solve).
+last_ingest: Dict[str, object] = {}
+
+
+def stream_initial_assignment(
+    backend,
+    topic_list: Sequence[str],
+    brokers: Optional[Set[int]] = None,
+    rack_assignment: Optional[Dict[int, str]] = None,
+    want_encode: bool = False,
+    failure_policy: str = "strict",
     skipped: Optional[List[str]] = None,
-) -> Dict[str, Dict[int, List[int]]]:
-    """The metadata read of mode 3: ``backend.partition_assignment`` of
-    ``topic_list``. Under ``failure_policy="best-effort"`` a topic the
-    backend does not know is skipped, as the reference's streamed read
-    skips a topic that vanished mid-scan: appended to ``skipped`` per
-    occurrence (and warned on stderr), left out of the result. Under
-    ``strict`` the backend's ``KeyError`` stands; mode 3 tags it (see
-    :func:`_is_ingest_failure`). Sets the
-    ``ingest.topics`` gauge (topic reads that resolved) and, under
-    best-effort, ``ingest.topics_skipped``."""
+) -> Tuple[Dict[str, Dict[int, List[int]]], Optional[tuple]]:
+    """Metadata ingest overlapped with the host encode, as the reference's
+    (``kafka_assigner_tpu/generator.py:446-629``).
+
+    A producer thread drains ``backend.fetch_topics`` (pipelined reads on a
+    live backend, ``KA_ZK_PIPELINE``) into a queue, while this thread folds
+    arrived topics into the batched host encode in ``KA_ZK_INGEST_CHUNK``
+    chunks (:class:`~.models.problem.GroupEncodeAccumulator`), so the encode
+    hides inside the fetch. The producer only reads sockets: nothing on it
+    touches torch or the card. Returns ``(initial, preencoded)``:
+    ``initial`` is exactly ``backend.partition_assignment(topic_list)``,
+    ``preencoded`` the ``encode_topic_group`` result for the same topic
+    order, or None when no encode was asked for (``want_encode`` with
+    ``brokers``), the backend has no ``fetch_topics``, or ``KA_ZK_OVERLAP=0``
+    (the solver then encodes; the output is the same either way). The
+    reference's ingest-overlapped warm-up thread is not started here
+    (ROADMAP queue 1, item 6).
+
+    ``failure_policy="best-effort"``: a topic that vanished mid-scan is
+    appended to ``skipped`` (warned per occurrence on stderr), left out of
+    ``initial`` and of the preencode, and the stream keeps flowing. A
+    backend whose ``fetch_topics`` predates ``missing=`` degrades to strict
+    with a stderr notice.
+
+    A producer-side exception (missing znode, wire error, missing snapshot
+    topic) is re-raised here, on the consumer thread, so spans and the run
+    report see it as they would a serial read's. A consumer-side abort
+    leaves the daemon producer blocked on its socket; the CLI's
+    ``backend.close()`` on the unwind path errors it out.
+    """
+    from .utils.env import env_bool, env_int
+
     best_effort = failure_policy == "best-effort"
     if skipped is None:
         skipped = []
-    if best_effort:
-        known = set(backend.all_topics())
-        for topic in topic_list:
-            if topic not in known:
+    fetch = getattr(backend, "fetch_topics", None)
+    last_ingest.clear()
+
+    def _open_stream():
+        if best_effort:
+            try:
+                return fetch(topic_list, missing="skip")
+            except TypeError:
+                print(
+                    "kafka-assigner: this metadata backend predates the "
+                    "missing-topic degradation contract; --failure-policy "
+                    "best-effort degrades to strict for ingest",
+                    file=sys.stderr,
+                )
+        return fetch(topic_list)
+
+    if fetch is None or not env_bool("KA_ZK_OVERLAP"):
+        if fetch is not None and best_effort:
+            # Overlap off but degradation asked for: drain the stream
+            # inline so vanished topics can still be skipped per entry.
+            initial = {}
+            with span("ingest/stream"):
+                for topic, parts in _open_stream():
+                    if parts is None:
+                        _note_skipped(topic, skipped)
+                        continue
+                    initial[topic] = parts
+            if obs_active():
+                gauge_set("ingest.topics", len(initial))
+                gauge_set("ingest.topics_skipped", len(skipped))
+            return initial, None
+        return backend.partition_assignment(topic_list), None
+
+    acc = None
+    if want_encode and brokers is not None:
+        from .models.problem import GroupEncodeAccumulator
+
+        acc = GroupEncodeAccumulator(rack_assignment or {}, brokers)
+
+    if acc is None:
+        # Nothing to overlap: the pipelined fetch is the whole gain, so
+        # drain the stream inline (no producer thread, no queue hops).
+        initial = {}
+        streamed = 0
+        with span("ingest/stream"):
+            for topic, parts in _open_stream():
+                if parts is None:
+                    _note_skipped(topic, skipped)
+                    continue
+                initial[topic] = parts
+                streamed += 1
+        last_ingest.update(topics=streamed, preencoded=False)
+        if obs_active():
+            gauge_set("ingest.topics", streamed)
+            if best_effort:
+                gauge_set("ingest.topics_skipped", len(skipped))
+        return initial, None
+
+    q: "queue.Queue" = queue.Queue()
+    producer_done = threading.Event()
+
+    def _produce() -> None:
+        try:
+            for item in _open_stream():
+                q.put(item)
+            q.put(_INGEST_DONE)
+        except BaseException as e:  # re-raised on the consumer side
+            q.put(e)
+        finally:
+            producer_done.set()
+
+    t = threading.Thread(target=_produce, name="zk-ingest", daemon=True)
+    chunk_size = env_int("KA_ZK_INGEST_CHUNK")
+    initial: Dict[str, Dict[int, List[int]]] = {}
+    chunk: List[tuple] = []
+    streamed = 0
+    overlap_ms = 0.0
+    with span("ingest/stream"):
+        t.start()
+        while True:
+            item = q.get()
+            if item is _INGEST_DONE:
+                break
+            if isinstance(item, BaseException):
+                t.join()
+                raise item
+            topic, parts = item
+            if parts is None:  # vanished mid-scan (best-effort stream)
                 _note_skipped(topic, skipped)
-        topic_list = [t for t in topic_list if t in known]
-    initial = backend.partition_assignment(topic_list)
+                continue
+            initial[topic] = parts
+            streamed += 1
+            chunk.append((topic, parts))
+            if len(chunk) >= chunk_size:
+                overlapping = not producer_done.is_set()
+                before = acc.encode_ms
+                acc.add(chunk)
+                if overlapping:
+                    overlap_ms += acc.encode_ms - before
+                chunk = []
+        t.join()
+        if chunk:
+            acc.add(chunk)
+    chunks = len(acc.codecs)
+    preencoded = acc.finish()
+    last_ingest.update(
+        topics=streamed, chunks=chunks, codecs=sorted(set(acc.codecs)),
+        encode_ms=acc.encode_ms, overlap_ms=overlap_ms, preencoded=True,
+    )
     if obs_active():
-        gauge_set("ingest.topics", len(topic_list))
+        gauge_set("ingest.topics", streamed)
         if best_effort:
             gauge_set("ingest.topics_skipped", len(skipped))
-    return initial
+        gauge_set("ingest.encode_ms", round(acc.encode_ms, 3))
+        gauge_set("ingest.overlap_ms", round(overlap_ms, 3))
+    return initial, preencoded
 
 
 def print_least_disruptive_reassignment(
@@ -367,20 +519,36 @@ def print_least_disruptive_reassignment(
     topic_list = list(topics) if topics is not None else backend.all_topics()
     skipped: List[str] = []
     with span("metadata/assignment"):
+        # The streamed ingest: the device lane gets its group encode built
+        # while the replies arrive (the solve then skips its own encode);
+        # the other lanes still get the pipelined fetch.
         try:
-            initial = read_initial_assignment(
-                backend, topic_list, failure_policy, skipped
+            initial, preencoded = stream_initial_assignment(
+                backend, topic_list, brokers, rack_assignment,
+                want_encode=(solver == "device"),
+                failure_policy=failure_policy, skipped=skipped,
             )
         except Exception as e:
             if not _is_ingest_failure(e):
                 raise
             raise IngestError(f"metadata ingest failed: {e}") from e
     if skipped:
-        # The plan covers what the read resolved; a name both missing and
-        # present cannot occur on a one-shot read, so every skip is lost.
+        # The plan covers what survived the scan (filtered by presence in
+        # the ingested map, duplicate-occurrence safe).
         topic_list = [t for t in topic_list if t in initial]
+        if any(t in initial for t in skipped):
+            # A name that both vanished and resolved within one scan: the
+            # preencode's occurrence list no longer matches the filtered
+            # one, so drop it and let the solver encode. A name wholly
+            # vanished keeps the preencode: the accumulator only saw the
+            # surviving occurrences, which is the filtered list.
+            preencoded = None
+        # Count only the occurrences the plan lost.
+        skipped = [t for t in skipped if t not in initial]
         if obs_active():
+            gauge_set("ingest.topics_skipped", len(skipped))
             gauge_set("plan.unplanned_topics", sorted(set(skipped)))
+    if skipped:
         print(
             f"kafka-assigner: best-effort: {len(skipped)} topic read(s) "
             f"vanished mid-scan; planning the remaining "
@@ -415,6 +583,7 @@ def print_least_disruptive_reassignment(
             final_pairs = assigner.generate_assignments(
                 [(topic, initial[topic]) for topic in topic_list],
                 brokers, rack_assignment, desired_replication_factor,
+                preencoded=preencoded,
             )
         except (ValueError, SolveError):
             # ValueError: validation (RF bounds, infeasibility), its plain
@@ -424,6 +593,7 @@ def print_least_disruptive_reassignment(
             raise SolveError(
                 f"solver backend crashed ({type(e).__name__}): {e}"
             ) from e
+    last_ingest["solve_encode"] = getattr(assigner.solver, "last_codec", {}).get("encode")
     if degradation is not None:
         degradation.topics_skipped = list(skipped)
         degradation.solve_fallbacks = assigner.fallbacks

@@ -1,10 +1,39 @@
-"""The data types the consumer-group family reads from a backend: copies of
-``PartitionTraffic``, ``GroupMember`` and ``ConsumerGroupState`` from the
-reference's ``kafka_assigner_tpu/io/base.py:38-78``.
+"""Cluster-metadata backends (layer L3), the read surface of the reference's
+``kafka_assigner_tpu/io/base.py``: the data types, the ``MetadataBackend``
+protocol with its real defaults, and :func:`open_backend`, which picks a
+backend from the reference's single ``--zk_string`` flag:
+
+- ``file:///path.json`` or a path ending in ``.json``: the hermetic
+  snapshot (``io/snapshot.py``);
+- ``kafka://host:port,...``: the Kafka AdminClient bridge
+  (``io/kafka_admin.py``);
+- anything else: a live ZooKeeper quorum (``io/zk.py``), the reference
+  tool's only mode (``KafkaAssignmentGenerator.java:273-276``).
+
+The execution surface (``supports_execution``, ``apply_assignment``,
+``read_assignment_state``) and the watch surface (``supports_watches``)
+are not here: they come with ``ka-execute`` and the resident daemon
+(ROADMAP queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import sys
+from dataclasses import dataclass
+from typing import (
+    Dict, Iterator, List, Mapping, NamedTuple, Optional, Protocol, Sequence,
+    Tuple,
+)
+
+
+@dataclass(frozen=True)
+class BrokerInfo:
+    """One live broker: id/host/port and optional rack, as read from broker
+    metadata (``KafkaAssignmentGenerator.java:116-126``)."""
+
+    id: int
+    host: str
+    port: int
+    rack: Optional[str] = None
 
 
 class PartitionTraffic(NamedTuple):
@@ -38,3 +67,137 @@ class ConsumerGroupState(NamedTuple):
     members: Tuple[GroupMember, ...]
     assignment: Dict[str, Dict[int, Optional[str]]]
     lags: Dict[str, Dict[int, int]]
+
+
+class PartitionState(NamedTuple):
+    """One partition's assigned replicas and their in-sync subset. Backends
+    without ISR visibility report ``isr == replicas``."""
+
+    replicas: List[int]
+    isr: List[int]
+
+
+class MetadataBackend(Protocol):
+    """The metadata reads the generator performs, as the reference tool's
+    ZkUtils usage (``KafkaAssignmentGenerator.java:106,114,163``).
+
+    ``rack_blind``: True when the backend structurally cannot report broker
+    racks (not a cluster that has none configured). Plan-producing CLI
+    modes refuse a blind backend unless ``--disable_rack_awareness`` makes
+    the opt-out explicit."""
+
+    rack_blind: bool = False
+
+    def brokers(self) -> List[BrokerInfo]: ...
+
+    def all_topics(self) -> List[str]: ...
+
+    def partition_assignment(
+        self, topics: Sequence[str]
+    ) -> Dict[str, Dict[int, List[int]]]: ...
+
+    def fetch_topics(
+        self, topics: Sequence[str], missing: str = "raise"
+    ) -> Iterator[Tuple[str, Dict[int, List[int]]]]:
+        """Streaming :meth:`partition_assignment`: yield ``(topic,
+        {partition: [replica ids]})`` per input entry, in input order, as
+        results become available; live backends pipeline the reads
+        (``KA_ZK_PIPELINE``) so callers overlap the host encode with the
+        remaining round trips.
+
+        ``missing="skip"``: a topic the backend cannot resolve (deleted
+        between the listing and the read) yields ``(topic, None)`` and the
+        stream keeps flowing; ``--failure-policy best-effort`` skips it.
+        The default ``"raise"`` fails fast.
+
+        A real default, not a stub: a backend that subclasses this Protocol
+        without overriding it streams over :meth:`partition_assignment`.
+        Duck-typed backends without the method are handled by the caller
+        (``generator.stream_initial_assignment``)."""
+        topics = list(topics)
+        if missing == "skip":
+            try:
+                assignment = self.partition_assignment(topics)
+            except Exception as batch_err:
+                # Probe per topic; but a backend where nothing resolves is a
+                # transport outage, not a cluster with every topic deleted:
+                # re-raise the original error.
+                assignment = {}
+                for t in dict.fromkeys(topics):
+                    try:
+                        assignment.update(self.partition_assignment([t]))
+                    except Exception as per_topic_err:
+                        print(
+                            f"kafka-assigner: topic {t!r} unresolvable "
+                            f"({type(per_topic_err).__name__}: "
+                            f"{per_topic_err}); treating as vanished",
+                            file=sys.stderr,
+                        )
+                if not assignment:
+                    raise batch_err
+            for t in topics:
+                yield t, assignment.get(t)
+            return
+        assignment = self.partition_assignment(topics)
+        for t in topics:
+            yield t, assignment[t]
+
+    def supports_traffic(self) -> bool:
+        """True when :meth:`fetch_partition_traffic` reports real
+        observations; False (the default) when the synthetic series
+        stands in."""
+        return False
+
+    def fetch_partition_traffic(
+        self, partitions: Mapping[str, Sequence[int]]
+    ) -> Dict[str, Dict[int, PartitionTraffic]]:
+        """Per-partition traffic and lag for ``{topic: [partition ids]}``.
+        The default is the deterministic synthetic series."""
+        from ..obs.health import synthetic_partition_traffic
+
+        return synthetic_partition_traffic(partitions)
+
+    def supports_groups(self) -> bool:
+        """True when :meth:`fetch_consumer_groups` reports real group state.
+        There is no synthetic fallback behind False: callers refuse, or take
+        the synthetic family by explicit opt-in (``--synthetic``)."""
+        return False
+
+    def fetch_consumer_groups(
+        self, groups: Optional[Sequence[str]] = None
+    ) -> Dict[str, ConsumerGroupState]:
+        """Consumer-group membership, ownership and lag. The default is a
+        loud refusal (``IngestError``), never a synthetic stand-in."""
+        from ..errors import IngestError
+
+        raise IngestError(
+            f"{type(self).__name__} cannot read consumer groups (no group "
+            "membership/offset surface on this backend); use a snapshot "
+            "with a \"groups\" section, a Kafka AdminClient with consumer-"
+            "group offset support, or opt into the deterministic "
+            "synthetic family explicitly (--synthetic)"
+        )
+
+    def close(self) -> None: ...
+
+
+def open_backend(connect_string: str) -> MetadataBackend:
+    """Open a metadata backend from a ``--zk_string`` connect string:
+    ``file:///path.json`` or a ``*.json`` path opens a snapshot,
+    ``kafka://host:port,...`` the Kafka AdminClient bridge, and anything
+    else a ZooKeeper quorum (``host:port,...[/chroot]``)."""
+    if connect_string.startswith("file://"):
+        from .snapshot import SnapshotBackend
+
+        return SnapshotBackend(connect_string[len("file://"):])
+    if connect_string.endswith(".json"):
+        from .snapshot import SnapshotBackend
+
+        return SnapshotBackend(connect_string)
+    if connect_string.startswith("kafka://"):
+        from .kafka_admin import KafkaAdminBackend
+
+        return KafkaAdminBackend(connect_string[len("kafka://"):])
+    from .zk import ZkBackend
+
+    return ZkBackend(connect_string)

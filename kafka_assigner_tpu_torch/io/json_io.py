@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Mapping, Sequence
 
-from .snapshot import BrokerInfo
+from .base import BrokerInfo
 
 KAFKA_FORMAT_VERSION = 1  # KafkaAssignmentGenerator.java:49
 

@@ -22,26 +22,16 @@ reference reads them (``kafka_assigner_tpu/io/snapshot.py:68-114``):
 
 A member's capacity ``null`` means unknown (the encoder's fair-share
 default applies). Other sections of the file are ignored; the backend is
-read-only.
+read-only. :func:`open_snapshot` opens a snapshot only; the CLI opens every
+backend through ``io/base.py:open_backend``.
 """
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 from ..obs.metrics import counter_add
-from .base import ConsumerGroupState, GroupMember, PartitionTraffic
-
-
-@dataclass(frozen=True)
-class BrokerInfo:
-    """One live broker: id/host/port and optional rack."""
-
-    id: int
-    host: str
-    port: int
-    rack: Optional[str] = None
+from .base import BrokerInfo, ConsumerGroupState, GroupMember, PartitionTraffic
 
 
 class SnapshotBackend:
@@ -107,6 +97,24 @@ class SnapshotBackend:
         # stdout byte contract.
         return sorted(self._topics)
 
+    def fetch_topics(
+        self, topics: Sequence[str], missing: str = "raise"
+    ) -> Iterator[Tuple[str, Dict[int, List[int]]]]:
+        """The streaming read, from memory: ``(topic, {partition:
+        [replicas]})`` per input entry in input order. Missing topics raise
+        up front, as :meth:`partition_assignment` does, or yield ``(topic,
+        None)`` under ``missing="skip"``."""
+        topics = list(topics)
+        if missing != "skip":
+            absent = [t for t in topics if t not in self._topics]
+            if absent:
+                raise KeyError(f"topics not in snapshot: {absent}")
+        for t in topics:
+            if t not in self._topics:
+                yield t, None
+                continue
+            yield t, {p: list(r) for p, r in self._topics[t].items()}
+
     def partition_assignment(
         self, topics: Sequence[str]
     ) -> Dict[str, Dict[int, List[int]]]:
@@ -159,15 +167,18 @@ class SnapshotBackend:
             raise KeyError(f"groups not in snapshot: {missing}")
         return {g: self._groups[g] for g in dict.fromkeys(groups)}
 
+    def close(self) -> None:
+        """Nothing to release: the file was read whole at open."""
+
 
 def open_snapshot(connect_string: str) -> SnapshotBackend:
-    """``file:///path.json`` or a path ending in ``.json``; live ZooKeeper
-    and Kafka-admin backends are not part of this package yet."""
+    """``file:///path.json`` or a path ending in ``.json``; any other
+    connect string is refused (``io/base.py:open_backend`` opens those)."""
     if connect_string.startswith("file://"):
         return SnapshotBackend(connect_string[len("file://"):])
     if connect_string.endswith(".json"):
         return SnapshotBackend(connect_string)
     raise ValueError(
-        f"--zk_string {connect_string!r}: this package reads file:// "
-        "snapshots only (live ZooKeeper is not ported yet)"
+        f"--zk_string {connect_string!r} is not a snapshot (a file:// "
+        "URL or a .json path)"
     )

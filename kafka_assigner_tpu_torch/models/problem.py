@@ -9,9 +9,15 @@ Everything downstream works on int32 arrays over *index* space (broker row
 0..N-1, rack 0..R-1, partition row 0..P-1); ids appear only here. Shapes are
 bucketed like the reference's: multiples of 8 on the partition and node axes
 (``_pad8``), exact replica width (min 2), powers of two on the batch axis.
+
+:class:`GroupEncodeAccumulator` builds the batched group encode chunk by
+chunk while mode 3's metadata still streams in (``generator.py:
+stream_initial_assignment``), with the arrays of the one-shot encode.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Sequence, Set
 
@@ -342,6 +348,93 @@ def _encode_topic_group_codec(codec, named_currents, rfs, cluster):
             )
         )
     return encs, currents, jhashes, p_reals
+
+
+class GroupEncodeAccumulator:
+    """Incremental :func:`encode_topic_group`, the reference's
+    (``kafka_assigner_tpu/models/problem.py:384``): feed topic chunks as the
+    streamed ingest delivers them (:meth:`add`), then :meth:`finish` into
+    the arrays the one-shot group encode would have produced.
+
+    Chunking is safe because the group buckets are maxima of per-topic
+    shapes (``p_pad = _pad8(max p)``, ``width = max(w, 2)``, ``b_pad =
+    batch_bucket(B)``) and the encoded values (id -> index mapping,
+    jhashes, p_reals) never depend on which topics share a batch. Each
+    chunk encodes against the shared cluster encoding with its own smaller
+    buckets (the expensive dict walk, through the C codec when it is on);
+    ``finish`` block-copies the chunk slabs into the group-bucketed arrays
+    and rebinds every encoding's ``current`` to its row of the final slab.
+
+    Replication factors are not known until the whole topic list is in
+    (RF inference runs after ingest): chunks encode with a placeholder
+    ``rf``, and the solver stamps the real values (``rf`` is carried
+    metadata, not an input to the array encode).
+
+    ``codecs`` records the codec each chunk's encode took (``"c"`` or
+    ``"numpy"``, from :data:`last_codec`); ``encode_ms`` the host time spent
+    in :meth:`add`.
+    """
+
+    def __init__(
+        self, rack_assignment: Mapping[int, str], nodes: Set[int]
+    ) -> None:
+        self.cluster = encode_cluster(rack_assignment, nodes)
+        self._chunks: List[tuple] = []  # (encs, currents, jhashes, p_reals)
+        self._total = 0
+        self.encode_ms = 0.0
+        self.codecs: List[str] = []
+
+    def add(self, named_currents: Sequence[tuple], rfs: int = 0) -> None:
+        """Encode one chunk of ``(topic, current_assignment)`` pairs, in
+        stream order, against the shared cluster encoding."""
+        if not named_currents:
+            return
+        t0 = time.perf_counter()
+        out = encode_topic_group(
+            named_currents, {}, set(), [rfs] * len(named_currents),
+            cluster=self.cluster,
+        )
+        self._chunks.append(out)
+        self._total += len(named_currents)
+        self.codecs.append(last_codec["encode"])
+        self.encode_ms += (time.perf_counter() - t0) * 1000.0
+
+    def finish(self) -> tuple:
+        """Merge the chunk slabs into group-wide buckets: the same ``(encs,
+        currents, jhashes, p_reals)`` as one-shot :func:`encode_topic_group`
+        over the concatenated chunks."""
+        if not self._chunks:
+            return (
+                [],
+                np.full((1, 8, 2), -1, dtype=np.int32),
+                np.zeros(1, dtype=np.int32),
+                np.zeros(1, dtype=np.int32),
+            )
+        p_pad = max(c[1].shape[1] for c in self._chunks)
+        width = max(c[1].shape[2] for c in self._chunks)
+        b_pad = batch_bucket(self._total)
+        currents = np.full((b_pad, p_pad, width), -1, dtype=np.int32)
+        jhashes = np.zeros(b_pad, dtype=np.int32)
+        p_reals = np.zeros(b_pad, dtype=np.int32)
+        encs: List[ProblemEncoding] = []
+        i = 0
+        for cencs, ccur, cjh, cpr in self._chunks:
+            b = len(cencs)
+            currents[i:i + b, : ccur.shape[1], : ccur.shape[2]] = ccur[:b]
+            jhashes[i:i + b] = cjh[:b]
+            p_reals[i:i + b] = cpr[:b]
+            for k, e in enumerate(cencs):
+                # `current` was a view into the chunk's slab: rebind it to
+                # the final slab's row. `partition_ids` keeps its own array
+                # (a view holds its base alive).
+                encs.append(
+                    dataclasses.replace(
+                        e, current=currents[i + k], p_pad=p_pad
+                    )
+                )
+            i += b
+        self._chunks = []
+        return encs, currents, jhashes, p_reals
 
 
 def decode_assignment(

@@ -13,10 +13,19 @@ from __future__ import annotations
 
 #: Counter / gauge / histogram names (the write API's first argument).
 METRIC_NAMES: frozenset = frozenset({
-    # zk.* — metadata reads (the snapshot backend counts here)
-    "zk.reads", "zk.bytes",
-    # ingest.* — topics read, and skipped under best-effort
+    # zk.* — metadata reads (every backend counts here), the wire client's
+    # frames, serial-op latency and session re-establishments, and its
+    # pipelined window
+    "zk.reads", "zk.bytes", "zk.op_ms", "zk.topics_missing",
+    "zk.session.reestablished",
+    "zk.wire_frames_in", "zk.wire_frames_out",
+    "zk.wire_bytes_in", "zk.wire_bytes_out",
+    "zk.pipeline.batches", "zk.pipeline.rtts_saved",
+    "zk.pipeline.in_flight", "zk.pipeline.batch_ms",
+    # ingest.* — topics read, skipped under best-effort, and the streamed
+    # encode's host time and the share of it overlapped with the fetch
     "ingest.topics", "ingest.topics_skipped",
+    "ingest.encode_ms", "ingest.overlap_ms",
     # encode.* — the batched host encode
     "encode.topics", "encode.p_pad", "encode.pad_waste_frac",
     # plan.* — lifted into the report's plan section
@@ -41,7 +50,8 @@ METRIC_NAMES: frozenset = frozenset({
 #: Span names (``span(...)`` first argument). Paths derive from nesting at
 #: run time; "mode/<MODE>" composes from the CLI mode.
 SPAN_NAMES: frozenset = frozenset({
-    "metadata/assignment", "feasibility",
+    "metadata/assignment", "ingest/stream", "feasibility",
+    "zk/brokers", "zk/partition_assignment",
     "plan/solve", "plan/fresh", "plan/emit",
     "encode", "solve", "decode",
     "whatif/rank", "whatif/incremental", "whatif/dispatch",

@@ -22,7 +22,9 @@ leadership kernel → host decode. The counterpart of
   host, as the reference's ``_order_placed`` (``solvers/tpu.py:826-845``)
   and ``fresh_assignment`` (:893-925) do; the bytes are the same;
 - the batched encode and decode take the C boundary codec under
-  ``KA_HOSTCODEC`` (``models/problem.py``);
+  ``KA_HOSTCODEC`` (``models/problem.py``); ``assign_many`` takes mode 3's
+  streamed ``preencoded`` group and skips its own encode
+  (``solvers/tpu.py:440-475``);
 - observability as the reference's (``solvers/tpu.py:321-329``, :414-494,
   :552, :612, :878-880): ``fault_point("solve")`` before any work of
   ``assign`` and ``assign_many``, the ``solver.assign_calls`` and
@@ -49,6 +51,7 @@ from ..models.problem import (
     apply_counter_updates,
     context_to_array,
     decode_assignments_batched,
+    encode_cluster,
     encode_problem,
     encode_topic_group,
 )
@@ -150,7 +153,8 @@ class TorchSolver:
         #: on the CPU).
         self.last_leadership: str | None = None
         #: which codec the most recent solve's encode and decode took:
-        #: ``{"encode": "c" | "numpy", "decode": "c" | "numpy"}``.
+        #: ``{"encode": "c" | "numpy", "decode": "c" | "numpy"}``; encode is
+        #: ``"preencoded"`` when the solve took a streamed preencode.
         self.last_codec: Dict[str, str] = {}
 
     def _sync(self) -> None:
@@ -196,12 +200,23 @@ class TorchSolver:
         nodes: Set[int],
         replication_factor,  # int, or Sequence[int] per topic (mixed RF)
         context: Context | None = None,
+        preencoded: tuple | None = None,
     ) -> List[tuple]:
         """Solve a group of topics together, returning ``[(topic,
         assignment), ...]`` in input order; identical to solving them
         serially in that order (the leadership counters carry across
         topics). Topics of different replication factors share the batch
-        through the per-topic ``rfs`` lane."""
+        through the per-topic ``rfs`` lane.
+
+        ``preencoded``: an :func:`encode_topic_group`-shaped ``(encs,
+        currents, jhashes, p_reals)`` for exactly these topics in this
+        order, built while the metadata streamed in
+        (``generator.stream_initial_assignment``), as the reference's
+        (``solvers/tpu.py:440-475``). The encode phase then checks it
+        against the batch (topic order, and the broker set and rack map it
+        was built on: a stale preencode raises, never solves) and stamps
+        the real ``rf`` values; ``last_codec["encode"]`` says
+        ``"preencoded"``."""
         fault_point("solve")
         if context is None:
             context = Context()
@@ -213,9 +228,14 @@ class TorchSolver:
             rf_list = [int(r) for r in replication_factor]
 
         def encode():
-            encs, currents, jhashes, p_reals = encode_topic_group(
-                named_currents, rack_assignment, nodes, rf_list
-            )
+            if preencoded is not None:
+                encs, currents, jhashes, p_reals = _checked_preencode(
+                    preencoded, named_currents, rack_assignment, nodes, rf_list
+                )
+            else:
+                encs, currents, jhashes, p_reals = encode_topic_group(
+                    named_currents, rack_assignment, nodes, rf_list
+                )
             if obs_active():
                 # Bucketing cost, per run: the padding share of the (B, P)
                 # slab.
@@ -229,7 +249,10 @@ class TorchSolver:
                 gauge_set("encode.p_pad", int(currents.shape[1]))
             return encs, (currents, jhashes, p_reals)
 
-        return self._solve(encode, rf_list, context, record=True)
+        out = self._solve(encode, rf_list, context, record=True)
+        if preencoded is not None:
+            self.last_codec["encode"] = "preencoded"
+        return out
 
     def fresh_assignment(
         self,
@@ -367,6 +390,33 @@ class TorchSolver:
             self._sync()
         self.last_timers["leadership"] = (time.perf_counter() - t0) * 1e3
         return out
+
+
+def _checked_preencode(preencoded, named_currents, rack_assignment, nodes,
+                       rf_list) -> tuple:
+    """A streamed preencode, checked against the batch it is to solve and
+    with the real ``rf`` values stamped. The encode bakes in the broker set
+    and the rack map, so a preencode built against another cluster (reused
+    after a broker removal) raises instead of solving the wrong cluster."""
+    encs, currents, jhashes, p_reals = preencoded
+    if len(encs) != len(named_currents) or any(
+        e.topic != t for e, (t, _) in zip(encs, named_currents)
+    ):
+        raise ValueError(
+            "preencoded group does not match the topic batch "
+            f"({len(encs)} encodings for {len(named_currents)} topics)"
+        )
+    cluster = encode_cluster(rack_assignment, nodes)
+    if not (
+        np.array_equal(encs[0].broker_ids, cluster.broker_ids)
+        and np.array_equal(encs[0].rack_idx, cluster.rack_idx)
+    ):
+        raise ValueError(
+            "preencoded group was built against a different broker set or "
+            "rack assignment than this solve"
+        )
+    encs = [dataclasses.replace(e, rf=rf) for e, rf in zip(encs, rf_list)]
+    return encs, currents, jhashes, p_reals
 
 
 def _single(enc) -> tuple:

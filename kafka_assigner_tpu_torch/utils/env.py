@@ -14,8 +14,10 @@ its fan-out cap and the capacity default (``groups/``); ``KA_HOSTCODEC`` and
 (``native/``). The run report, the device profiler hook and the failure
 policy read the reference's ``KA_OBS_*``, ``KA_PROFILE``, ``KA_LOG``,
 ``KA_FAILURE_POLICY`` and ``KA_FAULTS_*`` knobs (``obs/``, ``faults/``,
-``utils/logging.py``). The port reads every knob per call, where the
-reference reads some at trace time.
+``utils/logging.py``). The six ``KA_ZK_*`` knobs pick the live-ZooKeeper
+client and tune its pipelined reads, its retries and mode 3's streamed
+ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The port reads
+every knob per call, where the reference reads some at trace time.
 """
 from __future__ import annotations
 
@@ -75,6 +77,17 @@ KNOBS = {
     "KA_FAULTS_SPEC": Knob(None),
     "KA_FAULTS_SEED": Knob(0),
     "KA_FAULTS_RATE": Knob(0.05, floor=0.0),
+    # Live ZooKeeper (io/zk.py, io/zkwire.py, generator.py): the client
+    # (kazoo when installed, else the in-tree wire client), the pipelined
+    # read window, connect passes over the endpoint list, in-session
+    # re-establishments, topics per streamed encode chunk, and the
+    # ingest/encode overlap's kill switch.
+    "KA_ZK_CLIENT": Knob("auto", choices=("auto", "kazoo", "wire")),
+    "KA_ZK_PIPELINE": Knob(32, floor=1),
+    "KA_ZK_CONNECT_RETRIES": Knob(3, floor=1),
+    "KA_ZK_SESSION_RETRIES": Knob(2, floor=0),
+    "KA_ZK_INGEST_CHUNK": Knob(64, floor=1),
+    "KA_ZK_OVERLAP": Knob(True),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

@@ -479,11 +479,11 @@ def test_missing_topic_under_strict_keeps_its_key_error(snapshot, tmp_path):
     it as the reference does: exit 3, stderr ``error: metadata ingest
     failed: ...`` equal to the reference's, the report's error an
     ``IngestError`` with the reference's message, nothing on stdout."""
-    from kafka_assigner_tpu_torch.generator import read_initial_assignment
+    from kafka_assigner_tpu_torch.generator import stream_initial_assignment
     from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
 
     with pytest.raises(KeyError, match="ghost"):
-        read_initial_assignment(SnapshotBackend(snapshot), ["events", "ghost"])
+        stream_initial_assignment(SnapshotBackend(snapshot), ["events", "ghost"])
     argv = ["--zk_string", snapshot, "--mode", "PRINT_REASSIGNMENT", "--topics", "events,ghost"]
     a, b = tmp_path / "ref.json", tmp_path / "port.json"
     ref = _run(jax_run, argv + ["--report-json", str(a)])
@@ -518,7 +518,7 @@ def test_missing_topic_in_other_modes_stays_untagged(snapshot, mode):
 def test_read_skips_a_missing_topic_as_the_reference_stream_does(snapshot):
     from kafka_assigner_tpu.generator import stream_initial_assignment
     from kafka_assigner_tpu.io.snapshot import SnapshotBackend as JaxSnapshot
-    from kafka_assigner_tpu_torch.generator import read_initial_assignment
+    from kafka_assigner_tpu_torch.generator import stream_initial_assignment as port_stream
     from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
 
     topics = ["events", "ghost", "logs", "ghost"]
@@ -528,8 +528,8 @@ def test_read_skips_a_missing_topic_as_the_reference_stream_does(snapshot):
                                            failure_policy="best-effort",
                                            skipped=ref_skipped)
     with contextlib.redirect_stderr(io.StringIO()) as got_err:
-        got = read_initial_assignment(SnapshotBackend(snapshot), topics,
-                                      "best-effort", got_skipped)
+        got, _ = port_stream(SnapshotBackend(snapshot), topics,
+                             failure_policy="best-effort", skipped=got_skipped)
     assert got == ref and got_skipped == ref_skipped == ["ghost", "ghost"]
     assert got_err.getvalue() == ref_err.getvalue()
 

@@ -55,7 +55,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "native.leadership", "solvers.greedy", "solvers.native", "obs",
                 "obs.trace", "obs.metrics", "obs.report", "obs.flight", "obs.names",
                 "obs.profile", "faults", "faults.inject", "utils.logging",
-                "utils.timers"):
+                "utils.timers", "io.zk", "io.zkwire", "io.kafka_admin",
+                "utils.backoff"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -155,6 +156,23 @@ assert report["status"] == "degraded" and report["metrics"]["counters"]["solve.f
 del os.environ["KA_FAULTS_SPEC"]
 assert capture_window(0.05, os.path.join(tmp, "trace")) and os.listdir(os.path.join(tmp, "trace"))
 os.unlink(snap.name)
+import importlib.util                                # live ZooKeeper, streamed
+spec = importlib.util.spec_from_file_location("jute_server", "tests/jute_server.py")
+jute = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(jute)
+from kafka_assigner_tpu_torch import generator
+server = jute.JuteZkServer(jute.cluster_tree())
+server.start()
+os.environ["KA_ZK_CLIENT"] = "wire"
+try:
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert cli.run(["--zk_string", f"127.0.0.1:{server.port}", "--mode",
+                        "PRINT_REASSIGNMENT", "--device", "cpu"], out=buf) == 0
+finally:
+    server.shutdown()
+assert "NEW ASSIGNMENT" in buf.getvalue()
+assert generator.last_ingest["solve_encode"] == "preencoded", generator.last_ingest
 print("paths ok")
 """
 
@@ -165,7 +183,8 @@ def test_new_paths_run_without_jax():
     # on the host leadership lane, through the C codec), run with jax and
     # the JAX package blocked; the native libraries loaded are the port's,
     # from build/. Then a best-effort run with a crash injected and its
-    # report, and a profiler window.
+    # report, a profiler window, and mode 3 over the jute server through
+    # the wire client, the solve taking the streamed preencode.
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     script = _BLOCKER.replace("for mod in sys.argv[1:]:", _PATHS + "\nfor mod in []:")
     proc = subprocess.run(

@@ -54,9 +54,6 @@ OBS_KNOBS = ("KA_OBS_ENABLE", "KA_OBS_REPORT", "KA_OBS_HIST_EDGES",
 #: ROADMAP queue-1 item that brings it. Measured milliseconds are compared
 #: by name only (their values are clocks).
 NOT_PORTED = {
-    # item 5: the streamed ingest overlapped with the host encode
-    "ingest/stream": "item 5", "ingest.encode_ms": "item 5",
-    "ingest.overlap_ms": "item 5",
     # item 6: warm start (the ingest-overlapped warm-up thread and the
     # persistent program store)
     "warmup": "item 6", "warmup.*": "item 6", "compile.store.*": "item 6",
@@ -259,6 +256,7 @@ def test_error_path_still_emits_report(snapshot, tmp_path, capsys):
     assert {s["path"]: s["status"] for s in report["spans"]} == {
         "mode/PRINT_REASSIGNMENT": "error",
         "mode/PRINT_REASSIGNMENT/metadata/assignment": "error",
+        "mode/PRINT_REASSIGNMENT/metadata/assignment/ingest/stream": "error",
     }
 
 
@@ -401,6 +399,36 @@ def test_report_matches_the_reference(cluster8, tmp_path, monkeypatch, name):
     assert got[1] == ref[1]
     assert _package("torch").report.validate_report(rb) == []
     assert _comparable(rb) == _comparable(ra)
+
+
+@pytest.mark.parametrize("solver", [["--solver", "device"], ["--solver", "greedy"]])
+def test_report_over_zookeeper_matches_the_reference(tmp_path, monkeypatch, solver):
+    """Mode 3 over the jute server (``tests/jute_server.py``) with the wire
+    client: the same span tree (``ingest/stream``, ``zk/brokers`` under the
+    mode) and the same ``zk.*``, ``zk.pipeline.*`` and ``ingest.*`` names
+    and counts as the reference's report, apart from :data:`NOT_PORTED`."""
+    from .jute_server import JuteZkServer, cluster_tree
+
+    monkeypatch.setenv("KA_ZK_CLIENT", "wire")
+    server = JuteZkServer(cluster_tree())
+    server.start()
+    try:
+        argv = ["--zk_string", f"127.0.0.1:{server.port}", "--mode",
+                "PRINT_REASSIGNMENT", "--broker_hosts_to_remove", "h4"]
+        jax_solver = ["--solver", "tpu"] if solver[1] == "device" else solver
+        ref, got, ra, rb = _both_reports(tmp_path, jax_run_tool, cli.run_tool, argv,
+                                         jax_solver, solver + ["--device", "cpu"])
+    finally:
+        server.shutdown()
+    assert ref[0] == got[0] == 0 and got[1] == ref[1]
+    assert _package("torch").report.validate_report(rb) == []
+    assert _comparable(rb) == _comparable(ra)
+    paths = {s["path"] for s in rb["spans"]}
+    assert "mode/PRINT_REASSIGNMENT/metadata/assignment/ingest/stream" in paths
+    counters, gauges = rb["metrics"]["counters"], rb["metrics"]["gauges"]
+    assert counters["zk.pipeline.batches"] >= 2 and counters["zk.wire_frames_in"] > 0
+    assert gauges["ingest.topics"] == 2
+    assert ("ingest.overlap_ms" in gauges) == (solver[1] == "device")
 
 
 def test_scenario_file_report_matches_the_reference(cluster8, tmp_path):
