@@ -143,8 +143,10 @@ Phases, each printing its own line; any failure exits non-zero:
     report (``groups.plans`` 1, ``groups.moves`` == the envelope's, the
     group-pack kernel launched once, stdout == phase 14's), then phase 16's
     synthetic sweep with the crash and best-effort: exit 6, ``"solver":
-    "greedy-fallback"``, the envelope == the ``--solver greedy`` run's but
-    that marker; (e) phase 11's 16 candidates with the report: the
+    "greedy-fallback"``, the group-pack kernel launched 0 times, the
+    envelope == the ``--solver greedy`` run's but that marker (the oracle
+    run on ``cpu`` in a worker, beside the later phases); (e) phase 11's
+    16 candidates with the report: the
     ``whatif/rank`` span, ``whatif.scenarios`` 16, ``whatif.fanout``,
     stdout == phase 11's. Phases 1-18 run strict and unprofiled: the smoke
     fails at start when ``KA_FAILURE_POLICY``, ``KA_FAULTS_SPEC``,
@@ -164,11 +166,32 @@ Phases, each printing its own line; any failure exits non-zero:
     under ``KA_ZK_INGEST_CHUNK=7``, the same bytes; (c) the 64-topic prefix
     over ZooKeeper on ``cuda`` and ``cpu``, byte-identical and equal to
     phase 5's; (d) with a 1 ms reply delay (``reply_delay_s=0.001``, as
-    ``scripts/bench_zk_ingest.py``), in turns: the overlap on, ``KA_ZK_
+    ``scripts/bench_zk_ingest.py``), one turn: the overlap on, ``KA_ZK_
     OVERLAP=0`` and serial reads (``KA_ZK_PIPELINE=1``), each with
     ``--report-json``: the CLI wall, ``zk/brokers``, ``metadata/assignment``,
     ``ingest.encode_ms`` and ``ingest.overlap_ms``, ``zk.pipeline.*`` and
-    ``plan/solve``, each line with the card's name and power limit.
+    ``plan/solve``, each line with the card's name and power limit;
+21. warm start in fresh processes (``utils/programstore.py``,
+    ``solvers/warmup.py``, ``ka-warm``), each child run through
+    ``scripts/torch_bench_warmstart.py``'s child mode, which counts the
+    leadership kernel's launches inside the child: (a) ``ka-warm`` on
+    phase 4's snapshot against an empty temporary store (exit 0,
+    ``warmed``, ``compile.store.misses`` and ``compiles_ms``, the warm-up's
+    steps), and beside it under ``KA_PROGRAM_STORE=0`` (exit 1, "NOTHING
+    persisted"); neither launches the kernel; (b)
+    ``scripts/torch_bench_warmstart.py`` on phase 4's snapshot, its JSON
+    line printed, each child's plan byte-identical to phase 4's; (c) phase
+    20(d)'s 1 ms server, every library loaded from (a)'s store
+    (``compile.store.hits`` and ``loads_ms``, no build), the warm-up on
+    against ``KA_WARMUP=0`` in two turns: the CLI wall, the ingest's and
+    the warm-up's windows in the child (did the warm-up end inside the
+    ingest?) and its steps, the ``warmup`` span beside
+    ``metadata/assignment``, ``plan/solve``, ``warmup.*`` and
+    ``compile.store.*``; stdout == phase 4's and the kernel launched once
+    in each run. Phase 21's launches run
+    in child processes and are not held against the plain version one by
+    one: each is held through its plan, byte-identical to phase 4's, whose
+    launch at the same shape the plain version checked.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -204,8 +227,9 @@ In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
-phase 17's CLI runs on each lane, phase 19's and phase 20's runs), and
-``launches_by_path`` gives each; the group-pack entry's counts are those of
+phase 17's CLI runs on each lane, phase 19's, 20's and 21's runs, the
+last counted inside each child process), and ``launches_by_path`` gives
+each; the group-pack entry's counts are those of
 phases 14-16.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
@@ -1515,14 +1539,14 @@ def trace_window(path):
     return (hi - lo) / 1e3, busy_us([(a, b) for _, a, b in dev], lo, hi) / 1e3, inside
 
 
-def obs_phases(work, argv4, text4, moved4, config4, k1_ms, warm_med, prefix, prefix_text,
-               greedy_prefix, group_runs, steady_snap, rank_text):
+def obs_phases(work, checks, argv4, text4, moved4, config4, k1_ms, warm_med, prefix,
+               prefix_text, greedy_prefix, group_runs, steady_snap, rank_text):
     """Phase 19: the run report, the device trace and the failure policy on
     cuda. (a) config 4 through the CLI with ``--report-json``; (b) one warm
     config-4 solve traced under ``KA_OBS_PROFILE_DIR``; (c) the failure
     policy on the 64-topic prefix with ``KA_FAULTS_SPEC=solve:0=crash``;
-    (d) ``ka-groups`` with the report, and the synthetic sweep's best-effort
-    fallback; (e) RANK_DECOMMISSION of the 16 candidates with the report.
+    (d) ``ka-groups`` with the report, and the synthetic sweep's
+    best-effort fallback; (e) RANK_DECOMMISSION of the 16 candidates with the report.
     Returns the leadership kernel's launches per run."""
     from kafka_assigner_tpu_torch import cli
     from kafka_assigner_tpu_torch.assigner import TopicAssigner
@@ -1660,24 +1684,37 @@ def obs_phases(work, argv4, text4, moved4, config4, k1_ms, warm_med, prefix, pre
             or counters.get("groups.moves") != moves:
         fail(f"19d plan: exit {rc}, stdout == phase 14's {out == text}, KG1 launches "
              f"{kg1}, counters {counters}")
-    argv, _ = group_runs["group_synthetic"]
-    rc_g, out_g, _, secs_g = cli_run(cli.run_groups, argv + ["--solver", "greedy",
-                                                            "--device", "cuda"])
-    gp.launches["group_pack"] = 0
-    with knobs(KA_FAULTS_SPEC="solve:0=crash"):
-        rc_f, out_f, err_f, secs_f = cli_run(
-            cli.run_groups, argv + ["--failure-policy", "best-effort", "--device", "cuda"])
-    body, oracle = json.loads(out_f or "{}"), json.loads(out_g or "{}")
-    if rc_g != 0 or rc_f != cli.EXIT_DEGRADED or body.get("solver") != "greedy-fallback" \
-            or dict(body, solver="greedy") != oracle or gp.launches["group_pack"]:
-        fail(f"19d synthetic fallback: exits {rc_g}/{rc_f}, solver {body.get('solver')}, "
-             f"envelopes equal but the marker {dict(body, solver='greedy') == oracle}")
     phase("obs", f"(d) ka-groups plan with --report-json on cuda ({secs:.2f} s): stdout "
           f"byte-identical to phase 14's, groups.plans 1, groups.moves {moves} == the "
-          f"envelope's, group-pack kernel launches 1; the synthetic sweep with "
-          f"solve:0=crash --failure-policy best-effort: exit 6 ({secs_f:.2f} s), solver "
-          f"greedy-fallback, the envelope == --solver greedy's ({secs_g:.2f} s) but the "
-          "marker")
+          f"envelope's, group-pack kernel launches 1")
+    # The oracle (--solver greedy: the host sweep, no device) runs on cpu in
+    # a worker beside the later phases; the fallback runs here on cuda.
+    argv, _ = group_runs["group_synthetic"]
+    fallback = {}
+
+    def oracle_done(result):
+        rc_g, out_g, secs_g = result
+        body = json.loads(fallback["out"] or "{}")
+        if rc_g != 0 or dict(body, solver="greedy") != json.loads(out_g or "{}"):
+            fail(f"19d synthetic fallback: the --solver greedy run exited {rc_g}; "
+                 f"envelopes equal but the marker {dict(body, solver='greedy')}")
+        phase("obs", f"(d) the synthetic sweep's greedy-fallback envelope == --solver "
+              f"greedy's but the marker (the oracle on cpu {secs_g:.1f} s in a worker)")
+        return 0
+
+    checks.job("group_pack", oracle_done, groups_cpu_run, argv + ["--solver", "greedy"])
+    gp.launches["group_pack"] = 0
+    with knobs(KA_FAULTS_SPEC="solve:0=crash"):
+        rc_f, fallback["out"], _, secs_f = cli_run(
+            cli.run_groups, argv + ["--failure-policy", "best-effort", "--device", "cuda"])
+    body = json.loads(fallback["out"] or "{}")
+    if rc_f != cli.EXIT_DEGRADED or body.get("solver") != "greedy-fallback" \
+            or gp.launches["group_pack"]:
+        fail(f"19d synthetic fallback: exit {rc_f}, solver {body.get('solver')}, "
+             f"group-pack kernel launches {gp.launches['group_pack']}")
+    phase("obs", f"(d) the synthetic sweep with solve:0=crash --failure-policy "
+          f"best-effort on cuda: exit 6 ({secs_f:.2f} s), solver greedy-fallback, "
+          f"{len(body.get('candidates', []))} candidates, group-pack kernel launches 0")
 
     # (e) RANK_DECOMMISSION of the 16 candidates with the report.
     path = os.path.join(rdir, "rank.json")
@@ -1702,9 +1739,10 @@ def obs_phases(work, argv4, text4, moved4, config4, k1_ms, warm_med, prefix, pre
 
 
 #: Phase 20: the reply delay of the timed runs (1 ms, as
-#: scripts/bench_zk_ingest.py:82 models a round trip) and their turns.
+#: scripts/bench_zk_ingest.py:82 models a round trip) and their turns (one:
+#: a second turn took 29 s that phase 21's fresh processes need).
 ZK_REPLY_DELAY_S = 0.001
-ZK_TIMING_TURNS = 2
+ZK_TIMING_TURNS = 1
 
 
 def zk_tree(n_brokers, n_topics, p_per_topic, rf, n_racks, replaced):
@@ -1900,6 +1938,156 @@ def zk_phases(work, checks, argv4, text4, prefix, prefix_text, topic_map, live,
     return launches
 
 
+#: Phase 21: fresh processes through the warm-start bench's child mode
+#: (scripts/torch_bench_warmstart.py), which runs the CLI or ka-warm in the
+#: child and reports the leadership kernel's launches from inside it.
+WARMSTART = os.path.join(ROOT, "scripts", "torch_bench_warmstart.py")
+WARM_TURNS = 2
+
+
+def warm_child(kind, argv, env=None):
+    """One fresh process of the port's CLI (``kind`` ``cli``) or ``ka-warm``
+    (``warm``): the bench's ``run_child`` result."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_bench_warmstart", WARMSTART)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench.run_child(kind, argv, env)
+
+
+def warm_steps(r):
+    """The warm-up's steps and the kernel fingerprint in one child, as
+    ``name ms`` (each window's length, summed over its calls)."""
+    out = []
+    for name, wins in sorted(r["windows"].items()):
+        if name.startswith(("warmup:", "fingerprint:cuda")):
+            out.append(f"{name.split(':', 1)[1] if name.startswith('warmup:') else name} "
+                       f"{sum(b - a for a, b in wins):.1f}")
+    return ", ".join(out) or "none"
+
+
+def warm_phases(work, snap, text4):
+    """Phase 21: warm start in fresh processes, on cuda. (a) ``ka-warm`` on
+    phase 4's snapshot against an empty store, and beside it with the store
+    off; (b) ``scripts/torch_bench_warmstart.py``; (c) config 4 over
+    ZooKeeper at a 1 ms reply delay, loading every library from (a)'s
+    store, the warm-up on against ``KA_WARMUP=0`` in turns. Returns the
+    leadership kernel's launches per child run, as each child counted
+    them."""
+    import hashlib
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    launches = {}
+    store = tempfile.mkdtemp(prefix="store21-", dir=work)
+    warm_argv = ["--zk_string", f"file://{snap}"]
+    ms = lambda r, k: r["hist_sums"].get(k, {}).get("sum")  # noqa: E731
+
+    # (a) ka-warm seeds an empty store; beside it, ka-warm with the store
+    # off refuses to call its run seeded. (c)'s runs load from this store.
+    seeded = "ka-warm: solve_batched: warmed"
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        off = pool.submit(warm_child, "warm", warm_argv,
+                          {"KA_PROGRAM_STORE_DIR": store, "KA_PROGRAM_STORE": "0"})
+        r = warm_child("warm", warm_argv, {"KA_PROGRAM_STORE_DIR": store})
+        r_off = off.result()
+    launches["warm_seed"] = r["launches"]
+    c = r["counters"]
+    if r["exit"] != 0 or seeded not in r["stderr_tail"] or not c.get("compile.store.misses"):
+        fail(f"21 (a) ka-warm seed: exit {r['exit']}, counters {c}; "
+             f"{r['stderr_tail'][-800:]}")
+    if r["launches"] or r_off["launches"]:
+        fail(f"21 (a) ka-warm launched the leadership kernel {r['launches']}; "
+             f"{r_off['launches']} times")
+    wins = r["windows"].get("warmup", [[0, 0]])
+    phase("warm", f"(a) ka-warm on phase 4's snapshot, an empty store: exit 0, "
+          f"{seeded!r}; {c}; compiles_ms {ms(r, 'compile.store.compiles_ms')}; process "
+          f"wall {r['wall_ms']:.1f} ms (torch import {r['torch_import_ms']:.1f}, "
+          f"host-library prebuild {r['prebuild_ms']:.1f}, warm-up "
+          f"{wins[0][1] - wins[0][0]:.1f} ms: {warm_steps(r)}); leadership launches 0; "
+          f"beside the store-off run below | {smi}")
+    if r_off["exit"] != 1 or "NOTHING persisted" not in r_off["stderr_tail"]:
+        fail(f"21 (a) ka-warm with the store off: exit {r_off['exit']}; "
+             f"{r_off['stderr_tail'][-800:]}")
+    phase("warm", f"(a) ka-warm under KA_PROGRAM_STORE=0: exit 1, 'NOTHING persisted' "
+          f"({r_off['wall_ms']:.1f} ms, beside the seeding run); leadership launches 0")
+
+    # (b) the bench: cold, warm, warm + overlap, off; each plan == phase 4's.
+    proc = subprocess.run([sys.executable, WARMSTART, "--snapshot", snap], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"21 (b) torch_bench_warmstart.py exited {proc.returncode}: "
+             f"{proc.stderr[-1500:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    want = hashlib.sha256(text4.encode()).hexdigest()
+    for name, child in bench["children"].items():
+        if child["plan_sha256"] != want:
+            fail(f"21 (b) the bench's {name} plan differs from phase 4's")
+        launches[f"warmstart_{name}"] = child["launches"]
+    print(line)
+    phase("warm", f"(b) torch_bench_warmstart.py: each of {sorted(bench['children'])} "
+          f"byte-identical to phase 4's plan, one leadership launch each | {smi}")
+
+    # (c) over ZooKeeper at a 1 ms reply delay, fresh processes in turns.
+    removed = ",".join(f"b{b}" for b in range(REPLACED))
+    mode = "mode/PRINT_REASSIGNMENT"
+    rdir = os.path.join(work, "reports21")
+    os.makedirs(rdir, exist_ok=True)
+    variants = (("warm-up on", {}), ("KA_WARMUP=0", {"KA_WARMUP": "0"}))
+    seeded_env = {"KA_PROGRAM_STORE_DIR": store}
+    with knobs(KA_ZK_CLIENT="wire"), zk_quorum(ZK_REPLY_DELAY_S) as (port, _, _):
+        for turn in range(WARM_TURNS):
+            for name, env in variants:
+                key = f"zk_{'on' if env == {} else 'off'}_{turn}"
+                path = os.path.join(rdir, f"{key}.json")
+                r = warm_child("cli", ["--zk_string", f"127.0.0.1:{port}", "--mode",
+                                       "PRINT_REASSIGNMENT", "--broker_hosts_to_remove",
+                                       removed, "--device", "cuda", "--report-json", path],
+                               {**seeded_env, **env})
+                launches[f"warm_{key}"] = r["launches"]
+                if r["exit"] != 0 or r["stdout"] != text4 or r["launches"] != 1:
+                    fail(f"21 (c) {name}: exit {r['exit']}, stdout equal to phase 4's "
+                         f"{r['stdout'] == text4}, launches {r['launches']}; "
+                         f"{r['stderr_tail'][-800:]}")
+                report = read_report(path, "ok")
+                spans = {sp["path"]: sp["ms"] for sp in report["spans"]}
+                counters = report["metrics"]["counters"]
+                warm = {k: v for k, v in counters.items() if k.startswith("warmup.")}
+                store_c = {k: v for k, v in counters.items()
+                           if k.startswith("compile.store.")}
+                if (warm == {}) != bool(env):
+                    fail(f"21 (c) {name}: warmup counters {warm}")
+                # Every library from the store ka-warm seeded in (a): the
+                # host libraries at startup, the kernel's in the report.
+                loads = report["metrics"]["histograms"].get(
+                    "compile.store.loads_ms", {}).get("sum")
+                if not store_c.get("compile.store.hits") or loads is None \
+                        or "compile.store.misses" in store_c \
+                        or "compile.store.misses" in r["counters"]:
+                    fail(f"21 (c) {name}: not loaded from ka-warm's store: {store_c}, "
+                         f"startup {r['counters']}")
+                ingest = r["windows"]["ingest"][0]
+                wwin = r["windows"].get("warmup", [None])[0]
+                inside = (f"{wwin[0]:.1f}-{wwin[1]:.1f} ms, ended "
+                          f"{'inside' if wwin[1] <= ingest[1] else 'after'} the ingest"
+                          if wwin else "none")
+                phase("warm", f"(c) 1 ms reply delay, {name}, turn {turn + 1}: CLI wall "
+                      f"{r['wall_ms']:.1f} ms (torch import {r['torch_import_ms']:.1f}, "
+                      f"prebuild {r['prebuild_ms']:.1f}); ingest {ingest[0]:.1f}-"
+                      f"{ingest[1]:.1f} ms; warm-up {inside} ({warm_steps(r)}); "
+                      f"warmup span "
+                      f"{spans.get('warmup')} ms beside metadata/assignment "
+                      f"{spans.get(f'{mode}/metadata/assignment')} ms; plan/solve "
+                      f"{spans.get(f'{mode}/plan/solve')} ms; {warm}; {store_c}, "
+                      f"loads_ms {loads:.1f} from ka-warm's store; "
+                      f"leadership launches 1; stdout == phase 4's | {smi}")
+    phase("timing", f"phase 21 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2091,12 +2279,15 @@ def smoke(checks) -> int:
 
     # --- 19: the run report, the device trace and the failure policy --------
     obs_launches = obs_phases(
-        work, argv, text, moved, (topics, live, rack_map), ms, ab["c"], prefix, a,
-        greedy_prefix, group_runs, steady_snap, rank_rec["candidates_text"])
+        work, checks, argv, text, moved, (topics, live, rack_map), ms, ab["c"], prefix,
+        a, greedy_prefix, group_runs, steady_snap, rank_rec["candidates_text"])
 
     # --- 20: live ZooKeeper and the streamed ingest --------------------------
     zk_launches = zk_phases(work, checks, argv, text, prefix, a, topic_map, live,
                             rack_map, cap, on_removed)
+
+    # --- 21: warm start in fresh processes -----------------------------------
+    warm_launches = warm_phases(work, snap, text)
     late = checks.collect()
 
     max_err = max(max_err, worst.get("leadership", 0), late.get("leadership", 0))
@@ -2107,7 +2298,7 @@ def smoke(checks) -> int:
                **reduced,
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
                   for k, v in lanes.items() for lane in ("native", "device")},
-               **obs_launches, **zk_launches}
+               **obs_launches, **zk_launches, **warm_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

@@ -55,6 +55,20 @@ missing under ``strict`` in mode 3), 4 solve (a device crash under
 ``strict``), 5 validation (RF bounds, unknown hosts or scenario entries,
 infeasible plan), 6 degraded success.
 
+Warm start, ``ka-warm`` (:func:`run_warm`, ``python -m
+kafka_assigner_tpu_torch.warm``)::
+
+    python -m kafka_assigner_tpu_torch.warm (--zk_string file://cluster.json
+        [--topics a,b] [--desired_replication_factor N] |
+        --buckets TOPICS,PARTITIONS,RF,BROKERS[,RACKS]) [--device {cuda,cpu}]
+
+seeds the library store (``utils/programstore.py``, ``KA_PROGRAM_STORE*``)
+for a cluster's signature or a synthetic one, with the reference's flags,
+stderr lines and exit codes (0 seeded; 1 usage, incomplete, or nothing
+persisted under ``KA_PROGRAM_STORE=0``; 3 ingest; 5 validation). Mode 3's
+device lane also warms by itself: its streamed ingest starts a warm-up
+thread after the first encoded chunk (``KA_WARMUP``).
+
 The consumer-group tool ``ka-groups`` (:func:`run_groups`,
 ``python -m kafka_assigner_tpu_torch.groups``)::
 
@@ -168,13 +182,18 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
     message when one escaped). A report that cannot be built or written is
     reported on stderr and never masks the run's own outcome. Without
     collection the dispatch runs with the obs no-ops: byte-identical output,
-    no files."""
+    no files. Either way the run's warm-up thread is joined before it
+    returns."""
     from . import obs
+    from .generator import join_warmup_threads
     from .utils.env import env_bool, env_str
 
     report_path = report_json or env_str("KA_OBS_REPORT")
     if report_path is None and not env_bool("KA_OBS_ENABLE"):
-        return dispatch()
+        try:
+            return dispatch()
+        finally:
+            join_warmup_threads()  # a warm-up never outlives its run
     with obs.run_capture() as run:
         status, error, rc = "error", None, EXIT_USAGE
         try:
@@ -198,6 +217,9 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
             raise
         finally:
             try:
+                # The warm-up thread records its span and counters from the
+                # background: drain it so the report carries its outcome.
+                join_warmup_threads()
                 report = obs.build_report(
                     run, status=status, mode=mode,
                     argv=list(argv) if argv is not None else sys.argv[1:],
@@ -400,6 +422,136 @@ def run(argv: Optional[List[str]] = None, out=None) -> int:
 
 def main() -> None:
     sys.exit(run())
+
+
+def build_warm_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ka-warm-torch",
+        description="Seed the port's library store (utils/programstore.py) "
+        "so later processes start load-bound instead of build-bound: make "
+        "the batched solve resident for a cluster snapshot's exact "
+        "signature, or for an explicit synthetic bucket set.",
+    )
+    p.add_argument("--zk_string", default=None,
+                   help="cluster to warm for: ZK quorum host:port pairs, "
+                        "kafka://host:port or a file://cluster.json snapshot "
+                        "(the store is seeded for this cluster's exact "
+                        "signature)")
+    p.add_argument("--topics", default=None,
+                   help="comma-separated topic subset (default: all topics)")
+    p.add_argument("--desired_replication_factor", type=int, default=-1,
+                   help="RF override, like the generator flag; default "
+                        "infers from the current assignment")
+    p.add_argument("--buckets", default=None,
+                   metavar="TOPICS,PARTITIONS,RF,BROKERS[,RACKS]",
+                   help="warm a synthetic bucket set instead of a cluster, "
+                        "e.g. 2048,128,3,5120,8; no metadata backend needed")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the device solver runs (default: cuda)")
+    return p
+
+
+def run_warm(argv: Optional[List[str]] = None) -> int:
+    """``ka-warm``: build or load the libraries of the batched solve for a
+    cluster (or an explicit bucket set) and make it resident once, so the
+    next process finds the store seeded (the reference's
+    ``kafka_assigner_tpu/cli.py:run_warm``). Exit 0 on success, 1 on a
+    usage error or when nothing persisted; :func:`warm_main` maps ingest
+    and validation errors."""
+    from .models.problem import _pad8, encode_cluster, group_pads
+    from .obs.trace import span
+    from .solvers.warmup import warm_solver_programs
+
+    parser = build_warm_parser()
+    args = parser.parse_args(argv)
+    _prebuild_native()
+
+    if (args.buckets is None) == (args.zk_string is None):
+        print("error: pass exactly one of --zk_string or --buckets",
+              file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+
+    if args.buckets is not None:
+        try:
+            parts = [int(tok) for tok in args.buckets.split(",")]
+            if len(parts) == 4:
+                parts.append(8)
+            n_topics, partitions, rf, brokers, racks = parts
+            if min(n_topics, partitions, rf, brokers, racks) < 1:
+                raise ValueError("all bucket fields must be positive")
+        except ValueError as e:
+            print(f"error: bad --buckets value {args.buckets!r}: {e}",
+                  file=sys.stderr)
+            return EXIT_USAGE
+        rack_assignment = {i: f"r{i % racks}" for i in range(brokers)}
+        cluster = encode_cluster(rack_assignment, set(range(brokers)))
+        p_pad, width = _pad8(partitions), max(rf, 2)
+    else:
+        from .assigner import infer_topic_rf
+        from .io.base import open_backend
+
+        backend = open_backend(args.zk_string)
+        try:
+            live = backend.brokers()
+            topic_list = (
+                args.topics.split(",") if args.topics is not None
+                else backend.all_topics()
+            )
+            initial = backend.partition_assignment(topic_list)
+        finally:
+            backend.close()
+        rack_assignment = {b.id: b.rack for b in live if b.rack is not None}
+        rfs = [
+            infer_topic_rf(t, initial[t], args.desired_replication_factor)
+            for t in topic_list
+        ]
+        rf = max((r for r in rfs if r > 0), default=2)
+        n_topics = len(topic_list)
+        cluster = encode_cluster(rack_assignment, {b.id for b in live})
+        p_pad, width = group_pads([initial[t] for t in topic_list])
+
+    with span("warmup"):
+        outcomes = warm_solver_programs(
+            cluster, n_topics, p_pad, width, rf, device=args.device
+        )
+    for name, outcome in sorted(outcomes.items()):
+        print(f"ka-warm: {name}: {outcome}", file=sys.stderr)
+    if not outcomes or "error" in outcomes.values():
+        print("ka-warm: warm-up incomplete (see warnings above)",
+              file=sys.stderr)
+        return EXIT_USAGE
+    if all(o == "jit" for o in outcomes.values()):
+        # Built in this process only (the store is off): the next process
+        # would still start cold, which defeats this tool.
+        print(
+            "ka-warm: programs compiled but NOTHING persisted — the store "
+            "is disabled (KA_PROGRAM_STORE=0?) or the signature was "
+            "rejected; the next process will still pay the cold compile",
+            file=sys.stderr,
+        )
+        return EXIT_USAGE
+    print(
+        f"ka-warm: store seeded for {n_topics} topic(s), "
+        f"p_pad={p_pad}, width={width}, rf={rf}, "
+        f"n={cluster.n}", file=sys.stderr,
+    )
+    return EXIT_OK
+
+
+def warm_main() -> None:
+    """:func:`run_warm` with the documented exit codes
+    (``python -m kafka_assigner_tpu_torch.warm``)."""
+    from .io.zkwire import ZkWireError
+
+    try:
+        sys.exit(run_warm())
+    except (ZkWireError, OSError) as e:
+        print(f"error: metadata ingest failed: {e}", file=sys.stderr)
+        sys.exit(EXIT_INGEST)
+    except (ValueError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_VALIDATION)
 
 
 def build_groups_parser() -> argparse.ArgumentParser:

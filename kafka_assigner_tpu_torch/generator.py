@@ -19,7 +19,10 @@ Each entry records the reference's spans (``metadata/assignment``,
 its metadata through :func:`stream_initial_assignment`, the reference's
 streamed ingest (:446-629): pipelined reads on a live backend, and on the
 device lane the group encode built while the replies arrive, handed to the
-solve as its ``preencoded`` group. Mode 3 takes the reference's failure
+solve as its ``preencoded`` group; the first encoded chunk also starts the
+warm-up thread (:func:`_start_warmup_thread`, ``solvers/warmup.py``), which
+makes the predicted solve resident on the device while the rest of the
+metadata arrives. Mode 3 takes the reference's failure
 policy (:684-790): under ``best-effort`` a topic that vanished mid-scan is
 skipped and a crashed solve falls back to the greedy lane; what the run
 survived lands in a :class:`Degradation`. Under ``strict`` a failed metadata
@@ -308,6 +311,104 @@ def _is_ingest_failure(e: BaseException) -> bool:
     return any(c.__name__ == "KazooException" for c in type(e).__mro__)
 
 
+#: Warm-up threads still running (a thread that outlives its run would
+#: write metrics into the next run's capture; :func:`join_warmup_threads`
+#: drains them).
+_LIVE_WARMUPS: List[threading.Thread] = []
+_WARMUP_LOCK = threading.Lock()
+
+
+def join_warmup_threads(timeout: float = 60.0) -> None:
+    """Wait for any still-running warm-up threads (a no-op in the common
+    case: a rightly predicted warm-up ends before its own solve does). The
+    CLI calls it at the end of every run, before the report is built. A
+    thread still running after ``timeout`` stays listed for the next join,
+    with a stderr warning that its metrics may land in a later capture."""
+    with _WARMUP_LOCK:
+        threads, _LIVE_WARMUPS[:] = list(_LIVE_WARMUPS), []
+    for t in threads:
+        t.join(timeout)
+    alive = [t for t in threads if t.is_alive()]
+    if alive:
+        with _WARMUP_LOCK:
+            _LIVE_WARMUPS[:0] = alive
+        print(
+            f"kafka-assigner: {len(alive)} warm-up thread(s) still running after "
+            f"{timeout:g} s; their metrics may land in a later run's report",
+            file=sys.stderr,
+        )
+
+
+def _start_warmup_thread(acc, n_topics: int, desired_rf: int, device):
+    """Start the ingest-overlapped warm-up (the reference's
+    ``generator.py:542-600``) once the first encoded chunk reveals the
+    partition and width buckets: a daemon thread makes the predicted solve
+    resident on ``device`` while the rest of the metadata is in flight.
+
+    A crash of any kind (the injected ``warmup:i=crash`` included, consumed
+    here on the orchestration thread so a process's fault indexes stay
+    coherent) degrades to the cold path with a stderr warning and a
+    ``warmup.failures`` count, never to a failed solve. Returns the thread,
+    or None when the warm-up is off (``KA_WARMUP=0``), no ``device`` was
+    named, nothing was encoded yet, or the injected crash fired."""
+    import time
+
+    from .obs.metrics import counter_add
+    from .obs.trace import record_span
+    from .utils.env import env_bool
+
+    if device is None or not env_bool("KA_WARMUP"):
+        return None
+    shape = acc.peek_shape()
+    if shape is None:
+        return None
+    p_pad, width = shape
+    rf = desired_rf if desired_rf > 0 else width
+
+    try:
+        from .faults.inject import fault_point
+
+        fault_point("warmup")
+    except BaseException as e:
+        counter_add("warmup.failures")
+        print(
+            f"kafka-assigner: warm-up failed ({type(e).__name__}: {e}); "
+            "continuing on the cold compile path",
+            file=sys.stderr,
+        )
+        return None
+
+    def _warm() -> None:
+        t0 = time.perf_counter()
+        ok = True
+        try:
+            from .solvers.warmup import warm_solver_programs
+
+            outcomes = warm_solver_programs(
+                acc.cluster, n_topics, p_pad, width, rf, device=device
+            )
+            for outcome in outcomes.values():
+                counter_add(f"warmup.{outcome}")
+                if outcome == "error":
+                    ok = False
+        except BaseException as e:
+            ok = False
+            counter_add("warmup.failures")
+            print(
+                f"kafka-assigner: warm-up failed ({type(e).__name__}: {e}); "
+                "continuing on the cold compile path",
+                file=sys.stderr,
+            )
+        finally:
+            record_span("warmup", (time.perf_counter() - t0) * 1000.0, ok)
+
+    t = threading.Thread(target=_warm, name="ka-warmup", daemon=True)
+    with _WARMUP_LOCK:
+        _LIVE_WARMUPS.append(t)
+    t.start()
+    return t
+
+
 #: Sentinel closing the ingest stream (the producer finished cleanly).
 _INGEST_DONE = object()
 
@@ -328,6 +429,8 @@ def stream_initial_assignment(
     want_encode: bool = False,
     failure_policy: str = "strict",
     skipped: Optional[List[str]] = None,
+    desired_rf: int = -1,
+    device: Optional[str] = None,
 ) -> Tuple[Dict[str, Dict[int, List[int]]], Optional[tuple]]:
     """Metadata ingest overlapped with the host encode, as the reference's
     (``kafka_assigner_tpu/generator.py:446-629``).
@@ -342,9 +445,14 @@ def stream_initial_assignment(
     ``preencoded`` the ``encode_topic_group`` result for the same topic
     order, or None when no encode was asked for (``want_encode`` with
     ``brokers``), the backend has no ``fetch_topics``, or ``KA_ZK_OVERLAP=0``
-    (the solver then encodes; the output is the same either way). The
-    reference's ingest-overlapped warm-up thread is not started here
-    (ROADMAP queue 1, item 6).
+    (the solver then encodes; the output is the same either way).
+
+    The first encoded chunk (or the tail chunk, when the run fit in one)
+    starts the warm-up thread on ``device``, the solve's device (mode 3
+    passes it; without one no warm-up starts), at most once per run;
+    ``desired_rf`` (the CLI's ``--desired_replication_factor``, -1 to
+    infer) is only its hint for the replica width and never changes the
+    returned data.
 
     ``failure_policy="best-effort"``: a topic that vanished mid-scan is
     appended to ``skipped`` (warned per occurrence on stderr), left out of
@@ -440,6 +548,9 @@ def stream_initial_assignment(
     chunk: List[tuple] = []
     streamed = 0
     overlap_ms = 0.0
+    # At most one start attempt per run: a crashed attempt (the injected
+    # warmup:i=crash) stays cold, and the tail site does not retry it.
+    warmup_attempted = False
     with span("ingest/stream"):
         t.start()
         while True:
@@ -463,9 +574,19 @@ def stream_initial_assignment(
                 if overlapping:
                     overlap_ms += acc.encode_ms - before
                 chunk = []
+                if not warmup_attempted:
+                    # The first chunk is encoded: the signature is
+                    # predictable now.
+                    warmup_attempted = True
+                    _start_warmup_thread(acc, len(topic_list), desired_rf, device)
         t.join()
         if chunk:
             acc.add(chunk)
+        if not warmup_attempted:
+            # The whole run fit in the tail chunk: still warm, beside the
+            # feasibility pass and the rollback emission.
+            warmup_attempted = True
+            _start_warmup_thread(acc, len(topic_list), desired_rf, device)
     chunks = len(acc.codecs)
     preencoded = acc.finish()
     last_ingest.update(
@@ -527,6 +648,7 @@ def print_least_disruptive_reassignment(
                 backend, topic_list, brokers, rack_assignment,
                 want_encode=(solver == "device"),
                 failure_policy=failure_policy, skipped=skipped,
+                desired_rf=desired_replication_factor, device=device,
             )
         except Exception as e:
             if not _is_ingest_failure(e):

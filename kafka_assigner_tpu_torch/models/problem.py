@@ -70,6 +70,17 @@ def _pad8(n: int, floor: int = 8) -> int:
     return max(floor, (n + 7) // 8 * 8)
 
 
+def group_pads(currents: Sequence[Mapping[int, Sequence[int]]]) -> tuple:
+    """``(p_pad, width)`` bucket covering a whole topic group, by the
+    group encode's rules (the reference's ``group_pads``)."""
+    p_pad = max((_pad8(len(cur)) for cur in currents), default=8)
+    width = max(
+        (max((len(r) for r in cur.values()), default=1) for cur in currents),
+        default=2,
+    )
+    return p_pad, max(width, 2)
+
+
 def batch_bucket(b: int) -> int:
     """Power-of-two bucket for the batch (topic-count) axis; padding topics
     are inert (p_real == 0)."""
@@ -398,6 +409,18 @@ class GroupEncodeAccumulator:
         self._total += len(named_currents)
         self.codecs.append(last_codec["encode"])
         self.encode_ms += (time.perf_counter() - t0) * 1000.0
+
+    def peek_shape(self) -> tuple | None:
+        """``(p_pad, width)`` bucket maxima over the chunks encoded so far,
+        or None before any chunk arrived: the partial-metadata signal the
+        ingest warm-up predicts the solve's signature from
+        (``solvers/warmup.py``). Later chunks can only grow these maxima."""
+        if not self._chunks:
+            return None
+        return (
+            max(c[1].shape[1] for c in self._chunks),
+            max(c[1].shape[2] for c in self._chunks),
+        )
 
     def finish(self) -> tuple:
         """Merge the chunk slabs into group-wide buckets: the same ``(encs,

@@ -6,8 +6,9 @@ Every metric and span name the package writes with a literal first
 argument is declared here, in the change that adds the write
 (``tests/test_torch_obs.py`` sweeps the package's sources and fails on an
 undeclared literal). Dynamic names compose on declared bases: the CLI's
-``mode/<MODE>`` span and the per-kind fault counters
-``faults.injected.<kind>``.
+``mode/<MODE>`` span, the per-kind fault counters
+``faults.injected.<kind>`` and the warm-up's per-outcome counters
+``warmup.<outcome>``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,16 @@ METRIC_NAMES: frozenset = frozenset({
     "greedy.assigns", "greedy.partitions",
     "native.assigns", "native.partitions",
     "solver.assign_calls", "solver.fresh_calls", "solve.fallbacks",
+    # compile.store.* — the library store (utils/programstore.py): a library
+    # loaded from the store or built now, the wall of each, and a stored
+    # library that failed to load; unbucketed never counts (no entry is
+    # per shape)
+    "compile.store.hits", "compile.store.misses",
+    "compile.store.exec_fallbacks", "compile.store.unbucketed",
+    "compile.store.loads_ms", "compile.store.compiles_ms",
+    # warmup.* — the ingest-overlapped warm-up ("warmup.<outcome>" composes
+    # on this base)
+    "warmup.failures",
     # faults.* — injection accounting ("faults.injected.<kind>" composes)
     "faults.injected",
     # groups.* — consumer-group plans, sweeps, dispatches, fallbacks and
@@ -57,6 +68,7 @@ SPAN_NAMES: frozenset = frozenset({
     "whatif/rank", "whatif/incremental", "whatif/dispatch",
     "whatif/rescue",
     "native/assign_many",
+    "warmup",
     "groups/plan", "groups/sweep", "groups/dispatch",
 })
 

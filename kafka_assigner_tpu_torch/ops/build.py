@@ -1,34 +1,51 @@
-"""Build the hand-written CUDA kernels of ``csrc/`` at first use and load them
-with ``ctypes``.
+"""Build the hand-written CUDA kernels of ``csrc/`` and load them with
+``ctypes``, through the port's library store (``utils/programstore.py``).
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it in seconds into ``build/torch_kernels/lib<name>-<hash>.so``
-at the repository root (``build/`` is git-ignored). The file name carries a
-hash of the source and flags, so an edited source rebuilds and a stale
-library is never loaded. ``build_all`` starts one ``nvcc`` per source, all
-at once, and reports each kernel's registers and shared memory from
-``-Xptxas -v``.
+``nvcc`` builds it in seconds into the store, one entry per (source, flags)
+under a directory fingerprinted by the ``nvcc`` release and the device
+(``build/torch-<fingerprint>/<name>-<hash>.so`` at the repository root by
+default; ``build/`` is git-ignored): an edited source rebuilds and a stale
+library is never loaded. Each library's C signatures are declared here,
+once per load, and a library that lacks one is dropped and rebuilt.
+``build_all`` starts one ``nvcc`` per source, all at once, and reports each
+kernel's registers and shared memory from ``-Xptxas -v``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
+import functools
 import re
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Dict
 
+from ..utils import programstore
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_INT, _PTR, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+
+#: The C functions each kernel library exports: ``(name, restype,
+#: argtypes)``.
+SIGNATURES = {
+    "leadership": (
+        ("ka_smem_optin_limit", _INT, []),
+        ("ka_leadership_tile_rows", _INT, [_INT]),
+        ("ka_leadership_record_words", _INT, [_INT]),
+        ("ka_leadership_smem_bytes", _LL, [_INT] * 3),
+        ("ka_leadership_order", _INT, [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2),
+        ("ka_leadership_chain_probe", _INT, [_INT, _PTR, _PTR, _LL, _PTR]),
+    ),
+    "group_pack": (
+        ("ka_group_pack_smem_limit", _INT, []),
+        ("ka_group_pack_scan", _INT, [_PTR] * 9 + [_INT] * 4 + [_PTR]),
+        ("ka_group_pack_step_probe", _INT, [_PTR, _PTR, _LL, _INT, _PTR]),
+    ),
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -36,60 +53,37 @@ class KernelBuildError(RuntimeError):
 
 
 def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    found = programstore.compiler_path("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def spec(name: str) -> programstore.LibrarySpec:
+    """The store's description of ``csrc/<name>.cu``'s library."""
+    return programstore.LibrarySpec(
+        name=name, kind="cuda", source=CSRC / f"{name}.cu", compiler="nvcc",
+        flags=NVCC_FLAGS, symbols=SIGNATURES.get(name, ()), error=KernelBuildError,
+    )
 
 
 def lib_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, named by a hash of source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _start(name: str):
-    """Start one nvcc for ``csrc/<name>.cu``; None when already built."""
-    out = lib_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-    return proc, tmp, out
-
-
-def _finish(name: str, started) -> str:
-    if started is None:
-        return ""
-    proc, tmp, out = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed for {name}.cu:\n{log}")
-    os.replace(tmp, out)  # atomic: a reader never sees a partial library
-    return log
+    """Where ``csrc/<name>.cu`` is built: its store entry."""
+    return programstore.entry_path(spec(name))
 
 
 def build_all() -> Dict[str, object]:
-    """Build every ``csrc/*.cu`` in parallel. Returns ``{"seconds": float,
-    "ptxas": {name: nvcc -Xptxas -v output}}`` (empty output for a source
-    already built)."""
+    """Build every ``csrc/*.cu`` not yet in the store, in parallel, and load
+    each. Returns ``{"seconds": float, "ptxas": {name: nvcc -Xptxas -v
+    output}}`` (empty output for a library the store already held)."""
+    import time
+
     t0 = time.perf_counter()
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    started = {name: _start(name) for name in names}
-    logs = {name: _finish(name, started[name]) for name in names}
-    return {"seconds": time.perf_counter() - t0, "ptxas": logs}
+    logs = programstore.build_many([spec(name) for name in names])
+    return {"seconds": time.perf_counter() - t0,
+            "ptxas": {name: log or "" for name, log in logs.items()}}
 
 
 def _short_name(mangled: str) -> str:
@@ -130,10 +124,7 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    """The library built from ``csrc/<name>.cu``, its C signatures
+    declared: from memory, else the store, else built now (a solve that
+    reaches a library another thread is building waits for that build)."""
+    return programstore.library(spec(name))

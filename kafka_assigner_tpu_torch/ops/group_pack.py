@@ -49,25 +49,11 @@ SMEM_BYTES_PER_CONSUMER = 9
 #: The variant of the last launch; None before the first.
 last_variant: Optional[str] = None
 
-_lib: Optional[ctypes.CDLL] = None
 _smem_limit: Dict[int, int] = {}
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load("group_pack")
-        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-        for name, res, args in (
-            ("ka_group_pack_smem_limit", c_int, []),
-            ("ka_group_pack_scan", c_int, [c_ptr] * 9 + [c_int] * 4 + [c_ptr]),
-            ("ka_group_pack_step_probe", c_int,
-             [c_ptr, c_ptr, ctypes.c_longlong, c_int, c_ptr]),
-        ):
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = res, args
-        _lib = lib
-    return _lib
+    return build.load("group_pack")
 
 
 def _optin_limit(lib: ctypes.CDLL, dev: torch.device) -> int:

@@ -34,29 +34,13 @@ I32 = torch.int32
 #: Kernel launches per kernel name; reset by whoever reads it.
 launches: Dict[str, int] = {"leadership": 0}
 
-_lib: Optional[ctypes.CDLL] = None
 _smem_limit: Dict[int, int] = {}
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    """The built kernel library, its C signatures declared once per process."""
-    global _lib
-    if _lib is None:
-        lib = build.load("leadership")
-        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-        for name, res, args in (
-            ("ka_smem_optin_limit", c_int, []),
-            ("ka_leadership_tile_rows", c_int, [c_int]),
-            ("ka_leadership_record_words", c_int, [c_int]),
-            ("ka_leadership_smem_bytes", ctypes.c_longlong, [c_int] * 3),
-            ("ka_leadership_order", c_int, [c_ptr] * 6 + [c_int] * 5 + [c_ptr] * 2),
-            ("ka_leadership_chain_probe", c_int,
-             [c_int, c_ptr, c_ptr, ctypes.c_longlong, c_ptr]),
-        ):
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = res, args
-        _lib = lib
-    return _lib
+    """The built kernel library (``ops/build.py`` declares its C
+    signatures)."""
+    return build.load("leadership")
 
 
 def _optin_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
@@ -69,6 +53,13 @@ def _optin_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
             raise RuntimeError("could not read the device's shared-memory limit")
         _smem_limit[idx] = limit
     return _smem_limit[idx]
+
+
+def prepare(dev: torch.device) -> int:
+    """Load the kernel's library and read the device's shared-memory opt-in
+    limit, without a launch (the warm-up's share of a first solve). Returns
+    the limit."""
+    return _optin_limit(_kernel_lib(), torch.device(dev))
 
 
 def _check(acc_nodes, acc_count, counters, jhashes) -> None:

@@ -16,8 +16,11 @@ policy read the reference's ``KA_OBS_*``, ``KA_PROFILE``, ``KA_LOG``,
 ``KA_FAILURE_POLICY`` and ``KA_FAULTS_*`` knobs (``obs/``, ``faults/``,
 ``utils/logging.py``). The six ``KA_ZK_*`` knobs pick the live-ZooKeeper
 client and tune its pipelined reads, its retries and mode 3's streamed
-ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The port reads
-every knob per call, where the reference reads some at trace time.
+ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The three
+``KA_PROGRAM_STORE*`` knobs and ``KA_WARMUP`` steer warm start: the library
+store (``utils/programstore.py``) and mode 3's ingest-overlapped warm-up
+(``solvers/warmup.py``). The port reads every knob per call, where the
+reference reads some at trace time.
 """
 from __future__ import annotations
 
@@ -88,6 +91,15 @@ KNOBS = {
     "KA_ZK_SESSION_RETRIES": Knob(2, floor=0),
     "KA_ZK_INGEST_CHUNK": Knob(64, floor=1),
     "KA_ZK_OVERLAP": Knob(True),
+    # Warm start: the persistent library store (utils/programstore.py; 0
+    # builds into a per-process temporary directory), its root (default:
+    # build/ at the repository root) and its size cap in MB, and mode 3's
+    # ingest-overlapped warm-up (solvers/warmup.py). Plans are the same
+    # bytes with any of them off.
+    "KA_PROGRAM_STORE": Knob(True),
+    "KA_PROGRAM_STORE_DIR": Knob(None),
+    "KA_PROGRAM_STORE_MAX_MB": Knob(512, floor=1),
+    "KA_WARMUP": Knob(True),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

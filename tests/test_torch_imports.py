@@ -1,5 +1,5 @@
 """The port stands alone: every module of ``kafka_assigner_tpu_torch``,
-``chip_smoke.py`` and ``scripts/torch_bench.py`` imports with ``jax`` and
+``chip_smoke.py`` and the port's bench scripts import with ``jax`` and
 ``kafka_assigner_tpu`` blocked (checked in a fresh subprocess, since this
 test process has both loaded), the native libraries it loads are its own
 builds under ``build/``, and the entry points default to ``cuda``."""
@@ -56,7 +56,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "obs.trace", "obs.metrics", "obs.report", "obs.flight", "obs.names",
                 "obs.profile", "faults", "faults.inject", "utils.logging",
                 "utils.timers", "io.zk", "io.zkwire", "io.kafka_admin",
-                "utils.backoff"):
+                "utils.backoff", "utils.programstore", "solvers.warmup", "warm",
+                "warm.__main__"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -69,6 +70,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
 
 _PATHS = r"""
 import os
+from pathlib import Path
 from kafka_assigner_tpu_torch.assigner import TopicAssigner
 from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
 from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
@@ -129,7 +131,7 @@ assert plans["native"] == plans["greedy"] and "NEW ASSIGNMENT" in plans["device"
 assert get_solver("native").name == "native"
 from kafka_assigner_tpu_torch.models import problem
 assert problem.last_codec == {"encode": "c", "decode": "c"}, problem.last_codec
-build_dir = os.path.join(os.getcwd(), "build", "torch_native") + os.sep
+build_dir = os.path.join(os.getcwd(), "build", "torch-")
 libs = [build.load_native_library()._name, build.load_hostcodec().__file__]
 assert all(p.startswith(build_dir) for p in libs), libs
 with open("/proc/self/maps") as f:
@@ -173,6 +175,23 @@ finally:
     server.shutdown()
 assert "NEW ASSIGNMENT" in buf.getvalue()
 assert generator.last_ingest["solve_encode"] == "preencoded", generator.last_ingest
+from kafka_assigner_tpu_torch.utils import programstore  # warm start: ka-warm
+os.environ["KA_PROGRAM_STORE_DIR"] = tempfile.mkdtemp()  # on an empty store
+os.environ["KA_LEADERSHIP"] = "device"
+snap = tempfile.NamedTemporaryFile("w", suffix=".json", delete=False)
+json.dump({"brokers": [{"id": b, "host": f"h{b}", "port": 1, "rack": f"r{b % 3}"}
+                       for b in range(9)],
+           "topics": {"t": {str(p): [p % 9, (p + 1) % 9] for p in range(12)}}}, snap)
+snap.close()
+for argv in (["--zk_string", snap.name], ["--buckets", "4,16,2,9,3"]):
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.run_warm(argv + ["--device", "cpu"]) == 0, err.getvalue()
+    assert "ka-warm: solve_batched: warmed" in err.getvalue(), err.getvalue()
+    programstore.clear_memory()
+os.unlink(snap.name)
+assert sorted(p.name.split("-")[0] for p in Path(os.environ["KA_PROGRAM_STORE_DIR"])
+              .rglob("*.so")) == ["greedy", "hostcodec"]
 print("paths ok")
 """
 
@@ -198,10 +217,18 @@ def test_new_paths_run_without_jax():
 def test_torch_bench_imports_without_jax():
     # The script's module body imports with jax and the JAX package blocked
     # (its main needs a card).
+    _script_imports_without_jax("torch_bench")
+
+
+def test_warmstart_bench_imports_without_jax():
+    _script_imports_without_jax("torch_bench_warmstart")
+
+
+def _script_imports_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     loader = (
         "import importlib.util as u\n"
-        "spec = u.spec_from_file_location('torch_bench', 'scripts/torch_bench.py')\n"
+        f"spec = u.spec_from_file_location('{script}', 'scripts/{script}.py')\n"
         "spec.loader.exec_module(u.module_from_spec(spec))\n"
     )
     script = _BLOCKER.replace("for mod in sys.argv[1:]:", loader + "for mod in []:")
@@ -214,7 +241,8 @@ def test_torch_bench_imports_without_jax():
 
 def test_port_sources_never_name_the_jax_package():
     paths = list((ROOT / "kafka_assigner_tpu_torch").rglob("*.py"))
-    for path in paths + [ROOT / "scripts" / "torch_bench.py", ROOT / "chip_smoke.py"]:
+    for path in paths + [ROOT / "scripts" / "torch_bench.py",
+                         ROOT / "scripts" / "torch_bench_warmstart.py", ROOT / "chip_smoke.py"]:
         for line in path.read_text(encoding="utf-8").splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):

@@ -15,8 +15,9 @@ against the JAX package's and against its own twins, exactly:
   probe.
 
 Integers everywhere: the tolerance is exact equality. The port's libraries
-are built into ``build/torch_native/`` by a fixture (a test is a startup
-site, as the CLI is); the JAX package's by the root conftest.
+are built into the library store (``build/torch-<fingerprint>/``) by a
+fixture (a test is a startup site, as the CLI is); the JAX package's by the
+root conftest.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from kafka_assigner_tpu_torch.ops.leadership_cases import stress_cases
 from kafka_assigner_tpu_torch.solvers import base as sbase
 from kafka_assigner_tpu_torch.solvers import torch_solver as ts
 from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
+from kafka_assigner_tpu_torch.utils import programstore
 
 from .test_hostcodec import _random_group
 from .test_leadership_backends import _random_batch
@@ -266,15 +268,21 @@ def test_codec_bad_replica_entry_raises_and_keeps_the_list(bad, exc):
     assert cur[0] is replicas and replicas == [1, bad]
 
 
-def test_codec_off_and_unbuilt_take_numpy(monkeypatch):
+def test_codec_off_and_unbuilt_take_numpy(monkeypatch, tmp_path):
     monkeypatch.setenv("KA_HOSTCODEC", "0")
     assert problem._hostcodec() is None
     monkeypatch.delenv("KA_HOSTCODEC")
-    monkeypatch.setattr(nbuild, "codec_lib_path", lambda: Path("/nonexistent/codec.so"))
-    monkeypatch.setattr(nbuild, "_codec_cached", None)
-    assert problem._hostcodec() is None
-    problem.encode_topic_group([("t", {0: [1, 2]})], {}, {1, 2}, 2)
-    assert problem.last_codec["encode"] == "numpy"
+    # An empty store and nothing loaded in this process: the codec is not
+    # built, and the load-only path never compiles it.
+    monkeypatch.setenv("KA_PROGRAM_STORE_DIR", str(tmp_path / "empty"))
+    programstore.clear_memory()
+    try:
+        assert problem._hostcodec() is None
+        assert not nbuild.codec_lib_path().exists()
+        problem.encode_topic_group([("t", {0: [1, 2]})], {}, {1, 2}, 2)
+        assert problem.last_codec["encode"] == "numpy"
+    finally:
+        programstore.clear_memory()
 
 
 def test_prebuild_warns_once_when_the_codec_cannot_build(monkeypatch, tmp_path):
@@ -282,7 +290,7 @@ def test_prebuild_warns_once_when_the_codec_cannot_build(monkeypatch, tmp_path):
     bad = tmp_path / "hostcodec.c"
     bad.write_text("#error no codec here\n")
     monkeypatch.setattr(nbuild, "CODEC_SRC", bad)
-    monkeypatch.setattr(nbuild, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setenv("KA_PROGRAM_STORE_DIR", str(tmp_path / "out"))
     err = io.StringIO()
     assert nbuild.prebuild_native_libraries(err=err) is False
     assert err.getvalue().count("hostcodec unavailable") == 1
@@ -291,10 +299,74 @@ def test_prebuild_warns_once_when_the_codec_cannot_build(monkeypatch, tmp_path):
     assert nbuild.prebuild_native_libraries(err=err) is False  # no build tried
 
 
+def _snapshot_json(tmp_path) -> str:
+    import json
+
+    cluster = {
+        "brokers": [{"id": 10 + i, "host": f"h{i}", "port": 9092, "rack": f"r{i % 3}"}
+                    for i in range(6)],
+        "topics": {f"t{t}": {str(p): [10 + (p + t + r) % 6 for r in range(3)]
+                             for p in range(5)} for t in range(4)},
+    }
+    path = tmp_path / "cluster.json"
+    path.write_text(json.dumps(cluster))
+    return f"file://{path}"
+
+
+@pytest.mark.parametrize("store", ["on", "off"])
+def test_a_codec_that_builds_but_does_not_import_leaves_numpy(monkeypatch, tmp_path,
+                                                             capsys, store):
+    # The codec compiles, but the file is no extension module: every entry
+    # point warns and runs on the numpy codec, byte-identically.
+    from kafka_assigner_tpu_torch import cli
+
+    zk = _snapshot_json(tmp_path)
+    argv = ["--zk_string", zk, "--mode", "PRINT_REASSIGNMENT", "--device", "cpu"]
+    monkeypatch.setenv("KA_HOSTCODEC", "0")
+    want = io.StringIO()
+    assert cli.run(argv, out=want) == 0
+    monkeypatch.delenv("KA_HOSTCODEC")
+    monkeypatch.setenv("KA_PROGRAM_STORE", "1" if store == "on" else "0")
+    bad = tmp_path / "hostcodec.c"
+    bad.write_text("int ka_not_a_module(void) { return 0; }\n")
+    monkeypatch.setattr(nbuild, "CODEC_SRC", bad)
+    capsys.readouterr()
+    try:
+        err = io.StringIO()
+        assert nbuild.prebuild_native_libraries(err=err) is False
+        assert "hostcodec unavailable" in err.getvalue()
+        assert "unusable" in err.getvalue()
+        assert not nbuild.codec_lib_path().exists()  # the broken file went
+        with pytest.raises(nbuild.NativeBuildError, match="unusable"):
+            nbuild.load_hostcodec()
+        assert problem._hostcodec() is None
+        got = io.StringIO()
+        assert cli.run(argv, out=got) == 0
+        assert got.getvalue() == want.getvalue()
+        assert problem.last_codec["encode"] == "numpy"
+        assert "using the numpy boundary codec" in capsys.readouterr().err
+    finally:
+        programstore.clear_memory()
+
+
+def test_a_greedy_library_without_its_symbols_fails_only_where_asked(monkeypatch,
+                                                                    tmp_path):
+    bad = tmp_path / "greedy.cpp"
+    bad.write_text('extern "C" int ka_solve_topic() { return 0; }\n')
+    monkeypatch.setattr(nbuild, "GREEDY_SRC", bad)
+    try:
+        nbuild.prebuild_native_libraries(err=io.StringIO())  # does not raise
+        assert not nbuild.greedy_lib_path().exists()
+        with pytest.raises(nbuild.NativeBuildError, match="unusable"):
+            nbuild.load_native_library()
+    finally:
+        programstore.clear_memory()
+
+
 def test_library_names_carry_a_content_hash(monkeypatch, tmp_path):
     # An edited source gets a new name: a stale library is never loaded.
     first = nbuild.greedy_lib_path()
-    assert first.parent == nbuild.BUILD_DIR and first.exists()
+    assert first.parent == Path(programstore.get_store()._dir("host")) and first.exists()
     src = tmp_path / "greedy.cpp"
     src.write_bytes(nbuild.GREEDY_SRC.read_bytes() + b"\n// edited\n")
     monkeypatch.setattr(nbuild, "GREEDY_SRC", src)
@@ -303,10 +375,9 @@ def test_library_names_carry_a_content_hash(monkeypatch, tmp_path):
 
 
 _RACE = r"""
-import sys
-from pathlib import Path
+import os, sys
+os.environ["KA_PROGRAM_STORE_DIR"] = sys.argv[1]
 from kafka_assigner_tpu_torch.native import build
-build.BUILD_DIR = Path(sys.argv[1])
 build.build_native_library()
 build.build_hostcodec()
 assert build.load_native_library() is not None
@@ -328,7 +399,11 @@ def test_concurrent_builds_never_load_a_partial_library(tmp_path):
     outs = [p.communicate(timeout=300)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
     assert all("built" in o for o in outs)
-    assert sorted(f.suffix for f in tmp_path.iterdir()) == [".so", ".so"]
+    tools = tmp_path / programstore.TOOLS_DIR
+    (fp_dir,) = (p for p in tmp_path.iterdir() if p != tools)
+    assert sorted(f.suffix for f in fp_dir.iterdir()) == [".json", ".so", ".so"]
+    # The compilers' version lines, kept by the same racing writers.
+    assert sorted(f.name.split("-")[0] for f in tools.iterdir()) == ["g++", "gcc"]
 
 
 # --- the host leadership pass ------------------------------------------------
@@ -455,10 +530,11 @@ def test_native_lane_fresh_and_single_topic_match_jax(monkeypatch):
     assert one == JaxAssigner("tpu").generate_assignment("one", cur, live, racks)
 
 
-def test_native_lane_without_its_library_raises_and_never_orders(monkeypatch):
+def test_native_lane_without_its_library_raises_and_never_orders(monkeypatch, tmp_path):
     monkeypatch.setenv("KA_LEADERSHIP", "native")
-    monkeypatch.setattr(nbuild, "greedy_lib_path", lambda: Path("/nonexistent/greedy.so"))
-    monkeypatch.setattr(nbuild, "_cached", None)
+    # An empty store and nothing loaded in this process.
+    monkeypatch.setenv("KA_PROGRAM_STORE_DIR", str(tmp_path / "empty"))
+    programstore.clear_memory()
     calls = []
     monkeypatch.setattr(ts, "leadership_order", lambda *a, **k: calls.append(a))
     monkeypatch.setattr(ts, "place_batched", lambda *a, **k: calls.append(a))
