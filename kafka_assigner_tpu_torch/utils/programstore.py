@@ -126,7 +126,14 @@ class LibrarySpec:
 
     @functools.cached_property
     def key(self) -> str:
-        digest = hashlib.sha256(Path(self.source).read_bytes()).hexdigest()
+        """The library's identity; raises ``error`` when the source cannot
+        be read (an installation that did not ship it), so callers see
+        the same failure as a build that cannot run."""
+        try:
+            source = Path(self.source).read_bytes()
+        except OSError as e:
+            raise self.error(f"cannot read the {self.name} source: {e}") from e
+        digest = hashlib.sha256(source).hexdigest()
         return "|".join((self.name, digest, self.compiler, " ".join(self.flags),
                          self.salt))
 

@@ -374,6 +374,74 @@ def test_library_names_carry_a_content_hash(monkeypatch, tmp_path):
     assert nbuild.greedy_lib_path().stem.startswith("greedy-")
 
 
+def test_every_library_source_ships_as_package_data():
+    # An installed port builds its libraries from the sources the wheel
+    # carries: each LibrarySpec's source must match a package-data glob of
+    # its own package (pyproject.toml; no wheel is built here).
+    import fnmatch
+    import tomllib
+
+    from kafka_assigner_tpu_torch.ops import build as obuild
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    specs = [obuild.spec(n) for n in obuild.SIGNATURES]
+    specs += [nbuild.greedy_spec(), nbuild.codec_spec()]
+    assert {s.source.name for s in specs} == {
+        "leadership.cu", "group_pack.cu", "greedy.cpp", "hostcodec.c"}
+    for s in specs:
+        rel = Path(s.source).resolve().relative_to(ROOT)
+        assert (ROOT / rel).exists(), rel
+        shipped = [
+            pkg for pkg, globs in data.items()
+            if rel.parts[:len(pkg.split("."))] == tuple(pkg.split("."))
+            and any(fnmatch.fnmatch(Path(*rel.parts[len(pkg.split(".")):]).as_posix(), g)
+                    for g in globs)
+        ]
+        assert shipped, f"{rel} matches no package-data glob"
+
+
+def test_missing_native_sources_warn_and_leave_the_other_modes(monkeypatch, tmp_path,
+                                                              capsys):
+    # A port installed without its native sources: the codec warns the
+    # reference's line and falls back to numpy, PRINT_CURRENT_BROKERS and
+    # mode 3 on the device solver exit 0, and only --solver native fails.
+    from kafka_assigner_tpu_torch import cli
+
+    zk = _snapshot_json(tmp_path)
+    mode3 = ["--zk_string", zk, "--mode", "PRINT_REASSIGNMENT", "--device", "cpu"]
+    monkeypatch.setenv("KA_HOSTCODEC", "0")
+    want = io.StringIO()
+    assert cli.run(mode3, out=want) == 0
+    monkeypatch.delenv("KA_HOSTCODEC")
+    monkeypatch.setenv("KA_PROGRAM_STORE_DIR", str(tmp_path / "store"))
+    monkeypatch.setattr(nbuild, "GREEDY_SRC", tmp_path / "gone" / "greedy.cpp")
+    monkeypatch.setattr(nbuild, "CODEC_SRC", tmp_path / "gone" / "hostcodec.c")
+    programstore.clear_memory()
+    capsys.readouterr()
+    try:
+        err = io.StringIO()
+        assert nbuild.prebuild_native_libraries(err=err) is False
+        assert err.getvalue().startswith("kafka-assigner: hostcodec unavailable (cannot "
+                                         "read the hostcodec source: ")
+        assert err.getvalue().endswith("; using the numpy boundary codec\n")
+        with pytest.raises(nbuild.NativeBuildError, match="cannot read the greedy source"):
+            nbuild.load_native_library()
+        brokers = io.StringIO()
+        assert cli.run(["--zk_string", zk, "--mode", "PRINT_CURRENT_BROKERS"],
+                       out=brokers) == 0
+        assert brokers.getvalue().count("\n") >= 1
+        got = io.StringIO()
+        assert cli.run(mode3 + ["--solver", "device"], out=got) == 0
+        assert got.getvalue() == want.getvalue()
+        assert problem.last_codec["encode"] == "numpy"
+        assert "using the numpy boundary codec" in capsys.readouterr().err
+        with pytest.raises(NotImplementedError, match="cannot read the greedy source"):
+            cli.run(mode3 + ["--solver", "native"], out=io.StringIO())
+    finally:
+        programstore.clear_memory()
+
+
 _RACE = r"""
 import os, sys
 os.environ["KA_PROGRAM_STORE_DIR"] = sys.argv[1]
