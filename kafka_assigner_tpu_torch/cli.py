@@ -84,6 +84,24 @@ crashed device solve re-runs on the host packing oracle (the same plan,
 marked ``"solver": "greedy-fallback"``) and the run exits 6. Exit codes: 1
 usage (and the refusal of a backend without groups), 3 ingest, 4 solve, 5
 validation, 6 degraded success.
+
+Plan execution, ``ka-execute`` (:func:`execute`, ``python -m
+kafka_assigner_tpu_torch.exec``)::
+
+    python -m kafka_assigner_tpu_torch.exec --zk_string file://cluster.json \
+        --plan PLAN [--journal PATH] [--resume] [--rollback]
+        [--wave-size N] [--throttle S] [--failure-policy {strict,best-effort}]
+        [--report-json PATH]
+
+drives a saved mode-3 stdout (its NEW ASSIGNMENT, or with ``--rollback``
+its CURRENT ASSIGNMENT) or a bare plan to convergence in throttled,
+journaled waves and verifies the cluster against it byte for byte
+(``exec/engine.py``), with the reference's flags, stderr lines, journal
+and exit codes (``kafka_assigner_tpu/cli.py:901-1116``): 0 verified, 1
+usage, 3 ingest, 5 validation (a read-only backend, a plan the cluster
+does not match, a journal of another plan or cluster), 6 moves skipped
+under ``best-effort``, 7 verify mismatch, 8 halted mid-plan (resume with
+``--resume``). It does no device work and takes no ``--device``.
 """
 from __future__ import annotations
 
@@ -99,6 +117,8 @@ EXIT_INGEST = 3
 EXIT_SOLVE = 4
 EXIT_VALIDATION = 5
 EXIT_DEGRADED = 6
+EXIT_VERIFY = 7     # ka-execute: the cluster after the moves differs from the plan
+EXIT_EXECUTE = 8    # ka-execute: halted mid-plan, resumable with --resume
 
 #: The reference CLI's modes (``kafka_assigner_tpu/cli.py:67-73``).
 MODES = (
@@ -173,7 +193,8 @@ def _add_report_flag(p: argparse.ArgumentParser) -> None:
                         "stderr (default: the KA_OBS_REPORT knob)")
 
 
-def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
+def _captured(mode: str, report_json: Optional[str], argv, dispatch,
+              warmup: bool = True) -> int:
     """Run ``dispatch()`` (returning an exit code) under an obs capture when
     a report is asked for (``--report-json``, ``KA_OBS_REPORT``) or
     ``KA_OBS_ENABLE=1``, inside a ``mode/<mode>`` span, and emit the report
@@ -183,10 +204,16 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
     reported on stderr and never masks the run's own outcome. Without
     collection the dispatch runs with the obs no-ops: byte-identical output,
     no files. Either way the run's warm-up thread is joined before it
-    returns."""
+    returns; ``warmup=False`` (``ka-execute``, which starts none) skips the
+    join and so never imports the solver's modules."""
     from . import obs
-    from .generator import join_warmup_threads
     from .utils.env import env_bool, env_str
+
+    if warmup:
+        from .generator import join_warmup_threads
+    else:
+        def join_warmup_threads() -> None:
+            return None
 
     report_path = report_json or env_str("KA_OBS_REPORT")
     if report_path is None and not env_bool("KA_OBS_ENABLE"):
@@ -730,6 +757,187 @@ def groups_main() -> None:
     except (ValueError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         sys.exit(EXIT_VALIDATION)
+
+
+def build_execute_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ka-execute",
+        description="Execute an emitted reassignment plan against the "
+        "cluster: throttled waves, ISR-convergence polling between waves, "
+        "a crash-safe journal (resume with --resume after a kill), and a "
+        "byte-identical verify-after-move pass (exec/engine.py).",
+    )
+    p.add_argument("--zk_string", default=None,
+                   help="cluster to execute against: ZK quorum host:port "
+                        "pairs, or a file://cluster.json snapshot (hermetic "
+                        "simulated-convergence mode)")
+    p.add_argument("--plan", default=None, metavar="PATH",
+                   help="plan JSON to execute — the NEW ASSIGNMENT payload "
+                        "(a saved mode-3 stdout is accepted; the rollback "
+                        "snapshot section is ignored)")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="crash-safe journal path (default: the "
+                        "KA_EXEC_JOURNAL knob, else <plan>.journal)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run from its journal's "
+                        "last committed wave (refused when the journal "
+                        "belongs to a different plan)")
+    p.add_argument("--rollback", action="store_true",
+                   help="execute the plan file's saved CURRENT ASSIGNMENT "
+                        "snapshot instead of the NEW ASSIGNMENT payload — "
+                        "drives the cluster BACK to its pre-reassignment "
+                        "state through the same wave engine (throttled, "
+                        "journaled at <plan>.rollback.journal by default, "
+                        "verified after the moves)")
+    p.add_argument("--wave-size", dest="wave_size", type=int, default=None,
+                   help="partition moves per wave (default: the "
+                        "KA_EXEC_WAVE_SIZE knob)")
+    p.add_argument("--throttle", type=float, default=None,
+                   help="seconds to pause between converged waves "
+                        "(default: the KA_EXEC_THROTTLE knob)")
+    p.add_argument("--failure-policy", dest="failure_policy", default=None,
+                   choices=("strict", "best-effort"),
+                   help="strict (default): halt resumably on the first "
+                        "wave that fails to converge (exit 8). "
+                        "best-effort: record unconverged moves as skipped "
+                        "and keep going — the run exits with the "
+                        "degraded-success code and the skips are listed in "
+                        "the run report's plan section")
+    p.add_argument("--report-json", dest="report_json", default=None,
+                   metavar="PATH",
+                   help="emit the schema-versioned run report (exec span "
+                        "family, exec.* counters, wave-latency histogram) "
+                        "to PATH")
+    return p
+
+
+def run_execute(argv: Optional[List[str]] = None) -> int:
+    """``ka-execute``: drive a plan to convergence. Raises the typed errors;
+    :func:`execute` maps them to exit codes. Returns 0, 6 (moves skipped
+    under best-effort) or 7 (the cluster after the moves differs from the
+    plan). The report's mode is ``EXECUTE_REASSIGNMENT`` or
+    ``ROLLBACK_REASSIGNMENT``."""
+    parser = build_execute_parser()
+    args = parser.parse_args(argv)
+    if args.zk_string is None or args.plan is None:
+        print("error: --zk_string and --plan are required", file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+    mode = (
+        "ROLLBACK_REASSIGNMENT" if args.rollback else "EXECUTE_REASSIGNMENT"
+    )
+    return _captured(mode, args.report_json, argv,
+                     lambda: _dispatch_execute(args), warmup=False)
+
+
+def _dispatch_execute(args) -> int:
+    """Plan load, backend open, the engine's run, the exit code."""
+    from .exec.engine import PlanExecutor, load_plan_file
+    from .io.base import open_backend
+    from .utils.env import env_choice, env_str
+
+    plan, topic_order = load_plan_file(
+        args.plan, section="current" if args.rollback else "new"
+    )
+    # A rollback is another plan (other canonical bytes, another journal
+    # identity): every default journal source, the plan-derived path and
+    # the KA_EXEC_JOURNAL knob, gets a rollback name, so a forward run's
+    # journal is never refused or overwritten. Only --journal is taken as
+    # given.
+    if args.journal:
+        journal_path = args.journal
+    else:
+        env_journal = env_str("KA_EXEC_JOURNAL")
+        if env_journal:
+            journal_path = env_journal + (
+                ".rollback" if args.rollback else ""
+            )
+        else:
+            journal_path = args.plan + (
+                ".rollback.journal" if args.rollback else ".journal"
+            )
+    policy = args.failure_policy or env_choice("KA_FAILURE_POLICY")
+    backend = open_backend(args.zk_string)
+    try:
+        executor = PlanExecutor(
+            backend, plan, topic_order, journal_path,
+            failure_policy=policy, resume=args.resume,
+            wave_size=args.wave_size, throttle=args.throttle,
+            # The journal's identity is (cluster, plan sha): the same plan
+            # bytes on another cluster never cross-resume.
+            cluster=args.zk_string,
+        )
+        outcome = executor.execute()
+    finally:
+        backend.close()
+    n_moves = outcome.moves_submitted
+    print(
+        f"ka-execute: {outcome.waves_run}/{outcome.waves_total} wave(s) "
+        f"run ({n_moves} move(s) submitted, {outcome.noops} already in "
+        f"place{', resumed' if outcome.resumed else ''})",
+        file=sys.stderr,
+    )
+    if outcome.mismatches:
+        for m in outcome.mismatches[:10]:
+            print(
+                f"ka-execute: VERIFY MISMATCH [{m['kind']}] "
+                f"{m['topic']!r}/{m['partition']}: expected "
+                f"{m['expected']}, observed {m['observed']}",
+                file=sys.stderr,
+            )
+        extra = len(outcome.mismatches) - 10
+        if extra > 0:
+            print(f"ka-execute: ... and {extra} more mismatch(es)",
+                  file=sys.stderr)
+        print(
+            f"ka-execute: verify-after-move FAILED "
+            f"({len(outcome.mismatches)} mismatch(es)); exiting "
+            f"{EXIT_VERIFY}",
+            file=sys.stderr,
+        )
+        return EXIT_VERIFY
+    if outcome.skipped:
+        print(
+            f"ka-execute: degraded success: {len(set(outcome.skipped))} "
+            f"move(s) skipped under best-effort; exiting {EXIT_DEGRADED}",
+            file=sys.stderr,
+        )
+        return EXIT_DEGRADED
+    print("ka-execute: verify-after-move OK: cluster state is "
+          "byte-identical to the plan", file=sys.stderr)
+    return EXIT_OK
+
+
+def execute(argv: Optional[List[str]] = None) -> int:
+    """:func:`run_execute` with the exit-code mapping. Anything else,
+    the injected wave-boundary kill included, propagates with its
+    traceback."""
+    from .errors import ExecuteError, IngestError
+    from .io.zkwire import ZkWireError
+
+    try:
+        return run_execute(argv)
+    except ExecuteError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_EXECUTE
+    except IngestError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_INGEST
+    except BrokenPipeError:
+        raise
+    except (ZkWireError, OSError) as e:
+        print(f"error: metadata ingest failed: {e}", file=sys.stderr)
+        return EXIT_INGEST
+    except (ValueError, KeyError) as e:
+        # JournalError (a corrupt or mismatched journal) and plan-file
+        # validation failures among them.
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_VALIDATION
+
+
+def execute_main() -> None:
+    """``python -m kafka_assigner_tpu_torch.exec``: :func:`execute`."""
+    sys.exit(execute())
 
 
 if __name__ == "__main__":

@@ -10,10 +10,12 @@ backend from the reference's single ``--zk_string`` flag:
 - anything else: a live ZooKeeper quorum (``io/zk.py``), the reference
   tool's only mode (``KafkaAssignmentGenerator.java:273-276``).
 
-The execution surface (``supports_execution``, ``apply_assignment``,
-``read_assignment_state``) and the watch surface (``supports_watches``)
-are not here: they come with ``ka-execute`` and the resident daemon
-(ROADMAP queue 1, items 7 and 8).
+The protocol also carries the execution surface of ``ka-execute``
+(``supports_execution``, ``apply_assignment``, ``read_assignment_state``)
+with the reference's defaults: a read-only backend refuses to execute, and
+the convergence poll reads over :meth:`MetadataBackend.fetch_topics` with
+``isr == replicas``. The watch surface of the resident daemon is not here
+(ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -177,6 +179,46 @@ class MetadataBackend(Protocol):
             "group offset support, or opt into the deterministic "
             "synthetic family explicitly (--synthetic)"
         )
+
+    def supports_execution(self) -> bool:
+        """True when this backend can write a reassignment and report
+        convergence. Default False: ``ka-execute`` refuses a read-only
+        backend before it writes a journal."""
+        return False
+
+    def apply_assignment(
+        self, moves: Dict[str, Dict[int, List[int]]]
+    ) -> None:
+        """Submit one wave, ``{topic: {partition: [target replicas]}}``.
+        Must be idempotent (setting a target twice is a no-op): the engine
+        resubmits a wave after a crash or a dropped write. Transport
+        failures raise ``OSError`` or ``ZkWireError``; the engine then reads
+        the state back before it decides, never replaying blindly."""
+        from ..errors import ExecuteError
+
+        raise ExecuteError(
+            f"{type(self).__name__} cannot execute reassignments (read-only "
+            "metadata backend)"
+        )
+
+    def read_assignment_state(
+        self, topics: Sequence[str]
+    ) -> Dict[str, Dict[int, PartitionState]]:
+        """The convergence poll: per topic, per partition, the assigned
+        replicas and the in-sync subset. Topics the backend cannot resolve
+        are absent from the result. Over the streaming read, with
+        ``isr == replicas`` (no ISR visibility)."""
+        out: Dict[str, Dict[int, PartitionState]] = {}
+        for t, parts in self.fetch_topics(
+            list(dict.fromkeys(topics)), missing="skip"
+        ):
+            if parts is None:
+                continue
+            out[t] = {
+                p: PartitionState(list(r), list(r))
+                for p, r in parts.items()
+            }
+        return out
 
     def close(self) -> None: ...
 

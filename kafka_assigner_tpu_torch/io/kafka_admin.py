@@ -12,8 +12,10 @@ it unless ``--disable_rack_awareness`` makes the opt-out explicit, and
 ``brokers()`` warns once on stderr for the inspection modes. kafka-python's
 ``describe_cluster`` carries racks.
 
-Not here: ``apply_assignment`` and ``read_assignment_state`` of
-``ka-execute`` (ROADMAP queue 1, item 7).
+``ka-execute`` writes through KIP-455's ``alter_partition_reassignments``
+where the client has it (kafka-python); confluent-kafka has no
+reassignment API, so that backend refuses to execute. Both clients report
+per-partition ISR for the convergence poll.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from ..faults.inject import active_injector
 from ..obs.metrics import counter_add, hist_ms
-from .base import BrokerInfo
+from .base import BrokerInfo, PartitionState
 
 
 class KafkaAdminBackend:
@@ -347,6 +349,89 @@ class KafkaAdminBackend:
                 assignment=assignment,
                 lags=lags,
             )
+        return out
+
+    def supports_execution(self) -> bool:
+        """True when the client has KIP-455's
+        ``alter_partition_reassignments`` (kafka-python); confluent-kafka
+        has no reassignment API. ``ka-execute`` refuses a backend that
+        cannot write before it writes a journal."""
+        return self._impl == "kafka-python" and hasattr(
+            self._admin, "alter_partition_reassignments"
+        )
+
+    def apply_assignment(
+        self, moves: Dict[str, Dict[int, List[int]]]
+    ) -> None:
+        from ..errors import ExecuteError
+
+        if not self.supports_execution():
+            raise ExecuteError(
+                "this Kafka AdminClient cannot execute reassignments "
+                "(no KIP-455 alter_partition_reassignments support); "
+                "execute against the zk:// backend instead"
+            )
+        counter_add("zk.writes")
+        if self._faults is not None \
+                and self._faults.write_attempt() == "lost":
+            return
+        # KIP-455: {(topic, partition): [target replicas]}.
+        with hist_ms("zk.op_ms"):
+            self._admin.alter_partition_reassignments({
+                (t, int(p)): [int(r) for r in reps]
+                for t, parts in moves.items()
+                for p, reps in parts.items()
+            })
+
+    def read_assignment_state(
+        self, topics: Sequence[str]
+    ) -> Dict[str, Dict[int, PartitionState]]:
+        """The convergence poll over the AdminClient's metadata, with each
+        partition's real ISR (confluent ``isrs``, kafka-python ``isr``).
+        The ``converge`` stall seam is the snapshot backend's only (it
+        freezes pending state, which this backend does not hold); the
+        ``reply`` seam covers this RPC."""
+        self._fault_reply()
+        unique = list(dict.fromkeys(topics))
+        out: Dict[str, Dict[int, PartitionState]] = {}
+        if self._impl == "confluent":
+            with hist_ms("zk.op_ms"):
+                md = self._admin.list_topics(timeout=10)
+            for t in unique:
+                tmeta = md.topics.get(t)
+                if tmeta is None:
+                    continue
+                out[t] = {
+                    int(p): PartitionState(
+                        [int(r) for r in pm.replicas],
+                        [int(r) for r in getattr(pm, "isrs", pm.replicas)],
+                    )
+                    for p, pm in tmeta.partitions.items()
+                }
+            return out
+        try:
+            with hist_ms("zk.op_ms"):
+                described = self._admin.describe_topics(unique)
+        except Exception as e:
+            if not self._is_unknown_topic(e):
+                raise
+            # One vanished topic must not blank the whole poll: probe per
+            # topic and leave out only the vanished ones.
+            described = []
+            for t in unique:
+                try:
+                    described.extend(self._admin.describe_topics([t]))
+                except Exception as per_topic_err:
+                    if not self._is_unknown_topic(per_topic_err):
+                        raise
+        for t in described:
+            out[t["topic"]] = {
+                int(p["partition"]): PartitionState(
+                    [int(r) for r in p["replicas"]],
+                    [int(r) for r in p.get("isr", p["replicas"])],
+                )
+                for p in t["partitions"]
+            }
         return out
 
     def close(self) -> None:

@@ -1,6 +1,5 @@
-"""Read-only loader for the hermetic ``file://`` cluster snapshot (the
-reference's ``kafka_assigner_tpu/io/snapshot.py`` format, brokers and topics
-only):
+"""The hermetic ``file://`` cluster snapshot (the reference's
+``kafka_assigner_tpu/io/snapshot.py``, format and behaviour):
 
 .. code-block:: json
 
@@ -21,17 +20,35 @@ reference reads them (``kafka_assigner_tpu/io/snapshot.py:68-114``):
         "lag": {"events": {"0": 500}}}}
 
 A member's capacity ``null`` means unknown (the encoder's fair-share
-default applies). Other sections of the file are ignored; the backend is
-read-only. :func:`open_snapshot` opens a snapshot only; the CLI opens every
-backend through ``io/base.py:open_backend``.
+default applies). Other sections of the file are ignored.
+:func:`open_snapshot` opens a snapshot only; the CLI opens every backend
+through ``io/base.py:open_backend``.
+
+The snapshot is also ``ka-execute``'s hermetic cluster, with the
+reference's simulated convergence: ``apply_assignment`` records each move
+as pending, and each ``read_assignment_state`` poll ticks a countdown of
+``KA_EXEC_SIM_POLLS`` polls per move (the stand-in for replica catch-up),
+after which the move is applied in memory and the whole snapshot is
+persisted back to its file (:func:`write_snapshot`, atomic and fsynced),
+the ``traffic`` and ``groups`` sections as they were read. So a killed and
+resumed run sees what a real cluster shows: converged waves survive the
+crash, in-flight ones do not. The ``write`` and ``converge`` fault seams
+(``faults/inject.py``) fire here as on the live backends.
 """
 from __future__ import annotations
 
 import json
 from typing import Dict, Iterator, List, Sequence, Tuple
 
+from ..faults.inject import active_injector
 from ..obs.metrics import counter_add
-from .base import BrokerInfo, ConsumerGroupState, GroupMember, PartitionTraffic
+from .base import (
+    BrokerInfo,
+    ConsumerGroupState,
+    GroupMember,
+    PartitionState,
+    PartitionTraffic,
+)
 
 
 class SnapshotBackend:
@@ -57,7 +74,9 @@ class SnapshotBackend:
             for topic, parts in data.get("topics", {}).items()
         }
         # Topics and partitions absent from "traffic" take the synthetic
-        # series (fetch_partition_traffic).
+        # series (fetch_partition_traffic). The raw sections are kept so a
+        # persist writes them back as they were read.
+        self._traffic_raw: Dict = dict(data.get("traffic", {}) or {})
         self._traffic: Dict[str, Dict[int, PartitionTraffic]] = {
             t: {
                 int(p): PartitionTraffic(
@@ -67,10 +86,11 @@ class SnapshotBackend:
                 )
                 for p, v in per.items()
             }
-            for t, per in dict(data.get("traffic", {}) or {}).items()
+            for t, per in self._traffic_raw.items()
         }
+        self._groups_raw: Dict = dict(data.get("groups", {}) or {})
         self._groups: Dict[str, ConsumerGroupState] = {}
-        for g, spec in dict(data.get("groups", {}) or {}).items():
+        for g, spec in self._groups_raw.items():
             members = tuple(
                 GroupMember(str(m), float(c) if c is not None else 0.0)
                 for m, c in sorted((spec.get("members") or {}).items())
@@ -88,6 +108,12 @@ class SnapshotBackend:
                 group=str(g), members=members,
                 assignment=assignment, lags=lags,
             )
+        # Simulated convergence: pending moves and their remaining poll
+        # countdowns. The injector is resolved once per backend, so a run's
+        # fault schedule is coherent.
+        self._pending: Dict[Tuple[str, int], List[int]] = {}
+        self._pending_polls: Dict[Tuple[str, int], int] = {}
+        self._faults = active_injector()
 
     def brokers(self) -> List[BrokerInfo]:
         return list(self._brokers)
@@ -167,8 +193,121 @@ class SnapshotBackend:
             raise KeyError(f"groups not in snapshot: {missing}")
         return {g: self._groups[g] for g in dict.fromkeys(groups)}
 
+    def supports_execution(self) -> bool:
+        return True
+
+    def apply_assignment(
+        self, moves: Dict[str, Dict[int, List[int]]]
+    ) -> None:
+        """Record one wave's moves as pending. ``write:i=drop`` raises
+        before anything applies; ``write:i=lost`` acks the call and records
+        nothing (a quorum member died after the ack), so the convergence
+        poll times out. Resubmitting a move restarts its countdown; a move
+        already applied re-applies the same value."""
+        from ..utils.env import env_int
+
+        lost = False
+        if self._faults is not None:
+            lost = self._faults.write_attempt() == "lost"
+        counter_add("zk.writes")
+        unknown = [t for t in moves if t not in self._topics]
+        if unknown:
+            raise KeyError(f"topics not in snapshot: {unknown}")
+        if lost:
+            return
+        sim_polls = env_int("KA_EXEC_SIM_POLLS")
+        for t, parts in moves.items():
+            for p, reps in parts.items():
+                key = (t, int(p))
+                self._pending[key] = [int(r) for r in reps]
+                self._pending_polls[key] = sim_polls
+
+    def read_assignment_state(
+        self, topics: Sequence[str]
+    ) -> Dict[str, Dict[int, PartitionState]]:
+        """One convergence poll: tick every pending move's countdown, apply
+        the moves that are due (and persist them), and report the named
+        topics with ``isr == replicas``. ``converge:i=stall`` freezes one
+        poll: nothing ticks and due moves stay invisible, as a busy
+        controller would."""
+        stalled = self._faults is not None and self._faults.converge_poll()
+        if not stalled:
+            applied = False
+            for key in sorted(self._pending_polls):
+                if self._pending_polls[key] > 0:
+                    self._pending_polls[key] -= 1
+                    continue
+                t, p = key
+                self._topics[t][p] = self._pending.pop(key)
+                del self._pending_polls[key]
+                applied = True
+            if applied:
+                self._persist()
+        return {
+            t: {
+                p: PartitionState(list(r), list(r))
+                for p, r in self._topics[t].items()
+            }
+            for t in dict.fromkeys(topics)
+            if t in self._topics
+        }
+
+    def _persist(self) -> None:
+        """Write the applied assignment back to the file: a converged wave
+        survives a crash as a real cluster's state does. An unwritable file
+        warns, and the state stays correct in this process's memory."""
+        import sys
+
+        try:
+            write_snapshot(self.path, self._brokers, self._topics,
+                           traffic=self._traffic_raw,
+                           groups=self._groups_raw)
+        except OSError as e:
+            print(
+                f"kafka-assigner: snapshot persist failed for "
+                f"{self.path!r} ({e}); converged state is in-memory only",
+                file=sys.stderr,
+            )
+
     def close(self) -> None:
         """Nothing to release: the file was read whole at open."""
+
+
+def write_snapshot(
+    path: str,
+    brokers: Sequence[BrokerInfo],
+    topics: Dict[str, Dict[int, List[int]]],
+    traffic: Dict | None = None,
+    groups: Dict | None = None,
+) -> None:
+    """Serialize cluster metadata to a snapshot file, the inverse of the
+    loader and the reference's bytes (``json.dumps(indent=1)``), with the
+    optional ``traffic`` and ``groups`` sections when given. Atomic and
+    fsynced (``utils/atomicwrite.py``): a torn snapshot would be a corrupt
+    cluster after a crash."""
+    from ..utils.atomicwrite import atomic_write_text
+
+    data = {
+        "brokers": [
+            {
+                "id": b.id,
+                "host": b.host,
+                "port": b.port,
+                **({"rack": b.rack} if b.rack is not None else {}),
+            }
+            for b in brokers
+        ],
+        "topics": {
+            t: {str(p): list(r) for p, r in sorted(parts.items())}
+            for t, parts in topics.items()
+        },
+    }
+    if traffic:
+        data["traffic"] = traffic
+    if groups:
+        data["groups"] = groups
+    atomic_write_text(path, json.dumps(data, indent=1),
+                      prefix=".ka_snapshot_")
 
 
 def open_snapshot(connect_string: str) -> SnapshotBackend:

@@ -1,16 +1,18 @@
-"""Minimal pure-python ZooKeeper wire client: the read side and the session
-of the reference's ``kafka_assigner_tpu/io/zkwire.py``, with its frames,
-retry contract and fault seams unchanged. ``io/zk.py`` uses it when
-``kazoo`` is not installed (or under ``KA_ZK_CLIENT=wire``).
+"""Minimal pure-python ZooKeeper wire client: the reads, the serial writes
+and the session of the reference's ``kafka_assigner_tpu/io/zkwire.py``, with
+its frames, retry contract and fault seams unchanged. ``io/zk.py`` uses it
+when ``kazoo`` is not installed (or under ``KA_ZK_CLIENT=wire``).
 
-The assigner only reads: a session, ``getChildren`` of the broker and topic
-lists and ``getData`` of each broker and topic znode, then ``closeSession``.
-That is a small, stable corner of ZooKeeper's jute protocol:
+The planner reads a session, ``getChildren`` of the broker and topic lists
+and ``getData`` of each broker and topic znode, then ``closeSession``;
+``ka-execute`` also creates ``/admin/reassign_partitions``. That is a
+small, stable corner of ZooKeeper's jute protocol:
 
 - frames: a 4-byte big-endian length prefix;
 - the session handshake: ``ConnectRequest``/``ConnectResponse``;
 - ``getChildren`` (type 8), ``getData`` (type 4), ``exists`` (type 3) and
   ``ping`` (type 11) with ``ReplyHeader{xid, zxid, err}`` replies;
+- ``create`` (type 1), ``delete`` (type 2) and ``setData`` (type 5);
 - ``closeSession`` (type -11).
 
 Timeouts follow the reference tool (``KafkaAssignmentGenerator.java:
@@ -31,16 +33,22 @@ calls and the pipelined window catch it, re-establish the session (up to
 ``KA_ZK_SESSION_RETRIES`` times, jittered backoff, warned on stderr and
 counted as ``zk.session.reestablished``) and re-issue only the unanswered
 reads. Reads are idempotent, so the output is the same as an uninterrupted
-run's. Server-reported errors (NoNode, auth) are answers and never retried.
+run's. Server-reported errors (NoNode, NodeExists, bad version) are answers
+and never retried.
+
+Writes are serial only: they never enter the pipelined window and are
+never replayed blindly. After a transport failure the write path
+re-establishes the session, reads back whether the write landed (the
+``landed`` probe of :meth:`MiniZkClient._write_call`), and re-issues it
+only when it did not.
 
 Fault seams, as the reference's: ``connect_attempt`` before each socket
 connect, ``filter_handshake`` on each ConnectResponse and ``filter_reply``
 on each in-session reply frame (``faults/inject.py``, ``KA_FAULTS_SPEC``).
 
-Not here: the write calls (``create``, ``set_data``, ``delete``) of the
-plan execution engine, and the watch surface of the resident daemon
-(ROADMAP queue 1, items 7 and 8). No request this client sends arms a
-watch, so a notification frame (xid -1) is skipped like a ping reply.
+Not here: the watch surface of the resident daemon (ROADMAP queue 1, item
+2). No request this client sends arms a watch, so a notification frame
+(xid -1) is skipped like a ping reply.
 """
 from __future__ import annotations
 
@@ -54,19 +62,34 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 from ..faults.inject import active_injector
 from ..obs.metrics import counter_add, gauge_set, hist_ms, hist_observe
 
-#: ZooKeeper opcodes (zookeeper.ZooDefs.OpCode) of the read subset.
+#: ZooKeeper opcodes (zookeeper.ZooDefs.OpCode) of the subset used.
+OP_CREATE = 1
+OP_DELETE = 2
 OP_EXISTS = 3
 OP_GET_DATA = 4
+OP_SET_DATA = 5
 OP_GET_CHILDREN = 8
 OP_PING = 11
 OP_CLOSE = -11
 
-#: KeeperException.NoNode.
+#: KeeperException codes: NoNode, NodeExists, BadVersion.
 ERR_NONODE = -101
+ERR_NODEEXISTS = -110
+ERR_BADVERSION = -103
 
 PING_XID = -2
 #: The server-initiated notification "xid" (ClientCnxn.NOTIFICATION_XID).
 NOTIFICATION_XID = -1
+
+#: The world:anyone open ACL (ZooDefs.Ids.OPEN_ACL_UNSAFE), the only ACL the
+#: reassignment admin znode needs: a vector of one ACL{perms=ALL(31),
+#: Id{scheme="world", id="anyone"}}.
+_OPEN_ACL = (
+    struct.pack(">i", 1)
+    + struct.pack(">i", 31)
+    + struct.pack(">i", 5) + b"world"
+    + struct.pack(">i", 6) + b"anyone"
+)
 
 
 class ZkWireError(RuntimeError):
@@ -82,6 +105,17 @@ class ZkConnectionError(ZkWireError):
 
 class NoNodeError(ZkWireError):
     """The requested znode does not exist (KeeperException.NoNode)."""
+
+
+class NodeExistsError(ZkWireError):
+    """The znode a ``create`` targeted already exists
+    (KeeperException.NodeExists); for the reassignment admin znode, another
+    reassignment is still in flight."""
+
+
+class BadVersionError(ZkWireError):
+    """A versioned write lost its compare-and-set race
+    (KeeperException.BadVersion): somebody else changed the znode."""
 
 
 class ZnodeStat(NamedTuple):
@@ -176,10 +210,10 @@ def _decode_children(r: _Reader) -> List[str]:
 
 
 class MiniZkClient:
-    """Duck-type of the ``kazoo.client.KazooClient`` read surface
-    ``ZkBackend`` uses: ``start`` / ``get_children`` / ``get`` / ``exists``
-    / ``stop`` / ``close``, plus the pipelined ``iter_get``,
-    ``iter_children`` and ``get_many``."""
+    """Duck-type of the ``kazoo.client.KazooClient`` surface ``ZkBackend``
+    uses: ``start`` / ``get_children`` / ``get`` / ``exists`` / ``create``
+    / ``set`` / ``delete`` / ``stop`` / ``close``, plus the pipelined
+    ``iter_get``, ``iter_children`` and ``get_many``."""
 
     def __init__(self, hosts: str, timeout: float = 10.0) -> None:
         self._endpoints, self._chroot = parse_hosts(hosts)
@@ -345,6 +379,10 @@ class MiniZkClient:
             )
         if err == ERR_NONODE:
             raise NoNodeError(f"znode does not exist (err {err})")
+        if err == ERR_NODEEXISTS:
+            raise NodeExistsError(f"znode already exists (err {err})")
+        if err == ERR_BADVERSION:
+            raise BadVersionError(f"znode version mismatch (err {err})")
         if err != 0:
             raise ZkWireError(f"ZooKeeper error {err}")
         return r
@@ -577,6 +615,132 @@ class MiniZkClient:
         """All results of :meth:`iter_get` at once, in request order
         (``None`` per missing path under ``missing_ok``)."""
         return list(self.iter_get(paths, missing_ok=missing_ok))
+
+    # -- writes (serial only; never pipelined, never replayed blindly) -----
+
+    def _write_call(self, op: int, payload: bytes, landed):
+        """One write RPC: one request, one reply, never inside a pipelined
+        window.
+
+        After a transport failure the socket's state is unknown: the server
+        may or may not have applied the request. So unlike a read this is
+        never re-issued blindly: the session is re-established, ``landed``
+        (a read on the fresh session: does the server show this write's
+        effect?) is asked, and the request is sent again only when it did
+        not land. Returns the reply reader, or ``None`` when the read-back
+        confirmed the effect (the reply went down with the old socket).
+        Server-reported errors (NodeExists, NoNode, BadVersion) are answers
+        and propagate."""
+        if self._sock is None:
+            raise ZkWireError("ZooKeeper session is not started")
+        from ..utils.env import env_int
+
+        retries = env_int("KA_ZK_SESSION_RETRIES")
+        attempt = 0
+        while True:
+            self._xid += 1
+            xid = self._xid
+            try:
+                # zk.writes is counted by the backend (once a wave on every
+                # backend); the frame counters account the wire traffic.
+                with hist_ms("zk.op_ms"):
+                    return self._call_inner(op, xid, payload)
+            except (OSError, ZkConnectionError) as e:
+                attempt += 1
+                if attempt > retries:
+                    raise
+                self._reconnect(attempt, retries, e)
+                if landed():
+                    counter_add("zk.write_readback_confirmed")
+                    print(
+                        "kafka-assigner: write reply lost with the session "
+                        "but the read-back shows it landed; not re-issuing",
+                        file=sys.stderr,
+                    )
+                    return None
+
+    def create(self, path: str, value: bytes = b"", makepath: bool = False,
+               **_kazoo_compat) -> str:
+        """Create a persistent znode with the world:anyone ACL (kazoo's
+        surface, ``makepath`` included). The read-back counts "exists with
+        exactly these bytes" as landed; a node with other bytes raises the
+        server's NodeExists on the re-issue, as an uninterrupted race
+        would."""
+        full = self._path(path)
+
+        def _landed() -> bool:
+            try:
+                data, _ = self.get(path)
+            except NoNodeError:
+                return False
+            return data == value
+
+        if makepath:
+            # Missing parents first, shallowest first, as empty persistent
+            # znodes; a parent somebody else created meanwhile is fine. The
+            # parents are already chroot-prefixed, so the raw exists opcode
+            # probes them.
+            segs = full.strip("/").split("/")[:-1]
+            parent = ""
+            for seg in segs:
+                parent = f"{parent}/{seg}"
+
+                def _parent_landed(p: str = parent) -> bool:
+                    try:
+                        r = self._call(OP_EXISTS, _pack_str(p) + b"\x00")
+                    except NoNodeError:
+                        return False
+                    r.read_stat()
+                    return True
+
+                try:
+                    if not _parent_landed():
+                        self._write_call(
+                            OP_CREATE,
+                            _pack_str(parent) + _pack_buffer(b"")
+                            + _OPEN_ACL + struct.pack(">i", 0),
+                            _parent_landed,
+                        )
+                except NodeExistsError:  # a lost parent race: the parent exists
+                    pass
+        payload = (
+            _pack_str(full) + _pack_buffer(value) + _OPEN_ACL
+            + struct.pack(">i", 0)  # flags: persistent, not sequential
+        )
+        r = self._write_call(OP_CREATE, payload, _landed)
+        return r.read_str() if r is not None else full
+
+    def set_data(self, path: str, value: bytes,
+                 version: int = -1) -> Optional[ZnodeStat]:
+        """``setData`` with kazoo's ``set`` semantics (version -1: any).
+        Landed: the znode carries exactly the written bytes."""
+
+        def _landed() -> bool:
+            try:
+                data, _ = self.get(path)
+            except NoNodeError:
+                return False
+            return data == value
+
+        payload = (
+            _pack_str(self._path(path)) + _pack_buffer(value)
+            + struct.pack(">i", version)
+        )
+        r = self._write_call(OP_SET_DATA, payload, _landed)
+        return r.read_stat() if r is not None else None
+
+    #: kazoo's name (``KazooClient.set``).
+    set = set_data
+
+    def delete(self, path: str, version: int = -1,
+               **_kazoo_compat) -> None:
+        """Delete a znode. Landed: the znode is gone."""
+
+        def _landed() -> bool:
+            return self.exists(path) is None
+
+        payload = _pack_str(self._path(path)) + struct.pack(">i", version)
+        self._write_call(OP_DELETE, payload, _landed)
 
     # -- teardown ---------------------------------------------------------
 

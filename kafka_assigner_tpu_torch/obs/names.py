@@ -14,11 +14,12 @@ from __future__ import annotations
 
 #: Counter / gauge / histogram names (the write API's first argument).
 METRIC_NAMES: frozenset = frozenset({
-    # zk.* — metadata reads (every backend counts here), the wire client's
-    # frames, serial-op latency and session re-establishments, and its
+    # zk.* — metadata reads and reassignment writes (every backend counts
+    # here), the wire client's frames, serial-op latency, session
+    # re-establishments and writes a read-back found landed, and its
     # pipelined window
-    "zk.reads", "zk.bytes", "zk.op_ms", "zk.topics_missing",
-    "zk.session.reestablished",
+    "zk.reads", "zk.writes", "zk.bytes", "zk.op_ms", "zk.topics_missing",
+    "zk.session.reestablished", "zk.write_readback_confirmed",
     "zk.wire_frames_in", "zk.wire_frames_out",
     "zk.wire_bytes_in", "zk.wire_bytes_out",
     "zk.pipeline.batches", "zk.pipeline.rtts_saved",
@@ -31,7 +32,8 @@ METRIC_NAMES: frozenset = frozenset({
     "encode.topics", "encode.p_pad", "encode.pad_waste_frac",
     # plan.* — lifted into the report's plan section
     "plan.moves", "plan.leader_churn", "plan.topics", "plan.partitions",
-    "plan.unplanned_topics",
+    "plan.waves", "plan.moves_submitted", "plan.noops",
+    "plan.skipped_moves", "plan.verify_mismatches", "plan.unplanned_topics",
     # whatif.* — scenario-sweep fan-out
     "whatif.scenarios", "whatif.fanout", "whatif.dispatch_ms",
     "whatif.incremental_sweeps", "whatif.rescued",
@@ -51,6 +53,11 @@ METRIC_NAMES: frozenset = frozenset({
     "warmup.failures",
     # faults.* — injection accounting ("faults.injected.<kind>" composes)
     "faults.injected",
+    # exec.* — plan execution (ka-execute): waves, moves submitted,
+    # convergence re-polls, write read-backs, skipped moves, verify passes,
+    # and each wave's wall
+    "exec.waves", "exec.moves", "exec.retries", "exec.write_retries",
+    "exec.skipped", "exec.verify", "exec.wave_ms",
     # groups.* — consumer-group plans, sweeps, dispatches, fallbacks and
     # the refusal of a backend without groups
     "groups.plans", "groups.sweeps", "groups.moves",
@@ -69,6 +76,7 @@ SPAN_NAMES: frozenset = frozenset({
     "whatif/rescue",
     "native/assign_many",
     "warmup",
+    "exec/wave", "exec/submit", "exec/poll", "exec/verify",
     "groups/plan", "groups/sweep", "groups/dispatch",
 })
 

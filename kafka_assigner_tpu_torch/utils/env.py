@@ -19,7 +19,10 @@ client and tune its pipelined reads, its retries and mode 3's streamed
 ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The three
 ``KA_PROGRAM_STORE*`` knobs and ``KA_WARMUP`` steer warm start: the library
 store (``utils/programstore.py``) and mode 3's ingest-overlapped warm-up
-(``solvers/warmup.py``). The port reads every knob per call, where the
+(``solvers/warmup.py``). The seven ``KA_EXEC_*`` knobs size, pace and poll
+``ka-execute``'s waves (``exec/engine.py``) and set the snapshot backend's
+simulated convergence and the default journal path. The port reads every
+knob per call, where the
 reference reads some at trace time.
 """
 from __future__ import annotations
@@ -100,6 +103,18 @@ KNOBS = {
     "KA_PROGRAM_STORE_DIR": Knob(None),
     "KA_PROGRAM_STORE_MAX_MB": Knob(512, floor=1),
     "KA_WARMUP": Knob(True),
+    # Plan execution (exec/engine.py, ka-execute): moves per wave, seconds
+    # between converged waves, the first convergence-poll interval (backing
+    # off 1.5x with jitter) and a wave's poll budget, resubmissions of a
+    # wave write after a read-back, polls a snapshot move takes to become
+    # visible, and the default journal path (else <plan>.journal).
+    "KA_EXEC_WAVE_SIZE": Knob(8, floor=1),
+    "KA_EXEC_THROTTLE": Knob(0.0, floor=0.0),
+    "KA_EXEC_POLL_INTERVAL": Knob(0.5, floor=0.001),
+    "KA_EXEC_POLL_TIMEOUT": Knob(600.0, floor=0.1),
+    "KA_EXEC_WRITE_RETRIES": Knob(2, floor=0),
+    "KA_EXEC_SIM_POLLS": Knob(1, floor=0),
+    "KA_EXEC_JOURNAL": Knob(None),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

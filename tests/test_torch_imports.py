@@ -57,7 +57,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "obs.profile", "faults", "faults.inject", "utils.logging",
                 "utils.timers", "io.zk", "io.zkwire", "io.kafka_admin",
                 "utils.backoff", "utils.programstore", "solvers.warmup", "warm",
-                "warm.__main__"):
+                "warm.__main__", "exec", "exec.engine", "exec.journal",
+                "exec.__main__", "utils.atomicwrite"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -224,6 +225,27 @@ def test_warmstart_bench_imports_without_jax():
     _script_imports_without_jax("torch_bench_warmstart")
 
 
+def test_exec_smoke_runs_without_jax():
+    # The port's ka-execute smoke imports and runs to its PASS line with
+    # jax and the JAX package blocked.
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    loader = (
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('torch_exec_smoke', "
+        "'scripts/torch_exec_smoke.py')\n"
+        "m = u.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        "assert m.main() == 0\n"
+    )
+    script = _BLOCKER.replace("for mod in sys.argv[1:]:", loader + "for mod in []:")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "torch_exec_smoke: PASS" in proc.stderr
+
+
 def _script_imports_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     loader = (
@@ -242,7 +264,8 @@ def _script_imports_without_jax(script):
 def test_port_sources_never_name_the_jax_package():
     paths = list((ROOT / "kafka_assigner_tpu_torch").rglob("*.py"))
     for path in paths + [ROOT / "scripts" / "torch_bench.py",
-                         ROOT / "scripts" / "torch_bench_warmstart.py", ROOT / "chip_smoke.py"]:
+                         ROOT / "scripts" / "torch_bench_warmstart.py",
+                         ROOT / "scripts" / "torch_exec_smoke.py", ROOT / "chip_smoke.py"]:
         for line in path.read_text(encoding="utf-8").splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):

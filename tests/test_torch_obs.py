@@ -470,6 +470,76 @@ def test_scenario_file_report_matches_the_reference(cluster8, tmp_path, empty_st
     assert _comparable(rb) == _comparable(ra)
 
 
+#: ``ka-execute`` runs whose reports are compared: extra argv, knobs, and
+#: whether a forward run goes first (the rollback's).
+EXEC_CASES = {
+    "forward": ([], {}, False),
+    "rollback": (["--rollback"], {}, True),
+    "best-effort-lost": (["--failure-policy", "best-effort"],
+                         {"KA_FAULTS_SPEC": "write:0=lost", "KA_EXEC_POLL_TIMEOUT": "0.3"},
+                         False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXEC_CASES))
+def test_execute_report_matches_the_reference(tmp_path, monkeypatch, name):
+    """``ka-execute``'s report: the ``mode/EXECUTE_REASSIGNMENT`` or
+    ``ROLLBACK_REASSIGNMENT`` span with ``exec/wave``, ``exec/submit``,
+    ``exec/poll`` and ``exec/verify`` under it, the ``exec.*`` and
+    ``zk.writes`` counters, the ``plan`` section and the status equal the
+    reference's apart from milliseconds (and, where a poll budget runs
+    out, the clock's count of polls, ``exec.retries``)."""
+    from kafka_assigner_tpu.cli import execute as jax_execute
+    from kafka_assigner_tpu.cli import run as jax_run
+
+    from .jute_server import exec_snapshot_cluster
+
+    extra, env, forward_first = EXEC_CASES[name]
+    for knob, value in (("KA_EXEC_WAVE_SIZE", "3"), ("KA_EXEC_POLL_INTERVAL", "0.01"),
+                        ("KA_EXEC_SIM_POLLS", "1")):
+        monkeypatch.setenv(knob, value)
+    snap, plan = tmp_path / "cluster.json", tmp_path / "plan.txt"
+    snap.write_text(json.dumps(exec_snapshot_cluster()))
+    rc, text, _ = _run(jax_run, ["--zk_string", str(snap), "--mode", "PRINT_REASSIGNMENT",
+                                 "--solver", "greedy", "--broker_hosts_to_remove", "h9"])
+    assert rc == 0
+    plan.write_text(text)
+    argv = ["--zk_string", str(snap), "--plan", str(plan)]
+    reports, rcs = {}, {}
+    for name_, fn in (("jax", jax_execute), ("torch", cli.execute)):
+        snap.write_text(json.dumps(exec_snapshot_cluster()))
+        for leftover in tmp_path.glob("plan.txt*journal"):
+            leftover.unlink()
+        if forward_first:
+            assert _run(fn, argv)[0] == 0
+        for key, value in env.items():
+            monkeypatch.setenv(key, value)
+        for p in ("jax", "torch"):
+            _package(p).faults.reset()
+        path = tmp_path / f"{name_}.json"
+        rcs[name_] = _run(fn, argv + extra + ["--report-json", str(path)])[0]
+        for key in env:
+            monkeypatch.delenv(key)
+        reports[name_] = json.loads(path.read_text())
+    assert rcs["torch"] == rcs["jax"] == (6 if "lost" in name else 0)
+    assert _package("torch").report.validate_report(reports["torch"]) == []
+    ra, rb = (_comparable(reports[p]) for p in ("jax", "torch"))
+    if "lost" in name:
+        for r in (ra, rb):
+            r["counters"].pop("exec.retries", None)
+    assert rb == ra
+    mode = "ROLLBACK_REASSIGNMENT" if forward_first else "EXECUTE_REASSIGNMENT"
+    assert rb["mode"] == mode
+    paths = {path for path, _ in rb["spans"]}
+    for child in ("exec/wave", "exec/wave/exec/submit", "exec/wave/exec/poll",
+                  "exec/verify"):
+        assert f"mode/{mode}/{child}" in paths, child
+    counters = rb["counters"]
+    assert counters["exec.waves"] == counters["zk.writes"] >= 2
+    assert counters["exec.verify"] == 1
+    assert rb["plan"]["waves"] == counters["exec.waves"]
+
+
 @pytest.mark.parametrize("lane", ["greedy", "native"])
 def test_greedy_lane_reports_match_the_reference(cluster8, tmp_path, empty_stores, lane):
     snap, _ = cluster8
