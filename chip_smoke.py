@@ -183,7 +183,7 @@ Phases, each printing its own line; any failure exits non-zero:
     line printed, each child's plan byte-identical to phase 4's; (c) phase
     20(d)'s 1 ms server, every library loaded from (a)'s store
     (``compile.store.hits`` and ``loads_ms``, no build), the warm-up on
-    against ``KA_WARMUP=0`` in two turns: the CLI wall, the ingest's and
+    against ``KA_WARMUP=0`` in one turn: the CLI wall, the ingest's and
     the warm-up's windows in the child (did the warm-up end inside the
     ingest?) and its steps, the ``warmup`` span beside
     ``metadata/assignment``, ``plan/solve``, ``warmup.*`` and
@@ -191,7 +191,25 @@ Phases, each printing its own line; any failure exits non-zero:
     in each run. Phase 21's launches run
     in child processes and are not held against the plain version one by
     one: each is held through its plan, byte-identical to phase 4's, whose
-    launch at the same shape the plain version checked.
+    launch at the same shape the plain version checked;
+22. plan execution (``exec/``, the snapshot backend's simulated
+    convergence, the wire client's writes), each ``ka-execute`` run in a
+    fresh process through ``python -m kafka_assigner_tpu_torch.exec``: (a)
+    config 4's plan through mode 3 on ``cuda`` (stdout == phase 4's, the
+    leadership kernel launched and held against the plain version in a
+    worker), written to a plan file; (b) ``ka-execute`` of it on a copy of
+    phase 4's snapshot with ``--report-json`` at the printed wave size and
+    poll interval: exit 0, "verify-after-move OK", the final snapshot
+    byte-identical to the plan's NEW ASSIGNMENT written through the port's
+    ``write_snapshot``, the journal complete; the wall, waves, the
+    ``exec/*`` span totals, one persist's time and the execution entry's
+    import in a fresh process (no torch); (c) ``--rollback`` on the same
+    copy, back to the original's bytes through ``write_snapshot``; (d) on
+    the 64-topic prefix, a process under ``KA_FAULTS_SPEC=wave:1=crash``
+    dies at the wave boundary with one wave committed and ``--resume``
+    ends byte-identical to an uninterrupted run; (e) the prefix over
+    ``tests/jute_server.py`` with its simulated controller (a spawned
+    process), the tree read back equal to (d)'s final assignment.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -227,8 +245,8 @@ In the ``kernels`` line, ``bound_ms`` is the throughput bound (bytes over
 the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
-phase 17's CLI runs on each lane, phase 19's, 20's and 21's runs, the
-last counted inside each child process), and ``launches_by_path`` gives
+phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
+21's counted inside each child process), and ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
 phases 14-16.
 
@@ -246,6 +264,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1942,7 +1961,8 @@ def zk_phases(work, checks, argv4, text4, prefix, prefix_text, topic_map, live,
 #: (scripts/torch_bench_warmstart.py), which runs the CLI or ka-warm in the
 #: child and reports the leadership kernel's launches from inside it.
 WARMSTART = os.path.join(ROOT, "scripts", "torch_bench_warmstart.py")
-WARM_TURNS = 2
+#: Phase 21(c)'s turns: one (a second took ~26 s that phase 22 needs).
+WARM_TURNS = 1
 
 
 def warm_child(kind, argv, env=None):
@@ -1972,7 +1992,7 @@ def warm_phases(work, snap, text4):
     phase 4's snapshot against an empty store, and beside it with the store
     off; (b) ``scripts/torch_bench_warmstart.py``; (c) config 4 over
     ZooKeeper at a 1 ms reply delay, loading every library from (a)'s
-    store, the warm-up on against ``KA_WARMUP=0`` in turns. Returns the
+    store, the warm-up on against ``KA_WARMUP=0`` (WARM_TURNS turns). Returns the
     leadership kernel's launches per child run, as each child counted
     them."""
     import hashlib
@@ -2086,6 +2106,296 @@ def warm_phases(work, snap, text4):
                       f"leadership launches 1; stdout == phase 4's | {smi}")
     phase("timing", f"phase 21 {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+#: Phase 22: ka-execute of config 4's plan. The wave size and the first
+#: poll interval are passed explicitly: config 4's plan changes the replica
+#: list (order included) of 171,046 of its 208,000 partitions, so at the
+#: default of 8 moves a wave it would take ~21,000 waves, each rewriting
+#: the whole snapshot and the journal. At 32,768 it takes 6. The 64-topic
+#: prefix runs (d) and (e) take waves of 512 (11 waves), so the kill lands
+#: with waves still to go.
+EXEC_WAVE_SIZE = 32768
+EXEC_POLL_INTERVAL = 0.01
+EXEC_PREFIX_WAVE = 512
+EXEC_PERSIST_REPS = 3
+
+
+def exec_run(argv, env=None):
+    """``python -m kafka_assigner_tpu_torch.exec ARGV`` in a fresh process,
+    as a user runs ``ka-execute``: ``(exit code, stderr, seconds)``."""
+    full = dict(os.environ, PYTHONPATH=ROOT,
+                KA_EXEC_POLL_INTERVAL=str(EXEC_POLL_INTERVAL), **(env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kafka_assigner_tpu_torch.exec", *argv],
+                          cwd=ROOT, env=full, capture_output=True, text=True, timeout=600)
+    return proc.returncode, proc.stderr, time.perf_counter() - t0
+
+
+def canonical_snapshot(src, out, plan=None):
+    """``src``'s brokers and topics (with ``plan``'s partitions applied)
+    written through the port's ``write_snapshot`` to ``out``; its text."""
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend, write_snapshot
+
+    backend = SnapshotBackend(src)
+    topics = {t: dict(parts) for t, parts in backend._topics.items()}
+    for t, parts in (plan or {}).items():
+        topics[t].update(parts)
+    write_snapshot(out, backend.brokers(), topics)
+    with open(out, encoding="utf-8") as f:
+        return f.read()
+
+
+def assignment_bytes(backend, topics):
+    """The backend's assignment of ``topics`` as canonical plan bytes."""
+    from kafka_assigner_tpu_torch.io.json_io import format_reassignment_json
+
+    return format_reassignment_json(backend.partition_assignment(topics),
+                                    topic_order=sorted(topics))
+
+
+def exec_server_main(conn, tree_path):
+    """Worker process: serve the znode tree in ``tree_path`` (JSON, path to
+    text) with ``tests/jute_server.py`` and its simulated controller until
+    the parent writes to or closes ``conn``; sends the port once
+    listening."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jute_server", os.path.join(ROOT, "tests", "jute_server.py"))
+    jute = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jute)
+    with open(tree_path, encoding="utf-8") as f:
+        tree = {k: v.encode() for k, v in json.load(f).items()}
+    server = jute.JuteZkServer(tree, controller_delay_ops=1)
+    server.start()
+    conn.send(server.port)
+    try:
+        conn.recv()
+    except EOFError:
+        pass
+    server.shutdown()
+
+
+def exec_phases(work, checks, argv4, text4, snap, prefix, prefix_text):
+    """Phase 22: plan execution. (a) config 4's plan through mode 3 on cuda
+    (the leadership kernel launched and held against plain); (b)
+    ``ka-execute`` of it on a copy of phase 4's snapshot; (c) its
+    ``--rollback``; (d) on the 64-topic prefix, a kill at a wave boundary
+    and ``--resume``; (e) the prefix over ZooKeeper. Returns the kernel's
+    launches."""
+    from kafka_assigner_tpu_torch.exec.engine import load_plan_file
+    from kafka_assigner_tpu_torch.exec.journal import ExecutionJournal
+    from kafka_assigner_tpu_torch.io.base import open_backend
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend, write_snapshot
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    xdir = os.path.join(work, "exec")
+    os.makedirs(xdir, exist_ok=True)
+
+    def read(path):
+        with open(path, encoding="utf-8") as f:
+            return f.read()
+
+    def journal_state(path):
+        j = json.loads(read(path))
+        return j["status"], j["waves_committed"], len(j["moves"])
+
+    # (a) the plan through the normal entry, on cuda.
+    lead.launches["leadership"] = 0
+    with solver_probe() as seen:
+        text = run_cli(argv4 + ["--device", "cuda"])
+    launched = lead.launches["leadership"]
+    if text != text4 or launched < 1 or len(seen["orders"]) != 1:
+        fail(f"22 (a): plan equal to phase 4's {text == text4}, leadership launches "
+             f"{launched}, ordering calls {len(seen['orders'])}")
+    (inputs, outputs), = seen["orders"]
+    checks.submit("phase 22's config-4 plan", inputs, outputs)
+    plan_path = os.path.join(xdir, "config4.plan")
+    with open(plan_path, "w", encoding="utf-8") as f:
+        f.write(text)
+    plan, order = load_plan_file(plan_path)
+    phase("exec", f"(a) config 4 mode 3 on cuda: stdout byte-identical to phase 4's "
+          f"({len(text)} bytes, {sum(len(v) for v in plan.values())} partitions in the "
+          f"NEW ASSIGNMENT), leadership kernel launches {launched}, held against plain")
+
+    # The per-wave persist: the whole snapshot through write_snapshot.
+    persist = []
+    backend = SnapshotBackend(snap)
+    for _ in range(EXEC_PERSIST_REPS):
+        t0 = time.perf_counter()
+        write_snapshot(os.path.join(xdir, "persist.json"), backend.brokers(),
+                       backend._topics)
+        persist.append((time.perf_counter() - t0) * 1e3)
+    persist_bytes = os.path.getsize(os.path.join(xdir, "persist.json"))
+    t0 = time.perf_counter()
+    SnapshotBackend(os.path.join(xdir, "persist.json"))
+    load_ms = (time.perf_counter() - t0) * 1e3
+
+    # The import in a fresh process: ka-execute needs no torch.
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys, time\n"
+         "t0 = time.perf_counter()\n"
+         "import kafka_assigner_tpu_torch.cli, kafka_assigner_tpu_torch.exec\n"
+         "print(json.dumps({'ms': (time.perf_counter() - t0) * 1e3,"
+         " 'torch': 'torch' in sys.modules}))"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        timeout=120)
+    imp = json.loads(probe.stdout.strip().splitlines()[-1])
+    if probe.returncode != 0 or imp["torch"]:
+        fail(f"22: importing the execution entry imported torch or failed: {probe.stderr}")
+
+    # (b) forward: the plan on a copy of phase 4's snapshot.
+    cluster = os.path.join(xdir, "config4.json")
+    shutil.copy(snap, cluster)
+    canonical = canonical_snapshot(snap, os.path.join(xdir, "canonical.json"))
+    expected = canonical_snapshot(snap, os.path.join(xdir, "expected.json"), plan)
+    report = os.path.join(xdir, "forward.json")
+    journal = os.path.join(xdir, "forward.journal")
+    rc, err, secs = exec_run(["--zk_string", cluster, "--plan", plan_path,
+                              "--journal", journal, "--wave-size", str(EXEC_WAVE_SIZE),
+                              "--report-json", report])
+    if rc != 0 or "verify-after-move OK" not in err:
+        fail(f"22 (b) ka-execute: exit {rc}; {err[-1500:]}")
+    if read(cluster) != expected:
+        fail("22 (b): the executed snapshot differs from the plan's NEW ASSIGNMENT "
+             "written through write_snapshot")
+    if journal_state(journal)[0] != "complete":
+        fail(f"22 (b): journal {journal_state(journal)}")
+    # One journal commit at this move count, as every converged wave makes.
+    done = ExecutionJournal.load(journal)
+    done.path = os.path.join(xdir, "commit.journal")
+    commits = []
+    for _ in range(EXEC_PERSIST_REPS):
+        t0 = time.perf_counter()
+        done.save()
+        commits.append((time.perf_counter() - t0) * 1e3)
+    rep = read_report(report, "ok")
+    c = rep["metrics"]["counters"]
+    span_ms = {n: sum(sp["ms"] for sp in rep["spans"] if sp["name"] == n)
+               for n in ("exec/wave", "exec/submit", "exec/poll", "exec/verify")}
+    mode_ms = next(sp["ms"] for sp in rep["spans"] if sp["depth"] == 0)
+    wave_h = rep["metrics"]["histograms"]["exec.wave_ms"]
+    phase("exec", f"(b) ka-execute of config 4's plan on a copy of phase 4's snapshot, "
+          f"--wave-size {EXEC_WAVE_SIZE}, KA_EXEC_POLL_INTERVAL={EXEC_POLL_INTERVAL}: exit 0, "
+          f"verify-after-move OK, final snapshot byte-identical to the NEW ASSIGNMENT "
+          f"through write_snapshot, journal complete; process wall {secs * 1e3:.1f} ms, "
+          f"mode span {mode_ms:.1f} ms; waves {c['exec.waves']}, moves "
+          f"{c['exec.moves']}, noops {rep['plan']['noops']}, polls "
+          f"{c['exec.waves'] + c.get('exec.retries', 0)}; span totals (ms): exec/wave "
+          f"{span_ms['exec/wave']:.1f}, exec/submit {span_ms['exec/submit']:.1f}, "
+          f"exec/poll {span_ms['exec/poll']:.1f}, exec/verify "
+          f"{span_ms['exec/verify']:.1f}; exec.wave_ms min {wave_h['min']:.1f} max "
+          f"{wave_h['max']:.1f} | {smi}")
+    phase("exec", f"(b) one snapshot persist (write_snapshot, {persist_bytes} bytes, "
+          f"indent 1 and fsync, as every converged wave writes it): "
+          f"{', '.join(f'{v:.1f}' for v in persist)} ms; its load {load_ms:.1f} ms; "
+          f"one journal commit ({len(done.moves)} moves, "
+          f"{os.path.getsize(done.path)} bytes): "
+          f"{', '.join(f'{v:.1f}' for v in commits)} ms; "
+          f"importing the execution entry in a fresh process {imp['ms']:.1f} ms, "
+          f"torch not imported | {smi}")
+
+    # (c) rollback: back to the original snapshot's canonical bytes.
+    journal_rb = os.path.join(xdir, "rollback.journal")
+    rc, err, secs = exec_run(["--zk_string", cluster, "--plan", plan_path, "--rollback",
+                              "--journal", journal_rb, "--wave-size", str(EXEC_WAVE_SIZE),
+                              "--report-json", os.path.join(xdir, "rollback.json")])
+    if rc != 0 or "verify-after-move OK" not in err:
+        fail(f"22 (c) --rollback: exit {rc}; {err[-1500:]}")
+    if read(cluster) != canonical:
+        fail("22 (c): the rolled-back snapshot differs from the original's canonical bytes")
+    rep = read_report(os.path.join(xdir, "rollback.json"), "ok")
+    if rep["mode"] != "ROLLBACK_REASSIGNMENT" or journal_state(journal_rb)[0] != "complete":
+        fail(f"22 (c): mode {rep['mode']}, journal {journal_state(journal_rb)}")
+    phase("exec", f"(c) --rollback on the same copy: exit 0, verify OK, bytes equal to "
+          f"the original snapshot through write_snapshot; process wall "
+          f"{secs * 1e3:.1f} ms, waves {rep['metrics']['counters']['exec.waves']} | {smi}")
+
+    # (d) the prefix: killed at a wave boundary, then resumed.
+    topics = prefix.split(",")
+    pplan = os.path.join(xdir, "prefix.plan")
+    with open(pplan, "w", encoding="utf-8") as f:
+        f.write(prefix_text)
+    psnap = os.path.join(xdir, "prefix.json")
+    write_snapshot(psnap, backend.brokers(), {t: backend._topics[t] for t in topics})
+    runs = {}
+    for name, env in (("uninterrupted", {}), ("killed", {"KA_FAULTS_SPEC": "wave:1=crash"})):
+        path = os.path.join(xdir, f"prefix_{name}.json")
+        shutil.copy(psnap, path)
+        runs[name] = exec_run(["--zk_string", path, "--plan", pplan, "--journal",
+                               path + ".journal", "--wave-size", str(EXEC_PREFIX_WAVE)], env)
+    rc, err, _ = runs["uninterrupted"]
+    if rc != 0:
+        fail(f"22 (d) uninterrupted: exit {rc}; {err[-1500:]}")
+    killed = os.path.join(xdir, "prefix_killed.json")
+    rc, err, _ = runs["killed"]
+    status, committed, n_moves = journal_state(killed + ".journal")
+    if rc == 0 or "InjectedExecCrash" not in err or (status, committed) != ("in-progress", 1):
+        fail(f"22 (d) kill: exit {rc}, journal {status}/{committed}; {err[-800:]}")
+    rc, err, _ = exec_run(["--zk_string", killed, "--plan", pplan, "--journal",
+                           killed + ".journal", "--wave-size", str(EXEC_PREFIX_WAVE),
+                           "--resume"])
+    final = read(os.path.join(xdir, "prefix_uninterrupted.json"))
+    if rc != 0 or "resuming from journal" not in err or read(killed) != final:
+        fail(f"22 (d) --resume: exit {rc}, bytes equal to the uninterrupted run's "
+             f"{read(killed) == final}; {err[-800:]}")
+    waves = -(-n_moves // EXEC_PREFIX_WAVE)
+    phase("exec", f"(d) {PREFIX_TOPICS}-topic prefix, {n_moves} moves in {waves} waves of "
+          f"{EXEC_PREFIX_WAVE}: KA_FAULTS_SPEC=wave:1=crash killed the process with 1 wave "
+          f"committed; --resume finished it byte-identical to the uninterrupted run")
+
+    # (e) the prefix over ZooKeeper, the jute server's controller applying.
+    tree = {f"/brokers/ids/{b.id}": json.dumps({"host": b.host, "port": b.port,
+                                                "rack": b.rack})
+            for b in backend.brokers()}
+    for t in topics:
+        tree[f"/brokers/topics/{t}"] = json.dumps(
+            {"partitions": {str(p): r for p, r in backend._topics[t].items()}})
+    tree_path = os.path.join(xdir, "prefix_tree.json")
+    with open(tree_path, "w", encoding="utf-8") as f:
+        json.dump(tree, f)
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=exec_server_main, args=(child, tree_path), daemon=True)
+    proc.start()
+    child.close()
+    try:
+        if not parent.poll(120):
+            fail("22 (e): the jute server process did not report a port within 120 s")
+        spec = f"127.0.0.1:{parent.recv()}"
+        rc, err, secs = exec_run(["--zk_string", spec, "--plan", pplan, "--journal",
+                                  os.path.join(xdir, "zk.journal"), "--wave-size",
+                                  str(EXEC_PREFIX_WAVE)], {"KA_ZK_CLIENT": "wire"})
+        if rc != 0 or "verify-after-move OK" not in err:
+            fail(f"22 (e) ka-execute over ZooKeeper: exit {rc}; {err[-1500:]}")
+        with knobs(KA_ZK_CLIENT="wire"):
+            zk = open_backend(spec)
+            try:
+                got = assignment_bytes(zk, topics)
+                in_flight = zk._zk.exists("/admin/reassign_partitions") is not None
+            finally:
+                zk.close()
+    finally:
+        with contextlib.suppress(OSError):
+            parent.send("stop")
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    want = assignment_bytes(SnapshotBackend(os.path.join(xdir, "prefix_uninterrupted.json")),
+                            topics)
+    if got != want or in_flight:
+        fail(f"22 (e): the tree read back equals (d)'s final assignment {got == want}, "
+             f"a reassignment still in flight {in_flight}")
+    phase("exec", f"(e) the prefix over ZooKeeper (jute server, simulated controller, wire "
+          f"client): exit 0, verify OK in {secs * 1e3:.1f} ms; the tree read back equals "
+          f"(d)'s final assignment ({len(got)} bytes), no reassignment in flight")
+    phase("timing", f"phase 22 {time.perf_counter() - t_phase:.1f} s")
+    return {"exec_plan": launched}
 
 
 def main() -> int:
@@ -2288,6 +2598,9 @@ def smoke(checks) -> int:
 
     # --- 21: warm start in fresh processes -----------------------------------
     warm_launches = warm_phases(work, snap, text)
+
+    # --- 22: plan execution ---------------------------------------------------
+    exec_launches = exec_phases(work, checks, argv, text, snap, prefix, a)
     late = checks.collect()
 
     max_err = max(max_err, worst.get("leadership", 0), late.get("leadership", 0))
@@ -2298,7 +2611,7 @@ def smoke(checks) -> int:
                **reduced,
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
                   for k, v in lanes.items() for lane in ("native", "device")},
-               **obs_launches, **zk_launches, **warm_launches}
+               **obs_launches, **zk_launches, **warm_launches, **exec_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

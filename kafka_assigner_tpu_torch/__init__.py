@@ -24,6 +24,8 @@ on each of the reference's solver lanes:
   the ``torch.profiler`` hook;
 - ``faults``               — deterministic fault injection; with the
   ``--failure-policy`` of ``assigner`` and ``cli``, the best-effort lane;
+- ``exec``                 — plan execution (``ka-execute``): journaled,
+  throttled waves, resume, rollback and a verify pass, no device work;
 - ``assigner`` / ``generator`` / ``cli`` — the CLI surface.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of

@@ -14,7 +14,8 @@ Steps, on a fresh temporary cluster, so the outcome is deterministic:
    real multi-wave reassignment;
 2. baseline: ``ka-execute`` drives a copy of the cluster to convergence
    uninterrupted: exit 0, final snapshot bytes A, journal complete;
-3. kill: a second copy executes under ``KA_FAULTS_SPEC=wave:1=crash`` and
+3. kill: a second copy executes under the fault schedule ``wave:1=crash``
+   (installed as ``KA_FAULTS_SPEC=wave:1=crash`` would install it) and
    dies at the wave boundary after the first committed wave
    (``InjectedExecCrash``); the journal is ``in-progress`` with one
    committed wave;
@@ -103,7 +104,6 @@ def main() -> int:
                 "KA_EXEC_POLL_TIMEOUT": "10",
                 "KA_EXEC_SIM_POLLS": "1",
             })
-            os.environ.pop("KA_FAULTS_SPEC", None)
             faults.reset()
 
             # 1. uninterrupted baseline: final bytes A
@@ -122,8 +122,7 @@ def main() -> int:
             intr = os.path.join(d, "intr.json")
             journal = intr + ".journal"
             shutil.copy(src, intr)
-            os.environ["KA_FAULTS_SPEC"] = "wave:1=crash"
-            faults.reset()
+            faults.install(faults.FaultInjector(faults.parse_spec("wave:1=crash")))
             box, _, err = _capture(execute, [
                 "--zk_string", intr, "--plan", plan, "--journal", journal,
             ])
@@ -137,7 +136,6 @@ def main() -> int:
                              f"wave 1, got {j['status']}/{j['waves_committed']}")
 
             # 3. resume: byte-identical final state, verified
-            os.environ.pop("KA_FAULTS_SPEC", None)
             faults.reset()
             report = os.path.join(d, "resume_report.json")
             box, _, err = _capture(execute, [

@@ -23,13 +23,22 @@ The plan is a real multi-wave one: mode 3 on the greedy lane over the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import re
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
+from kafka_assigner_tpu import faults as jax_faults
+from kafka_assigner_tpu.cli import execute as jax_execute
+from kafka_assigner_tpu.cli import run as jax_run
+from kafka_assigner_tpu.faults.inject import InjectedExecCrash as JaxExecCrash
 from kafka_assigner_tpu_torch import faults
 from kafka_assigner_tpu_torch.cli import (
     EXIT_DEGRADED,
@@ -50,6 +59,8 @@ from kafka_assigner_tpu_torch.exec.journal import (
     plan_fingerprint,
 )
 from kafka_assigner_tpu_torch.faults.inject import InjectedExecCrash
+
+from .test_torch_obs import _comparable
 
 
 @pytest.fixture(autouse=True)
@@ -722,20 +733,6 @@ def test_legacy_clusterless_journal_still_resumes(workdir, monkeypatch):
 
 # --- parity with the reference's ka-execute ----------------------------------
 
-import re  # noqa: E402
-import subprocess  # noqa: E402
-import sys  # noqa: E402
-from pathlib import Path  # noqa: E402
-
-from kafka_assigner_tpu import faults as jax_faults  # noqa: E402
-from kafka_assigner_tpu.cli import execute as jax_execute  # noqa: E402
-from kafka_assigner_tpu.cli import run as jax_run  # noqa: E402
-from kafka_assigner_tpu.faults.inject import (  # noqa: E402
-    InjectedExecCrash as JaxExecCrash,
-)
-
-from .test_torch_obs import _comparable  # noqa: E402
-
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGES = {
     "jax": (jax_execute, jax_faults, JaxExecCrash),
@@ -1009,3 +1006,47 @@ def test_torch_exec_smoke_script():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "torch_exec_smoke: PASS" in proc.stderr
+
+
+def test_executor_hooks_and_journal_helpers_match_the_reference(workdir, tmp_path):
+    # The surfaces a supervising caller uses: the progress events, the
+    # wave-boundary probe, the post-verify hook, the journal-authority
+    # resume payload and the journal-directory scan, equal to the
+    # reference's on the same plan.
+    from kafka_assigner_tpu.exec import engine as jax_engine
+    from kafka_assigner_tpu.exec import journal as jax_journal
+    from kafka_assigner_tpu.io.snapshot import SnapshotBackend as JaxSnapshot
+    from kafka_assigner_tpu_torch.exec import engine as torch_engine
+    from kafka_assigner_tpu_torch.exec import journal as torch_journal
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
+
+    seen = {}
+    for name, eng, jmod, backend_cls in (
+            ("jax", jax_engine, jax_journal, JaxSnapshot),
+            ("torch", torch_engine, torch_journal, SnapshotBackend)):
+        _reset(workdir, _cluster())
+        plan, order = eng.load_plan_file(workdir["plan"])
+        events, probes, verified = [], [], []
+        ex = eng.PlanExecutor(
+            backend_cls(workdir["cluster"]), plan, order, workdir["journal"],
+            cluster="c", err=io.StringIO(), on_event=events.append,
+            probe=lambda: probes.append(1), on_verified=verified.append)
+        out = ex.execute()
+        j = jmod.ExecutionJournal.load(workdir["journal"])
+        payload = jmod.journal_resume_payload(j)
+        again = eng.PlanExecutor(backend_cls(workdir["cluster"]), *payload,
+                                 str(tmp_path / f"{name}.journal"), plan_hash=j.plan_hash,
+                                 err=io.StringIO()).plan_hash
+        for fname in ("ka-execute-east-2-0123456789ab.journal",
+                      "ka-controller-east-2-0123456789ab.rollback.journal",
+                      "ka-controller-west-fedcba987654.journal", "other.journal"):
+            (tmp_path / fname).write_text("{}")
+        scan = jmod.scan_journal_dir(str(tmp_path), ["east-2", "west", "north"])
+        seen[name] = (events, len(probes), verified, dataclasses.asdict(out), payload,
+                      again, scan)
+    assert seen["torch"] == seen["jax"]
+    events, probes, verified, out, _, again, scan = seen["torch"]
+    assert probes == out["waves_run"] >= 2 and verified and again
+    assert [e["event"] for e in events][:2] == ["exec/start", "exec/wave"]
+    assert [e["kind"] for e in scan["east-2"]] == ["rollback", "execute"]
+    assert scan["north"] == [] and [e["kind"] for e in scan["west"]] == ["forward"]

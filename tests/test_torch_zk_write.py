@@ -26,6 +26,8 @@ import os
 
 import pytest
 
+from kafka_assigner_tpu import faults as jax_faults
+from kafka_assigner_tpu.cli import execute as jax_execute
 from kafka_assigner_tpu_torch import faults
 from kafka_assigner_tpu_torch.cli import EXIT_OK, execute
 from kafka_assigner_tpu_torch.errors import ExecuteError
@@ -35,7 +37,10 @@ from kafka_assigner_tpu_torch.io.zkwire import (
     NodeExistsError,
     NoNodeError,
 )
-from kafka_assigner_tpu_torch.io.json_io import format_reassignment_pairs
+from kafka_assigner_tpu_torch.io.json_io import (
+    format_reassignment_json,
+    format_reassignment_pairs,
+)
 
 from .jute_server import JuteZkServer, cluster_tree, cluster_tree_with_states
 
@@ -380,10 +385,6 @@ def test_writes_never_enter_the_pipelined_window(zk_server, monkeypatch):
 
 
 # --- parity with the reference over ZooKeeper ---------------------------------
-
-from kafka_assigner_tpu import faults as jax_faults  # noqa: E402
-from kafka_assigner_tpu.cli import execute as jax_execute  # noqa: E402
-from kafka_assigner_tpu_torch.io.json_io import format_reassignment_json  # noqa: E402
 
 
 def _tree_plan_bytes(tree):
