@@ -13,7 +13,10 @@ against the JAX package's, on the CPU over the shared
   pipelined window;
 - parity: ``ka-execute`` over ZooKeeper by the reference and by the port
   leaves the same tree (``format_reassignment_json`` bytes), journal,
-  stderr and exit code;
+  stderr, exit code and run report (apart from milliseconds) for a forward
+  run on both znode layouts, ``--rollback``, a kill at a wave boundary and
+  ``--resume`` (also across the packages) and the ``write`` seams under
+  both policies;
 - the AdminClient's execution surface on the stand-in client of
   ``tests/test_faults.py``, equal to the reference's.
 """
@@ -42,7 +45,14 @@ from kafka_assigner_tpu_torch.io.json_io import (
     format_reassignment_pairs,
 )
 
-from .jute_server import JuteZkServer, cluster_tree, cluster_tree_with_states
+from .jute_server import (
+    JuteZkServer,
+    cluster_tree,
+    cluster_tree_with_states,
+    exec_snapshot_cluster,
+)
+from .test_torch_exec import _CLOCK, _MS, PACKAGES
+from .test_torch_obs import _comparable
 
 
 @pytest.fixture(autouse=True)
@@ -532,3 +542,153 @@ def test_ka_execute_refuses_a_read_only_backend_before_any_journal(tmp_path,
         rc = execute(["--zk_string", "zk:2181", "--plan", str(plan_path)])
     assert rc == EXIT_VALIDATION and "cannot execute" in err.getvalue()
     assert not (tmp_path / "plan.json.journal").exists()
+
+
+# --- ka-execute over ZooKeeper, both packages, every path ----------------------
+
+
+def _exec_tree(states):
+    """``exec_snapshot_cluster`` as znodes (9 brokers over 3 racks), with
+    the per-partition ``state`` znodes when ``states``."""
+    cluster = exec_snapshot_cluster()
+    tree = {f"/brokers/ids/{b['id']}": json.dumps(
+        {"host": b["host"], "port": b["port"], "rack": b["rack"]}).encode()
+        for b in cluster["brokers"]}
+    for t, parts in cluster["topics"].items():
+        tree[f"/brokers/topics/{t}"] = json.dumps({"partitions": parts}).encode()
+        for p, reps in parts.items():
+            if states:
+                tree[f"/brokers/topics/{t}/partitions/{p}/state"] = json.dumps(
+                    {"isr": reps, "leader": reps[0]}).encode()
+    return tree
+
+
+@pytest.fixture(scope="module")
+def zk_plan(tmp_path_factory):
+    """A saved mode-3 stdout over the tree's cluster: greedy, h9 drained."""
+    from kafka_assigner_tpu_torch.cli import run
+
+    d = tmp_path_factory.mktemp("zk_exec_plan")
+    src = d / "cluster.json"
+    src.write_text(json.dumps(exec_snapshot_cluster()))
+    out = io.StringIO()
+    assert run(["--zk_string", str(src), "--mode", "PRINT_REASSIGNMENT", "--solver",
+                "greedy", "--broker_hosts_to_remove", "h9", "--device", "cpu"],
+               out=out) == 0
+    plan = d / "plan.txt"
+    plan.write_text(out.getvalue())
+    return str(plan)
+
+
+def _zk_drive(monkeypatch, tmp_path, plan, steps, states=False, clock=False):
+    """``steps`` (``(package, extra argv, env)``) against one fresh jute
+    server with the simulated controller; each step's exit code (or
+    ``"crash"``), stderr and comparable report, then the tree's topics as
+    canonical bytes and the journal, the server's port masked."""
+    _wire_env(monkeypatch)
+    monkeypatch.setenv("KA_EXEC_WAVE_SIZE", "3")
+    journal, report = tmp_path / "zk.journal", tmp_path / "zk_report.json"
+    for path in (journal, report):
+        if path.exists():
+            path.unlink()
+    server = JuteZkServer(_exec_tree(states), controller_delay_ops=1)
+    server.start()
+    spec = f"127.0.0.1:{server.port}"
+    out = {"steps": []}
+    try:
+        for pkg, extra, env in steps:
+            fn, flt, crash = PACKAGES[pkg]
+            for key, value in env.items():
+                monkeypatch.setenv(key, value)
+            for f in (faults, jax_faults):
+                f.reset()
+            if report.exists():
+                report.unlink()
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                try:
+                    rc = fn(["--zk_string", spec, "--plan", plan, "--journal",
+                             str(journal), "--report-json", str(report), *extra])
+                except crash:
+                    rc = "crash"
+            for key in env:
+                monkeypatch.delenv(key)
+            text = _MS.sub("<ms>", err.getvalue()).replace(spec, "<zk>")
+            rep = _comparable(json.loads(report.read_text()))
+            if clock:
+                # The polls inside a poll budget, and the reads they make,
+                # are the clock's count.
+                text = _CLOCK.sub("spans=<n>", text)
+                rep["counters"] = {
+                    k: v for k, v in rep["counters"].items()
+                    if k == "zk.writes" or not k.startswith(("zk.", "exec.retries"))}
+            out["steps"].append((rc, text, rep))
+        out["tree"] = _tree_plan_bytes(dict(server.tree))
+        out["in_flight"] = "/admin/reassign_partitions" in server.tree
+        out["journal"] = journal.read_text().replace(spec, "<zk>")
+    finally:
+        server.shutdown()
+    return out
+
+
+@pytest.mark.parametrize("name", ["forward", "forward-states", "rollback", "kill-resume"])
+def test_ka_execute_paths_over_zookeeper_match_the_reference(tmp_path, monkeypatch,
+                                                             zk_plan, name):
+    steps = {
+        "forward": [((), {})],
+        "forward-states": [((), {})],
+        # The rollback journals apart from the forward run (--journal is
+        # given, so both runs name their own).
+        "rollback": [((), {}), (("--rollback", "--journal", str(tmp_path / "rb.journal")),
+                                {})],
+        "kill-resume": [((), {"KA_FAULTS_SPEC": "wave:1=crash"}), (("--resume",), {})],
+    }[name]
+    runs = {pkg: _zk_drive(monkeypatch, tmp_path, zk_plan,
+                           [(pkg, *s) for s in steps], states=name.endswith("states"))
+            for pkg in ("jax", "torch")}
+    assert runs["torch"] == runs["jax"]
+    got = runs["torch"]
+    assert not got["in_flight"]
+    rcs = [rc for rc, _, _ in got["steps"]]
+    assert rcs == (["crash", 0] if name == "kill-resume" else [0] * len(steps))
+    plan = open(zk_plan, encoding="utf-8").read()
+    section = "CURRENT ASSIGNMENT:" if name == "rollback" else "NEW ASSIGNMENT:"
+    want = json.loads(plan.split(section, 1)[1].strip().splitlines()[0])
+    final = {(e["topic"], e["partition"]): e["replicas"]
+             for e in json.loads(got["tree"])["partitions"]}
+    assert all(final[(e["topic"], e["partition"])] == e["replicas"]
+               for e in want["partitions"])
+
+
+@pytest.mark.parametrize("first,second", [("jax", "torch"), ("torch", "jax")])
+def test_resume_over_zookeeper_across_the_packages(tmp_path, monkeypatch, zk_plan,
+                                                   first, second):
+    kill = (first, (), {"KA_FAULTS_SPEC": "wave:1=crash"})
+    mixed = _zk_drive(monkeypatch, tmp_path, zk_plan, [kill, (second, ("--resume",), {})])
+    own = _zk_drive(monkeypatch, tmp_path, zk_plan, [kill, (first, ("--resume",), {})])
+    assert mixed["tree"] == own["tree"] and mixed["journal"] == own["journal"]
+    assert [s[0] for s in mixed["steps"]] == ["crash", 0]
+    assert mixed["steps"][1][1] == own["steps"][1][1]
+    assert json.loads(mixed["journal"])["status"] == "complete"
+
+
+@pytest.mark.parametrize("policy", ["strict", "best-effort"])
+@pytest.mark.parametrize("spec", ["write:0=drop", "write:1=lost"])
+def test_write_seams_over_zookeeper_match_the_reference(tmp_path, monkeypatch, zk_plan,
+                                                        spec, policy):
+    env = {"KA_FAULTS_SPEC": spec}
+    clock = "lost" in spec
+    if clock:
+        env["KA_EXEC_POLL_TIMEOUT"] = "0.3"
+    steps = [(("--failure-policy", policy), env)]
+    runs = {pkg: _zk_drive(monkeypatch, tmp_path, zk_plan, [(pkg, *s) for s in steps],
+                           clock=clock)
+            for pkg in ("jax", "torch")}
+    assert runs["torch"] == runs["jax"]
+    rc, err, report = runs["torch"]["steps"][0]
+    if clock:
+        assert rc == (8 if policy == "strict" else 6), err
+        assert bool(report["plan"].get("skipped_moves")) == (policy == "best-effort")
+    else:
+        assert rc == 0 and "never a blind replay" in err, err
+        assert report["counters"]["exec.write_retries"] == 1
