@@ -1785,19 +1785,17 @@ def zk_tree(n_brokers, n_topics, p_per_topic, rf, n_racks, replaced):
     return tree
 
 
-def zk_server_main(conn, shape, reply_delay_s):
-    """Worker process: serve config 4's tree (:func:`zk_tree` of ``shape``)
-    with ``tests/jute_server.py`` until the parent writes to or closes
-    ``conn``; sends ``(port, znodes, bytes)`` once listening."""
+def serve_tree(conn, tree, **kw):
+    """In a worker process: serve ``tree`` with ``tests/jute_server.py``
+    (``kw`` its options) until the parent writes to or closes ``conn``;
+    sends ``(port, znodes, bytes)`` once listening."""
     import importlib.util
 
-    sys.path.insert(0, ROOT)
     spec = importlib.util.spec_from_file_location(
         "jute_server", os.path.join(ROOT, "tests", "jute_server.py"))
     jute = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jute)
-    tree = zk_tree(*shape)
-    server = jute.JuteZkServer(tree, reply_delay_s=reply_delay_s)
+    server = jute.JuteZkServer(tree, **kw)
     server.start()
     conn.send((server.port, len(tree), sum(len(v) for v in tree.values())))
     try:
@@ -1807,16 +1805,20 @@ def zk_server_main(conn, shape, reply_delay_s):
     server.shutdown()
 
 
+def zk_server_main(conn, shape, reply_delay_s):
+    """Worker process: config 4's tree (:func:`zk_tree` of ``shape``)."""
+    sys.path.insert(0, ROOT)
+    serve_tree(conn, zk_tree(*shape), reply_delay_s=reply_delay_s)
+
+
 @contextlib.contextmanager
-def zk_quorum(reply_delay_s=0.0):
-    """Config 4's ZooKeeper tree served from a spawned process (its own
-    interpreter, so the server's threads do not share the CLI's); yields
-    ``(port, znodes, bytes)`` and stops the process afterwards."""
+def server_process(target, *args):
+    """``target(conn, *args)`` in a spawned process (its own interpreter,
+    so the server's threads do not share the CLI's); yields what it first
+    sends and stops the process afterwards."""
     ctx = multiprocessing.get_context("spawn")
     parent, child = ctx.Pipe()
-    shape = (N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, REPLACED)
-    proc = ctx.Process(target=zk_server_main, args=(child, shape, reply_delay_s),
-                       daemon=True)
+    proc = ctx.Process(target=target, args=(child, *args), daemon=True)
     proc.start()
     child.close()
     try:
@@ -1830,6 +1832,13 @@ def zk_quorum(reply_delay_s=0.0):
         if proc.is_alive():
             proc.terminate()
             proc.join(10)
+
+
+def zk_quorum(reply_delay_s=0.0):
+    """Config 4's ZooKeeper tree served from a spawned process; yields
+    ``(port, znodes, bytes)``."""
+    shape = (N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, REPLACED)
+    return server_process(zk_server_main, shape, reply_delay_s)
 
 
 def zk_phases(work, checks, argv4, text4, prefix, prefix_text, topic_map, live,
@@ -2155,26 +2164,11 @@ def assignment_bytes(backend, topics):
 
 
 def exec_server_main(conn, tree_path):
-    """Worker process: serve the znode tree in ``tree_path`` (JSON, path to
-    text) with ``tests/jute_server.py`` and its simulated controller until
-    the parent writes to or closes ``conn``; sends the port once
-    listening."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "jute_server", os.path.join(ROOT, "tests", "jute_server.py"))
-    jute = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(jute)
+    """Worker process: the znode tree in ``tree_path`` (JSON, path to text)
+    with the jute server's simulated controller."""
     with open(tree_path, encoding="utf-8") as f:
         tree = {k: v.encode() for k, v in json.load(f).items()}
-    server = jute.JuteZkServer(tree, controller_delay_ops=1)
-    server.start()
-    conn.send(server.port)
-    try:
-        conn.recv()
-    except EOFError:
-        pass
-    server.shutdown()
+    serve_tree(conn, tree, controller_delay_ops=1)
 
 
 def exec_phases(work, checks, argv4, text4, snap, prefix, prefix_text):
@@ -2358,15 +2352,8 @@ def exec_phases(work, checks, argv4, text4, snap, prefix, prefix_text):
     tree_path = os.path.join(xdir, "prefix_tree.json")
     with open(tree_path, "w", encoding="utf-8") as f:
         json.dump(tree, f)
-    ctx = multiprocessing.get_context("spawn")
-    parent, child = ctx.Pipe()
-    proc = ctx.Process(target=exec_server_main, args=(child, tree_path), daemon=True)
-    proc.start()
-    child.close()
-    try:
-        if not parent.poll(120):
-            fail("22 (e): the jute server process did not report a port within 120 s")
-        spec = f"127.0.0.1:{parent.recv()}"
+    with server_process(exec_server_main, tree_path) as (port, _, _):
+        spec = f"127.0.0.1:{port}"
         rc, err, secs = exec_run(["--zk_string", spec, "--plan", pplan, "--journal",
                                   os.path.join(xdir, "zk.journal"), "--wave-size",
                                   str(EXEC_PREFIX_WAVE)], {"KA_ZK_CLIENT": "wire"})
@@ -2379,13 +2366,6 @@ def exec_phases(work, checks, argv4, text4, snap, prefix, prefix_text):
                 in_flight = zk._zk.exists("/admin/reassign_partitions") is not None
             finally:
                 zk.close()
-    finally:
-        with contextlib.suppress(OSError):
-            parent.send("stop")
-        proc.join(30)
-        if proc.is_alive():
-            proc.terminate()
-            proc.join(10)
     want = assignment_bytes(SnapshotBackend(os.path.join(xdir, "prefix_uninterrupted.json")),
                             topics)
     if got != want or in_flight:

@@ -209,11 +209,9 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch,
     from . import obs
     from .utils.env import env_bool, env_str
 
+    join_warmup_threads = lambda: None  # noqa: E731
     if warmup:
         from .generator import join_warmup_threads
-    else:
-        def join_warmup_threads() -> None:
-            return None
 
     report_path = report_json or env_str("KA_OBS_REPORT")
     if report_path is None and not env_bool("KA_OBS_ENABLE"):
