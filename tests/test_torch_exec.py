@@ -537,7 +537,7 @@ def test_journal_default_path_is_plan_derived(workdir):
     assert os.path.exists(workdir["plan"] + ".journal")
 
 
-# --- degraded-run diff in the plan section (ISSUE 7 satellite) ---------------
+# --- degraded-run diff in the plan section -------------------------------------
 
 def test_mode3_reports_unplanned_topics(workdir, tmp_path):
     report = str(tmp_path / "m3_report.json")
@@ -557,7 +557,7 @@ def test_mode3_reports_unplanned_topics(workdir, tmp_path):
     assert rep["metrics"]["gauges"]["ingest.topics_skipped"] == 1
 
 
-# --- ka-execute --rollback (ISSUE 8 satellite) -------------------------------
+# --- ka-execute --rollback ---------------------------------------------------
 
 def _canonical_snapshot_bytes(tmp_path, data):
     """The original cluster serialized through the snapshot writer — the
@@ -655,7 +655,7 @@ def test_rollback_env_journal_gets_own_identity(workdir, tmp_path,
     assert fwd["status"] == rb["status"] == "complete"
 
 
-# --- journal identity = (cluster, plan sha) — ISSUE 9 satellite --------------
+# --- journal identity = (cluster, plan sha) ----------------------------------
 
 def test_journal_persists_cluster_identity(tmp_path):
     path = str(tmp_path / "j")
@@ -675,7 +675,7 @@ def test_resume_refuses_same_plan_on_a_different_cluster(
 ):
     """Two clusters executing BYTE-IDENTICAL plans must never cross-resume
     through one journal file: the journal is keyed by (cluster, plan sha),
-    not the plan sha alone (the pre-ISSUE-9 collision)."""
+    not the plan sha alone."""
     # interrupt a run on cluster A after one committed wave
     monkeypatch.setenv("KA_FAULTS_SPEC", "wave:1=crash")
     faults.reset()
