@@ -166,9 +166,8 @@ Phases, each printing its own line; any failure exits non-zero:
     under ``KA_ZK_INGEST_CHUNK=7``, the same bytes; (c) the 64-topic prefix
     over ZooKeeper on ``cuda`` and ``cpu``, byte-identical and equal to
     phase 5's; (d) with a 1 ms reply delay (``reply_delay_s=0.001``, as
-    ``scripts/bench_zk_ingest.py``), one turn: the overlap on and
-    ``KA_ZK_OVERLAP=0`` (serial reads, ``KA_ZK_PIPELINE=1``, are left out
-    for the smoke's time: 17.9-18.9 s a run), each with
+    ``scripts/bench_zk_ingest.py``), one turn: the overlap on, ``KA_ZK_
+    OVERLAP=0`` and serial reads (``KA_ZK_PIPELINE=1``), each with
     ``--report-json``: the CLI wall, ``zk/brokers``, ``metadata/assignment``,
     ``ingest.encode_ms`` and ``ingest.overlap_ms``, ``zk.pipeline.*`` and
     ``plan/solve``, each line with the card's name and power limit;
@@ -1917,8 +1916,9 @@ def zk_phases(work, checks, argv4, text4, prefix, prefix_text, topic_map, live,
         phase("zk", f"(c) {PREFIX_TOPICS}-topic prefix over ZooKeeper: cuda and cpu "
               "byte-identical, equal to phase 5's snapshot plan")
 
-    # (d) a 1 ms reply delay: the overlap on and off.
-    variants = (("overlap on", {}), ("overlap off", {"KA_ZK_OVERLAP": "0"}))
+    # (d) a 1 ms reply delay: the overlap on, off, and serial reads.
+    variants = (("overlap on", {}), ("overlap off", {"KA_ZK_OVERLAP": "0"}),
+                ("serial", {"KA_ZK_PIPELINE": "1"}))
     mode = "mode/PRINT_REASSIGNMENT"
     rows = {name: [] for name, _ in variants}
     with knobs(KA_ZK_CLIENT="wire"), zk_quorum(ZK_REPLY_DELAY_S) as (port, _, _):

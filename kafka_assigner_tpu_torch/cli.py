@@ -193,8 +193,7 @@ def _add_report_flag(p: argparse.ArgumentParser) -> None:
                         "stderr (default: the KA_OBS_REPORT knob)")
 
 
-def _captured(mode: str, report_json: Optional[str], argv, dispatch,
-              warmup: bool = True) -> int:
+def _captured(mode: str, report_json: Optional[str], argv, dispatch) -> int:
     """Run ``dispatch()`` (returning an exit code) under an obs capture when
     a report is asked for (``--report-json``, ``KA_OBS_REPORT``) or
     ``KA_OBS_ENABLE=1``, inside a ``mode/<mode>`` span, and emit the report
@@ -204,21 +203,16 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch,
     reported on stderr and never masks the run's own outcome. Without
     collection the dispatch runs with the obs no-ops: byte-identical output,
     no files. Either way the run's warm-up thread is joined before it
-    returns; ``warmup=False`` (``ka-execute``, which starts none) skips the
-    join and so never imports the solver's modules."""
+    returns."""
     from . import obs
     from .utils.env import env_bool, env_str
-
-    join_warmup_threads = lambda: None  # noqa: E731
-    if warmup:
-        from .generator import join_warmup_threads
 
     report_path = report_json or env_str("KA_OBS_REPORT")
     if report_path is None and not env_bool("KA_OBS_ENABLE"):
         try:
             return dispatch()
         finally:
-            join_warmup_threads()  # a warm-up never outlives its run
+            _join_warmup_threads()  # a warm-up never outlives its run
     with obs.run_capture() as run:
         status, error, rc = "error", None, EXIT_USAGE
         try:
@@ -244,7 +238,7 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch,
             try:
                 # The warm-up thread records its span and counters from the
                 # background: drain it so the report carries its outcome.
-                join_warmup_threads()
+                _join_warmup_threads()
                 report = obs.build_report(
                     run, status=status, mode=mode,
                     argv=list(argv) if argv is not None else sys.argv[1:],
@@ -253,6 +247,15 @@ def _captured(mode: str, report_json: Optional[str], argv, dispatch,
                 obs.emit_report(report, report_path)
             except Exception as e:
                 print(f"obs: could not emit run report: {e}", file=sys.stderr)
+
+
+def _join_warmup_threads() -> None:
+    """Join the run's warm-up threads. Only the solver's modules start one,
+    so a run that never imported them (``ka-execute``) has none to join and
+    does not import them here."""
+    generator = sys.modules.get(f"{__package__}.generator")
+    if generator is not None:
+        generator.join_warmup_threads()
 
 
 def _prebuild_native() -> None:
@@ -825,7 +828,7 @@ def run_execute(argv: Optional[List[str]] = None) -> int:
         "ROLLBACK_REASSIGNMENT" if args.rollback else "EXECUTE_REASSIGNMENT"
     )
     return _captured(mode, args.report_json, argv,
-                     lambda: _dispatch_execute(args), warmup=False)
+                     lambda: _dispatch_execute(args))
 
 
 def _dispatch_execute(args) -> int:

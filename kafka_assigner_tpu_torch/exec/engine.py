@@ -148,10 +148,6 @@ class PlanExecutor:
         throttle: Optional[float] = None,
         err: Optional[TextIO] = None,
         cluster: Optional[str] = None,
-        on_event=None,
-        probe=None,
-        on_verified=None,
-        plan_hash: Optional[str] = None,
     ) -> None:
         from ..utils.env import env_float, env_int
 
@@ -178,50 +174,9 @@ class PlanExecutor:
         #: never cross-resume. None: journals that resume under any
         #: cluster.
         self.cluster = cluster
-        #: Wave-by-wave progress callback (the daemon /execute stream):
-        #: called with one dict per event, named after the exec.* span
-        #: family. A failing callback disables itself — progress streaming
-        #: must never abort an execution.
-        self.on_event = on_event
-        #: Per-wave-boundary probe (a supervising controller's fault seam):
-        #: called right after the engine's own ``wave`` fault
-        #: point, BEFORE the wave submits. Exceptions propagate exactly
-        #: like the engine's own injected crashes — a supervising caller
-        #: observes them where it would observe a dead process.
-        self.probe = probe
-        #: Post-verify health re-score hook: called with the
-        #: OBSERVED ``{topic: {partition: [replicas]}}`` state the verify
-        #: pass just read, so a supervising controller can score the
-        #: achieved assignment without a second cluster read. A failing
-        #: hook is reported and swallowed — re-scoring must never fail an
-        #: execution that already converged.
-        self.on_verified = on_verified
-        #: Plan identity ``--resume`` validates. ``plan_hash`` lets a
-        #: journal-authority caller (a daemon's startup recovery) assert
-        #: the identity of a plan it reconstructed from
-        #: the journal's own frozen moves — such a reconstruction
-        #: fingerprints differently from the original bytes (noops were
-        #: never journaled) yet IS that journal's run by construction.
-        self.plan_hash = (
-            plan_hash if plan_hash is not None
-            else plan_fingerprint(self.plan, self.topic_order)
-        )
+        #: Plan identity ``--resume`` validates.
+        self.plan_hash = plan_fingerprint(self.plan, self.topic_order)
         self.outcome = ExecOutcome()
-        #: The verify pass's observed assignment (fed to ``on_verified``).
-        self.observed_state: Dict[str, Dict[int, List[int]]] = {}
-
-    def _emit(self, event: dict) -> None:
-        if self.on_event is None:
-            return
-        try:
-            self.on_event(event)
-        except Exception as e:
-            self.on_event = None
-            print(
-                f"ka-execute: progress callback failed ({type(e).__name__}:"
-                f" {e}); events disabled, execution continues",
-                file=self.err,
-            )
 
     # -- setup -------------------------------------------------------------
 
@@ -510,8 +465,6 @@ class PlanExecutor:
                 "expected": want_bytes, "observed": got_bytes,
                 "kind": "byte-diff",
             })
-        #: What the verify pass actually READ, for the post-verify hook.
-        self.observed_state = observed
         return mismatches
 
     # -- drive -------------------------------------------------------------
@@ -528,33 +481,13 @@ class PlanExecutor:
         out = self.outcome
         out.waves_total = journal.waves_total
         first = journal.waves_committed
-        self._emit({
-            "event": "exec/start",
-            "plan_sha": self.plan_hash,
-            "journal": self.journal_path,
-            "waves_total": journal.waves_total,
-            "waves_committed": first,
-            "moves": len(journal.moves),
-            "noops": out.noops,
-            "resumed": out.resumed,
-        })
         for i in range(first, journal.waves_total):
             # The kill-between-waves seam (`wave:i=crash`): fires BEFORE the
             # wave submits, exactly where a process kill leaves the journal.
-            # The caller's probe (the controller's `controller:exec-crash`
-            # seam) fires at the same boundary — same journal semantics.
             fault_point("wave")
-            if self.probe is not None:
-                self.probe()
             if i > first and self.throttle > 0:
                 time.sleep(self.throttle)
             wave = journal.wave(i)
-            self._emit({
-                "event": "exec/wave",
-                "wave": i + 1,
-                "of": journal.waves_total,
-                "moves": len(wave),
-            })
             t0 = time.perf_counter()
             with span("exec/wave"):
                 counter_add("exec.waves")
@@ -578,13 +511,6 @@ class PlanExecutor:
             journal.commit_wave(
                 i + 1, skipped=[(t, p) for t, p, _ in pending]
             )
-            self._emit({
-                "event": "exec/wave.committed",
-                "wave": i + 1,
-                "of": journal.waves_total,
-                "converged": len(wave) - len(pending),
-                "skipped": [[t, p] for t, p, _ in pending],
-            })
             print(
                 f"ka-execute: wave {i + 1}/{journal.waves_total} committed "
                 f"({len(wave) - len(pending)}/{len(wave)} move(s) "
@@ -593,20 +519,6 @@ class PlanExecutor:
             )
         with span("exec/verify"):
             out.mismatches = self._verify(journal)
-        self._emit({
-            "event": "exec/verify",
-            "mismatches": len(out.mismatches),
-        })
-        if self.on_verified is not None:
-            try:
-                self.on_verified(self.observed_state)
-            except Exception as e:
-                print(
-                    f"ka-execute: post-verify hook failed "
-                    f"({type(e).__name__}: {e}); execution outcome "
-                    "unaffected",
-                    file=self.err,
-                )
         journal.complete()
         if obs_active():
             gauge_set("plan.waves", journal.waves_total)

@@ -101,8 +101,8 @@ def journal_resume_payload(
     holds every move the interrupted run committed against, so a daemon's
     startup recovery can finish the run from the journal alone. The rebuilt
     plan fingerprints differently from the original (entries already in
-    place were never journaled), so the caller passes the journal's own
-    ``plan_hash`` to the executor."""
+    place were never journaled): a resume from it must be held to the
+    journal's own ``plan_hash``, not to this plan's fingerprint."""
     plan: Dict[str, Dict[int, List[int]]] = {}
     order: List[str] = []
     for t, p, reps in journal.moves:
