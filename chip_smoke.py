@@ -209,7 +209,27 @@ Phases, each printing its own line; any failure exits non-zero:
     dies at the wave boundary with one wave committed and ``--resume``
     ends byte-identical to an uninterrupted run; (e) the prefix over
     ``tests/jute_server.py`` with its simulated controller (a spawned
-    process), the tree read back equal to (d)'s final assignment.
+    process), the tree read back equal to (d)'s final assignment;
+23. the resident daemon (``daemon/``) on phase 20(d)'s tree (1 ms a
+    reply): (a)-(d) in this process on cuda, so the leadership kernel's
+    launches count here and each is held against the plain version; (a)
+    ``AssignerDaemon(solver="device")`` over the wire client with watches:
+    construction to ``/readyz`` 200, the first resync split into the reads
+    and the delta store's seeding, ``/state`` (2,000 topics, 5,100 brokers,
+    the encode shape, watches on), the post-resync warm-up with no failure;
+    (b) ``POST /plan`` with ``broker_hosts_to_remove`` b0-b99 (the solve
+    encodes for itself): stdout byte-identical to phase 4's, the kernel
+    launched once, the request's wall and spans; (c) brokers 0-99 deleted
+    through the wire client, the broker watch's full resync awaited, then
+    two ``POST /plan {}`` through the cached merged preencode, each
+    byte-identical to phase 4's with one launch; (d) one replica moved by
+    ``setData``: delta re-encodes of that topic alone and no resync, then
+    ``POST /plan {}`` byte-identical to a fresh in-process CLI run on cuda
+    over the same server; (e) ``python -m kafka_assigner_tpu_torch.daemon``
+    in a child process (its launches counted inside it): spawn to banner and
+    to ``/readyz`` 200, a ``/plan`` byte-identical to (d)'s CLI run, and
+    SIGTERM during a second ``/plan``: ``/readyz`` 503 while it drains, the
+    request answered in full, exit 0.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -246,7 +266,8 @@ the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
-21's counted inside each child process), and ``launches_by_path`` gives
+phase 23's requests, 21's and 23(e)'s counted inside each child process),
+and ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
 phases 14-16.
 
@@ -2378,6 +2399,392 @@ def exec_phases(work, checks, argv4, text4, snap, prefix, prefix_text):
     return {"exec_plan": launched}
 
 
+#: Phase 23: the resident daemon on phase 20(d)'s ZooKeeper tree. Every wait
+#: of the phase is bounded by DAEMON_WAIT_S; the in-process daemon resyncs
+#: on its watches only (a long interval), and the child's drain window
+#: outlasts one config-4 request.
+DAEMON_WAIT_S = 300
+DAEMON_INTERVAL_S = 3600
+DAEMON_DRAIN_S = 120
+#: The child's SIGTERM comes this share of its first /plan's wall into the
+#: second: inside the request, well before its end.
+DAEMON_SIGTERM_AT = 0.25
+#: The child daemon: ``python -m kafka_assigner_tpu_torch.daemon ARGV`` run
+#: through runpy, as ``-m`` runs it, behind an exit hook that prints the
+#: leadership kernel's launches counted inside the child.
+DAEMON_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "from kafka_assigner_tpu_torch.ops import leadership\n"
+    "atexit.register(lambda: print('KA_CHILD_LAUNCHES ' + json.dumps("
+    "leadership.launches), file=sys.stderr, flush=True))\n"
+    "runpy.run_module('kafka_assigner_tpu_torch.daemon', run_name='__main__', "
+    "alter_sys=True)\n"
+)
+
+
+def http_call(port, method, path, payload=None, timeout=600.0):
+    """One request to a daemon on this host: ``(status, body, seconds)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, body=None if payload is None else json.dumps(payload))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        return resp.status, body, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def wait_for(what, predicate, timeout=DAEMON_WAIT_S, every=0.05):
+    """Poll ``predicate`` until true; fail after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            fail(f"23: no {what} within {timeout} s")
+        time.sleep(every)
+
+
+def span_summary(body):
+    """The envelope's top span and its children, ``name ms``."""
+    spans = body["spans"]
+    top = next(i for i, sp in enumerate(spans) if sp["depth"] == 0)
+    kids = [f"{sp['name']} {sp['ms']:.1f}" for sp in spans if sp["parent"] == top]
+    return f"{spans[top]['name']} {spans[top]['ms']:.1f} ms ({', '.join(kids)})"
+
+
+def daemon_phases(work, checks, text4, checked=()):
+    """Phase 23: the resident daemon (``daemon/``) on config 4 over phase
+    20(d)'s ZooKeeper tree (brokers 0-99 still registered, 1 ms a reply).
+    (a)-(d) run the daemon in this process on cuda, so the leadership
+    kernel's launches count here and :func:`solver_probe` holds each against
+    the plain version in a worker (a launch on inputs and with outputs equal
+    to one already held, such as phase 4's main-path launch among
+    ``checked``, ``(tensors, what)`` pairs, is held through that one). (e)
+    runs ``python -m
+    kafka_assigner_tpu_torch.daemon`` in a child process, whose launches are
+    counted inside it, as phase 21's children count theirs: the child runs
+    the module through runpy behind an exit hook that prints the count.
+    Returns the kernel's launches per request."""
+    import signal
+    import threading
+
+    from kafka_assigner_tpu_torch import generator
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+    from kafka_assigner_tpu_torch.daemon import state as dstate
+    from kafka_assigner_tpu_torch.daemon import supervisor as dsup
+    from kafka_assigner_tpu_torch.io.zkwire import MiniZkClient
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+
+    import torch
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    launches = {}
+    sent = list(checked)  # (inputs + outputs, what) of launches held against plain
+
+    def hold(what, orders):
+        """Each recorded launch against plain (or a launch already sent)."""
+        for inputs, outputs in orders:
+            tensors = tuple(inputs) + tuple(outputs)
+            for s_tensors, s_what in sent:
+                if all(a.shape == b.shape and torch.equal(a, b)
+                       for a, b in zip(tensors, s_tensors)):
+                    phase("kernels", f"leadership at {what}: inputs and outputs "
+                          f"bit-equal to the launch of {s_what}, held against plain")
+                    break
+            else:
+                sent.append((tensors, what))
+                checks.submit(what, inputs, outputs)
+
+    def request(key, port, payload, what, want):
+        """One /plan through the in-process daemon: status ok, stdout
+        ``want``, the kernel launched once and held against plain."""
+        lead.launches["leadership"] = 0
+        with solver_probe() as seen:
+            status, body, secs = http_call(port, "POST", "/plan", payload)
+        launches[key] = lead.launches["leadership"]
+        if status != 200 or body.get("status") != "ok" \
+                or body["result"]["stdout"] != want:
+            fail(f"23 {what}: HTTP {status}, status {body.get('status')}, stdout equal "
+                 f"{status == 200 and body['result']['stdout'] == want}; "
+                 f"{body.get('error')}")
+        if launches[key] != 1 or len(seen["orders"]) != 1:
+            fail(f"23 {what}: the leadership kernel launched {launches[key]} times "
+                 f"({len(seen['orders'])} ordering calls), not once")
+        hold(f"phase 23 {what}", seen["orders"])
+        return body, secs, dict(generator.last_ingest)
+
+    # The first resync's wall, split into the reads and the delta store's
+    # seeding, and the resyncs running, read by wrapping the two calls for
+    # the phase.
+    timings = {"sync": [], "seed": [], "syncing": [0], "last_sync": [0.0]}
+    originals = (dsup.ClusterSupervisor._sync_once, dstate.DaemonState.reset,
+                 dstate.DaemonState.apply_topic)
+    applied = []  # the topics each watch delta touched
+
+    def apply_recorded(state, topic, parts):
+        applied.append(topic)
+        return originals[2](state, topic, parts)
+
+    def timed(fn, key):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            timings["syncing"][0] += key == "sync"
+            try:
+                return fn(*args, **kw)
+            finally:
+                timings[key].append((time.perf_counter() - t0) * 1e3)
+                if key == "sync":
+                    timings["syncing"][0] -= 1
+                    timings["last_sync"][0] = time.perf_counter()
+        return wrapper
+
+    dsup.ClusterSupervisor._sync_once = timed(originals[0], "sync")
+    dstate.DaemonState.reset = timed(originals[1], "seed")
+    dstate.DaemonState.apply_topic = apply_recorded
+    try:
+        with knobs(KA_ZK_CLIENT="wire", KA_DAEMON_RESYNC_INTERVAL=DAEMON_INTERVAL_S), \
+                zk_quorum(ZK_REPLY_DELAY_S) as (port, znodes, _):
+            spec = f"127.0.0.1:{port}"
+            # (a) startup.
+            t0 = time.perf_counter()
+            d = AssignerDaemon(spec, solver="device", device="cuda")
+            d.start()
+            try:
+                hport = d.http_port
+                status, _, _ = http_call(hport, "GET", "/readyz")
+                ready_s = time.perf_counter() - t0
+                if status != 200:
+                    fail(f"23 (a): /readyz answered {status} after start")
+                sup = d.supervisor()
+                _, view, _ = http_call(hport, "GET", "/state")
+                if (view["topics"], view["brokers"], view["watches"], view["lifecycle"]) \
+                        != (N_TOPICS, N_BROKERS + REPLACED, True, "ready"):
+                    fail(f"23 (a): /state {view}")
+                wait_for("warm-up", lambda: not any(t.is_alive() for t in sup._warm_threads))
+                c = d.counters()
+                if c.get("daemon.warmups", 0) < 1 or c.get("daemon.warmup_failures"):
+                    fail(f"23 (a): warm-up counters {c}")
+                sync_ms, seed_ms = timings["sync"][0], timings["seed"][0]
+                phase("daemon", f"(a) AssignerDaemon on cuda over ZooKeeper ({znodes} znodes, "
+                      f"1 ms a reply, watches on): construction to /readyz 200 "
+                      f"{ready_s * 1e3:.1f} ms; first resync {sync_ms:.1f} ms = reads "
+                      f"{sync_ms - seed_ms:.1f} + delta store seeding {seed_ms:.1f} "
+                      f"({N_TOPICS} topics, {dstate.RESYNC_CHUNK} a chunk); /state: topics "
+                      f"{view['topics']}, brokers {view['brokers']}, encode_shape "
+                      f"{view['encode_shape']}, watches {view['watches']}; daemon.warmups "
+                      f"{c['daemon.warmups']}, daemon.warmup_failures 0 | {smi}")
+
+                # (b) a plan that bypasses the preencode: brokers excluded.
+                removed = ",".join(f"b{b}" for b in range(REPLACED))
+                body, b_s, ingest = request("daemon_b_bypass", hport,
+                                            {"broker_hosts_to_remove": removed},
+                                            "(b) /plan with broker_hosts_to_remove", text4)
+                if ingest.get("preencoded") or ingest.get("solve_encode") == "preencoded":
+                    fail(f"23 (b): the narrowed request took the cached preencode ({ingest})")
+                phase("daemon", f"(b) POST /plan with broker_hosts_to_remove b0-b{REPLACED - 1}: "
+                      f"status ok, stdout byte-identical to phase 4's, the solve encoded on "
+                      f"the {ingest.get('solve_encode')} codec, leadership kernel launches 1; "
+                      f"request wall {b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
+
+                # (c) the removed brokers deregister; the broker watch's full
+                # resync; then whole-cluster plans through the cached preencode.
+                v0, r0 = sup.state.version, c["daemon.resyncs"]
+                w = MiniZkClient(spec)
+                w.start()
+                try:
+                    t0 = time.perf_counter()
+                    for b in range(REPLACED):
+                        w.delete(f"/brokers/ids/{b}")
+                    delete_s = time.perf_counter() - t0
+                finally:
+                    w.stop()
+                    w.close()
+                wait_for("broker resync", lambda: sup.state.version > v0
+                         and len(sup.state.brokers()) == N_BROKERS
+                         and d.lifecycle() == "ready" and not sup.state.stale)
+
+                def quiet():
+                    # No resync running or ended in the last second, and no
+                    # warm-up running.
+                    return (not timings["syncing"][0]
+                            and time.perf_counter() - timings["last_sync"][0] >= 1.0
+                            and not any(t.is_alive() for t in sup._warm_threads))
+
+                wait_for("a settled cache", quiet, every=0.1)
+                c = d.counters()
+                resyncs = c["daemon.resyncs"] - r0
+                failed = c.get("daemon.resync_failures", 0)
+                if c.get("daemon.warmup_failures"):
+                    fail(f"23 (c): warm-up failures {c}")
+                walls = []
+                for i in (1, 2):
+                    body, secs, ingest = request(
+                        f"daemon_c_preencode_{i}", hport, {},
+                        f"(c) /plan {i} through the cached preencode", text4)
+                    if not ingest.get("preencoded") or ingest.get("solve_encode") != "preencoded":
+                        fail(f"23 (c): the solve did not take the merged preencode ({ingest})")
+                    walls.append(secs)
+                phase("daemon", f"(c) brokers 0-{REPLACED - 1} deleted in {delete_s * 1e3:.1f} ms "
+                      f"through MiniZkClient.delete; {resyncs} full resync(s) by the broker "
+                      f"watch ({failed} failed on a broker deleted mid-read and retried; cache version {v0} -> {sup.state.version}), brokers "
+                      f"{len(sup.state.brokers())}, ready; two POST /plan {{}}: status ok, "
+                      f"stdout byte-identical to phase 4's, the solve on the merged preencode "
+                      f"(no encode of its own), leadership kernel launches 1 each; request "
+                      f"walls {walls[0] * 1e3:.1f} and {walls[1] * 1e3:.1f} ms against (b)'s "
+                      f"{b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
+
+                # (d) churn: one replica of one partition moves to another live
+                # broker on its rack; one delta re-encode, no resync.
+                topic = sup.state.topic_names()[0]
+                parts = sup.state.assignments([topic])[topic]
+                racks = {b.id: b.rack for b in sup.state.brokers()}
+                # The first replica on a live broker (the plan has not run:
+                # some still sit on the removed ones), to the lowest live
+                # broker of its rack that the partition does not hold.
+                pid, slot, old = next((p, i, r) for p in sorted(parts)
+                                      for i, r in enumerate(parts[p]) if r in racks)
+                new = next(b for b in sorted(racks) if racks[b] == racks[old]
+                           and b not in parts[pid])
+                parts[pid] = parts[pid][:slot] + [new] + parts[pid][slot + 1:]
+                c = d.counters()
+                re0, r0 = c.get("daemon.reencode.topics", 0), c["daemon.resyncs"]
+                # Each full resync armed one data watch on every topic: the
+                # test server keeps one registration per armed read (a real
+                # quorum one per session and path), so this change notifies
+                # once per resync so far, and each notification re-encodes
+                # the one topic.
+                armed = r0
+                del applied[:]
+                w = MiniZkClient(spec)
+                w.start()
+                try:
+                    w.set_data(f"/brokers/topics/{topic}", json.dumps(
+                        {"partitions": {str(p): r for p, r in parts.items()}}).encode())
+                finally:
+                    w.stop()
+                    w.close()
+                wait_for("the churn's re-encodes",
+                         lambda: d.counters().get("daemon.reencode.topics", 0) >= re0 + armed)
+                time.sleep(0.5)  # nothing more may arrive
+                c = d.counters()
+                reencoded = c.get("daemon.reencode.topics", 0) - re0
+                if reencoded != armed or set(applied) != {topic} \
+                        or c["daemon.resyncs"] != r0 or sup.state.stale:
+                    fail(f"23 (d): re-encodes {reencoded} (want {armed}) of {sorted(set(applied))}, "
+                         f"resyncs {c['daemon.resyncs'] - r0} (want 0), stale {sup.state.stale}")
+                lead.launches["leadership"] = 0
+                with solver_probe() as seen:
+                    cli_text = run_cli(["--zk_string", spec, "--mode", "PRINT_REASSIGNMENT",
+                                        "--device", "cuda"])
+                launches["daemon_d_cli"] = lead.launches["leadership"]
+                hold("phase 23 (d) the fresh CLI run", seen["orders"])
+                if cli_text == text4:
+                    fail("23 (d): the churned plan equals the unchurned one")
+                body, d_s, _ = request("daemon_d_churn", hport, {},
+                                       "(d) /plan after the churn", cli_text)
+                phase("daemon", f"(d) {topic} partition {pid}: replica {old} -> {new} (rack "
+                      f"{racks[old]}) by setData; delta re-encodes of that topic alone "
+                      f"(daemon.reencode.topics +{reencoded}: one per data watch the "
+                      f"{armed} resyncs armed on the test server), no resync; POST /plan {{}} byte-identical "
+                      f"to a fresh port CLI run on cuda over the same server, leadership "
+                      f"kernel launches 1 each; request wall {d_s * 1e3:.1f} ms | {smi}")
+            finally:
+                d.shutdown()
+            if d.lifecycle() != "stopped":
+                fail(f"23: the in-process daemon ended {d.lifecycle()}")
+
+            # (e) a real process, then SIGTERM with a request in flight.
+            env = dict(os.environ, PYTHONPATH=ROOT, KA_ZK_CLIENT="wire",
+                       KA_DAEMON_DRAIN_TIMEOUT=str(DAEMON_DRAIN_S))
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-c", DAEMON_CHILD, "--zk_string", spec,
+                 "--solver", "device"],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)
+            lines, marks = [], {}
+
+            def read_stderr():
+                for ln in proc.stderr:
+                    lines.append(ln)
+                    if "listening on http://" in ln:
+                        marks.setdefault("banner", time.perf_counter())
+
+            reader = threading.Thread(target=read_stderr, daemon=True)
+            reader.start()
+            try:
+                wait_for("the child's banner",
+                         lambda: "banner" in marks or proc.poll() is not None, every=0.02)
+                if "banner" not in marks:
+                    fail(f"23 (e): the child exited {proc.returncode}: {''.join(lines)[-1500:]}")
+                banner = next(ln for ln in lines if "listening on http://" in ln)
+                cport = int(banner.split("http://127.0.0.1:")[1].split()[0])
+                wait_for("the child's /readyz 200",
+                         lambda: http_call(cport, "GET", "/readyz", timeout=10)[0] == 200)
+                ready_s = time.perf_counter() - t0
+                status, body, e1_s = http_call(cport, "POST", "/plan", {})
+                if status != 200 or body["status"] != "ok" \
+                        or body["result"]["stdout"] != cli_text:
+                    fail(f"23 (e): the child's /plan: HTTP {status}, status "
+                         f"{body.get('status')}, stdout equal to (d)'s CLI run "
+                         f"{status == 200 and body['result']['stdout'] == cli_text}")
+                second = {}
+                t_req = threading.Thread(target=lambda: second.update(
+                    r=http_call(cport, "POST", "/plan", {})))
+                t_req.start()
+                sigterm_s = DAEMON_SIGTERM_AT * e1_s
+                time.sleep(sigterm_s)
+                proc.send_signal(signal.SIGTERM)
+                drain = []
+
+                def draining():
+                    try:
+                        drain.append(http_call(cport, "GET", "/readyz", timeout=30)[:2])
+                    except OSError as e:
+                        fail(f"23 (e): /readyz unreachable during the drain ({e}); the "
+                             f"request in flight done: {'r' in second}")
+                    return drain[-1][0] != 200
+
+                wait_for("/readyz turning away after SIGTERM", draining, every=0.01)
+                ready_status, ready_body = drain[-1]
+                t_req.join(600)
+                rc = proc.wait(timeout=DAEMON_WAIT_S)
+                reader.join(30)
+                status, body, e2_s = second.get("r", (None, {}, 0.0))
+                if ready_status != 503 or ready_body.get("status") != "draining":
+                    fail(f"23 (e): /readyz during the drain: {ready_status} {ready_body}")
+                if status != 200 or body.get("status") != "ok" \
+                        or body["result"]["stdout"] != cli_text:
+                    fail(f"23 (e): the request in flight at SIGTERM: HTTP {status}, status "
+                         f"{body.get('status')}")
+                counted = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                           if ln.startswith("KA_CHILD_LAUNCHES ")]
+                if rc != 0 or not counted or counted[-1]["leadership"] != 2 \
+                        or not any("drained; exiting 0" in ln for ln in lines):
+                    fail(f"23 (e): exit {rc}, launches {counted}; {''.join(lines)[-1500:]}")
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+            launches["daemon_e_child"] = counted[-1]["leadership"]
+            phase("daemon", f"(e) python -m kafka_assigner_tpu_torch.daemon --solver device "
+                  f"in a child process: spawn to banner "
+                  f"{(marks['banner'] - t0) * 1e3:.1f} ms, to /readyz 200 "
+                  f"{ready_s * 1e3:.1f} ms; POST /plan {{}} byte-identical to (d)'s CLI run "
+                  f"in {e1_s * 1e3:.1f} ms; SIGTERM {sigterm_s:.2f} s into a second "
+                  f"/plan: /readyz 503 draining, the request answered in full "
+                  f"({e2_s * 1e3:.1f} ms, byte-identical), exit 0; leadership kernel "
+                  f"launches 2, counted in the child | {smi}")
+    finally:
+        (dsup.ClusterSupervisor._sync_once, dstate.DaemonState.reset,
+         dstate.DaemonState.apply_topic) = originals
+    phase("timing", f"phase 23 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2468,7 +2875,8 @@ def smoke(checks) -> int:
         placed.acc_nodes[:b].contiguous(), placed.acc_count[:b].contiguous(),
         t32(context_to_array(Context(), encs[0])), t32(jhashes[:b]),
     )
-    checks.submit("the main-path shape", k_args, lead.leadership_order(*k_args))
+    k_out = lead.leadership_order(*k_args)
+    checks.submit("the main-path shape", k_args, k_out)
     shape = tuple(k_args[0].shape)
 
     # --- 5: cuda == cpu on a prefix -------------------------------------
@@ -2579,6 +2987,11 @@ def smoke(checks) -> int:
     # --- 21: warm start in fresh processes -----------------------------------
     warm_launches = warm_phases(work, snap, text)
 
+    # --- 23: the resident daemon (before 22: its plain check of the churned
+    # launch, a minute in a worker, then ends inside phase 22) ---------------
+    daemon_launches = daemon_phases(
+        work, checks, text, [(tuple(k_args) + tuple(k_out), "phase 4's main-path shape")])
+
     # --- 22: plan execution ---------------------------------------------------
     exec_launches = exec_phases(work, checks, argv, text, snap, prefix, a)
     late = checks.collect()
@@ -2591,7 +3004,8 @@ def smoke(checks) -> int:
                **reduced,
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
                   for k, v in lanes.items() for lane in ("native", "device")},
-               **obs_launches, **zk_launches, **warm_launches, **exec_launches}
+               **obs_launches, **zk_launches, **warm_launches, **exec_launches,
+               **daemon_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

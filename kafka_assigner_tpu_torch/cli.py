@@ -102,6 +102,22 @@ usage, 3 ingest, 5 validation (a read-only backend, a plan the cluster
 does not match, a journal of another plan or cluster), 6 moves skipped
 under ``best-effort``, 7 verify mismatch, 8 halted mid-plan (resume with
 ``--resume``). It does no device work and takes no ``--device``.
+
+The resident daemon for one cluster, ``ka-daemon`` (:func:`daemon_main`,
+``python -m kafka_assigner_tpu_torch.daemon``)::
+
+    python -m kafka_assigner_tpu_torch.daemon --zk_string host:2181 \
+        [--solver {device,native,greedy}] [--failure-policy {strict,best-effort}]
+        [--bind ADDR] [--port N] [--device {cuda,cpu}]
+
+serves ``/plan``, ``/whatif``, ``/healthz``, ``/readyz`` and ``/state``
+(``daemon/service.py``), with the reference's flags of the single-cluster
+daemon (``kafka_assigner_tpu/cli.py:497-648``) and ``--device``; a served
+``/plan``'s ``result.stdout`` is byte-identical to this CLI's mode 3 on the
+same metadata. It announces ``ka-daemon: listening on http://ADDR:PORT`` on
+stderr and exits 0 after a SIGTERM drain; 1 on a usage error or ``--device
+cuda`` without a card (it never falls back to the CPU); 3 when the first
+sync fails; 5 on validation.
 """
 from __future__ import annotations
 
@@ -939,6 +955,92 @@ def execute(argv: Optional[List[str]] = None) -> int:
 def execute_main() -> None:
     """``python -m kafka_assigner_tpu_torch.exec``: :func:`execute`."""
     sys.exit(execute())
+
+
+def build_daemon_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ka-daemon-torch",
+        description="Resident assigner daemon for one cluster (daemon/): "
+        "keeps the ZooKeeper session, the loaded libraries and the CUDA "
+        "context, and the encoded cluster state in memory, keeps them fresh "
+        "through ZooKeeper watches with incremental re-encode, and serves "
+        "/plan, /whatif, /healthz, /readyz and /state over HTTP. SIGTERM "
+        "drains and exits 0.",
+    )
+    p.add_argument("--zk_string", default=None,
+                   help="the cluster to serve: ZooKeeper host:port pairs, or a "
+                        "file://cluster.json snapshot (watchless; interval "
+                        "resyncs only)")
+    p.add_argument("--solver", default="device", choices=SOLVER_NAMES,
+                   help="default solver of served /plan requests (a request's "
+                        "'solver' overrides)")
+    p.add_argument("--failure-policy", dest="failure_policy", default=None,
+                   choices=("strict", "best-effort"),
+                   help="default failure policy of served requests (default: "
+                        "the KA_FAILURE_POLICY knob)")
+    p.add_argument("--bind", default=None,
+                   help="bind address (default: the KA_DAEMON_BIND knob, "
+                        "loopback)")
+    p.add_argument("--port", type=int, default=None,
+                   help="listen port (default: the KA_DAEMON_PORT knob; 0 = "
+                        "ephemeral, announced on stderr)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the device solver and the what-if sweep run "
+                        "(default: cuda)")
+    return p
+
+
+def run_daemon(argv: Optional[List[str]] = None) -> int:
+    """``ka-daemon``: start the resident daemon and serve until signaled.
+    Exit 0 after a clean SIGTERM or SIGINT drain; 1 on a usage error or a
+    ``cuda`` daemon without a card; a failed initial sync maps to the ingest
+    code through :func:`daemon_main`."""
+    from .daemon.service import run_daemon_process
+    from .solvers.base import get_solver
+    from .solvers.torch_solver import solve_device
+
+    parser = build_daemon_parser()
+    args = parser.parse_args(argv)
+    if args.zk_string is None:
+        print("error: --zk_string is required", file=sys.stderr)
+        parser.print_usage(sys.stderr)
+        return EXIT_USAGE
+    try:
+        solve_device(args.device, "ka-daemon")
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    # Build the native libraries before the solver's fail-fast: the load
+    # paths never compile, so --solver native builds here.
+    _prebuild_native()
+    get_solver(args.solver, device=args.device)
+    return run_daemon_process(
+        args.zk_string,
+        solver=args.solver,
+        device=args.device,
+        failure_policy=args.failure_policy,
+        bind=args.bind,
+        port=args.port,
+    )
+
+
+def daemon_main() -> None:
+    """``python -m kafka_assigner_tpu_torch.daemon``: :func:`run_daemon`
+    with the exit-code mapping."""
+    from .errors import IngestError
+    from .io.zkwire import ZkWireError
+
+    try:
+        sys.exit(run_daemon())
+    except IngestError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_INGEST)
+    except (ZkWireError, OSError) as e:
+        print(f"error: metadata ingest failed: {e}", file=sys.stderr)
+        sys.exit(EXIT_INGEST)
+    except (ValueError, KeyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(EXIT_VALIDATION)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,23 @@
+"""``kafka_assigner_tpu_torch.daemon``: the resident assigner daemon for one
+cluster, the port of the reference's ``kafka_assigner_tpu/daemon`` in its
+single-cluster form.
+
+:mod:`.service` holds the HTTP surface and the process entry,
+:mod:`.supervisor` the cluster's session, watch loop, lifecycle, request
+gate and circuit breaker, :mod:`.state` the watch-fed metadata cache and its
+incremental group encode. The command line is ``python -m
+kafka_assigner_tpu_torch.daemon`` (``cli.daemon_main``).
+"""
+from .service import DEFAULT_CLUSTER, AssignerDaemon, run_daemon_process
+from .state import CacheBackend, DaemonState
+from .supervisor import CircuitBreaker, ClusterSupervisor
+
+__all__ = [
+    "AssignerDaemon",
+    "CacheBackend",
+    "CircuitBreaker",
+    "ClusterSupervisor",
+    "DEFAULT_CLUSTER",
+    "DaemonState",
+    "run_daemon_process",
+]

@@ -616,6 +616,7 @@ def print_least_disruptive_reassignment(
     solver: str = "device",
     failure_policy: str = "strict",
     degradation: Optional[Degradation] = None,
+    ingest=None,
 ) -> Dict[str, Dict[int, List[int]]]:
     """Mode 3: resolve the broker set (all live brokers by default, minus
     exclusions), print the current assignment for rollback, solve every
@@ -627,7 +628,14 @@ def print_least_disruptive_reassignment(
     ``failure_policy="best-effort"`` skips topics the snapshot lacks and
     re-runs a crashed solve on the greedy lane; what the run survived is
     written into ``degradation``. A solver crash that no fallback caught is
-    re-raised as :class:`~.errors.SolveError`."""
+    re-raised as :class:`~.errors.SolveError`.
+
+    ``ingest`` replaces the metadata read, as the reference's
+    (``generator.py:645``): a callable ``(topic_list) -> (initial,
+    preencoded)`` with :func:`stream_initial_assignment`'s return contract.
+    The resident daemon passes its watch-fed cache and delta encode, so a
+    served ``/plan`` runs this same pipeline without re-reading or
+    re-encoding the cluster; no warm-up thread starts under it."""
     out = out if out is not None else sys.stdout
     broker_set = set(specified_brokers)
     if not broker_set:
@@ -644,12 +652,17 @@ def print_least_disruptive_reassignment(
         # while the replies arrive (the solve then skips its own encode);
         # the other lanes still get the pipelined fetch.
         try:
-            initial, preencoded = stream_initial_assignment(
-                backend, topic_list, brokers, rack_assignment,
-                want_encode=(solver == "device"),
-                failure_policy=failure_policy, skipped=skipped,
-                desired_rf=desired_replication_factor, device=device,
-            )
+            if ingest is not None:
+                last_ingest.clear()
+                initial, preencoded = ingest(topic_list)
+                last_ingest["preencoded"] = preencoded is not None
+            else:
+                initial, preencoded = stream_initial_assignment(
+                    backend, topic_list, brokers, rack_assignment,
+                    want_encode=(solver == "device"),
+                    failure_policy=failure_policy, skipped=skipped,
+                    desired_rf=desired_replication_factor, device=device,
+                )
         except Exception as e:
             if not _is_ingest_failure(e):
                 raise

@@ -14,8 +14,9 @@ The protocol also carries the execution surface of ``ka-execute``
 (``supports_execution``, ``apply_assignment``, ``read_assignment_state``)
 with the reference's defaults: a read-only backend refuses to execute, and
 the convergence poll reads over :meth:`MetadataBackend.fetch_topics` with
-``isr == replicas``. The watch surface of the resident daemon is not here
-(ROADMAP queue 1, item 2).
+``isr == replicas``. ``supports_watches`` says whether a backend can feed
+the resident daemon's watch-driven re-encode; only the live ZooKeeper
+backend over the wire client can (``io/zk.py``).
 """
 from __future__ import annotations
 
@@ -143,6 +144,16 @@ class MetadataBackend(Protocol):
         assignment = self.partition_assignment(topics)
         for t in topics:
             yield t, assignment[t]
+
+    def supports_watches(self) -> bool:
+        """True when this backend can feed the resident daemon's
+        watch-driven incremental re-encode: armed reads (``watch_topic_list``,
+        ``watch_brokers``, ``watch_topic``, ``fetch_topics(..., watch=True)``),
+        ``poll_watch_events`` and ``session_generation``. Default False: a
+        watchless backend (a snapshot, the AdminClient, kazoo) still serves
+        the daemon, which then resyncs on its interval only (the same
+        responses, more metadata reads)."""
+        return False
 
     def supports_traffic(self) -> bool:
         """True when :meth:`fetch_partition_traffic` reports real

@@ -17,8 +17,9 @@ the wire client's xid-matched window, or a window of kazoo's async handles.
 and deletes; the convergence poll reads the topic znodes and, where the
 cluster has them, the per-partition ``state`` znodes' ISR.
 
-Not here: the watch methods of the resident daemon (ROADMAP queue 1,
-item 2).
+The resident daemon's churn feed (``supports_watches``, ``watch_*``,
+``poll_watch_events``, ``session_generation``) needs the wire client's
+explicit watch poll; over kazoo the daemon resyncs on its interval only.
 """
 from __future__ import annotations
 
@@ -112,12 +113,15 @@ class ZkBackend:
             binj.backend_reply()
 
     def _iter_gets(
-        self, paths: Sequence[str], missing_ok: bool = False
+        self, paths: Sequence[str], missing_ok: bool = False, watch: bool = False
     ) -> Iterator[Optional[Tuple[bytes, object]]]:
         """``(data, stat)`` per path, in path order, pipelined where the
         client allows: the wire client's ``iter_get`` window; kazoo's async
         handles in a sliding window of ``KA_ZK_PIPELINE``; anything else
         serial gets. Under ``missing_ok`` a missing znode yields ``None``.
+
+        ``watch=True`` (the wire client only: ``supports_watches`` gates
+        the callers) arms a one-shot data watch per read.
 
         Runs on whatever thread consumes the iterator (the streamed
         ingest's producer thread): metrics only, no spans."""
@@ -125,7 +129,10 @@ class ZkBackend:
             return
         iter_get = getattr(self._zk, "iter_get", None)
         if iter_get is not None:
-            yield from iter_get(paths, missing_ok=missing_ok)
+            if watch:
+                yield from iter_get(paths, missing_ok=missing_ok, watch=True)
+            else:
+                yield from iter_get(paths, missing_ok=missing_ok)
             return
         get_async = getattr(self._zk, "get_async", None)
         if get_async is not None:
@@ -215,16 +222,18 @@ class ZkBackend:
         return sorted(self._zk.get_children("/brokers/topics"))
 
     def fetch_topics(
-        self, topics: Sequence[str], missing: str = "raise"
+        self, topics: Sequence[str], missing: str = "raise", watch: bool = False
     ) -> Iterator[Tuple[str, Optional[Dict[int, List[int]]]]]:
         """Yields ``(topic, {partition: [replica ids]})`` per input entry,
         in input order, as pipelined replies arrive. Duplicates are fetched
         per occurrence. A missing topic (deleted during the scan) raises the
         client's ``NoNodeError`` at its position, or under
-        ``missing="skip"`` yields ``(topic, None)`` and keeps streaming."""
+        ``missing="skip"`` yields ``(topic, None)`` and keeps streaming.
+        ``watch=True`` (the wire client only; the daemon's pipelined resync)
+        arms a one-shot data watch per topic read."""
         topics = list(topics)
         paths = [f"/brokers/topics/{topic}" for topic in topics]
-        stream = self._iter_gets(paths, missing_ok=(missing == "skip"))
+        stream = self._iter_gets(paths, missing_ok=(missing == "skip"), watch=watch)
         for topic, res in zip(topics, stream):
             if res is None:
                 counter_add("zk.topics_missing")
@@ -246,6 +255,85 @@ class ZkBackend:
         with span("zk/partition_assignment"):
             for topic, parts in self.fetch_topics(topics):
                 out[topic] = parts
+        return out
+
+    # -- watch surface (the resident daemon's churn feed) -------------------
+
+    TOPICS_PATH = "/brokers/topics"
+    BROKERS_PATH = "/brokers/ids"
+
+    #: The watch loop's keepalive cadence, a third of the session timeout:
+    #: a ping every poll would make each wait return on its own ping reply.
+    PING_INTERVAL_S = ZK_TIMEOUT_S / 3.0
+
+    def supports_watches(self) -> bool:
+        """True when the client speaks the wire watch surface (the in-tree
+        :class:`~.zkwire.MiniZkClient`). Kazoo has its own watch machinery,
+        but the daemon's loop is built on the explicit ``poll_watches``;
+        other clients resync on the interval."""
+        return all(
+            hasattr(self._zk, m)
+            for m in ("poll_watches", "session_generation", "ping")
+        )
+
+    def session_generation(self) -> int:
+        return getattr(self._zk, "session_generation", 0)
+
+    def watch_topic_list(self) -> List[str]:
+        """The sorted topic list, arming a one-shot child watch on the
+        topics znode (a topic created or deleted)."""
+        counter_add("zk.reads")
+        return sorted(self._zk.get_children(self.TOPICS_PATH, watch=True))
+
+    def watch_brokers(self) -> List[str]:
+        """The broker ids, arming a child watch on ``/brokers/ids`` (a
+        broker joined or left: the cluster encoding itself changes, so the
+        daemon resyncs in full)."""
+        counter_add("zk.reads")
+        return sorted(
+            self._zk.get_children(self.BROKERS_PATH, watch=True), key=int
+        )
+
+    def watch_topic(self, topic: str) -> Optional[Dict[int, List[int]]]:
+        """One topic's partition assignment, arming a one-shot data watch
+        on its znode (a partition reassigned or added). A topic deleted
+        between the listing and the read gives None: the caller drops it."""
+        try:
+            raw, _ = self._zk.get(f"{self.TOPICS_PATH}/{topic}", watch=True)
+        except Exception as e:
+            if self._is_nonode(e):
+                return None
+            raise
+        counter_add("zk.reads")
+        counter_add("zk.bytes", len(raw))
+        meta = json.loads(raw)
+        return {
+            int(p): [int(x) for x in replicas]
+            for p, replicas in meta.get("partitions", {}).items()
+        }
+
+    def poll_watch_events(self, timeout: float = 0.25) -> List[tuple]:
+        """Watch notifications as the daemon's events: ``("topics",
+        None)``, the topic set changed (re-list and diff); ``("topic",
+        name)``, one topic's data changed or it was deleted (the re-read
+        with a watch tells which); ``("brokers", None)``, the broker set
+        changed (full resync). Other paths are ignored. Sends the
+        keepalive ping on its cadence."""
+        now = time.monotonic()
+        if now - getattr(self, "_last_ping", 0.0) >= self.PING_INTERVAL_S:
+            self._zk.ping()
+            self._last_ping = now
+        out: List[tuple] = []
+        for ev in self._zk.poll_watches(timeout):
+            if ev.path == self.TOPICS_PATH:
+                out.append(("topics", None))
+            elif ev.path == self.BROKERS_PATH \
+                    or ev.path.startswith(self.BROKERS_PATH + "/"):
+                out.append(("brokers", None))
+            elif ev.path.startswith(self.TOPICS_PATH + "/"):
+                rest = ev.path[len(self.TOPICS_PATH) + 1:]
+                if "/" not in rest:  # the topic znode itself
+                    out.append(("topic", rest))
         return out
 
     def supports_traffic(self) -> bool:

@@ -1,6 +1,7 @@
-"""Minimal pure-python ZooKeeper wire client: the reads, the serial writes
-and the session of the reference's ``kafka_assigner_tpu/io/zkwire.py``, with
-its frames, retry contract and fault seams unchanged. ``io/zk.py`` uses it
+"""Minimal pure-python ZooKeeper wire client: the reads, the serial writes,
+the watches and the session of the reference's
+``kafka_assigner_tpu/io/zkwire.py``, with its frames, retry contract and
+fault seams unchanged. ``io/zk.py`` uses it
 when ``kazoo`` is not installed (or under ``KA_ZK_CLIENT=wire``).
 
 The planner reads a session, ``getChildren`` of the broker and topic lists
@@ -11,7 +12,9 @@ small, stable corner of ZooKeeper's jute protocol:
 - frames: a 4-byte big-endian length prefix;
 - the session handshake: ``ConnectRequest``/``ConnectResponse``;
 - ``getChildren`` (type 8), ``getData`` (type 4), ``exists`` (type 3) and
-  ``ping`` (type 11) with ``ReplyHeader{xid, zxid, err}`` replies;
+  ``ping`` (type 11) with ``ReplyHeader{xid, zxid, err}`` replies, the two
+  reads optionally arming a one-shot watch;
+- ``WatcherEvent`` notifications (xid -1);
 - ``create`` (type 1), ``delete`` (type 2) and ``setData`` (type 5);
 - ``closeSession`` (type -11).
 
@@ -46,9 +49,15 @@ Fault seams, as the reference's: ``connect_attempt`` before each socket
 connect, ``filter_handshake`` on each ConnectResponse and ``filter_reply``
 on each in-session reply frame (``faults/inject.py``, ``KA_FAULTS_SPEC``).
 
-Not here: the watch surface of the resident daemon (ROADMAP queue 1, item
-2). No request this client sends arms a watch, so a notification frame
-(xid -1) is skipped like a ping reply.
+Watches, the resident daemon's churn feed: ``get``, ``get_children``,
+``iter_get``, ``iter_children`` and ``get_many`` take ``watch=True`` to arm
+a one-shot watch per read. A notification frame that arrives while a reply
+is awaited (a serial read, the pipelined window, a write or its read-back)
+is queued and never taken for a reply, so xid matching is undisturbed;
+:meth:`MiniZkClient.poll_watches` drains the queue and waits on an idle
+session for more. Watches die with their session: ``session_generation``
+counts the sessions established, so a caller that armed watches sees when a
+transparent reconnect dropped them.
 """
 from __future__ import annotations
 
@@ -78,8 +87,15 @@ ERR_NODEEXISTS = -110
 ERR_BADVERSION = -103
 
 PING_XID = -2
-#: The server-initiated notification "xid" (ClientCnxn.NOTIFICATION_XID).
+#: The server-initiated notification "xid" (ClientCnxn.NOTIFICATION_XID):
+#: a WatcherEvent frame, not a reply to any request.
 NOTIFICATION_XID = -1
+
+#: WatcherEvent types (org.apache.zookeeper.Watcher.Event.EventType).
+EVENT_CREATED = 1
+EVENT_DELETED = 2
+EVENT_DATA_CHANGED = 3
+EVENT_CHILDREN_CHANGED = 4
 
 #: The world:anyone open ACL (ZooDefs.Ids.OPEN_ACL_UNSAFE), the only ACL the
 #: reassignment admin znode needs: a vector of one ACL{perms=ALL(31),
@@ -116,6 +132,17 @@ class NodeExistsError(ZkWireError):
 class BadVersionError(ZkWireError):
     """A versioned write lost its compare-and-set race
     (KeeperException.BadVersion): somebody else changed the znode."""
+
+
+class WatchEvent(NamedTuple):
+    """One server-pushed WatcherEvent: its type, the keeper state and the
+    chroot-stripped path. Watches are one-shot: to stay subscribed the
+    caller re-reads with a fresh watch flag, which is also the re-read the
+    daemon's delta re-encode needs."""
+
+    type: int
+    state: int
+    path: str
 
 
 class ZnodeStat(NamedTuple):
@@ -195,6 +222,11 @@ def parse_hosts(connect_string: str) -> Tuple[List[Tuple[str, int]], str]:
     return endpoints, chroot
 
 
+def _flag(watch: bool) -> bytes:
+    """A read request's trailing watch byte."""
+    return b"\x01" if watch else b"\x00"
+
+
 def _decode_get(r: _Reader) -> Tuple[bytes, ZnodeStat]:
     """getData reply body: data buffer and stat."""
     data = r.read_buffer() or b""
@@ -213,7 +245,8 @@ class MiniZkClient:
     """Duck-type of the ``kazoo.client.KazooClient`` surface ``ZkBackend``
     uses: ``start`` / ``get_children`` / ``get`` / ``exists`` / ``create``
     / ``set`` / ``delete`` / ``stop`` / ``close``, plus the pipelined
-    ``iter_get``, ``iter_children`` and ``get_many``."""
+    ``iter_get``, ``iter_children`` and ``get_many`` and the watch surface
+    (``poll_watches``, ``session_generation``, ``ping``)."""
 
     def __init__(self, hosts: str, timeout: float = 10.0) -> None:
         self._endpoints, self._chroot = parse_hosts(hosts)
@@ -221,6 +254,11 @@ class MiniZkClient:
         self._sock: Optional[socket.socket] = None
         self._xid = 0
         self._max_in_flight = 0  # high-water mark across this session
+        #: Pending server-pushed WatcherEvents (drained by poll_watches).
+        self._watch_events: List[WatchEvent] = []
+        #: Sessions established so far: watches do not survive a session, so
+        #: a caller compares this with the value it saw when it armed them.
+        self.session_generation = 0
         # The fault injector (None unless KA_FAULTS_SPEC is set), resolved
         # once per client so a run's schedule is coherent across reconnects.
         self._faults = active_injector()
@@ -256,6 +294,7 @@ class MiniZkClient:
                     )
                     self._sock = sock
                     self._handshake(int(deadline_t * 1000))
+                    self.session_generation += 1
                     return
                 except (OSError, ZkWireError) as e:
                     last_err = e
@@ -389,7 +428,8 @@ class MiniZkClient:
 
     def _recv_reply(self) -> Tuple[int, int, _Reader]:
         """One reply frame's ``ReplyHeader`` (xid, err) and its body reader,
-        skipping ping replies and notification frames."""
+        skipping ping replies and queueing watch notifications (xid -1) for
+        :meth:`poll_watches`."""
         # Bounded by the session socket's timeout (set in start).
         while True:
             raw = self._recv_frame()
@@ -399,20 +439,32 @@ class MiniZkClient:
             rxid = r.read_int()
             r.read_long()  # zxid
             err = r.read_int()
-            if rxid in (PING_XID, NOTIFICATION_XID):
+            if rxid == PING_XID:
+                continue
+            if rxid == NOTIFICATION_XID:
+                self._watch_events.append(self._decode_watch_event(r))
                 continue
             return rxid, err, r
+
+    def _decode_watch_event(self, r: _Reader) -> WatchEvent:
+        ev_type = r.read_int()
+        state = r.read_int()
+        path = r.read_str()
+        if self._chroot and path.startswith(self._chroot):
+            path = path[len(self._chroot):] or "/"
+        counter_add("zk.watch_events")
+        return WatchEvent(ev_type, state, path)
 
     def _path(self, path: str) -> str:
         return (self._chroot + path) if self._chroot else path
 
     # -- reads ------------------------------------------------------------
 
-    def get_children(self, path: str) -> List[str]:
-        """Child listing of ``path``."""
-        r = self._call(
-            OP_GET_CHILDREN, _pack_str(self._path(path)) + b"\x00"
-        )
+    def get_children(self, path: str, watch: bool = False) -> List[str]:
+        """Child listing of ``path``; ``watch=True`` also arms a one-shot
+        child watch (NodeChildrenChanged or NodeDeleted, through
+        :meth:`poll_watches`)."""
+        r = self._call(OP_GET_CHILDREN, _pack_str(self._path(path)) + _flag(watch))
         return _decode_children(r)
 
     def exists(self, path: str) -> Optional[ZnodeStat]:
@@ -424,22 +476,97 @@ class MiniZkClient:
             return None
         return r.read_stat()
 
-    def get(self, path: str) -> Tuple[bytes, ZnodeStat]:
-        """``getData`` of ``path``: its bytes and stat."""
-        r = self._call(OP_GET_DATA, _pack_str(self._path(path)) + b"\x00")
+    def get(self, path: str, watch: bool = False) -> Tuple[bytes, ZnodeStat]:
+        """``getData`` of ``path``: its bytes and stat; ``watch=True`` also
+        arms a one-shot data watch (NodeDataChanged or NodeDeleted, through
+        :meth:`poll_watches`)."""
+        r = self._call(OP_GET_DATA, _pack_str(self._path(path)) + _flag(watch))
         return _decode_get(r)
 
+    # -- watches ------------------------------------------------------------
+
     def ping(self) -> None:
-        """Session keepalive (opcode 11, xid -2). The reply is skipped by
-        whichever read runs next."""
+        """Session keepalive (opcode 11, xid -2): the daemon's idle watch
+        loop sends one now and then so a quiet session does not expire. The
+        reply is skipped by whichever read or poll runs next."""
         if self._sock is None:
             raise ZkWireError("ZooKeeper session is not started")
         self._send_frame(struct.pack(">ii", PING_XID, OP_PING))
 
+    def poll_watches(self, timeout: float = 0.25) -> List[WatchEvent]:
+        """The pending watch notifications, waiting up to ``timeout``
+        seconds for the first when none is queued. Transport death raises
+        :class:`ZkConnectionError`: watches die with the session, so the
+        caller re-establishes, re-arms and resyncs.
+
+        No request is in flight here, so only server-initiated frames are
+        legal: notifications are collected, ping replies are dropped without
+        ending the wait, anything else is a desynced session. Readability is
+        tested with ``select`` before a byte is read, so a quiet window never
+        leaves a frame half-read; a frame whose header arrived is read under
+        the session socket's timeout."""
+        import select
+
+        events, self._watch_events = self._watch_events, []
+        if events or self._sock is None:
+            return events
+        deadline = time.monotonic() + max(timeout, 0.0)
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return events
+            try:
+                ready, _, _ = select.select([self._sock], [], [], remaining)
+            except (OSError, ValueError) as e:
+                raise ZkConnectionError(
+                    f"ZooKeeper session died while polling watches: {e}"
+                ) from e
+            if not ready:
+                return events
+            rxid, r = self._recv_server_frame()
+            if rxid == NOTIFICATION_XID:
+                events.append(self._decode_watch_event(r))
+                events.extend(self._drain_ready_watches())
+                return events
+            if rxid != PING_XID:
+                raise ZkConnectionError(
+                    f"unexpected reply xid {rxid} on an idle session while "
+                    "polling watches (desynced)"
+                )
+
+    def _recv_server_frame(self) -> Tuple[int, _Reader]:
+        """One frame on an idle session: its xid and body reader."""
+        r = _Reader(self._recv_frame())
+        rxid = r.read_int()
+        r.read_long()  # zxid
+        r.read_int()   # err
+        return rxid, r
+
+    def _drain_ready_watches(self) -> List[WatchEvent]:
+        """The frames already queued behind a notification just read, by
+        zero-timeout readability probes: nothing blocks and no frame is
+        half-read."""
+        import select
+
+        out: List[WatchEvent] = []
+        assert self._sock is not None
+        while True:
+            ready, _, _ = select.select([self._sock], [], [], 0)
+            if not ready:
+                return out
+            rxid, r = self._recv_server_frame()
+            if rxid == NOTIFICATION_XID:
+                out.append(self._decode_watch_event(r))
+            elif rxid != PING_XID:
+                raise ZkConnectionError(
+                    f"unexpected reply xid {rxid} while draining watch "
+                    "notifications"
+                )
+
     # -- pipelined reads --------------------------------------------------
 
     def iter_get(
-        self, paths: Sequence[str], missing_ok: bool = False
+        self, paths: Sequence[str], missing_ok: bool = False, watch: bool = False
     ) -> Iterator[Optional[Tuple[bytes, ZnodeStat]]]:
         """Pipelined ``getData``: up to ``KA_ZK_PIPELINE`` requests in
         flight, replies matched by xid, ``(data, stat)`` yielded in request
@@ -460,24 +587,29 @@ class MiniZkClient:
         arrival inside a window is not a per-op latency, so they do not
         feed ``zk.op_ms``.
 
+        ``watch=True`` arms a one-shot data watch per read (the daemon's
+        pipelined resync); notifications that land inside the window are
+        queued for :meth:`poll_watches`.
+
         Not thread-safe: one batch (or serial call) at a time per client;
         the streamed ingest hands the whole client to its producer thread
         for the batch.
         """
         yield from self._iter_pipelined(paths, missing_ok, OP_GET_DATA,
-                                        _decode_get)
+                                        _decode_get, watch)
 
     def iter_children(
-        self, paths: Sequence[str], missing_ok: bool = False
+        self, paths: Sequence[str], missing_ok: bool = False, watch: bool = False
     ) -> Iterator[Optional[List[str]]]:
-        """Pipelined ``getChildren``, with :meth:`iter_get`'s window, replay
-        and failure contract."""
+        """Pipelined ``getChildren``, with :meth:`iter_get`'s window, replay,
+        watch and failure contract."""
         yield from self._iter_pipelined(paths, missing_ok, OP_GET_CHILDREN,
-                                        _decode_children)
+                                        _decode_children, watch)
 
-    def _iter_pipelined(self, paths, missing_ok, op, decode):
+    def _iter_pipelined(self, paths, missing_ok, op, decode, watch=False):
         """The window/replay loop behind :meth:`iter_get` and
-        :meth:`iter_children`, parameterized by read opcode and decoder."""
+        :meth:`iter_children`, parameterized by read opcode, decoder and
+        watch flag."""
         if self._sock is None:
             raise ZkWireError("ZooKeeper session is not started")
         from ..utils.env import env_int
@@ -493,7 +625,7 @@ class MiniZkClient:
         attempt = 0
         while yielded < n:
             inner = self._iter_window(paths, yielded, window, missing_ok,
-                                      op, decode)
+                                      op, decode, watch)
             try:
                 try:
                     for res in inner:
@@ -527,6 +659,7 @@ class MiniZkClient:
         missing_ok: bool,
         op: int,
         decode,
+        watch: bool = False,
     ) -> Iterator[object]:
         """One session's attempt at positions ``start..n-1`` of a pipelined
         batch. Yields results in position order; transport failures raise
@@ -544,7 +677,7 @@ class MiniZkClient:
                     self._xid += 1
                     self._send_frame(
                         struct.pack(">ii", self._xid, op)
-                        + _pack_str(self._path(paths[sent])) + b"\x00"
+                        + _pack_str(self._path(paths[sent])) + _flag(watch)
                     )
                     pending[self._xid] = sent
                     sent += 1
@@ -610,11 +743,11 @@ class MiniZkClient:
                     pass
 
     def get_many(
-        self, paths: Sequence[str], missing_ok: bool = False
+        self, paths: Sequence[str], missing_ok: bool = False, watch: bool = False
     ) -> List[Optional[Tuple[bytes, ZnodeStat]]]:
         """All results of :meth:`iter_get` at once, in request order
         (``None`` per missing path under ``missing_ok``)."""
-        return list(self.iter_get(paths, missing_ok=missing_ok))
+        return list(self.iter_get(paths, missing_ok=missing_ok, watch=watch))
 
     # -- writes (serial only; never pipelined, never replayed blindly) -----
 

@@ -383,7 +383,13 @@ class GroupEncodeAccumulator:
 
     ``codecs`` records the codec each chunk's encode took (``"c"`` or
     ``"numpy"``, from :data:`last_codec`); ``encode_ms`` the host time spent
-    in :meth:`add`.
+    in :meth:`add` and :meth:`update_topics`.
+
+    The delta store (:meth:`update_topics`, :meth:`delete_topic`,
+    :meth:`merge`; the reference's ``models/problem.py:482-574``) is the
+    resident daemon's incremental re-encode: one entry per live topic, each
+    trimmed to the topic's own buckets, so a merge computes the group
+    buckets from the live topics alone, as a from-scratch encode does.
     """
 
     def __init__(
@@ -394,6 +400,7 @@ class GroupEncodeAccumulator:
         self._total = 0
         self.encode_ms = 0.0
         self.codecs: List[str] = []
+        self._delta: Dict[str, tuple] = {}  # topic -> (enc, cur2d, jh, p)
 
     def add(self, named_currents: Sequence[tuple], rfs: int = 0) -> None:
         """Encode one chunk of ``(topic, current_assignment)`` pairs, in
@@ -457,6 +464,96 @@ class GroupEncodeAccumulator:
                 )
             i += b
         self._chunks = []
+        return encs, currents, jhashes, p_reals
+
+    # -- delta API (the resident daemon's incremental re-encode) -------------
+
+    def update_topics(
+        self, named_currents: Sequence[tuple], rfs: int = 0
+    ) -> int:
+        """(Re-)encode the given topics into the delta store, batched
+        through :func:`encode_topic_group` (the C codec or its numpy twin,
+        as any encode). Each topic's slab is trimmed to its own buckets,
+        ``_pad8(p)`` x ``max(width, 2)``, so :meth:`merge` recovers the
+        group buckets a from-scratch encode of the final state computes,
+        whichever topics shared a chunk or have since been deleted. A prior
+        entry of a topic is replaced. Returns the topics (re-)encoded."""
+        if not named_currents:
+            return 0
+        t0 = time.perf_counter()
+        encs, currents, _jh, _pr = encode_topic_group(
+            named_currents, {}, set(), [rfs] * len(named_currents),
+            cluster=self.cluster,
+        )
+        for i, (topic, cur) in enumerate(named_currents):
+            enc = encs[i]
+            own_p_pad = _pad8(enc.p)
+            own_width = max(max((len(r) for r in cur.values()), default=0), 2)
+            trimmed = np.array(currents[i][:own_p_pad, :own_width], copy=True)
+            self._delta[topic] = (
+                # Own copies: a view would keep the whole chunk's slab alive.
+                dataclasses.replace(
+                    enc, current=trimmed, p_pad=own_p_pad,
+                    partition_ids=np.array(enc.partition_ids, copy=True),
+                ),
+                trimmed,
+                enc.jhash,
+                enc.p,
+            )
+        self.encode_ms += (time.perf_counter() - t0) * 1000.0
+        return len(named_currents)
+
+    def delete_topic(self, topic: str) -> bool:
+        """Drop one topic from the delta store; returns whether it was
+        there."""
+        return self._delta.pop(topic, None) is not None
+
+    def delta_topics(self) -> List[str]:
+        """The delta store's topics, in insertion order."""
+        return list(self._delta)
+
+    def delta_shape(self) -> tuple | None:
+        """``(p_pad, width)`` bucket maxima over the delta store's live
+        topics (what a merge of all of them buckets to), or None when the
+        store is empty: the daemon's warm-up signature input."""
+        if not self._delta:
+            return None
+        shapes = [cur.shape for _, cur, _, _ in self._delta.values()]
+        return (max(s[0] for s in shapes), max(s[1] for s in shapes))
+
+    def merge(self, topic_order: Sequence[str]) -> tuple:
+        """The delta store assembled for ``topic_order``: the same
+        ``(encs, currents, jhashes, p_reals)`` bytes as a one-shot
+        :func:`encode_topic_group` of the final state in that order. The
+        store keeps serving later merges. An unknown topic raises
+        ``KeyError``."""
+        entries = []
+        for t in topic_order:
+            try:
+                entries.append(self._delta[t])
+            except KeyError:
+                raise KeyError(
+                    f"topic {t!r} is not in the delta encode store"
+                ) from None
+        if not entries:
+            return (
+                [],
+                np.full((1, 8, 2), -1, dtype=np.int32),
+                np.zeros(1, dtype=np.int32),
+                np.zeros(1, dtype=np.int32),
+            )
+        p_pad = max(cur.shape[0] for _, cur, _, _ in entries)
+        width = max(cur.shape[1] for _, cur, _, _ in entries)
+        b_pad = batch_bucket(len(entries))
+        currents = np.full((b_pad, p_pad, width), -1, dtype=np.int32)
+        jhashes = np.zeros(b_pad, dtype=np.int32)
+        p_reals = np.zeros(b_pad, dtype=np.int32)
+        encs: List[ProblemEncoding] = []
+        for i, (enc, cur, jh, p) in enumerate(entries):
+            currents[i, : cur.shape[0], : cur.shape[1]] = cur
+            jhashes[i] = jh
+            p_reals[i] = p
+            encs.append(dataclasses.replace(enc, current=currents[i], p_pad=p_pad))
         return encs, currents, jhashes, p_reals
 
 

@@ -8,7 +8,9 @@ argument is declared here, in the change that adds the write
 undeclared literal). Dynamic names compose on declared bases: the CLI's
 ``mode/<MODE>`` span, the per-kind fault counters
 ``faults.injected.<kind>`` and the warm-up's per-outcome counters
-``warmup.<outcome>``.
+``warmup.<outcome>``. The daemon's counters and spans are written through
+its supervisor (``daemon/supervisor.py``), not with literal names, and are
+declared here all the same.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ from __future__ import annotations
 METRIC_NAMES: frozenset = frozenset({
     # zk.* — metadata reads and reassignment writes (every backend counts
     # here), the wire client's frames, serial-op latency, session
-    # re-establishments and writes a read-back found landed, and its
-    # pipelined window
+    # re-establishments, writes a read-back found landed, watch
+    # notifications received, and its pipelined window
     "zk.reads", "zk.writes", "zk.bytes", "zk.op_ms", "zk.topics_missing",
+    "zk.watch_events",
     "zk.session.reestablished", "zk.write_readback_confirmed",
     "zk.wire_frames_in", "zk.wire_frames_out",
     "zk.wire_bytes_in", "zk.wire_bytes_out",
@@ -63,6 +66,22 @@ METRIC_NAMES: frozenset = frozenset({
     "groups.plans", "groups.sweeps", "groups.moves",
     "groups.candidates", "groups.dispatches", "groups.fanout",
     "groups.solve_fallbacks", "groups.refusals",
+    # daemon.* — the resident daemon (daemon/): requests served, degraded,
+    # shed by the inflight gate, failed by a bug, re-run after a churn race
+    # or on the greedy lane after a solve crash, over the watchdog's budget;
+    # topics re-encoded by a watch event, full resyncs and their failures,
+    # session losses, watch events received, dropped by the fault seam and
+    # watch-loop errors; post-resync warm-ups and their failures; the
+    # session breaker's transitions and probes
+    "daemon.requests", "daemon.requests_degraded", "daemon.requests_shed",
+    "daemon.request_errors",
+    "daemon.churn_retries", "daemon.solve_fallbacks",
+    "daemon.watchdog_exceeded", "daemon.reencode.topics",
+    "daemon.resyncs", "daemon.resync_failures", "daemon.session_lost",
+    "daemon.watch_events", "daemon.watch_dropped", "daemon.watch_errors",
+    "daemon.warmups", "daemon.warmup_failures",
+    "daemon.breaker_opened", "daemon.breaker_probes",
+    "daemon.breaker_closed",
 })
 
 #: Span names (``span(...)`` first argument). Paths derive from nesting at
@@ -78,6 +97,7 @@ SPAN_NAMES: frozenset = frozenset({
     "warmup",
     "exec/wave", "exec/submit", "exec/poll", "exec/verify",
     "groups/plan", "groups/sweep", "groups/dispatch",
+    "daemon/request", "daemon/resync",
 })
 
 #: Both namespaces.

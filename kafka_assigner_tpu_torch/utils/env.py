@@ -21,7 +21,8 @@ ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The three
 store (``utils/programstore.py``) and mode 3's ingest-overlapped warm-up
 (``solvers/warmup.py``). The seven ``KA_EXEC_*`` knobs size, pace and poll
 ``ka-execute``'s waves (``exec/engine.py``) and set the snapshot backend's
-simulated convergence and the default journal path. The port reads every
+simulated convergence and the default journal path. The ten ``KA_DAEMON_*``
+knobs bind, gate, time and resync ``ka-daemon`` (``daemon/``). The port reads every
 knob per call, where the
 reference reads some at trace time.
 """
@@ -115,6 +116,22 @@ KNOBS = {
     "KA_EXEC_WRITE_RETRIES": Knob(2, floor=0),
     "KA_EXEC_SIM_POLLS": Knob(1, floor=0),
     "KA_EXEC_JOURNAL": Knob(None),
+    # The resident daemon (daemon/, ka-daemon): the HTTP bind address and
+    # port (0 = ephemeral, announced on stderr), the inflight gate (read per
+    # request), the watchdog's budget, the interval of full resyncs and the
+    # prompt attempts after a failure, SIGTERM's drain window, the session
+    # breaker's threshold and first cooldown, and the watch-fed re-encode
+    # (0: interval resyncs only).
+    "KA_DAEMON_BIND": Knob("127.0.0.1"),
+    "KA_DAEMON_PORT": Knob(0, floor=0),
+    "KA_DAEMON_MAX_INFLIGHT": Knob(8, floor=1),
+    "KA_DAEMON_REQUEST_TIMEOUT": Knob(30.0, floor=0.1),
+    "KA_DAEMON_RESYNC_INTERVAL": Knob(30.0, floor=0.05),
+    "KA_DAEMON_RESYNC_RETRIES": Knob(3, floor=1),
+    "KA_DAEMON_DRAIN_TIMEOUT": Knob(10.0, floor=0.0),
+    "KA_DAEMON_BREAKER_THRESHOLD": Knob(3, floor=1),
+    "KA_DAEMON_BREAKER_COOLDOWN": Knob(1.0, floor=0.05),
+    "KA_DAEMON_WATCH": Knob(True),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

@@ -58,7 +58,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "utils.timers", "io.zk", "io.zkwire", "io.kafka_admin",
                 "utils.backoff", "utils.programstore", "solvers.warmup", "warm",
                 "warm.__main__", "exec", "exec.engine", "exec.journal",
-                "exec.__main__", "utils.atomicwrite"):
+                "exec.__main__", "utils.atomicwrite", "daemon", "daemon.state",
+                "daemon.supervisor", "daemon.service", "daemon.__main__"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -280,6 +281,39 @@ def test_solver_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchSolver()
     assert TorchSolver(device="cpu").device.type == "cpu"
+
+
+def test_every_entry_point_defaults_to_cuda():
+    from kafka_assigner_tpu_torch import cli
+
+    for build, argv in ((cli.build_parser, []), (cli.build_warm_parser, []),
+                        (cli.build_groups_parser, []),
+                        (cli.build_daemon_parser, ["--zk_string", "h:2181"])):
+        assert build().parse_args(argv).device == "cuda", build.__name__
+        assert build().parse_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
+def test_daemon_on_cuda_without_a_card_refuses_at_startup(tmp_path, monkeypatch):
+    # With no card visible, `--device cuda` (the default) fails before the
+    # daemon reads its cluster or serves anything: no fallback to the CPU.
+    snap = tmp_path / "c.json"
+    snap.write_text('{"brokers": [{"id": 1, "host": "h1", "port": 1, "rack": "a"}], '
+                    '"topics": {"t": {"0": [1]}}}')
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "kafka_assigner_tpu_torch.daemon", "--zk_string",
+         str(snap), "--solver", "greedy"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 1, proc.stderr
+    assert "no CUDA device is available" in proc.stderr
+    assert "listening on" not in proc.stderr
+    # The library entry refuses the same way, before it opens a backend.
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AssignerDaemon("127.0.0.1:1")
 
 
 def test_chip_smoke_refuses_without_the_repo_or_a_card(tmp_path):
