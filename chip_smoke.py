@@ -214,8 +214,9 @@ Phases, each printing its own line; any failure exits non-zero:
     reply): (a)-(d) in this process on cuda, so the leadership kernel's
     launches count here and each is held against the plain version; (a)
     ``AssignerDaemon(solver="device")`` over the wire client with watches:
-    construction to ``/readyz`` 200, the first resync split into the reads
-    and the delta store's seeding, ``/state`` (2,000 topics, 5,100 brokers,
+    construction to ``/readyz`` 200, the first resync (its ``daemon/resync``
+    span) split into the reads with the cache's copy and the delta store's
+    seeding (the state's ``seed_ms``), ``/state`` (2,000 topics, 5,100 brokers,
     the encode shape, watches on), the post-resync warm-up with no failure;
     (b) ``POST /plan`` with ``broker_hosts_to_remove`` b0-b99 (the solve
     encodes for itself): stdout byte-identical to phase 4's, the kernel
@@ -223,7 +224,9 @@ Phases, each printing its own line; any failure exits non-zero:
     through the wire client, the broker watch's full resync awaited, then
     two ``POST /plan {}`` through the cached merged preencode, each
     byte-identical to phase 4's with one launch; (d) one replica moved by
-    ``setData``: delta re-encodes of that topic alone and no resync, then
+    ``setData``: one delta re-encode per notification the daemon takes
+    (``daemon.reencode.topics`` against ``daemon.watch_events``) and no
+    resync, then
     ``POST /plan {}`` byte-identical to a fresh in-process CLI run on cuda
     over the same server; (e) ``python -m kafka_assigner_tpu_torch.daemon``
     in a child process (its launches counted inside it): spawn to banner and
@@ -2470,10 +2473,9 @@ def daemon_phases(work, checks, text4, checked=()):
     import signal
     import threading
 
-    from kafka_assigner_tpu_torch import generator
+    from kafka_assigner_tpu_torch import generator, obs
     from kafka_assigner_tpu_torch.daemon import AssignerDaemon
-    from kafka_assigner_tpu_torch.daemon import state as dstate
-    from kafka_assigner_tpu_torch.daemon import supervisor as dsup
+    from kafka_assigner_tpu_torch.daemon.state import RESYNC_CHUNK
     from kafka_assigner_tpu_torch.io.zkwire import MiniZkClient
     from kafka_assigner_tpu_torch.ops import leadership as lead
 
@@ -2516,82 +2518,82 @@ def daemon_phases(work, checks, text4, checked=()):
         hold(f"phase 23 {what}", seen["orders"])
         return body, secs, dict(generator.last_ingest)
 
-    # The first resync's wall, split into the reads and the delta store's
-    # seeding, and the resyncs running, read by wrapping the two calls for
-    # the phase.
-    timings = {"sync": [], "seed": [], "syncing": [0], "last_sync": [0.0]}
-    originals = (dsup.ClusterSupervisor._sync_once, dstate.DaemonState.reset,
-                 dstate.DaemonState.apply_topic)
-    applied = []  # the topics each watch delta touched
+    def resync_spans(run):
+        """The daemon's ``daemon/resync`` spans recorded into ``run``: each
+        full resync's wall and whether it succeeded."""
+        return [sp for sp in list(run.spans) if sp["name"] == "daemon/resync"]
 
-    def apply_recorded(state, topic, parts):
-        applied.append(topic)
-        return originals[2](state, topic, parts)
+    def settled(d, window):
+        """No resync, watch event or warm-up counted in the last ``window``
+        seconds."""
+        keys = ("daemon.resyncs", "daemon.resync_failures", "daemon.watch_events",
+                "daemon.warmups", "daemon.warmup_failures")
+        seen = {"c": None, "at": time.monotonic()}
 
-    def timed(fn, key):
-        def wrapper(*args, **kw):
-            t0 = time.perf_counter()
-            timings["syncing"][0] += key == "sync"
-            try:
-                return fn(*args, **kw)
-            finally:
-                timings[key].append((time.perf_counter() - t0) * 1e3)
-                if key == "sync":
-                    timings["syncing"][0] -= 1
-                    timings["last_sync"][0] = time.perf_counter()
-        return wrapper
+        def check():
+            c = d.counters()
+            now = tuple(c.get(k, 0) for k in keys)
+            if now != seen["c"]:
+                seen["c"], seen["at"] = now, time.monotonic()
+            return time.monotonic() - seen["at"] >= window
+        return check
 
-    dsup.ClusterSupervisor._sync_once = timed(originals[0], "sync")
-    dstate.DaemonState.reset = timed(originals[1], "seed")
-    dstate.DaemonState.apply_topic = apply_recorded
-    try:
-        with knobs(KA_ZK_CLIENT="wire", KA_DAEMON_RESYNC_INTERVAL=DAEMON_INTERVAL_S), \
-                zk_quorum(ZK_REPLY_DELAY_S) as (port, znodes, _):
-            spec = f"127.0.0.1:{port}"
-            # (a) startup.
+    with knobs(KA_ZK_CLIENT="wire", KA_DAEMON_RESYNC_INTERVAL=DAEMON_INTERVAL_S), \
+            zk_quorum(ZK_REPLY_DELAY_S) as (port, znodes, _):
+        spec = f"127.0.0.1:{port}"
+        # (a) startup. The resync's wall is the daemon's own span, read from
+        # a capture open around the start; the seeding is the state's timer.
+        with obs.run_capture() as boot:
             t0 = time.perf_counter()
             d = AssignerDaemon(spec, solver="device", device="cuda")
             d.start()
-            try:
-                hport = d.http_port
-                status, _, _ = http_call(hport, "GET", "/readyz")
-                ready_s = time.perf_counter() - t0
-                if status != 200:
-                    fail(f"23 (a): /readyz answered {status} after start")
-                sup = d.supervisor()
-                _, view, _ = http_call(hport, "GET", "/state")
-                if (view["topics"], view["brokers"], view["watches"], view["lifecycle"]) \
-                        != (N_TOPICS, N_BROKERS + REPLACED, True, "ready"):
-                    fail(f"23 (a): /state {view}")
-                wait_for("warm-up", lambda: not any(t.is_alive() for t in sup._warm_threads))
-                c = d.counters()
-                if c.get("daemon.warmups", 0) < 1 or c.get("daemon.warmup_failures"):
-                    fail(f"23 (a): warm-up counters {c}")
-                sync_ms, seed_ms = timings["sync"][0], timings["seed"][0]
-                phase("daemon", f"(a) AssignerDaemon on cuda over ZooKeeper ({znodes} znodes, "
-                      f"1 ms a reply, watches on): construction to /readyz 200 "
-                      f"{ready_s * 1e3:.1f} ms; first resync {sync_ms:.1f} ms = reads "
-                      f"{sync_ms - seed_ms:.1f} + delta store seeding {seed_ms:.1f} "
-                      f"({N_TOPICS} topics, {dstate.RESYNC_CHUNK} a chunk); /state: topics "
-                      f"{view['topics']}, brokers {view['brokers']}, encode_shape "
-                      f"{view['encode_shape']}, watches {view['watches']}; daemon.warmups "
-                      f"{c['daemon.warmups']}, daemon.warmup_failures 0 | {smi}")
+        try:
+            hport = d.http_port
+            status, _, _ = http_call(hport, "GET", "/readyz")
+            ready_s = time.perf_counter() - t0
+            if status != 200:
+                fail(f"23 (a): /readyz answered {status} after start")
+            sup = d.supervisor()
+            seed_ms = sup.state.seed_ms
+            first = resync_spans(boot)
+            if len(first) != 1 or first[0]["status"] != "ok":
+                fail(f"23 (a): the start's resync spans {first}")
+            sync_ms = first[0]["ms"]
+            _, view, _ = http_call(hport, "GET", "/state")
+            if (view["topics"], view["brokers"], view["watches"], view["lifecycle"]) \
+                    != (N_TOPICS, N_BROKERS + REPLACED, True, "ready"):
+                fail(f"23 (a): /state {view}")
+            wait_for("warm-up", lambda: d.counters().get("daemon.warmups", 0)
+                     + d.counters().get("daemon.warmup_failures", 0) >= 1)
+            c = d.counters()
+            if c.get("daemon.warmups", 0) < 1 or c.get("daemon.warmup_failures"):
+                fail(f"23 (a): warm-up counters {c}")
+            phase("daemon", f"(a) AssignerDaemon on cuda over ZooKeeper ({znodes} znodes, "
+                  f"1 ms a reply, watches on): construction to /readyz 200 "
+                  f"{ready_s * 1e3:.1f} ms; first resync (daemon/resync span) "
+                  f"{sync_ms:.1f} ms = the reads and the cache's copy {sync_ms - seed_ms:.1f} "
+                  f"+ delta store seeding {seed_ms:.1f} ({N_TOPICS} topics, {RESYNC_CHUNK} a "
+                  f"chunk); /state: "
+                  f"topics {view['topics']}, brokers {view['brokers']}, encode_shape "
+                  f"{view['encode_shape']}, watches {view['watches']}; daemon.warmups "
+                  f"{c['daemon.warmups']}, daemon.warmup_failures 0 | {smi}")
 
-                # (b) a plan that bypasses the preencode: brokers excluded.
-                removed = ",".join(f"b{b}" for b in range(REPLACED))
-                body, b_s, ingest = request("daemon_b_bypass", hport,
-                                            {"broker_hosts_to_remove": removed},
-                                            "(b) /plan with broker_hosts_to_remove", text4)
-                if ingest.get("preencoded") or ingest.get("solve_encode") == "preencoded":
-                    fail(f"23 (b): the narrowed request took the cached preencode ({ingest})")
-                phase("daemon", f"(b) POST /plan with broker_hosts_to_remove b0-b{REPLACED - 1}: "
-                      f"status ok, stdout byte-identical to phase 4's, the solve encoded on "
-                      f"the {ingest.get('solve_encode')} codec, leadership kernel launches 1; "
-                      f"request wall {b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
+            # (b) a plan that bypasses the preencode: brokers excluded.
+            removed = ",".join(f"b{b}" for b in range(REPLACED))
+            body, b_s, ingest = request("daemon_b_bypass", hport,
+                                        {"broker_hosts_to_remove": removed},
+                                        "(b) /plan with broker_hosts_to_remove", text4)
+            if ingest.get("preencoded") or ingest.get("solve_encode") == "preencoded":
+                fail(f"23 (b): the narrowed request took the cached preencode ({ingest})")
+            phase("daemon", f"(b) POST /plan with broker_hosts_to_remove b0-b{REPLACED - 1}: "
+                  f"status ok, stdout byte-identical to phase 4's, the solve encoded on "
+                  f"the {ingest.get('solve_encode')} codec, leadership kernel launches 1; "
+                  f"request wall {b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
 
-                # (c) the removed brokers deregister; the broker watch's full
-                # resync; then whole-cluster plans through the cached preencode.
-                v0, r0 = sup.state.version, c["daemon.resyncs"]
+            # (c) the removed brokers deregister; the broker watch's full
+            # resyncs; then whole-cluster plans through the cached preencode.
+            v0, r0 = view["cache_version"], c["daemon.resyncs"]
+            with obs.run_capture() as churn:
                 w = MiniZkClient(spec)
                 w.start()
                 try:
@@ -2602,185 +2604,188 @@ def daemon_phases(work, checks, text4, checked=()):
                 finally:
                     w.stop()
                     w.close()
-                wait_for("broker resync", lambda: sup.state.version > v0
-                         and len(sup.state.brokers()) == N_BROKERS
-                         and d.lifecycle() == "ready" and not sup.state.stale)
 
-                def quiet():
-                    # No resync running or ended in the last second, and no
-                    # warm-up running.
-                    return (not timings["syncing"][0]
-                            and time.perf_counter() - timings["last_sync"][0] >= 1.0
-                            and not any(t.is_alive() for t in sup._warm_threads))
+                def resynced():
+                    _, v, _ = http_call(hport, "GET", "/state")
+                    return (v["cache_version"] > v0 and v["brokers"] == N_BROKERS
+                            and v["lifecycle"] == "ready" and not v["stale"])
 
-                wait_for("a settled cache", quiet, every=0.1)
-                c = d.counters()
-                resyncs = c["daemon.resyncs"] - r0
-                failed = c.get("daemon.resync_failures", 0)
-                if c.get("daemon.warmup_failures"):
-                    fail(f"23 (c): warm-up failures {c}")
-                walls = []
-                for i in (1, 2):
-                    body, secs, ingest = request(
-                        f"daemon_c_preencode_{i}", hport, {},
-                        f"(c) /plan {i} through the cached preencode", text4)
-                    if not ingest.get("preencoded") or ingest.get("solve_encode") != "preencoded":
-                        fail(f"23 (c): the solve did not take the merged preencode ({ingest})")
-                    walls.append(secs)
-                phase("daemon", f"(c) brokers 0-{REPLACED - 1} deleted in {delete_s * 1e3:.1f} ms "
-                      f"through MiniZkClient.delete; {resyncs} full resync(s) by the broker "
-                      f"watch ({failed} failed on a broker deleted mid-read and retried; cache version {v0} -> {sup.state.version}), brokers "
-                      f"{len(sup.state.brokers())}, ready; two POST /plan {{}}: status ok, "
-                      f"stdout byte-identical to phase 4's, the solve on the merged preencode "
-                      f"(no encode of its own), leadership kernel launches 1 each; request "
-                      f"walls {walls[0] * 1e3:.1f} and {walls[1] * 1e3:.1f} ms against (b)'s "
-                      f"{b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
+                wait_for("broker resync", resynced, every=0.1)
+                # Settled: nothing counted for twice the longest resync seen,
+                # so no resync or warm-up is still running.
+                window = max(1.0, 2e-3 * max(sp["ms"] for sp in first + resync_spans(churn)))
+                wait_for("a settled cache", settled(d, window), every=0.1)
+                walls = resync_spans(churn)
+            c = d.counters()
+            resyncs = c["daemon.resyncs"] - r0
+            failed = sum(sp["status"] != "ok" for sp in walls)
+            walls_txt = ", ".join(f"{sp['ms']:.1f}" for sp in walls)
+            _, view, _ = http_call(hport, "GET", "/state")
+            walls_ms = []
+            for i in (1, 2):
+                body, secs, ingest = request(
+                    f"daemon_c_preencode_{i}", hport, {},
+                    f"(c) /plan {i} through the cached preencode", text4)
+                if not ingest.get("preencoded") or ingest.get("solve_encode") != "preencoded":
+                    fail(f"23 (c): the solve did not take the merged preencode ({ingest})")
+                walls_ms.append(secs * 1e3)
+            phase("daemon", f"(c) brokers 0-{REPLACED - 1} deleted in {delete_s * 1e3:.1f} ms "
+                  f"through MiniZkClient.delete; {resyncs} full resync(s) by the broker "
+                  f"watch ({failed} failed on a broker deleted mid-read and retried; "
+                  f"daemon/resync spans {walls_txt} ms; "
+                  f"cache version {v0} -> {view['cache_version']}), brokers "
+                  f"{view['brokers']}, ready; two POST /plan {{}}: status ok, "
+                  f"stdout byte-identical to phase 4's, the solve on the merged preencode "
+                  f"(no encode of its own), leadership kernel launches 1 each; request "
+                  f"walls {walls_ms[0]:.1f} and {walls_ms[1]:.1f} ms against (b)'s "
+                  f"{b_s * 1e3:.1f} ms; spans {span_summary(body)} | {smi}")
 
-                # (d) churn: one replica of one partition moves to another live
-                # broker on its rack; one delta re-encode, no resync.
-                topic = sup.state.topic_names()[0]
-                parts = sup.state.assignments([topic])[topic]
-                racks = {b.id: b.rack for b in sup.state.brokers()}
-                # The first replica on a live broker (the plan has not run:
-                # some still sit on the removed ones), to the lowest live
-                # broker of its rack that the partition does not hold.
-                pid, slot, old = next((p, i, r) for p in sorted(parts)
-                                      for i, r in enumerate(parts[p]) if r in racks)
-                new = next(b for b in sorted(racks) if racks[b] == racks[old]
-                           and b not in parts[pid])
-                parts[pid] = parts[pid][:slot] + [new] + parts[pid][slot + 1:]
-                c = d.counters()
-                re0, r0 = c.get("daemon.reencode.topics", 0), c["daemon.resyncs"]
-                # Each full resync armed one data watch on every topic: the
-                # test server keeps one registration per armed read (a real
-                # quorum one per session and path), so this change notifies
-                # once per resync so far, and each notification re-encodes
-                # the one topic.
-                armed = r0
-                del applied[:]
-                w = MiniZkClient(spec)
-                w.start()
-                try:
-                    w.set_data(f"/brokers/topics/{topic}", json.dumps(
-                        {"partitions": {str(p): r for p, r in parts.items()}}).encode())
-                finally:
-                    w.stop()
-                    w.close()
-                wait_for("the churn's re-encodes",
-                         lambda: d.counters().get("daemon.reencode.topics", 0) >= re0 + armed)
-                time.sleep(0.5)  # nothing more may arrive
-                c = d.counters()
-                reencoded = c.get("daemon.reencode.topics", 0) - re0
-                if reencoded != armed or set(applied) != {topic} \
-                        or c["daemon.resyncs"] != r0 or sup.state.stale:
-                    fail(f"23 (d): re-encodes {reencoded} (want {armed}) of {sorted(set(applied))}, "
-                         f"resyncs {c['daemon.resyncs'] - r0} (want 0), stale {sup.state.stale}")
-                lead.launches["leadership"] = 0
-                with solver_probe() as seen:
-                    cli_text = run_cli(["--zk_string", spec, "--mode", "PRINT_REASSIGNMENT",
-                                        "--device", "cuda"])
-                launches["daemon_d_cli"] = lead.launches["leadership"]
-                hold("phase 23 (d) the fresh CLI run", seen["orders"])
-                if cli_text == text4:
-                    fail("23 (d): the churned plan equals the unchurned one")
-                body, d_s, _ = request("daemon_d_churn", hport, {},
-                                       "(d) /plan after the churn", cli_text)
-                phase("daemon", f"(d) {topic} partition {pid}: replica {old} -> {new} (rack "
-                      f"{racks[old]}) by setData; delta re-encodes of that topic alone "
-                      f"(daemon.reencode.topics +{reencoded}: one per data watch the "
-                      f"{armed} resyncs armed on the test server), no resync; POST /plan {{}} byte-identical "
-                      f"to a fresh port CLI run on cuda over the same server, leadership "
-                      f"kernel launches 1 each; request wall {d_s * 1e3:.1f} ms | {smi}")
-            finally:
-                d.shutdown()
-            if d.lifecycle() != "stopped":
-                fail(f"23: the in-process daemon ended {d.lifecycle()}")
+            # (d) churn: one replica of one partition moves to another live
+            # broker on its rack; delta re-encodes, no resync.
+            topic = sup.state.topic_names()[0]
+            parts = sup.state.assignments([topic])[topic]
+            racks = {b.id: b.rack for b in sup.state.brokers()}
+            # The first replica on a live broker (the plan has not run: some
+            # still sit on the removed ones), to the lowest live broker of
+            # its rack that the partition does not hold.
+            pid, slot, old = next((p, i, r) for p in sorted(parts)
+                                  for i, r in enumerate(parts[p]) if r in racks)
+            new = next(b for b in sorted(racks) if racks[b] == racks[old]
+                       and b not in parts[pid])
+            parts[pid] = parts[pid][:slot] + [new] + parts[pid][slot + 1:]
+            c = d.counters()
+            base = {k: c.get(k, 0) for k in
+                    ("daemon.reencode.topics", "daemon.watch_events", "daemon.resyncs")}
 
-            # (e) a real process, then SIGTERM with a request in flight.
-            env = dict(os.environ, PYTHONPATH=ROOT, KA_ZK_CLIENT="wire",
-                       KA_DAEMON_DRAIN_TIMEOUT=str(DAEMON_DRAIN_S))
-            t0 = time.perf_counter()
-            proc = subprocess.Popen(
-                [sys.executable, "-c", DAEMON_CHILD, "--zk_string", spec,
-                 "--solver", "device"],
-                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                text=True)
-            lines, marks = [], {}
+            def grew(key):
+                return d.counters().get(key, 0) - base[key]
 
-            def read_stderr():
-                for ln in proc.stderr:
-                    lines.append(ln)
-                    if "listening on http://" in ln:
-                        marks.setdefault("banner", time.perf_counter())
-
-            reader = threading.Thread(target=read_stderr, daemon=True)
-            reader.start()
+            # The one znode changed is this topic's: every notification the
+            # daemon takes is a data watch on it (the test server fires one
+            # per armed read, a real quorum one per session and path), and
+            # each re-encodes that topic alone.
+            w = MiniZkClient(spec)
+            w.start()
             try:
-                wait_for("the child's banner",
-                         lambda: "banner" in marks or proc.poll() is not None, every=0.02)
-                if "banner" not in marks:
-                    fail(f"23 (e): the child exited {proc.returncode}: {''.join(lines)[-1500:]}")
-                banner = next(ln for ln in lines if "listening on http://" in ln)
-                cport = int(banner.split("http://127.0.0.1:")[1].split()[0])
-                wait_for("the child's /readyz 200",
-                         lambda: http_call(cport, "GET", "/readyz", timeout=10)[0] == 200)
-                ready_s = time.perf_counter() - t0
-                status, body, e1_s = http_call(cport, "POST", "/plan", {})
-                if status != 200 or body["status"] != "ok" \
-                        or body["result"]["stdout"] != cli_text:
-                    fail(f"23 (e): the child's /plan: HTTP {status}, status "
-                         f"{body.get('status')}, stdout equal to (d)'s CLI run "
-                         f"{status == 200 and body['result']['stdout'] == cli_text}")
-                second = {}
-                t_req = threading.Thread(target=lambda: second.update(
-                    r=http_call(cport, "POST", "/plan", {})))
-                t_req.start()
-                sigterm_s = DAEMON_SIGTERM_AT * e1_s
-                time.sleep(sigterm_s)
-                proc.send_signal(signal.SIGTERM)
-                drain = []
-
-                def draining():
-                    try:
-                        drain.append(http_call(cport, "GET", "/readyz", timeout=30)[:2])
-                    except OSError as e:
-                        fail(f"23 (e): /readyz unreachable during the drain ({e}); the "
-                             f"request in flight done: {'r' in second}")
-                    return drain[-1][0] != 200
-
-                wait_for("/readyz turning away after SIGTERM", draining, every=0.01)
-                ready_status, ready_body = drain[-1]
-                t_req.join(600)
-                rc = proc.wait(timeout=DAEMON_WAIT_S)
-                reader.join(30)
-                status, body, e2_s = second.get("r", (None, {}, 0.0))
-                if ready_status != 503 or ready_body.get("status") != "draining":
-                    fail(f"23 (e): /readyz during the drain: {ready_status} {ready_body}")
-                if status != 200 or body.get("status") != "ok" \
-                        or body["result"]["stdout"] != cli_text:
-                    fail(f"23 (e): the request in flight at SIGTERM: HTTP {status}, status "
-                         f"{body.get('status')}")
-                counted = [json.loads(ln.split(" ", 1)[1]) for ln in lines
-                           if ln.startswith("KA_CHILD_LAUNCHES ")]
-                if rc != 0 or not counted or counted[-1]["leadership"] != 2 \
-                        or not any("drained; exiting 0" in ln for ln in lines):
-                    fail(f"23 (e): exit {rc}, launches {counted}; {''.join(lines)[-1500:]}")
+                w.set_data(f"/brokers/topics/{topic}", json.dumps(
+                    {"partitions": {str(p): r for p, r in parts.items()}}).encode())
             finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait(30)
-            launches["daemon_e_child"] = counted[-1]["leadership"]
-            phase("daemon", f"(e) python -m kafka_assigner_tpu_torch.daemon --solver device "
-                  f"in a child process: spawn to banner "
-                  f"{(marks['banner'] - t0) * 1e3:.1f} ms, to /readyz 200 "
-                  f"{ready_s * 1e3:.1f} ms; POST /plan {{}} byte-identical to (d)'s CLI run "
-                  f"in {e1_s * 1e3:.1f} ms; SIGTERM {sigterm_s:.2f} s into a second "
-                  f"/plan: /readyz 503 draining, the request answered in full "
-                  f"({e2_s * 1e3:.1f} ms, byte-identical), exit 0; leadership kernel "
-                  f"launches 2, counted in the child | {smi}")
-    finally:
-        (dsup.ClusterSupervisor._sync_once, dstate.DaemonState.reset,
-         dstate.DaemonState.apply_topic) = originals
+                w.stop()
+                w.close()
+            wait_for("the churn's re-encodes",
+                     lambda: grew("daemon.reencode.topics") >= 1
+                     and grew("daemon.reencode.topics") == grew("daemon.watch_events"))
+            wait_for("a settled cache", settled(d, 0.5), every=0.05)
+            reencoded, events = grew("daemon.reencode.topics"), grew("daemon.watch_events")
+            if reencoded < 1 or reencoded != events or grew("daemon.resyncs") \
+                    or sup.state.stale:
+                fail(f"23 (d): re-encodes {reencoded} for {events} notifications, resyncs "
+                     f"{grew('daemon.resyncs')} (want 0), stale {sup.state.stale}")
+            lead.launches["leadership"] = 0
+            with solver_probe() as seen:
+                cli_text = run_cli(["--zk_string", spec, "--mode", "PRINT_REASSIGNMENT",
+                                    "--device", "cuda"])
+            launches["daemon_d_cli"] = lead.launches["leadership"]
+            hold("phase 23 (d) the fresh CLI run", seen["orders"])
+            if cli_text == text4:
+                fail("23 (d): the churned plan equals the unchurned one")
+            body, d_s, _ = request("daemon_d_churn", hport, {},
+                                   "(d) /plan after the churn", cli_text)
+            phase("daemon", f"(d) {topic} partition {pid}: replica {old} -> {new} (rack "
+                  f"{racks[old]}) by setData; delta re-encodes of that topic "
+                  f"(daemon.reencode.topics +{reencoded}, one per notification: "
+                  f"daemon.watch_events +{events}), no resync; POST /plan {{}} byte-identical "
+                  f"to a fresh port CLI run on cuda over the same server, leadership "
+                  f"kernel launches 1 each; request wall {d_s * 1e3:.1f} ms | {smi}")
+        finally:
+            d.shutdown()
+        # The shutdown joined every warm-up the phase started.
+        c = d.counters()
+        if d.lifecycle() != "stopped" or c.get("daemon.warmup_failures"):
+            fail(f"23: the in-process daemon ended {d.lifecycle()}, counters {c}")
+
+        # (e) a real process, then SIGTERM with a request in flight.
+        env = dict(os.environ, PYTHONPATH=ROOT, KA_ZK_CLIENT="wire",
+                   KA_DAEMON_DRAIN_TIMEOUT=str(DAEMON_DRAIN_S))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DAEMON_CHILD, "--zk_string", spec,
+             "--solver", "device"],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        lines, marks = [], {}
+
+        def read_stderr():
+            for ln in proc.stderr:
+                lines.append(ln)
+                if "listening on http://" in ln:
+                    marks.setdefault("banner", time.perf_counter())
+
+        reader = threading.Thread(target=read_stderr, daemon=True)
+        reader.start()
+        try:
+            wait_for("the child's banner",
+                     lambda: "banner" in marks or proc.poll() is not None, every=0.02)
+            if "banner" not in marks:
+                fail(f"23 (e): the child exited {proc.returncode}: {''.join(lines)[-1500:]}")
+            banner = next(ln for ln in lines if "listening on http://" in ln)
+            cport = int(banner.split("http://127.0.0.1:")[1].split()[0])
+            wait_for("the child's /readyz 200",
+                     lambda: http_call(cport, "GET", "/readyz", timeout=10)[0] == 200)
+            ready_s = time.perf_counter() - t0
+            status, body, e1_s = http_call(cport, "POST", "/plan", {})
+            if status != 200 or body["status"] != "ok" \
+                    or body["result"]["stdout"] != cli_text:
+                fail(f"23 (e): the child's /plan: HTTP {status}, status "
+                     f"{body.get('status')}, stdout equal to (d)'s CLI run "
+                     f"{status == 200 and body['result']['stdout'] == cli_text}")
+            second = {}
+            t_req = threading.Thread(target=lambda: second.update(
+                r=http_call(cport, "POST", "/plan", {})))
+            t_req.start()
+            sigterm_s = DAEMON_SIGTERM_AT * e1_s
+            time.sleep(sigterm_s)
+            proc.send_signal(signal.SIGTERM)
+            drain = []
+
+            def draining():
+                try:
+                    drain.append(http_call(cport, "GET", "/readyz", timeout=30)[:2])
+                except OSError as e:
+                    fail(f"23 (e): /readyz unreachable during the drain ({e}); the "
+                         f"request in flight done: {'r' in second}")
+                return drain[-1][0] != 200
+
+            wait_for("/readyz turning away after SIGTERM", draining, every=0.01)
+            ready_status, ready_body = drain[-1]
+            t_req.join(600)
+            rc = proc.wait(timeout=DAEMON_WAIT_S)
+            reader.join(30)
+            status, body, e2_s = second.get("r", (None, {}, 0.0))
+            if ready_status != 503 or ready_body.get("status") != "draining":
+                fail(f"23 (e): /readyz during the drain: {ready_status} {ready_body}")
+            if status != 200 or body.get("status") != "ok" \
+                    or body["result"]["stdout"] != cli_text:
+                fail(f"23 (e): the request in flight at SIGTERM: HTTP {status}, status "
+                     f"{body.get('status')}")
+            counted = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                       if ln.startswith("KA_CHILD_LAUNCHES ")]
+            if rc != 0 or not counted or counted[-1]["leadership"] != 2 \
+                    or not any("drained; exiting 0" in ln for ln in lines):
+                fail(f"23 (e): exit {rc}, launches {counted}; {''.join(lines)[-1500:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        launches["daemon_e_child"] = counted[-1]["leadership"]
+        phase("daemon", f"(e) python -m kafka_assigner_tpu_torch.daemon --solver device "
+              f"in a child process: spawn to banner "
+              f"{(marks['banner'] - t0) * 1e3:.1f} ms, to /readyz 200 "
+              f"{ready_s * 1e3:.1f} ms; POST /plan {{}} byte-identical to (d)'s CLI run "
+              f"in {e1_s * 1e3:.1f} ms; SIGTERM {sigterm_s:.2f} s into a second "
+              f"/plan: /readyz 503 draining, the request answered in full "
+              f"({e2_s * 1e3:.1f} ms, byte-identical), exit 0; leadership kernel "
+              f"launches 2, counted in the child | {smi}")
     phase("timing", f"phase 23 {time.perf_counter() - t_phase:.1f} s | {smi}")
     return launches
 

@@ -994,10 +994,10 @@ def run_daemon(argv: Optional[List[str]] = None) -> int:
     """``ka-daemon``: start the resident daemon and serve until signaled.
     Exit 0 after a clean SIGTERM or SIGINT drain; 1 on a usage error or a
     ``cuda`` daemon without a card; a failed initial sync maps to the ingest
-    code through :func:`daemon_main`."""
-    from .daemon.service import run_daemon_process
-    from .solvers.base import get_solver
-    from .solvers.torch_solver import solve_device
+    code through :func:`daemon_main`. The device check, the library build
+    and the solver's fail-fast are the daemon's own
+    (:class:`~.daemon.service.AssignerDaemon`)."""
+    from .daemon.service import AssignerDaemon, run_daemon_process
 
     parser = build_daemon_parser()
     args = parser.parse_args(argv)
@@ -1006,22 +1006,18 @@ def run_daemon(argv: Optional[List[str]] = None) -> int:
         parser.print_usage(sys.stderr)
         return EXIT_USAGE
     try:
-        solve_device(args.device, "ka-daemon")
-    except RuntimeError as e:
+        daemon = AssignerDaemon(
+            args.zk_string,
+            solver=args.solver,
+            device=args.device,
+            failure_policy=args.failure_policy,
+            bind=args.bind,
+            port=args.port,
+        )
+    except RuntimeError as e:  # a cuda daemon without a card
         print(f"error: {e}", file=sys.stderr)
         return EXIT_USAGE
-    # Build the native libraries before the solver's fail-fast: the load
-    # paths never compile, so --solver native builds here.
-    _prebuild_native()
-    get_solver(args.solver, device=args.device)
-    return run_daemon_process(
-        args.zk_string,
-        solver=args.solver,
-        device=args.device,
-        failure_policy=args.failure_policy,
-        bind=args.bind,
-        port=args.port,
-    )
+    return run_daemon_process(daemon)
 
 
 def daemon_main() -> None:

@@ -129,11 +129,14 @@ class AssignerDaemon:
     # -- lifecycle --------------------------------------------------------------------
 
     def start(self) -> None:
-        """Build the native libraries (the solve path only loads them), run
+        """Build the native libraries (the solve path only loads them), fail
+        fast on a solver that cannot be made (``native`` not built), run
         the first sync (bounded retries, then ``IngestError``), then serve."""
         from ..native.build import prebuild_native_libraries
+        from ..solvers.base import get_solver
 
         prebuild_native_libraries(err=self.err)
+        get_solver(self.solver, device=self.device)
         sup = self.supervisor()
         sup.start()
         self.httpd = _build_http_server(self, self.bind, self.port)
@@ -268,23 +271,10 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
     return httpd
 
 
-def run_daemon_process(
-    zk_string: str,
-    *,
-    solver: str = "device",
-    device: str = "cuda",
-    failure_policy: Optional[str] = None,
-    bind: Optional[str] = None,
-    port: Optional[int] = None,
-) -> int:
-    """Start a daemon, install the signal handlers, serve until SIGTERM or
-    SIGINT, drain, return 0. ``ka-daemon`` lands here."""
+def run_daemon_process(daemon: AssignerDaemon) -> int:
+    """Install the signal handlers, start ``daemon``, serve until SIGTERM
+    or SIGINT, drain, return 0. ``ka-daemon`` lands here."""
     import signal
-
-    daemon = AssignerDaemon(
-        zk_string, solver=solver, device=device, failure_policy=failure_policy,
-        bind=bind, port=port,
-    )
 
     def _sig(_signo, _frame):
         daemon.request_stop()

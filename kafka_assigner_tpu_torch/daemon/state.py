@@ -19,6 +19,7 @@ so the solve runs on private arrays.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 from ..io.base import BrokerInfo
@@ -85,6 +86,9 @@ class DaemonState:
         #: Served responses carry it as ``status: "degraded"``.
         self.stale = True
         self.synced_once = False
+        #: The wall, in ms, of the last full resync's delta-store seeding
+        #: (the rest of a ``daemon/resync`` span is the metadata reads).
+        self.seed_ms: Optional[float] = None
 
     # -- readers --------------------------------------------------------------
 
@@ -153,6 +157,7 @@ class DaemonState:
         :data:`RESYNC_CHUNK`-topic chunks of the batched encode. The seeding
         runs outside the lock and the swap under it: a concurrent
         :meth:`plan_inputs` sees the old state or the new, never a mix."""
+        t0 = time.perf_counter()
         acc = GroupEncodeAccumulator(
             {b.id: b.rack for b in brokers if b.rack is not None},
             {b.id for b in brokers},
@@ -160,7 +165,9 @@ class DaemonState:
         items = list(topics.items())
         for i in range(0, len(items), RESYNC_CHUNK):
             acc.update_topics(items[i:i + RESYNC_CHUNK])
+        seed_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
+            self.seed_ms = seed_ms
             self._brokers = list(brokers)
             self._topics = {
                 t: {int(p): [int(r) for r in reps] for p, reps in parts.items()}

@@ -152,8 +152,9 @@ class ClusterSupervisor:
         self.spec = spec
         self.solver = solver
         self.device = device
-        # The KA_FAILURE_POLICY knob unless given, as the CLI. The greedy
-        # re-run of a crashed /plan applies under either policy.
+        # The KA_FAILURE_POLICY knob unless given, as the CLI: a device
+        # solve that crashes answers 500 under strict, and under best-effort
+        # the solver's own greedy re-run answers it degraded.
         self.failure_policy = failure_policy or env_choice("KA_FAILURE_POLICY")
         self.draining = draining
         self.stopped = stopped
@@ -739,8 +740,11 @@ class ClusterSupervisor:
     def _run_plan(self, params: dict, out: io.StringIO) -> bool:
         """Mode 3's pipeline against the cache: stdout byte-identical to a
         fresh CLI run on the same metadata. Returns whether the request
-        degraded. A solve crash re-runs this one request on the greedy
-        lane."""
+        degraded. The ``daemon:solver-crash`` seam re-runs this one request
+        on the greedy lane; a real crash of the device solve follows the
+        failure policy, as in the CLI (a ``SolveError`` under strict, the
+        500 of :meth:`_handle_admitted`), so a kernel that fails to launch
+        never sends the work to the host on a strict daemon."""
         solver = params.get("solver") or self.solver
         policy = params.get("failure_policy") or self.failure_policy
         pk = self._plan_kwargs(params)
@@ -791,7 +795,7 @@ class ClusterSupervisor:
                 out.seek(0)
                 out.truncate()
                 deg = run_once(solver)
-        except (InjectedSolverCrash, SolveError) as e:
+        except InjectedSolverCrash as e:
             self._count("daemon.solve_fallbacks")
             self._log(
                 f"solve crashed in-request ({type(e).__name__}: {e}); "

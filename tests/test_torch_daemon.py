@@ -714,6 +714,47 @@ def test_fault_seams_match_the_reference(monkeypatch, seam, policy):
         assert counters[key] == counters_j[key] == 1
 
 
+@pytest.mark.parametrize("policy", ["strict", "best-effort"])
+def test_device_solve_crash_follows_the_failure_policy(monkeypatch, server, policy):
+    """A crash inside the device solve (the ``solve`` seam, the stand-in for
+    a kernel that fails to launch) follows the failure policy, as the CLI
+    does: under strict a 500 ``error`` carrying the ``SolveError`` and no
+    greedy re-run; under best-effort the solver's own greedy re-run,
+    ``degraded``, with the reference daemon's status and bytes. The next
+    request solves on the device lane. Under strict the reference daemon
+    re-runs the request on the greedy lane instead (ROADMAP §3)."""
+    monkeypatch.setenv("KA_FAILURE_POLICY", policy)
+    trees = {lane: both_clis(zk(server), "--solver", lane) for lane in ("greedy", "device")}
+    seen = {}
+    for pkg in ("torch", "jax"):
+        jax_faults.reset()
+        torch_faults.reset()
+        monkeypatch.setenv("KA_FAULTS_SPEC", "solve:0=crash")
+        with running(pkg, zk(server), solver="device") as d:
+            first = req(d.http_port, "POST", "/plan", {})[:2]
+            second = plan(d)
+            seen[pkg] = (first, second, d.counters())
+        monkeypatch.delenv("KA_FAULTS_SPEC")
+    (status, body), second, counters = seen["torch"]
+    (status_j, body_j), second_j, counters_j = seen["jax"]
+    for after in (second, second_j):
+        assert after["status"] == "ok" and after["result"]["stdout"] == trees["device"]
+    assert "daemon.solve_fallbacks" not in counters
+    if policy == "strict":
+        assert status == 500 and body["status"] == "error"
+        # The current assignment is out before the solve, as in the CLI's
+        # strict exit; no plan follows it.
+        assert body["error"]["type"] == "SolveError"
+        assert "NEW ASSIGNMENT" not in body["result"]["stdout"]
+        assert (status_j, body_j["status"]) == (200, "degraded")
+        assert body_j["result"]["stdout"] == trees["greedy"]
+    else:
+        assert status == status_j == 200
+        assert body["status"] == body_j["status"] == "degraded"
+        assert body["result"]["stdout"] == body_j["result"]["stdout"] == trees["greedy"]
+        assert counters.get("daemon.requests_degraded") == 1
+
+
 # --- the process ---------------------------------------------------------------------------
 
 
