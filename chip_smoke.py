@@ -232,7 +232,36 @@ Phases, each printing its own line; any failure exits non-zero:
     in a child process (its launches counted inside it): spawn to banner and
     to ``/readyz`` 200, a ``/plan`` byte-identical to (d)'s CLI run, and
     SIGTERM during a second ``/plan``: ``/readyz`` 503 while it drains, the
-    request answered in full, exit 0.
+    request answered in full, exit 0;
+24. the daemon for many clusters, in this process on cuda, on the same
+    server right after phase 23: ``AssignerDaemon(clusters=...,
+    solver="device")`` with cluster ``a`` (config 4 over the tree as phase
+    23 leaves it) and cluster ``b`` (BASELINE config 3, ``build_config3``:
+    500 brokers in 5 racks plus 50 added, all live, 1,000 topics x 64
+    partitions at RF 3, as a snapshot copied for the daemon, with phase
+    14's ``ingest`` group over its topics); (a) construction to the
+    aggregate ``/readyz`` 200, each cluster's ``/healthz`` and ``/state``,
+    the first resyncs and their ``health.score_ms``; (b) ``POST
+    /clusters/a/plan {}`` with ``X-Request-Id: smoke-24b``: stdout
+    byte-identical to phase 23(d)'s CLI run, one launch held through that
+    run's, the ID in the header, ``result.request_id``, every span and one
+    access-log line; (c) ``POST /clusters/b/plan`` removing brokers 0-49:
+    moved == the replicas on them, rack-distinct lists on live brokers
+    under the cap, one launch at (1000, 64, 3) held against the plain
+    version in a worker; (d) ``POST /clusters/b/execute`` of (c)'s plan in
+    at most 8 waves: the NDJSON stream start, waves, verify, done; the
+    daemon's copy of b byte-identical to the plan's NEW ASSIGNMENT through
+    ``write_snapshot``; a second ``/execute`` meanwhile 409; (e)
+    ``/clusters/b/groups/plan`` and ``/groups/sweep`` (``ingest``,
+    ``groups_real``), each group-pack launch bit-equal to plain in a worker
+    and timed alone, with its C_pad and variant; (f) ``/clusters/b/
+    recommendations`` and again with ``?move_cost=0``: the envelope valid,
+    the verdict and scores, one launch each; (g) ``GET /metrics`` parsed,
+    every histogram consistent, both clusters in ``daemon.http.requests``
+    and the ``ka_health_*`` gauges, the scrape's bytes and time;
+    ``/debug/flight?cluster=b`` with (d)'s ``execute`` and (f)'s
+    ``recommendation`` events; (h) ``request_stop`` with a
+    ``/clusters/a/plan`` in flight: answered in full, ``serve`` returns 0.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -255,9 +284,12 @@ not on their path, and the smoke checks that they launch it no time.
 The plain leadership checks of phases 4 and 7 (config 4's 208,000 rows and
 each giant cell's 200,000, a Python loop over rows on the host CPU), and
 the plain group-pack checks and ``cpu`` runs of phases 14-16, run in
-spawned worker processes, one thread each, while the later phases go on;
-their results are collected after phase 16, so phases 17-18 time a quiet
-host.
+``PLAIN_WORKERS`` spawned worker processes, one thread each, while the
+later phases go on: phases 14-15's ``cpu`` runs start right after phase 4
+and phase 16's after phase 11, and each group-pack launch is checked in
+slices of ``GROUP_PLAIN_SLICE`` candidates. Their results are collected
+after phase 16, so phases 17-18 time a quiet host; each collect prints the
+jobs' timeline and its own wait.
 
 Phases 7 and 8 read what the solver hands ``place_batched`` and
 ``leadership_order`` through :func:`solver_probe`, which wraps the two names
@@ -269,10 +301,10 @@ the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
-phase 23's requests, 21's and 23(e)'s counted inside each child process),
-and ``launches_by_path`` gives
+phase 23's and 24's requests, 21's and 23(e)'s counted inside each child
+process), and ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
-phases 14-16.
+phases 14-16 and 24 (``daemon_multi_*``).
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -308,7 +340,11 @@ KERNEL_REPS = 10
 SOLVE_REPS = 5
 GIANT_SOLVE_REPS = 3
 WHATIF_REPS = 3
-PLAIN_WORKERS = 4
+PLAIN_WORKERS = 6
+# A group-pack launch's plain check goes to the workers in slices of this
+# many candidates: the scan is vectorized over candidates and none reads
+# another's rows, so the slices' results are the whole check's.
+GROUP_PLAIN_SLICE = 8
 CONFIG5_SCENARIOS = 256
 # Phase 11's candidates: 16 brokers over every rack of config 4's cluster.
 RANK_CANDIDATES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 1234, 2500, 3001, 4444, 4998, 4999)
@@ -409,6 +445,14 @@ def check_orders(lead, orders, what):
     return worst
 
 
+def timed_job(fn, args):
+    """Worker process: ``fn(*args)`` between two epoch stamps, so the parent
+    can place the job on its own clock."""
+    t0 = time.time()
+    out = fn(*args)
+    return t0, time.time(), out
+
+
 def plain_check(inputs, outputs):
     """Worker process: the plain leadership version on ``inputs`` (numpy
     arrays), against the kernel's ``outputs``; returns (max |kernel -
@@ -435,12 +479,14 @@ class PlainChecks:
         self.pool = concurrent.futures.ProcessPoolExecutor(
             PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
         self.pending = []
+        self.t0 = time.time()
 
     def job(self, kernel, done, fn, *args):
         """Run ``fn(*args)`` in a worker; ``done(result)`` returns max
         |kernel - plain| of ``kernel`` (0 for a job that compares no
         kernel) and fails on any disagreement."""
-        self.pending.append((kernel, done, self.pool.submit(fn, *args)))
+        self.pending.append((kernel, done, time.time(),
+                             self.pool.submit(timed_job, fn, args)))
 
     def submit(self, what, inputs, outputs):
         inputs = tuple(a.cpu().numpy() for a in inputs)
@@ -459,10 +505,24 @@ class PlainChecks:
 
     def collect(self):
         """Every job's result; fails on any disagreement. Returns max
-        |kernel - plain| per kernel."""
+        |kernel - plain| per kernel. Prints the jobs' timeline on the
+        smoke's clock: when the last was queued and ended, the workers' busy
+        seconds, and how long this call waited."""
         worst = {}
-        for kernel, done, future in self.pending:
-            worst[kernel] = max(worst.get(kernel, 0), done(future.result()))
+        t_wait = time.time()
+        spans = []
+        for kernel, done, queued, future in self.pending:
+            start, end, result = future.result()
+            spans.append((queued, start, end))
+            worst[kernel] = max(worst.get(kernel, 0), done(result))
+        if spans:
+            t = lambda x: x - self.t0  # noqa: E731
+            phase("timing", f"workers ({PLAIN_WORKERS}): {len(spans)} jobs, the last queued "
+                  f"at {t(max(q for q, _, _ in spans)):.1f} s, the last ended at "
+                  f"{t(max(e for _, _, e in spans)):.1f} s, busy "
+                  f"{sum(e - st for _, st, e in spans):.1f} s, longest queue wait "
+                  f"{max(st - q for q, st, _ in spans):.1f} s; this collect waited "
+                  f"{time.time() - t_wait:.1f} s (smoke clock)")
         self.pending = []
         return worst
 
@@ -1111,6 +1171,31 @@ def group_plain_check(inputs, outputs):
     return err, time.perf_counter() - t0
 
 
+def hold_group_launch(checks, what, shape, inputs, outputs):
+    """Hold one group-pack launch (its ``inputs`` and ``outputs`` on the
+    card) against the plain version in the workers, GROUP_PLAIN_SLICE
+    candidates a job: capacities and proc_order are shared, every other
+    array is sliced on its candidate axis."""
+    inputs = tuple(a.cpu().numpy() for a in inputs)
+    outputs = tuple(a.cpu().numpy() for a in outputs)
+    s = inputs[0].shape[0]
+    for lo in range(0, s, GROUP_PLAIN_SLICE):
+        hi = min(s, lo + GROUP_PLAIN_SLICE)
+        part = "" if (lo, hi) == (0, s) else f", candidates {lo}-{hi - 1}"
+
+        def checked(result, part=part):
+            err, secs = result
+            if err:
+                fail(f"{what}: group-pack kernel disagrees with plain at {shape}{part}")
+            phase("kernels", f"group_pack at {what} {shape}{part}: bit-equal to plain on "
+                  f"assigned, load and overflowed (plain on CPU {secs:.1f} s in a worker)")
+            return err
+
+        checks.job("group_pack", checked, group_plain_check,
+                   tuple(a if i in (1, 2) else a[lo:hi] for i, a in enumerate(inputs)),
+                   tuple(a[lo:hi] for a in outputs))
+
+
 @contextlib.contextmanager
 def scan_probe():
     """Record, for a block, every group-pack scan call: ``(inputs,
@@ -1161,36 +1246,72 @@ def scan_timing(what, inputs, outputs):
     return statistics.median(times), min(times), max(times)
 
 
-def group_phases(work, steady_snap, checks):
+class GroupRuns:
+    """Phases 14-16's ``ka-groups`` paths. Each path's ``cpu`` run goes to
+    the workers as soon as its snapshot exists (phase 14's right after
+    phase 4, the synthetic sweep's after phase 11), so the longest of them,
+    the sweep's, runs beside the phases before 14; at collect each is held
+    against the ``cuda`` run's stdout that :func:`group_phases` records in
+    ``texts``."""
+
+    def __init__(self, work, checks):
+        from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
+
+        topic_map, live, racks = rack_striped_cluster(
+            N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, name_fmt="topic-{:04d}")
+        self.snap = os.path.join(work, "config4_groups.json")
+        self.owner = write_group_snapshot(self.snap, topic_map, live, racks)
+        self.checks = checks
+        self.texts = {}
+        base = ["--zk_string", f"file://{self.snap}"]
+        counts = ",".join(map(str, GROUP_COUNTS))
+        scales = ",".join(map(str, GROUP_SCALES))
+        self.paths = {
+            "group_plan": base + ["--mode", "plan"],
+            "group_sweep": base + ["--mode", "sweep", "--counts", counts,
+                                   "--scales", scales],
+        }
+        for path in self.paths:
+            self._cpu_run(path)
+
+    def add_synthetic(self, steady_snap):
+        """The synthetic sweep over phase 11's steady snapshot."""
+        self.paths["group_synthetic"] = ["--zk_string", f"file://{steady_snap}", "--mode",
+                                         "sweep", "--synthetic", "--weight", "throughput"]
+        self._cpu_run("group_synthetic")
+
+    def _cpu_run(self, path):
+        def done(result, path=path):
+            rc_c, text_c, secs = result
+            text = self.texts.get(path)
+            if rc_c != 0 or text_c != text:
+                fail(f"{path}: ka-groups stdout differs on cuda and cpu (cpu rc {rc_c}, "
+                     f"cuda run done {text is not None})")
+            phase("cuda==cpu", f"{path}: ka-groups stdout byte-identical on cuda and "
+                  f"cpu ({len(text)} bytes; the cpu run {secs:.1f} s in a worker)")
+            return 0
+
+        self.checks.job("group_pack", done, groups_cpu_run, self.paths[path])
+
+
+def group_phases(runs, steady_snap):
     """Phases 14-16: ``ka-groups`` plan, sweep and the synthetic sweep on
-    config 4's cluster, each ``cuda`` run with the kernel counts reset just
-    before and read just after; ``cpu`` runs and plain checks go to the
-    workers. Returns the group-pack kernel's entry of the ``kernels`` line,
-    and each path's argv and ``cuda`` stdout."""
+    config 4's cluster (``runs``, whose ``cpu`` runs are already with the
+    workers), each ``cuda`` run with the kernel counts reset just before and
+    read just after; plain checks go to the workers. Returns the group-pack
+    kernel's entry of the ``kernels`` line, and each path's argv and
+    ``cuda`` stdout."""
     import numpy as np
     import torch
 
     from kafka_assigner_tpu_torch.groups import solve as gsolve
     from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
-    from kafka_assigner_tpu_torch.models.synthetic import rack_striped_cluster
     from kafka_assigner_tpu_torch.ops import group_pack as gp
     from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
     from kafka_assigner_tpu_torch.parallel import whatif
 
-    topic_map, live, racks = rack_striped_cluster(
-        N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, name_fmt="topic-{:04d}")
-    snap = os.path.join(work, "config4_groups.json")
-    owner = write_group_snapshot(snap, topic_map, live, racks)
-    base = ["--zk_string", f"file://{snap}"]
-    counts = ",".join(map(str, GROUP_COUNTS))
-    scales = ",".join(map(str, GROUP_SCALES))
-    paths = {
-        "group_plan": base + ["--mode", "plan"],
-        "group_sweep": base + ["--mode", "sweep", "--counts", counts, "--scales", scales],
-        "group_synthetic": ["--zk_string", f"file://{steady_snap}", "--mode", "sweep",
-                            "--synthetic", "--weight", "throughput"],
-    }
-    by_path, records, texts, timed = {}, {}, {}, {}
+    checks, snap, owner, paths = runs.checks, runs.snap, runs.owner, runs.paths
+    by_path, records, texts, timed = {}, {}, runs.texts, {}
     for path, argv in paths.items():
         with scan_probe() as seen:
             gp.launches["group_pack"] = 0
@@ -1204,30 +1325,9 @@ def group_phases(work, steady_snap, checks):
             fail(f"{path}: the group-pack kernel launched {by_path[path]} times")
         records[path] = dict(whatif.last_groups, wall_s=wall)
         texts[path] = text
-
-        def done(result, path=path, text=text):
-            rc_c, text_c, secs = result
-            if rc_c != 0 or text_c != text:
-                fail(f"{path}: ka-groups stdout differs on cuda and cpu (cpu rc {rc_c})")
-            phase("cuda==cpu", f"{path}: ka-groups stdout byte-identical on cuda and "
-                  f"cpu ({len(text)} bytes; the cpu run {secs:.1f} s in a worker)")
-            return 0
-
-        checks.job("group_pack", done, groups_cpu_run, argv)
         inputs, outputs = seen[0]
         shape = f"S={inputs[0].shape[0]} P_pad={inputs[0].shape[1]} C_pad={inputs[1].shape[0]}"
-
-        def checked(result, path=path, shape=shape):
-            err, secs = result
-            if err:
-                fail(f"{path}: group-pack kernel disagrees with plain at {shape}")
-            phase("kernels", f"group_pack at {path} {shape}: bit-equal to plain on "
-                  f"assigned, load and overflowed (plain on CPU {secs:.1f} s in a worker)")
-            return err
-
-        checks.job("group_pack", checked, group_plain_check,
-                   tuple(a.cpu().numpy() for a in inputs),
-                   tuple(a.cpu().numpy() for a in outputs))
+        hold_group_launch(checks, path, shape, inputs, outputs)
         timed[path] = (inputs, outputs, shape)
         rec = records[path]
         phase("groups", f"{path} on cuda: {wall:.2f} s wall; {shape}; steps (orphan "
@@ -2469,7 +2569,9 @@ def daemon_phases(work, checks, text4, checked=()):
     kafka_assigner_tpu_torch.daemon`` in a child process, whose launches are
     counted inside it, as phase 21's children count theirs: the child runs
     the module through runpy behind an exit hook that prints the count.
-    Returns the kernel's launches per request."""
+    Then phase 24 (:func:`multi_phases`) on the same server. Returns the
+    leadership kernel's launches per request of both phases, and phase 24's
+    group-pack launches."""
     import signal
     import threading
 
@@ -2786,8 +2888,386 @@ def daemon_phases(work, checks, text4, checked=()):
               f"/plan: /readyz 503 draining, the request answered in full "
               f"({e2_s * 1e3:.1f} ms, byte-identical), exit 0; leadership kernel "
               f"launches 2, counted in the child | {smi}")
-    phase("timing", f"phase 23 {time.perf_counter() - t_phase:.1f} s | {smi}")
-    return launches
+        phase("timing", f"phase 23 {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+        # Phase 24 on the same server, the tree as (d) left it.
+        multi, multi_groups = multi_phases(work, checks, spec, cli_text, hold)
+    launches.update(multi)
+    return launches, multi_groups
+
+
+#: Phase 24: the daemon for many clusters. Cluster b is BASELINE config 3
+#: (500 brokers in 5 racks plus 50 added, 1,000 topics x 64 partitions at RF
+#: 3), its (c) plan removes brokers 0-49, and its execution takes at most 8
+#: waves of MULTI_WAVE_SIZE moves (64,000 partitions: two waves). (e) sweeps the
+#: ingest group at counts 32-256 x scales 100-300 (32 candidates).
+CONFIG3 = dict(n_brokers=500, n_topics=1000, p_per_topic=64, rf=3, n_racks=5, added=50)
+MULTI_REMOVED = 50
+MULTI_WAVE_SIZE = 32000
+MULTI_GROUP_COUNTS = "32,64,96,128,160,192,224,256"
+MULTI_GROUP_SCALES = "100,150,200,300"
+
+
+def multi_phases(work, checks, spec_a, text_a, hold):
+    """Phase 24: one ``AssignerDaemon(clusters=..., solver="device")`` on
+    cuda in this process, so each launch counts here: cluster ``a`` is
+    config 4 over phase 23's ZooKeeper tree (``text_a`` its plan, phase
+    23(d)'s CLI run), cluster ``b`` config 3 as a snapshot copied for the
+    daemon, with phase 14's ``ingest`` group over its topics. Each
+    leadership launch goes through ``hold`` (held against the plain version,
+    or through a held launch with the same inputs and outputs); each
+    group-pack launch is held against its plain version in a worker.
+    Returns the launches per step: ``(leadership, group_pack)``."""
+    import http.client
+    import threading
+
+    import torch
+
+    from kafka_assigner_tpu_torch import obs
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+    from kafka_assigner_tpu_torch.exec.engine import parse_plan_payload
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
+    from kafka_assigner_tpu_torch.io.snapshot import write_snapshot as port_write
+    from kafka_assigner_tpu_torch.models.synthetic import build_config3
+    from kafka_assigner_tpu_torch.obs import health, metrics, promtext
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+    from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.parallel import whatif
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    k1, kg1 = {}, {}
+
+    def call(port, method, path, payload=None, headers=None, timeout=600.0):
+        """``(status, body, response headers, seconds)``."""
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        t0 = time.perf_counter()
+        try:
+            conn.request(method, path, headers=headers or {},
+                         body=None if payload is None else json.dumps(payload))
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            return resp.status, body, dict(resp.getheaders()), time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    def counted(key, method, path, payload=None, headers=None, want=1):
+        """One request with the leadership kernel's count reset just before
+        and read just after; every launch held."""
+        lead.launches["leadership"] = 0
+        with solver_probe() as seen:
+            out = call(hport, method, path, payload, headers)
+        k1[key] = lead.launches["leadership"]
+        if k1[key] != want or len(seen["orders"]) != want:
+            fail(f"24 {path}: the leadership kernel launched {k1[key]} times "
+                 f"({len(seen['orders'])} ordering calls), not {want}")
+        hold(f"phase 24 {key}", seen["orders"])
+        return out
+
+    # Cluster b: config 3 with the ingest group, a copy for the daemon.
+    topic_map3, live3, racks3 = build_config3(**CONFIG3)
+    snap3 = os.path.join(work, "config3_groups.json")
+    owner3 = write_group_snapshot(snap3, topic_map3, live3, racks3)
+    snap_b = os.path.join(work, "config3_daemon.json")
+    shutil.copy(snap3, snap_b)
+    access = os.path.join(work, "daemon_multi_access.log")
+    if os.path.exists(access):
+        os.remove(access)
+
+    # (a) startup, the first resyncs read from a capture open around it.
+    # The drain window outlasts one config-4 request, as phase 23(e)'s.
+    with obs.run_capture() as boot, knobs(KA_DAEMON_DRAIN_TIMEOUT=DAEMON_DRAIN_S):
+        t0 = time.perf_counter()
+        d = AssignerDaemon(clusters={"a": spec_a, "b": f"file://{snap_b}"},
+                           solver="device", device="cuda", access_log=access)
+        d.start()
+    served = False
+    try:
+        hport = d.http_port
+        status, _, _, _ = call(hport, "GET", "/readyz")
+        ready_s = time.perf_counter() - t0
+        if status != 200:
+            fail(f"24 (a): /readyz answered {status} after start")
+        resync_ms = {sp["name"]: sp["ms"] for sp in boot.spans
+                     if sp["name"].startswith("daemon/resync@")}
+        views = {}
+        for n in ("a", "b"):
+            sup = d.supervisors[n]
+            wait_for(f"{n}'s warm-up", lambda sup=sup: sup.counters().get("daemon.warmups", 0)
+                     + sup.counters().get("daemon.warmup_failures", 0) >= 1)
+            _, hz, _, _ = call(hport, "GET", f"/clusters/{n}/healthz")
+            _, st, _, _ = call(hport, "GET", f"/clusters/{n}/state")
+            if hz["status"] != "ready" or hz["breaker"]["state"] != "closed" \
+                    or st["health"] is None or sup.counters().get("daemon.warmup_failures"):
+                fail(f"24 (a): cluster {n}: healthz {hz}, counters {sup.counters()}")
+            views[n] = (hz, st)
+        cum = metrics.cumulative()
+        score = {n: cum.snapshot()["hists"]["health.score_ms"][(("cluster", n),)]
+                 for n in ("a", "b")}
+        for n in ("a", "b"):
+            hz, st = views[n]
+            h = score[n]
+            phase("daemon-multi", f"(a) cluster {n}: /clusters/{n}/healthz {hz['status']}, "
+                  f"breaker {hz['breaker']['state']}; /state: {st['brokers']} brokers, "
+                  f"{st['topics']} topics, encode_shape {st['encode_shape']}, watches "
+                  f"{st['watches']}, traffic_real {st['traffic_real']}, health score "
+                  f"{st['health']['score']} (replica spread "
+                  f"{st['health']['replica_spread']}, rack violations "
+                  f"{st['health']['rack_violations']}); first resync "
+                  f"{resync_ms.get(f'daemon/resync@{n}', float('nan')):.1f} ms of which "
+                  f"health.score_ms {h['sum'] / max(h['count'], 1):.1f} (mean of "
+                  f"{h['count']}) | {smi}")
+        phase("daemon-multi", f"(a) AssignerDaemon(clusters=a,b) on cuda: construction to "
+              f"the aggregate /readyz 200 {ready_s * 1e3:.1f} ms | {smi}")
+
+        # (b) a's whole-cluster plan, with a request id.
+        status, body, headers, b_s = counted(
+            "daemon_multi_a_plan", "POST", "/clusters/a/plan", {},
+            {"X-Request-Id": "smoke-24b"})
+        if status != 200 or body["status"] != "ok" or body["result"]["stdout"] != text_a:
+            fail(f"24 (b): HTTP {status}, status {body.get('status')}, stdout equal to "
+                 f"23(d)'s CLI run {status == 200 and body['result']['stdout'] == text_a}")
+        if headers.get("X-Request-Id") != "smoke-24b" \
+                or body["result"].get("request_id") != "smoke-24b" \
+                or {sp.get("request_id") for sp in body["spans"]} != {"smoke-24b"}:
+            fail(f"24 (b): the request id: header {headers.get('X-Request-Id')}, "
+                 f"result {body['result'].get('request_id')}")
+
+        def logged(rid):
+            with open(access, encoding="utf-8") as f:
+                return [json.loads(ln) for ln in f if rid in ln]
+
+        wait_for("(b)'s access-log line", lambda: logged("smoke-24b"), timeout=30)
+        line = logged("smoke-24b")
+        if len(line) != 1 or (line[0]["path"], line[0]["cluster"], line[0]["code"]) \
+                != ("/clusters/a/plan", "a", 200):
+            fail(f"24 (b): access-log lines {line}")
+        phase("daemon-multi", f"(b) POST /clusters/a/plan {{}} (X-Request-Id smoke-24b): "
+              f"stdout byte-identical to 23(d)'s CLI run, leadership kernel launches 1; "
+              f"smoke-24b in the header, result.request_id, every span and one access-log "
+              f"line ({line[0]['ms']} ms); request wall {b_s * 1e3:.1f} ms; spans "
+              f"{span_summary(body)} | {smi}")
+
+        # (c) b's plan with brokers 0-49 removed, as the CLI takes them.
+        removed = set(range(MULTI_REMOVED))
+        status, body, _, c_s = counted(
+            "daemon_multi_b_plan", "POST", "/clusters/b/plan",
+            {"broker_hosts_to_remove": ",".join(f"b{i}" for i in sorted(removed))})
+        if status != 200 or body["status"] != "ok":
+            fail(f"24 (c): HTTP {status}, status {body.get('status')}, {body.get('error')}")
+        text_b = body["result"]["stdout"]
+        live_b = live3 - removed
+        on_removed = sum(r in removed for parts in topic_map3.values()
+                         for reps in parts.values() for r in reps)
+        cap = math.ceil(CONFIG3["p_per_topic"] * RF / len(live_b))
+        moved = check_plan(plan_section(text_b), topic_map3, live_b, racks3, cap, on_removed)
+        phase("daemon-multi", f"(c) POST /clusters/b/plan removing brokers 0-"
+              f"{MULTI_REMOVED - 1}: moved {moved} replicas (== the replicas on them), "
+              f"rack-distinct on live brokers under cap {cap}; leadership kernel launches 1 "
+              f"at ({CONFIG3['n_topics']}, {CONFIG3['p_per_topic']}, {RF}), held against "
+              f"plain; request wall {c_s * 1e3:.1f} ms; "
+              f"spans {span_summary(body)} | {smi}")
+
+        # (d) b executes (c)'s plan; a second execution meanwhile is a 409.
+        plan_b, _ = parse_plan_payload(text_b)
+        backend = SnapshotBackend(snap3)
+        topics = {t: dict(parts) for t, parts in backend._topics.items()}
+        for t, parts in plan_b.items():
+            topics[t].update(parts)
+        expected = os.path.join(work, "config3_expected.json")
+        port_write(expected, backend.brokers(), topics, groups=backend._groups_raw)
+        stream = {}
+
+        def execute():
+            conn = http.client.HTTPConnection("127.0.0.1", hport, timeout=600)
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", "/clusters/b/execute", body=json.dumps(
+                    {"plan_text": text_b, "wave_size": MULTI_WAVE_SIZE}))
+                resp = conn.getresponse()
+                raw = resp.read().decode("utf-8")
+                stream.update(status=resp.status, secs=time.perf_counter() - t0,
+                              events=[json.loads(ln) for ln in raw.splitlines()])
+            finally:
+                conn.close()
+
+        sup_b = d.supervisors["b"]
+        runner = threading.Thread(target=execute)
+        # The journal goes to the smoke's own directory, emptied first, so a
+        # run killed mid-execution leaves nothing the next run would resume.
+        jdir = os.path.join(work, "daemon_multi_journal")
+        shutil.rmtree(jdir, ignore_errors=True)
+        os.makedirs(jdir)
+        with knobs(KA_EXEC_POLL_INTERVAL=EXEC_POLL_INTERVAL, KA_DAEMON_JOURNAL_DIR=jdir):
+            runner.start()
+            wait_for("b's execution in flight",
+                     lambda: sup_b.execution_in_flight() or "status" in stream, every=0.005)
+            second = call(hport, "POST", "/clusters/b/execute", {"plan_text": text_b})
+            runner.join(600)
+        events = stream.get("events", [])
+        kinds = [e["event"] for e in events]
+        waves = kinds.count("exec/wave.committed")
+        if stream.get("status") != 200 or kinds[:1] != ["exec/start"] \
+                or kinds[-2:] != ["exec/verify", "exec/done"] \
+                or events[-1]["status"] != "ok" or not 1 <= waves <= 8 \
+                or kinds.count("exec/wave") != waves:
+            fail(f"24 (d): HTTP {stream.get('status')}, events {kinds[:4]}...{kinds[-3:]}")
+        if second[0] != 409:
+            fail(f"24 (d): the concurrent /execute answered {second[0]}, not 409")
+        with open(snap_b, encoding="utf-8") as f, open(expected, encoding="utf-8") as g:
+            if f.read() != g.read():
+                fail("24 (d): the daemon's copy of b's snapshot differs from the plan's "
+                     "NEW ASSIGNMENT written through write_snapshot")
+        journals = os.listdir(jdir)
+        if len(journals) != 1:
+            fail(f"24 (d): journals in the smoke's journal directory: {journals}")
+        with open(os.path.join(jdir, journals[0]), encoding="utf-8") as f:
+            journal = json.load(f)
+        if journal["status"] != "complete" or journal["waves_committed"] != waves:
+            fail(f"24 (d): journal {journals[0]}: {journal['status']}, "
+                 f"{journal['waves_committed']} waves committed of {waves}")
+        start = events[0]
+        phase("daemon-multi", f"(d) POST /clusters/b/execute at {MULTI_WAVE_SIZE} moves a "
+              f"wave: NDJSON exec/start ({start['moves']} moves, {start['noops']} noops) -> "
+              f"{waves} x (exec/wave, exec/wave.committed) -> exec/verify "
+              f"({events[-2]['mismatches']} mismatches) -> exec/done ok; the daemon's copy "
+              f"of b byte-identical to the NEW ASSIGNMENT through write_snapshot; journal "
+              f"{journals[0]} complete in the smoke's directory; a second /execute "
+              f"meanwhile: 409; stream wall {stream['secs'] * 1e3:.1f} ms | {smi}")
+
+        # (e) the ingest group's plan and sweep, each launch held.
+        for kind, query in (("plan", ""), ("sweep", f"?counts={MULTI_GROUP_COUNTS}"
+                                                    f"&scales={MULTI_GROUP_SCALES}")):
+            key = f"daemon_multi_b_groups_{kind}"
+            gp.launches["group_pack"] = 0
+            lead.launches["leadership"] = 0
+            with scan_probe() as seen:
+                status, body, _, e_s = call(hport, "GET",
+                                            f"/clusters/b/groups/{kind}{query}")
+            kg1[key] = gp.launches["group_pack"]
+            steps = whatif.last_groups.get("steps_sum", 0)
+            if status != 200 or body["degraded"] or not body["groups_real"] \
+                    or set(body["groups"]) != {"ingest"} or kg1[key] < 1 \
+                    or len(seen) != kg1[key] or lead.launches["leadership"]:
+                fail(f"24 (e) {kind}: HTTP {status}, {body.get('error')}, group-pack "
+                     f"launches {kg1[key]}")
+            g = body["groups"]["ingest"]
+            if kind == "plan":
+                members = {f"c-{m:03d}" for m in range(GROUP_MEMBERS)}
+                placed = {(t, int(p)): m for t, per in g["plan"].items()
+                          for p, m in per.items()}
+                changed = sum(placed[k] != o for k, o in owner3.items() if o in members)
+                if set(placed) != set(owner3) or g["moves"] != changed:
+                    fail(f"24 (e): the group plan's rows or moves ({g['moves']} != {changed})")
+                what = f"moves {g['moves']}, feasible {g['feasible']}"
+            else:
+                what = (f"{len(g['candidates'])} candidates, recommended_consumers "
+                        f"{g['recommended_consumers']}")
+            for i, (inputs, outputs) in enumerate(seen):
+                shape = (f"S={inputs[0].shape[0]} P_pad={inputs[0].shape[1]} "
+                         f"C_pad={inputs[1].shape[0]}")
+                hold_group_launch(checks, f"24 (e) {key}", shape, inputs, outputs)
+                ms, lo, hi = scan_timing(key, inputs, outputs)
+                nbytes = gcases.scan_bytes(inputs[0].shape[0], inputs[0].shape[1],
+                                           inputs[1].shape[0], steps)
+                phase("daemon-multi", f"(e) GET /clusters/b/groups/{kind}: group-pack "
+                      f"launch {i + 1} of {kg1[key]} at {shape}, variant "
+                      f"{variant_name(gp.last_variant, inputs[3].tolist())}, kernel "
+                      f"median {ms:.3f} ms of {KERNEL_REPS} (min {lo:.3f}, max {hi:.3f}); "
+                      f"byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} "
+                      f"bytes, {steps} orphan rows)")
+            phase("daemon-multi", f"(e) GET /clusters/b/groups/{kind} (ingest, groups_real "
+                  f"true): {what}; request wall {e_s * 1e3:.1f} ms | {smi}")
+
+        # (f) recommendations, twice; the second's launch repeats the first's.
+        recs = []
+        for i, query in enumerate(("", "?move_cost=0")):
+            status, body, _, f_s = counted(f"daemon_multi_b_recommend_{i + 1}", "GET",
+                                           f"/clusters/b/recommendations{query}")
+            problems = health.validate_recommendation(body)
+            if status != 200 or problems:
+                fail(f"24 (f): HTTP {status}, {problems or body.get('error')}")
+            recs.append(body)
+            cur, proj = body["current"], body["candidate"]["projected"]
+            phase("daemon-multi", f"(f) GET /clusters/b/recommendations{query}: verdict "
+                  f"{body['verdict']}, moves {body['candidate']['moves_required']}, "
+                  f"leader moves {body['candidate']['leader_moves']}, improvement "
+                  f"{body['cost_model']['improvement']}, cost {body['cost_model']['cost']}; "
+                  f"score {cur['score']} -> {proj['score']} (replica spread "
+                  f"{cur['replica_spread']} -> {proj['replica_spread']}, leader spread "
+                  f"{cur['leader_spread']} -> {proj['leader_spread']}); leadership kernel "
+                  f"launches 1; request wall {f_s * 1e3:.1f} ms | {smi}")
+
+        # (g) the scrape and the flight ring.
+        conn = http.client.HTTPConnection("127.0.0.1", hport, timeout=60)
+        t0 = time.perf_counter()
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        raw = resp.read()
+        scrape_s = time.perf_counter() - t0
+        conn.close()
+        fams = promtext.parse(raw.decode("utf-8"))
+        bad = {f: promtext.check_histogram(v) for f, v in fams.items()
+               if v["type"] == "histogram" and promtext.check_histogram(v)}
+        http_clusters = {lb["cluster"] for _, lb, _ in
+                         fams.get("ka_daemon_http_requests_total", {"samples": []})["samples"]
+                         if "cluster" in lb}
+        health_clusters = {lb.get("cluster") for _, lb, _ in
+                           fams.get("ka_health_score", {"samples": []})["samples"]}
+        if resp.status != 200 or bad or not {"a", "b"} <= http_clusters \
+                or health_clusters != {"a", "b"}:
+            fail(f"24 (g): /metrics {resp.status}, histogram findings {bad}, http clusters "
+                 f"{http_clusters}, health clusters {health_clusters}")
+        _, view, _, _ = call(hport, "GET", "/debug/flight?cluster=b")
+        ev = [(e["kind"], e.get("event"), e.get("verdict")) for e in view["events"]]
+        if ("execute", "start", None) not in ev or ("execute", "done", None) not in ev \
+                or [v for k, _, v in ev if k == "recommendation"] \
+                != [r["verdict"] for r in recs] \
+                or any(e.get("cluster", "b") != "b" for e in view["events"]):
+            fail(f"24 (g): b's flight events {ev}")
+        hists = sum(v["type"] == "histogram" for v in fams.values())
+        phase("daemon-multi", f"(g) GET /metrics: {len(raw)} bytes in "
+              f"{scrape_s * 1e3:.1f} ms, {len(fams)} families parsed, {hists} histograms "
+              f"consistent, daemon.http.requests for clusters {sorted(http_clusters)}, "
+              f"ka_health_* for a and b; /debug/flight?cluster=b: {len(ev)} events, "
+              f"execute start and done, the recommendations {[r['verdict'] for r in recs]} "
+              f"| {smi}")
+
+        # (h) the drain with a plan on a in flight.
+        sup_a = d.supervisors["a"]
+        answer = {}
+        lead.launches["leadership"] = 0
+        with solver_probe() as seen:
+            client = threading.Thread(target=lambda: answer.update(
+                r=call(hport, "POST", "/clusters/a/plan", {})))
+            client.start()
+            wait_for("a's plan in flight", lambda: sup_a.active_requests() >= 1
+                     or "r" in answer, every=0.005)
+            in_flight = sup_a.active_requests()
+            t0 = time.perf_counter()
+            d.request_stop()
+            rc = d.serve()
+            drain_s = time.perf_counter() - t0
+            served = True
+            client.join(600)
+        k1["daemon_multi_a_drain"] = lead.launches["leadership"]
+        status, body, _, h_s = answer.get("r", (None, {}, {}, 0.0))
+        if rc != 0 or d.lifecycle() != "stopped" or in_flight < 1 or status != 200 \
+                or body.get("status") != "ok" or body["result"]["stdout"] != text_a \
+                or k1["daemon_multi_a_drain"] != 1:
+            fail(f"24 (h): serve returned {rc}, lifecycle {d.lifecycle()}, in flight at "
+                 f"the stop {in_flight}, the request: HTTP {status} {body.get('status')}, "
+                 f"launches {k1['daemon_multi_a_drain']}")
+        hold("phase 24 (h) the plan answered through the drain", seen["orders"])
+        phase("daemon-multi", f"(h) request_stop with POST /clusters/a/plan in flight: the "
+              f"request answered in full ({h_s * 1e3:.1f} ms, byte-identical), serve() "
+              f"returned 0 after {drain_s * 1e3:.1f} ms, leadership kernel launches 1 | {smi}")
+    finally:
+        if not served:
+            d.shutdown()
+    phase("timing", f"phase 24 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return k1, kg1
 
 
 def main() -> int:
@@ -2883,6 +3363,8 @@ def smoke(checks) -> int:
     k_out = lead.leadership_order(*k_args)
     checks.submit("the main-path shape", k_args, k_out)
     shape = tuple(k_args[0].shape)
+    # Phases 14-15's snapshot, so their cpu runs start in the workers now.
+    groups = GroupRuns(work, checks)
 
     # --- 5: cuda == cpu on a prefix -------------------------------------
     prefix = ",".join(t for t, _ in topics[:PREFIX_TOPICS])
@@ -2956,6 +3438,7 @@ def smoke(checks) -> int:
     lead.launches["leadership"] = 0
     whatif_config5()
     steady_snap, rank_rec = rank_config4(work)
+    groups.add_synthetic(steady_snap)
     rescue_parity()
     host_modes(steady_snap, N_BROKERS, N_TOPICS * P_PER_TOPIC)
     if lead.launches["leadership"]:
@@ -2966,7 +3449,7 @@ def smoke(checks) -> int:
     # --- 14-16: consumer-group packing ------------------------------------
     # The group phases do not order leaders either.
     lead.launches["leadership"] = 0
-    gk, group_runs = group_phases(work, steady_snap, checks)
+    gk, group_runs = group_phases(groups, steady_snap)
     if lead.launches["leadership"]:
         fail(f"the group phases launched the leadership kernel "
              f"{lead.launches['leadership']} times")
@@ -2994,7 +3477,7 @@ def smoke(checks) -> int:
 
     # --- 23: the resident daemon (before 22: its plain check of the churned
     # launch, a minute in a worker, then ends inside phase 22) ---------------
-    daemon_launches = daemon_phases(
+    daemon_launches, multi_groups = daemon_phases(
         work, checks, text, [(tuple(k_args) + tuple(k_out), "phase 4's main-path shape")])
 
     # --- 22: plan execution ---------------------------------------------------
@@ -3002,7 +3485,10 @@ def smoke(checks) -> int:
     late = checks.collect()
 
     max_err = max(max_err, worst.get("leadership", 0), late.get("leadership", 0))
-    gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0))
+    gk["max_abs_err"] = max(group_case_err, worst.get("group_pack", 0),
+                            late.get("group_pack", 0))
+    gk["launches_by_path"].update(multi_groups)
+    gk["launches"] = sum(gk["launches_by_path"].values())
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},

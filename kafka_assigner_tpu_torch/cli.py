@@ -960,17 +960,31 @@ def execute_main() -> None:
 def build_daemon_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ka-daemon-torch",
-        description="Resident assigner daemon for one cluster (daemon/): "
-        "keeps the ZooKeeper session, the loaded libraries and the CUDA "
-        "context, and the encoded cluster state in memory, keeps them fresh "
-        "through ZooKeeper watches with incremental re-encode, and serves "
-        "/plan, /whatif, /healthz, /readyz and /state over HTTP. SIGTERM "
-        "drains and exits 0.",
+        description="Resident assigner daemon (daemon/): keeps the ZooKeeper "
+        "sessions, the loaded libraries and the CUDA context, and the encoded "
+        "cluster state in memory, keeps them fresh through ZooKeeper watches "
+        "with incremental re-encode, and serves /plan, /whatif, /execute, "
+        "/recommendations, /groups/plan, /groups/sweep, /healthz, /readyz, "
+        "/state, /metrics and /debug/flight over HTTP, for one cluster "
+        "(--zk_string) or many (--clusters, routed by /clusters/<name>/...). "
+        "SIGTERM drains and exits 0.",
     )
     p.add_argument("--zk_string", default=None,
                    help="the cluster to serve: ZooKeeper host:port pairs, or a "
                         "file://cluster.json snapshot (watchless; interval "
                         "resyncs only)")
+    p.add_argument("--clusters", default=None, metavar="SPEC",
+                   help="serve several clusters from one daemon: "
+                        "semicolon-separated name=connect pairs (connect "
+                        "strings may hold commas), e.g. "
+                        "'west=zk1:2181,zk2:2181;east=file://east.json', or "
+                        "a path to a JSON file mapping names to connect "
+                        "strings. A '#controller=off' suffix (or the object "
+                        "form {\"connect\": ..., \"controller\": \"off\"}) "
+                        "is accepted; any other controller policy is refused. "
+                        "Each cluster has its own session, watch loop, cache, "
+                        "inflight gate, watchdog and breaker. Exclusive with "
+                        "--zk_string")
     p.add_argument("--solver", default="device", choices=SOLVER_NAMES,
                    help="default solver of served /plan requests (a request's "
                         "'solver' overrides)")
@@ -985,34 +999,93 @@ def build_daemon_parser() -> argparse.ArgumentParser:
                    help="listen port (default: the KA_DAEMON_PORT knob; 0 = "
                         "ephemeral, announced on stderr)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where the device solver and the what-if sweep run "
-                        "(default: cuda)")
+                   help="where the device solver, the what-if sweep and the "
+                        "group packing run (default: cuda)")
+    p.add_argument("--access-log", dest="access_log", default=None,
+                   metavar="PATH",
+                   help="NDJSON access log: one line a served request with its "
+                        "request id, path, cluster, HTTP code, status, latency "
+                        "and stale/degraded markers (default: the "
+                        "KA_OBS_ACCESS_LOG knob, else stderr)")
     return p
+
+
+def parse_clusters_spec(spec: str) -> dict:
+    """The ``--clusters`` value: a ``*.json`` or ``file://`` path to a
+    ``{name: connect}`` object (a value may be ``{"connect": ...,
+    "controller": ...}``), or inline semicolon-separated ``name=connect``
+    pairs (connect strings keep their commas)."""
+    import json as json_mod
+
+    # Inline entries always hold '='; a bare path never does.
+    if "=" not in spec and (spec.startswith("file://") or spec.endswith(".json")):
+        path = spec[len("file://"):] if spec.startswith("file://") else spec
+        with open(path, "r", encoding="utf-8") as f:
+            raw = json_mod.load(f)
+        if not isinstance(raw, dict) or not raw or not all(
+            isinstance(k, str) and isinstance(v, (str, dict))
+            for k, v in raw.items()
+        ):
+            raise ValueError(
+                f"--clusters file {path!r} must be a non-empty JSON "
+                "object mapping cluster names to connect strings (or "
+                "{\"connect\": ..., \"controller\": ...} objects)"
+            )
+        return dict(raw)
+    clusters = {}
+    for entry in spec.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, eq, connect = entry.partition("=")
+        name, connect = name.strip(), connect.strip()
+        if not eq or not name or not connect:
+            raise ValueError(
+                f"--clusters entry {entry!r} is not of the form name=connect"
+            )
+        if name in clusters:
+            raise ValueError(f"--clusters names {name!r} twice")
+        clusters[name] = connect
+    if not clusters:
+        raise ValueError("--clusters names no clusters")
+    return clusters
 
 
 def run_daemon(argv: Optional[List[str]] = None) -> int:
     """``ka-daemon``: start the resident daemon and serve until signaled.
     Exit 0 after a clean SIGTERM or SIGINT drain; 1 on a usage error or a
-    ``cuda`` daemon without a card; a failed initial sync maps to the ingest
-    code through :func:`daemon_main`. The device check, the library build
+    ``cuda`` daemon without a card; a failed initial sync of a single-cluster
+    daemon maps to the ingest code, and a refused cluster spec to the
+    validation code, through :func:`daemon_main`. The device check, the library build
     and the solver's fail-fast are the daemon's own
     (:class:`~.daemon.service.AssignerDaemon`)."""
     from .daemon.service import AssignerDaemon, run_daemon_process
 
     parser = build_daemon_parser()
     args = parser.parse_args(argv)
-    if args.zk_string is None:
-        print("error: --zk_string is required", file=sys.stderr)
+    if (args.zk_string is None) == (args.clusters is None):
+        print("error: pass exactly one of --zk_string or --clusters",
+              file=sys.stderr)
         parser.print_usage(sys.stderr)
         return EXIT_USAGE
+    clusters = None
+    if args.clusters is not None:
+        try:
+            clusters = parse_clusters_spec(args.clusters)
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            parser.print_usage(sys.stderr)
+            return EXIT_USAGE
     try:
         daemon = AssignerDaemon(
             args.zk_string,
+            clusters=clusters,
             solver=args.solver,
             device=args.device,
             failure_policy=args.failure_policy,
             bind=args.bind,
             port=args.port,
+            access_log=args.access_log,
         )
     except RuntimeError as e:  # a cuda daemon without a card
         print(f"error: {e}", file=sys.stderr)

@@ -1,12 +1,14 @@
 """``kafka_assigner_tpu_torch.daemon``: the resident assigner daemon for one
-cluster, the port of the reference's ``kafka_assigner_tpu/daemon`` in its
-single-cluster form.
+cluster or many, the port of the reference's ``kafka_assigner_tpu/daemon``
+under ``KA_DISPATCH=0`` (no dispatcher, controller or fleet scheduler).
 
-:mod:`.service` holds the HTTP surface and the process entry,
-:mod:`.supervisor` the cluster's session, watch loop, lifecycle, request
-gate and circuit breaker, :mod:`.state` the watch-fed metadata cache and its
-incremental group encode. The command line is ``python -m
-kafka_assigner_tpu_torch.daemon`` (``cli.daemon_main``).
+:mod:`.service` holds the HTTP surface, its routing by
+``/clusters/<name>/...``, the telemetry endpoints and the process entry;
+:mod:`.supervisor` each cluster's session, watch loop, lifecycle, request
+gate, circuit breaker, health plane, groups endpoints and ``/execute``;
+:mod:`.state` the watch-fed metadata cache and its incremental group
+encode. The command line is ``python -m kafka_assigner_tpu_torch.daemon``
+(``cli.daemon_main``).
 """
 from .service import DEFAULT_CLUSTER, AssignerDaemon, run_daemon_process
 from .state import CacheBackend, DaemonState

@@ -1,39 +1,85 @@
-"""The resident assigner daemon for one cluster, ``ka-daemon``: the port of
-the reference's ``kafka_assigner_tpu/daemon/service.py`` in its
-single-cluster form (``AssignerDaemon(zk_string=...)`` under
-``KA_DISPATCH=0``, the reference's own lock regime).
+"""The resident assigner daemon, ``ka-daemon``: the port of the reference's
+``kafka_assigner_tpu/daemon/service.py`` under ``KA_DISPATCH=0`` (the
+reference's lock regime: one solve lock, no dispatcher).
 
-One process keeps the torch import, the CUDA context, the leadership
-kernel's module and the cluster's encode resident, fed by ZooKeeper watches
-(``supervisor.py``), and serves:
+One process keeps the torch import, the CUDA context, the kernels' modules
+and each cluster's encode resident, fed by ZooKeeper watches
+(``supervisor.py``), for one cluster (``zk_string``) or many
+(``clusters``: one :class:`~.supervisor.ClusterSupervisor` each, with its
+own session, watch loop, cache, inflight gate, watchdog and breaker, and
+one solve lock for all: one device). Requests route by path:
 
-=========== ====== ==========================================================
-endpoint    method behavior
-=========== ====== ==========================================================
-/plan       POST   mode 3 against the cache; the body mirrors the CLI's
-                   flags (``topics``, ``integer_broker_ids``,
-                   ``broker_hosts``, ``broker_hosts_to_remove``,
-                   ``desired_replication_factor``, ``disable_rack_awareness``,
-                   ``solver``, ``failure_policy``); the response is the
-                   schema-v1 run report of that request with a ``result``
-                   section whose ``stdout`` is byte-identical to a fresh CLI
-                   run on the same metadata
-/whatif     POST   RANK_DECOMMISSION likewise (``scenarios``: removal sets)
-/healthz    GET    ``{"status": lifecycle, "stale": bool}``
-/readyz     GET    200 while ready or degraded, else 503 with Retry-After
-/state      GET    the cache: lifecycle, version, brokers, topics, the encode
-                   shape, watches, solver, policy, breaker and counters
-=========== ====== ==========================================================
+================================ ====== ======================================
+endpoint                         method behavior
+================================ ====== ======================================
+/clusters/<name>/plan            POST   mode 3 against that cluster's cache;
+                                        the body mirrors the CLI's flags
+                                        (``topics``, ``integer_broker_ids``,
+                                        ``broker_hosts``,
+                                        ``broker_hosts_to_remove``,
+                                        ``desired_replication_factor``,
+                                        ``disable_rack_awareness``,
+                                        ``solver``, ``failure_policy``); the
+                                        response is the schema-v1 run report
+                                        of the request with a ``result``
+                                        section whose ``stdout`` is
+                                        byte-identical to a fresh CLI run
+/clusters/<name>/whatif          POST   RANK_DECOMMISSION likewise
+                                        (``scenarios``: removal sets)
+/clusters/<name>/execute         POST   a plan (``plan_text`` or ``plan``)
+                                        driven to convergence by
+                                        ``exec/engine.py``, one at a time a
+                                        cluster (409 past it), journaled as
+                                        ``ka-execute`` journals, its progress
+                                        streamed as NDJSON events
+/clusters/<name>/recommendations GET    observe only: the cached assignment
+                                        scored against a candidate plan's,
+                                        the movement priced against
+                                        ``KA_HEALTH_MOVE_COST``
+                                        (``?move_cost=``), a ``recommend`` or
+                                        ``hold`` verdict; never executed
+/clusters/<name>/groups/plan     GET,   consumer-group packing plan, or the
+/clusters/<name>/groups/sweep    POST   autoscale sweep, over the backend's
+                                        group state (``synthetic=true`` opts
+                                        into the synthetic family)
+/clusters/<name>/healthz         GET    lifecycle, staleness and breaker
+/clusters/<name>/readyz          GET    that cluster's readiness
+/clusters/<name>/state           GET    that cluster's cache
+/clusters/<name>/debug/flight    GET    the flight ring, that cluster's
+/healthz /readyz /state          GET    one cluster: its own (``/healthz``
+                                        ``{"status", "stale"}``); many: the
+                                        worst lifecycle of all, ready while
+                                        any cluster serves, every view
+/plan /whatif /execute           POST   one cluster only; with many a 400
+/recommendations /groups/...     GET    naming the clusters
+/metrics                         GET    Prometheus text of the cumulative
+                                        registry (``obs/promtext.py``):
+                                        ``@cluster`` names as ``cluster``
+                                        labels, request latency by endpoint
+                                        and cluster, process gauges
+/debug/flight                    GET    the flight ring (``?cluster=`` one
+                                        cluster's events)
+/debug/profile?seconds=N         GET    one ``torch.profiler`` window into
+                                        ``KA_OBS_PROFILE_DIR`` (400 when
+                                        unset, 409 while another runs)
+================================ ====== ======================================
 
 Every other path answers 404. The lifecycle is ``syncing``, ``ready``,
 ``degraded`` (the cache is stale: responses carry ``status: "degraded"``),
 ``draining`` and ``stopped``. A bad request is a 400, never a 500; past
-``KA_DAEMON_MAX_INFLIGHT`` admitted requests a 503 with ``Retry-After``.
-SIGTERM (or SIGINT) flips ``/readyz`` to 503, lets the requests in flight
-finish within ``KA_DAEMON_DRAIN_TIMEOUT`` and exits 0.
+``KA_DAEMON_MAX_INFLIGHT`` admitted requests of a cluster a 503 with
+``Retry-After``. Each request carries a request ID, a sane
+``X-Request-Id`` header's or a fresh one, in the response's header, in
+``result.request_id`` and on every span of its capture, and gets one
+NDJSON access-log line (``--access-log``, ``KA_OBS_ACCESS_LOG``, else
+stderr). SIGTERM (or SIGINT) flips ``/readyz`` to 503, lets the requests
+and executions in flight finish within ``KA_DAEMON_DRAIN_TIMEOUT``, dumps
+the flight ring to ``KA_OBS_FLIGHT_DUMP`` and exits 0; a crashing exit
+dumps it too.
 
 The HTTP server is ``ThreadingHTTPServer``, one thread per connection. The
-drain waits for each POST's reply to be written, not only for its solve.
+drain waits for each handler's reply and access-log line, not only for its
+solve.
 """
 from __future__ import annotations
 
@@ -41,23 +87,90 @@ import json
 import sys
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+from ..obs import flight
+from ..obs import metrics as obs_metrics
+from ..obs.report import REPORT_SCHEMA_VERSION, TOOL_NAME, AccessLog
 from .supervisor import POLL_S, ClusterSupervisor
 
-#: The name of the one cluster (the reference's single-cluster default).
+#: The name of a single-cluster daemon's one cluster.
 DEFAULT_CLUSTER = "default"
 
-#: Query parameters whose values are booleans (merged into a POST's body).
-_BOOL_QUERY_PARAMS = frozenset({"disable_rack_awareness"})
+#: Worst-first lifecycle order of the ``/healthz`` aggregate.
+_LIFECYCLE_ORDER = ("stopped", "draining", "syncing", "degraded", "ready")
+
+#: Query parameters whose values are booleans (both spellings map).
+_BOOL_QUERY_PARAMS = frozenset({"resume", "synthetic", "disable_rack_awareness"})
+
+
+def _valid_cluster_name(name: str) -> bool:
+    return bool(name) and all(c.isalnum() or c in "_.-" for c in name)
+
+
+def _split_cluster_spec(name: str, spec) -> Tuple[str, Optional[str]]:
+    """``(connect, controller_policy)`` of one cluster's spec: a connect
+    string; ``connect#controller=<policy>`` (split on the last ``#``); or the
+    object form ``{"connect": ..., "controller": ...}``."""
+    if isinstance(spec, dict):
+        connect = spec.get("connect")
+        if not isinstance(connect, str) or not connect:
+            raise ValueError(
+                f"cluster {name!r}: object spec needs a non-empty "
+                "'connect' string"
+            )
+        policy = spec.get("controller")
+        if policy is not None and not isinstance(policy, str):
+            raise ValueError(
+                f"cluster {name!r}: 'controller' must be a string policy"
+            )
+        unknown = set(spec) - {"connect", "controller"}
+        if unknown:
+            raise ValueError(
+                f"cluster {name!r}: unknown spec keys {sorted(unknown)}"
+            )
+        return connect, policy
+    if not isinstance(spec, str) or not spec:
+        raise ValueError(
+            f"cluster {name!r}: spec must be a connect string or an "
+            f"object, got {spec!r}"
+        )
+    if "#controller=" in spec:
+        connect, _, policy = spec.rpartition("#controller=")
+        if not connect or not policy:
+            raise ValueError(
+                f"cluster {name!r}: malformed controller override in "
+                f"{spec!r} (expected connect#controller=off|observe|auto)"
+            )
+        return connect, policy
+    return spec, None
+
+
+def _refuse_controller(name: str, policy: Optional[str]) -> None:
+    """The closed-loop controller is not part of this package: a cluster
+    may name the ``off`` policy, and any other is refused at startup."""
+    if policy is None or policy == "off":
+        return
+    if policy not in ("observe", "auto"):
+        raise ValueError(
+            f"unknown controller policy {policy!r} (expected one of "
+            "['off', 'observe', 'auto'])"
+        )
+    raise ValueError(
+        f"cluster {name!r}: controller policy {policy!r} needs the "
+        "closed-loop controller and the fleet scheduler, which "
+        "kafka_assigner_tpu_torch does not have yet (ROADMAP queue 1 "
+        "item 4); use 'off' or leave the override out"
+    )
 
 
 def _norm_query_value(key: str, raw: str):
     """A known boolean query parameter's spellings map both ways
-    (``?disable_rack_awareness=0`` is False, not the truthy string); every
-    other parameter passes through as its string."""
+    (``?synthetic=0`` is False, not the truthy string); every other
+    parameter passes through as its string (``?counts=1`` stays "1")."""
     if key not in _BOOL_QUERY_PARAMS:
         return raw
     low = raw.lower()
@@ -68,27 +181,61 @@ def _norm_query_value(key: str, raw: str):
     return raw
 
 
-class AssignerDaemon:
-    """The daemon: the cluster's supervisor and the HTTP surface.
+def _request_id(headers) -> str:
+    """The request's correlation ID: a client's ``X-Request-Id`` when it
+    is at most 128 printable characters (no control character can forge a
+    log line), else a fresh 16-hex-character ID."""
+    raw = (headers.get("X-Request-Id") or "").strip()
+    if raw and len(raw) <= 128 and raw.isprintable():
+        return raw
+    return uuid.uuid4().hex[:16]
 
-    ``device`` is where the device solver and the what-if sweep run
+
+class AssignerDaemon:
+    """The daemon: the clusters' supervisors and the HTTP surface.
+
+    Pass ``zk_string`` for one cluster (the single-cluster surface, bare
+    paths) or ``clusters`` (name -> connect spec) for many. ``device`` is
+    where the device solver, the what-if sweep and the group packing run
     (``cuda`` unless the caller asks for the CPU); a ``cuda`` daemon
     without a card raises here, before anything is served."""
 
     def __init__(
         self,
-        zk_string: str,
+        zk_string: Optional[str] = None,
         *,
+        clusters: Optional[Dict[str, object]] = None,
         solver: str = "device",
         device: str = "cuda",
         failure_policy: Optional[str] = None,
         bind: Optional[str] = None,
         port: Optional[int] = None,
+        access_log: Optional[str] = None,
         err=None,
     ) -> None:
         from ..solvers.torch_solver import solve_device
         from ..utils.env import env_float, env_int, env_str
 
+        if (zk_string is None) == (clusters is None):
+            raise ValueError(
+                "pass exactly one of zk_string (single-cluster) or "
+                "clusters (name -> connect spec)"
+            )
+        self.single = clusters is None
+        if self.single:
+            clusters = {DEFAULT_CLUSTER: zk_string}
+        if not clusters:
+            raise ValueError("clusters must name at least one cluster")
+        connects: Dict[str, str] = {}
+        for name, spec in clusters.items():
+            if not _valid_cluster_name(name):
+                raise ValueError(
+                    f"invalid cluster name {name!r} (letters, digits, "
+                    "'_', '.', '-' only)"
+                )
+            connect, policy = _split_cluster_spec(name, spec)
+            _refuse_controller(name, policy)
+            connects[name] = connect
         solve_device(device, "ka-daemon")
         self.solver = solver
         self.device = device
@@ -96,32 +243,71 @@ class AssignerDaemon:
         self.port = port if port is not None else env_int("KA_DAEMON_PORT")
         self.drain_timeout = env_float("KA_DAEMON_DRAIN_TIMEOUT")
         self.err = err if err is not None else sys.stderr
+        # The telemetry plane, one per daemon lifetime: the cumulative
+        # registry (/metrics), the flight ring (/debug/flight) and the
+        # access log. The one-shot CLI enables none of them.
+        obs_metrics.enable_cumulative()
+        flight.enable()
+        self.access_log = AccessLog(
+            access_log if access_log is not None
+            else env_str("KA_OBS_ACCESS_LOG"),
+            err=self.err,
+        )
         self.draining = threading.Event()
         self.stopped = threading.Event()
-        #: One solve at a time: one device, one capture.
+        #: One solve at a time across every cluster: one device, one
+        #: capture. Admission and shedding stay per cluster.
         self._solve_lock = threading.Lock()
-        self._sup = ClusterSupervisor(
-            DEFAULT_CLUSTER, zk_string,
-            solver=solver, device=device, failure_policy=failure_policy,
-            draining=self.draining, stopped=self.stopped,
-            solve_lock=self._solve_lock, err=self.err,
-        )
-        #: POST handlers between their read and their reply's last byte.
-        self._posts = 0
-        self._posts_lock = threading.Lock()
+        self.supervisors: Dict[str, ClusterSupervisor] = {
+            name: ClusterSupervisor(
+                name, connect,
+                solver=solver, device=device, failure_policy=failure_policy,
+                label="" if self.single else name,
+                draining=self.draining, stopped=self.stopped,
+                solve_lock=self._solve_lock, err=self.err,
+            )
+            for name, connect in connects.items()
+        }
+        #: HTTP handlers between their request and their access-log line.
+        self._handlers = 0
+        self._handlers_lock = threading.Lock()
         self.httpd: Optional[ThreadingHTTPServer] = None
         self._serve_thread: Optional[threading.Thread] = None
 
     # -- accessors ------------------------------------------------------------------
 
-    def supervisor(self) -> ClusterSupervisor:
-        return self._sup
+    def supervisor(self, name: Optional[str] = None) -> ClusterSupervisor:
+        """The named cluster's supervisor (one cluster: the only one)."""
+        if name is None:
+            if not self.single:
+                raise KeyError(
+                    "multi-cluster daemon: name one of "
+                    f"{sorted(self.supervisors)}"
+                )
+            name = DEFAULT_CLUSTER
+        return self.supervisors[name]
 
     def counters(self) -> Dict[str, int]:
-        return self.supervisor().counters()
+        """The clusters' counters: plain names for one cluster,
+        ``name@cluster`` for many."""
+        out: Dict[str, int] = {}
+        for name, sup in self.supervisors.items():
+            for k, v in sup.counters().items():
+                key = k if self.single else f"{k}@{name}"
+                out[key] = out.get(key, 0) + v
+        return out
 
     def lifecycle(self) -> str:
-        return self.supervisor().lifecycle()
+        """The worst cluster's lifecycle (one cluster: its own)."""
+        if self.stopped.is_set():
+            return "stopped"
+        if self.draining.is_set():
+            return "draining"
+        states = [sup.lifecycle() for sup in self.supervisors.values()]
+        for s in _LIFECYCLE_ORDER:
+            if s in states:
+                return s
+        return "ready"
 
     def _log(self, msg: str) -> None:
         print(f"ka-daemon: {msg}", file=self.err)
@@ -130,25 +316,32 @@ class AssignerDaemon:
 
     def start(self) -> None:
         """Build the native libraries (the solve path only loads them), fail
-        fast on a solver that cannot be made (``native`` not built), run
-        the first sync (bounded retries, then ``IngestError``), then serve."""
+        fast on a solver that cannot be made (``native`` not built), start
+        every supervisor, then serve. One cluster: its first sync must
+        complete (bounded retries, then ``IngestError``). Many: a cluster
+        that cannot sync starts behind its breaker and the rest serve."""
         from ..native.build import prebuild_native_libraries
         from ..solvers.base import get_solver
 
+        flight.record("daemon", event="start", clusters=sorted(self.supervisors))
         prebuild_native_libraries(err=self.err)
         get_solver(self.solver, device=self.device)
-        sup = self.supervisor()
-        sup.start()
+        for sup in self.supervisors.values():
+            sup.start(require_sync=self.single)
         self.httpd = _build_http_server(self, self.bind, self.port)
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, kwargs={"poll_interval": POLL_S},
             name="ka-daemon-http", daemon=True,
         )
         self._serve_thread.start()
+        if self.single:
+            what = (f"watches="
+                    f"{'on' if self.supervisor().uses_watches() else 'off'}")
+        else:
+            what = f"clusters={','.join(sorted(self.supervisors))}"
         self._log(
             f"listening on http://{self.bind}:{self.httpd.server_address[1]}"
-            f" (solver={self.solver}, watches="
-            f"{'on' if sup.uses_watches() else 'off'})"
+            f" (solver={self.solver}, {what})"
         )
 
     @property
@@ -161,15 +354,20 @@ class AssignerDaemon:
         :meth:`serve`) completes the drain."""
         self.draining.set()
 
+    def _active_total(self) -> int:
+        return sum(sup.active_requests() for sup in self.supervisors.values())
+
     def _in_flight(self) -> int:
-        with self._posts_lock:
-            return max(self._posts, self.supervisor().active_requests())
+        with self._handlers_lock:
+            return max(self._handlers, self._active_total())
 
     def shutdown(self) -> None:
         """Drain and stop: refuse new requests, wait up to
-        ``KA_DAEMON_DRAIN_TIMEOUT`` for those in flight to be answered, then
-        tear everything down."""
+        ``KA_DAEMON_DRAIN_TIMEOUT`` for those in flight (executions too) to
+        be answered, tear everything down, and dump the flight ring to
+        ``KA_OBS_FLIGHT_DUMP``. A journal left mid-execution resumes."""
         self.draining.set()
+        flight.record("daemon", event="draining")
         deadline = time.monotonic() + self.drain_timeout
         while time.monotonic() < deadline and self._in_flight():
             time.sleep(0.01)
@@ -182,9 +380,20 @@ class AssignerDaemon:
         if self.httpd is not None:
             self.httpd.shutdown()
             self.httpd.server_close()
-        self.supervisor().teardown()
+        for sup in self.supervisors.values():
+            sup.teardown()
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=5.0)
+        flight.record("daemon", event="stopped", inflight_at_exit=left)
+        flight.flush_to_dump(err=self.err)
+        if left == 0:
+            # A straggler past the drain may still write its line: the file
+            # stays open for it, and the exit closes it.
+            self.access_log.close()
+        # Back to the CLI's disabled state: a later run in this process
+        # records into no dead daemon's registry or ring.
+        obs_metrics.disable_cumulative()
+        flight.disable()
         self._log("drained; exiting 0")
 
     def serve(self) -> int:
@@ -195,10 +404,77 @@ class AssignerDaemon:
         self.shutdown()
         return 0
 
+    # -- aggregate views (many clusters) ---------------------------------------------
+
+    def healthz_aggregate(self) -> dict:
+        return {
+            "status": self.lifecycle(),
+            "clusters": {
+                name: sup.healthz_view()
+                for name, sup in self.supervisors.items()
+            },
+        }
+
+    def readyz_aggregate(self) -> Tuple[bool, dict]:
+        """Ready while any cluster can answer: one dead quorum does not
+        unready the others (each cluster's own ``/readyz`` is strict)."""
+        per = {n: s.lifecycle() for n, s in self.supervisors.items()}
+        ready = not self.draining.is_set() and any(
+            s in ("ready", "degraded") for s in per.values()
+        )
+        return ready, {"ready": ready, "status": self.lifecycle(), "clusters": per}
+
+
+#: Per-cluster path suffixes of the POST and GET routes.
+_POST_SUFFIXES = ("/plan", "/whatif", "/execute", "/groups/plan", "/groups/sweep")
+_GET_SUFFIXES = ("/healthz", "/readyz", "/state", "/debug/flight",
+                 "/recommendations", "/groups/plan", "/groups/sweep")
+#: The consumer-group endpoints, on GET (query) and POST (body) alike.
+_GROUPS_SUFFIXES = ("/groups/plan", "/groups/sweep")
+
+
+def _render_metrics(daemon: AssignerDaemon) -> str:
+    """The ``/metrics`` body: the cumulative registry, and the process and
+    build-info gauges."""
+    import platform
+
+    from ..obs import promtext
+
+    cum = obs_metrics.cumulative()
+    snapshot = cum.snapshot() if cum is not None else {
+        "counters": {}, "gauges": {}, "hists": {},
+    }
+    started = cum.started_at if cum is not None else time.time()
+    info = {
+        "tool": TOOL_NAME,
+        "report_schema": str(REPORT_SCHEMA_VERSION),
+        "python": platform.python_version(),
+        "mode": "single" if daemon.single else "multi",
+    }
+    extra = {
+        "process_start_time_seconds": started,
+        "process_uptime_seconds": round(time.time() - started, 3),
+        "daemon_clusters": len(daemon.supervisors),
+        "daemon_inflight_requests": daemon._active_total(),
+    }
+    rec = flight.recorder()
+    if rec is not None:
+        stats = rec.stats()
+        extra["flight_events_recorded"] = stats["recorded"]
+        extra["flight_events_dropped"] = stats["dropped"]
+    return promtext.render(snapshot, extra_gauges=extra, info=info)
+
+
+def _flight_view(cluster: Optional[str] = None) -> dict:
+    rec = flight.recorder()
+    if rec is None:
+        return {"error": "flight recorder disabled (KA_OBS_FLIGHT_EVENTS=0)",
+                "events": []}
+    return rec.view(cluster=cluster)
+
 
 def _build_http_server(daemon: AssignerDaemon, bind: str,
                        port: int) -> ThreadingHTTPServer:
-    sup = daemon.supervisor()
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -206,12 +482,71 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
         def log_message(self, fmt, *args):  # stderr carries the daemon's lines only
             pass
 
-        def _reply(self, code: int, body: dict,
-                   headers: Optional[dict] = None) -> None:
-            raw = json.dumps(body, sort_keys=True).encode("utf-8")
+        def _begin(self) -> None:
+            """Per-request state (one handler serves a keep-alive
+            connection's requests)."""
+            self._t0 = time.perf_counter()
+            self._rid = _request_id(self.headers)
+            self._code: Optional[int] = None
+            self._sup: Optional[ClusterSupervisor] = None
+            self._endpoint: Optional[str] = None
+            self._status: Optional[str] = None
+
+        def _access(self, method: str, path: str) -> None:
+            """One access-log line a request, the routing layer's latency
+            histogram and request counter by endpoint, cluster and code, and
+            a flight summary of each POST."""
+            ms = round((time.perf_counter() - self._t0) * 1000.0, 3)
+            sup = self._sup
+            daemon.access_log.log(
+                request_id=self._rid,
+                method=method,
+                path=path,
+                cluster=sup.name if sup is not None else None,
+                code=self._code,
+                status=self._status,
+                ms=ms,
+                inflight=sup.active_requests() if sup is not None else 0,
+                stale=sup.stale() if sup is not None else False,
+                degraded=self._status == "degraded",
+            )
+            cum = obs_metrics.cumulative()
+            if cum is not None and self._endpoint is not None:
+                labels = {"endpoint": self._endpoint}
+                if sup is not None:
+                    labels["cluster"] = sup.name
+                cum.hist_observe("daemon.http.request_ms", ms, labels=labels)
+                cum.counter_add(
+                    "daemon.http.requests", 1,
+                    labels={**labels, "code": str(self._code)},
+                )
+            if method == "POST":
+                flight.record(
+                    "request", sup.name if sup is not None else None,
+                    request_id=self._rid, path=path, code=self._code,
+                    status=self._status, ms=ms,
+                )
+
+        def _serve(self, method: str, body) -> None:
+            with daemon._handlers_lock:
+                daemon._handlers += 1
+            try:
+                self._begin()
+                try:
+                    body()
+                finally:
+                    self._access(method, urlsplit(self.path).path)
+            finally:
+                with daemon._handlers_lock:
+                    daemon._handlers -= 1
+
+        def _send(self, code: int, raw: bytes, content_type: str,
+                  headers: Optional[dict] = None) -> None:
+            self._code = code
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(raw)))
+            self.send_header("X-Request-Id", self._rid)
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
@@ -220,37 +555,153 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
             except (BrokenPipeError, ConnectionResetError):  # the client went away
                 pass
 
+        def _reply(self, code: int, body: dict,
+                   headers: Optional[dict] = None) -> None:
+            raw = json.dumps(body, sort_keys=True).encode("utf-8")
+            self._send(code, raw, "application/json", headers)
+
+        def _route(self, path: str):
+            """``(supervisor, suffix)`` of a path, or None once a refusal is
+            answered. Bare paths are the one cluster's; with many clusters
+            the data paths need the ``/clusters/<name>`` prefix and the
+            bare GET views are the aggregates (supervisor None)."""
+            if path.startswith("/clusters/"):
+                name, slash, suffix = path[len("/clusters/"):].partition("/")
+                sup = daemon.supervisors.get(name)
+                if sup is None:
+                    self._reply(404, {
+                        "error": f"unknown cluster {name!r}",
+                        "clusters": sorted(daemon.supervisors),
+                    })
+                    return None
+                return sup, "/" + suffix if slash else ""
+            if daemon.single:
+                return daemon.supervisor(), path
+            if path in _POST_SUFFIXES or path == "/recommendations":
+                self._reply(400, {
+                    "error": "this daemon serves multiple clusters; use "
+                             f"/clusters/<name>{path}",
+                    "clusters": sorted(daemon.supervisors),
+                })
+                return None
+            return None, path
+
         def do_GET(self) -> None:
-            path = urlsplit(self.path).path
-            if path == "/healthz":
-                self._reply(200, {"status": sup.lifecycle(), "stale": sup.stale()})
-            elif path == "/readyz":
-                life = sup.lifecycle()
-                ready = life in ("ready", "degraded")
-                self._reply(
-                    200 if ready else 503,
-                    {"ready": ready, "status": life},
-                    None if ready else {"Retry-After": "5"},
-                )
-            elif path == "/state":
-                self._reply(200, sup.state_view())
-            else:
-                self._reply(404, {"error": f"unknown path {self.path!r}"})
+            self._serve("GET", self._do_get)
 
         def do_POST(self) -> None:
-            with daemon._posts_lock:
-                daemon._posts += 1
+            self._serve("POST", self._do_post)
+
+        def _debug_profile(self, query: str) -> None:
+            from ..obs.profile import ProfilerBusy, capture_window
+
+            self._endpoint = "debug/profile"
+            raw = parse_qs(query).get("seconds", ["1"])[-1]
             try:
-                self._do_post()
-            finally:
-                with daemon._posts_lock:
-                    daemon._posts -= 1
+                seconds = float(raw)
+            except ValueError:
+                self._reply(400, {"error": f"bad seconds value {raw!r}"})
+                return
+            try:
+                artifact = capture_window(seconds)
+            except ProfilerBusy as e:
+                self._reply(409, {"error": str(e)})
+                return
+            except (RuntimeError, ValueError) as e:
+                self._reply(400, {"error": str(e)})
+                return
+            flight.record("profile", seconds=seconds, dir=artifact)
+            self._reply(200, {"artifact_dir": artifact, "seconds": seconds})
+
+        def _groups(self, sup: ClusterSupervisor, suffix: str,
+                    params: dict) -> None:
+            code, body, headers = sup.groups_request(
+                suffix.rsplit("/", 1)[-1], params, request_id=self._rid,
+            )
+            self._status = (
+                "degraded" if body.get("degraded")
+                else body.get("error") and "error" or "ok"
+            )
+            self._reply(code, body, headers)
+
+        def _do_get(self) -> None:
+            split = urlsplit(self.path)
+            path = split.path
+            query = parse_qs(split.query)
+            if path == "/metrics":
+                self._endpoint = "metrics"
+                raw = _render_metrics(daemon).encode("utf-8")
+                self._send(200, raw, "text/plain; version=0.0.4; charset=utf-8")
+                return
+            if path == "/debug/flight":
+                self._endpoint = "debug/flight"
+                self._reply(200, _flight_view(query.get("cluster", [None])[-1]))
+                return
+            if path == "/debug/profile":
+                self._debug_profile(split.query)
+                return
+            routed = self._route(path)
+            if routed is None:
+                return
+            sup, suffix = routed
+            self._sup = sup
+            self._endpoint = suffix.lstrip("/") or None
+            if sup is None:  # the aggregates of many clusters
+                if suffix == "/healthz":
+                    self._reply(200, daemon.healthz_aggregate())
+                elif suffix == "/readyz":
+                    ready, body = daemon.readyz_aggregate()
+                    self._reply(200 if ready else 503, body,
+                                None if ready else {"Retry-After": "5"})
+                elif suffix == "/state":
+                    self._reply(200, {
+                        "lifecycle": daemon.lifecycle(),
+                        "clusters": {n: s.state_view()
+                                     for n, s in daemon.supervisors.items()},
+                    })
+                else:
+                    self._reply(404, {"error": f"unknown path {self.path!r}"})
+                return
+            if suffix not in _GET_SUFFIXES:
+                self._reply(404, {"error": f"unknown path {self.path!r}"})
+            elif suffix == "/healthz":
+                if daemon.single and not path.startswith("/clusters/"):
+                    self._reply(200, {"status": sup.lifecycle(),
+                                      "stale": sup.stale()})
+                else:
+                    self._reply(200, sup.healthz_view())
+            elif suffix == "/readyz":
+                life = sup.lifecycle()
+                ready = life in ("ready", "degraded")
+                self._reply(200 if ready else 503,
+                            {"ready": ready, "status": life},
+                            None if ready else {"Retry-After": "5"})
+            elif suffix == "/state":
+                self._reply(200, sup.state_view())
+            elif suffix == "/recommendations":
+                params = {k: vals[-1] for k, vals in query.items()}
+                code, body, headers = sup.recommendations(
+                    params, request_id=self._rid)
+                self._status = body.get("verdict") or body.get("error")
+                self._reply(code, body, headers)
+            elif suffix in _GROUPS_SUFFIXES:
+                self._groups(sup, suffix, {
+                    k: _norm_query_value(k, vals[-1]) for k, vals in query.items()
+                })
+            else:  # /debug/flight
+                self._reply(200, _flight_view(sup.name))
 
         def _do_post(self) -> None:
             split = urlsplit(self.path)
-            if split.path not in ("/plan", "/whatif"):
+            routed = self._route(split.path)
+            if routed is None:
+                return
+            sup, suffix = routed
+            if sup is None or suffix not in _POST_SUFFIXES:
                 self._reply(404, {"error": f"unknown path {self.path!r}"})
                 return
+            self._sup = sup
+            self._endpoint = suffix.lstrip("/")
             try:
                 n = int(self.headers.get("Content-Length") or 0)
                 raw = self.rfile.read(n) if n else b"{}"
@@ -263,8 +714,58 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
             # Query parameters merge under the body.
             for key, vals in parse_qs(split.query).items():
                 params.setdefault(key, _norm_query_value(key, vals[-1]))
-            code, body, headers = sup.handle(split.path, params)
-            self._reply(code, body, headers)
+            if suffix in _GROUPS_SUFFIXES:
+                self._groups(sup, suffix, params)
+            elif suffix == "/execute":
+                self._status = "stream"
+                self._execute(sup, params)
+            else:
+                code, body, headers = sup.handle(suffix, params,
+                                                 request_id=self._rid)
+                self._status = body.get("status")
+                self._reply(code, body, headers)
+
+        def _execute(self, sup: ClusterSupervisor, params: dict) -> None:
+            """The streaming ``/execute``: a refusal answers JSON; an
+            admitted run streams NDJSON events until ``exec/done`` or
+            ``exec/error``, then closes the connection (no
+            Content-Length)."""
+            prep = sup.prepare_execute(params)
+            if prep[0] == "error":
+                _, code, body = prep
+                self._reply(code, body)
+                return
+            _, ctx = prep
+            try:
+                self._code = 200
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("X-Request-Id", self._rid)
+                self.send_header("Connection", "close")
+                self.end_headers()
+                self.close_connection = True
+            except Exception as e:
+                # The client went away before the stream opened: the slot
+                # goes back, or this cluster answers 409 for ever.
+                sup.abort_execute()
+                print(f"ka-daemon: /execute client gone before the stream "
+                      f"opened ({type(e).__name__}: {e}); slot released",
+                      file=daemon.err)
+                return
+
+            def emit(event: dict) -> None:
+                line = json.dumps(event, sort_keys=True) + "\n"
+                self.wfile.write(line.encode("utf-8"))
+                self.wfile.flush()
+
+            try:
+                sup.run_execute(ctx, emit)
+            except Exception as e:
+                # A kill's stand-in (InjectedExecCrash) or an engine escape:
+                # the stream ends with no terminal event, as a killed daemon
+                # ends it; the journal holds the resume.
+                print(f"ka-daemon: /execute aborted ({type(e).__name__}: {e}); "
+                      "journal retains every committed wave", file=daemon.err)
 
     httpd = ThreadingHTTPServer((bind, port), Handler)
     httpd.daemon_threads = True
@@ -273,7 +774,8 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
 
 def run_daemon_process(daemon: AssignerDaemon) -> int:
     """Install the signal handlers, start ``daemon``, serve until SIGTERM
-    or SIGINT, drain, return 0. ``ka-daemon`` lands here."""
+    or SIGINT, drain, return 0. ``ka-daemon`` lands here. A crash on the
+    way dumps the flight ring (``KA_OBS_FLIGHT_DUMP``) and re-raises."""
     import signal
 
     def _sig(_signo, _frame):
@@ -281,5 +783,10 @@ def run_daemon_process(daemon: AssignerDaemon) -> int:
 
     signal.signal(signal.SIGTERM, _sig)
     signal.signal(signal.SIGINT, _sig)
-    daemon.start()
-    return daemon.serve()
+    try:
+        daemon.start()
+        return daemon.serve()
+    except BaseException as e:
+        flight.record("daemon", event="crash", error=f"{type(e).__name__}: {e}")
+        flight.flush_to_dump()
+        raise

@@ -127,6 +127,12 @@ class DaemonState:
         with self._lock:
             return {b.id for b in self._brokers}
 
+    def rack_map(self) -> Dict[int, str]:
+        with self._lock:
+            return {
+                b.id: b.rack for b in self._brokers if b.rack is not None
+            }
+
     def encode_cluster(self):
         """The broker and rack encoding under the delta store (the warm
         hook predicts the solve's signature from it)."""

@@ -1,7 +1,7 @@
-"""``ClusterSupervisor``: the one cluster a single-cluster daemon serves, the
-port of the reference's ``kafka_assigner_tpu/daemon/supervisor.py`` in its
-single-cluster form under ``KA_DISPATCH=0`` (one solve lock, no
-dispatcher). It owns:
+"""``ClusterSupervisor``: one cluster's bulkhead inside the daemon, the port
+of the reference's ``kafka_assigner_tpu/daemon/supervisor.py`` under
+``KA_DISPATCH=0`` (one solve lock, no dispatcher). One per cluster; each
+owns:
 
 - the metadata backend's session and the one watch-loop thread;
 - the :class:`~.state.DaemonState` cache and its delta encode store;
@@ -9,19 +9,31 @@ dispatcher). It owns:
   stopped;
 - the request gate: an inflight limit read per request
   (``KA_DAEMON_MAX_INFLIGHT``; beyond it 503 with ``Retry-After``) and a
-  watchdog per request (``KA_DAEMON_REQUEST_TIMEOUT``);
+  watchdog per request (``KA_DAEMON_REQUEST_TIMEOUT``), so a stalled
+  resync or a dead quorum on one cluster sheds or stale-serves that
+  cluster's requests only;
 - the session's circuit breaker: consecutive resync failures open it
   (``KA_DAEMON_BREAKER_THRESHOLD``); while open, resyncs wait out a
   jittered, doubling cooldown (``KA_DAEMON_BREAKER_COOLDOWN``, capped at the
   resync interval), then one probe closes it or opens it again;
 - the post-resync warm hook (``solvers/warmup.py:warm_for_assignments`` on
-  the daemon's device).
+  the daemon's device);
+- the health plane: the cached assignment scored (``obs/health.py``) and
+  the per-partition traffic series published on every resync and delta
+  re-encode, and ``/recommendations`` (observe only, never executed);
+- the groups endpoints over the backend's live consumer-group state;
+- ``/execute``: one execution at a time (409 past it), on a fresh backend
+  session, journaled as ``ka-execute`` journals (the identity is the
+  cluster's connect spec and the plan's hash), its progress streamed.
 
 Each ``/plan`` runs mode 3's pipeline (``generator.py``) against the cache,
-under the solve lock that the service shares with every request, so one
-request's run report never holds another's spans. Where the request keeps
-the whole broker set and the racks, the device lane takes the cache's
-merged preencode; a request that narrows either encodes for itself.
+under the solve lock that the service shares with every request of every
+cluster (one device), so one request's run report never holds another's
+spans. Where the request keeps the whole broker set and the racks, the
+device lane takes the cache's merged preencode; a request that narrows
+either encodes for itself. In a daemon of many clusters (``label`` set)
+metric and span names carry an ``@cluster`` suffix; for one cluster they
+are the plain names.
 
 The reference's ``tpu`` solver is the port's ``device``.
 """
@@ -29,14 +41,20 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import socket
 import sys
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-from ..errors import IngestError, SolveError
-from ..faults.inject import InjectedSolverCrash, active_injector, fault_point
+from ..errors import ExecuteError, IngestError, SolveError
+from ..faults.inject import (
+    InjectedExecCrash,
+    InjectedSolverCrash,
+    active_injector,
+    fault_point,
+)
 from ..generator import (
     Degradation,
     build_rack_assignment,
@@ -47,7 +65,9 @@ from ..generator import (
 )
 from ..io.base import open_backend
 from ..io.zkwire import ZkConnectionError, ZkWireError
-from ..obs.metrics import counter_add
+from ..obs import flight, health
+from ..obs import metrics as obs_metrics
+from ..obs.metrics import counter_add, gauge_set, hist_ms, hist_observe
 from ..obs.trace import record_span
 from ..utils.backoff import JitteredBackoff
 from .state import CacheBackend, DaemonState
@@ -63,12 +83,14 @@ class CircuitBreaker:
     shared :class:`JitteredBackoff` envelope (doubling, 0.5-1.5x jitter,
     capped), so daemons fronting one dead quorum do not probe in lockstep.
     Thread-safe: the watch loop probes, request threads read
-    :meth:`snapshot`."""
+    :meth:`snapshot`. ``cluster`` names the flight recorder's events."""
 
-    def __init__(self, threshold: int, cooldown: float, cap: float) -> None:
+    def __init__(self, threshold: int, cooldown: float, cap: float,
+                 cluster: Optional[str] = None) -> None:
         self.threshold = max(1, int(threshold))
         self._cooldown = max(0.05, float(cooldown))
         self._cap = max(self._cooldown, float(cap))
+        self.cluster = cluster
         self._lock = threading.Lock()
         self._backoff = self._fresh_backoff()
         self.state = "closed"
@@ -87,6 +109,7 @@ class CircuitBreaker:
                 return True
             if time.monotonic() >= self._open_until:
                 self.state = "half-open"
+                flight.record("breaker", self.cluster, state="half-open")
                 return True
             return False
 
@@ -103,6 +126,10 @@ class CircuitBreaker:
             if opening:
                 self.state = "open"
                 self._open_until = time.monotonic() + self._backoff.next_delay()
+                flight.record(
+                    "breaker", self.cluster, state="open",
+                    failures=self.consecutive_failures,
+                )
             return opening
 
     def record_success(self) -> bool:
@@ -114,6 +141,8 @@ class CircuitBreaker:
             self.consecutive_failures = 0
             self._open_until = 0.0
             self._backoff = self._fresh_backoff()
+            if was_tripped:
+                flight.record("breaker", self.cluster, state="closed")
             return was_tripped
 
     def snapshot(self) -> dict:
@@ -131,7 +160,7 @@ class CircuitBreaker:
 
 
 class ClusterSupervisor:
-    """The cluster's resident state, lifecycle and request handling."""
+    """One cluster's resident state, lifecycle and request handling."""
 
     def __init__(
         self,
@@ -141,6 +170,7 @@ class ClusterSupervisor:
         solver: str = "device",
         device: str = "cuda",
         failure_policy: Optional[str] = None,
+        label: str = "",
         draining: threading.Event,
         stopped: threading.Event,
         solve_lock: threading.Lock,
@@ -150,6 +180,9 @@ class ClusterSupervisor:
 
         self.name = name
         self.spec = spec
+        #: Metric and span suffix: empty for one cluster (the plain names),
+        #: the cluster's name in a daemon of many.
+        self.label = label
         self.solver = solver
         self.device = device
         # The KA_FAILURE_POLICY knob unless given, as the CLI: a device
@@ -169,7 +202,10 @@ class ClusterSupervisor:
             env_int("KA_DAEMON_BREAKER_THRESHOLD"),
             env_float("KA_DAEMON_BREAKER_COOLDOWN"),
             cap=self.resync_interval,
+            cluster=name,
         )
+        #: The lifecycle the flight recorder last saw (it records changes).
+        self._flight_lifecycle: Optional[str] = None
         self.state = DaemonState()
         self.backend = None
         self._watch_thread: Optional[threading.Thread] = None
@@ -178,6 +214,8 @@ class ClusterSupervisor:
         #: Admitted requests, gated against the live inflight knob.
         self._active = 0
         self._active_lock = threading.Lock()
+        #: One /execute at a time on this cluster (409 past it).
+        self._exec_lock = threading.Lock()
         self._counters: Dict[str, int] = {}
         self._counters_lock = threading.Lock()
         self._faults = active_injector()
@@ -190,20 +228,34 @@ class ClusterSupervisor:
         #: A prompt resync asked for by the request path (the session
         #: seam), for the watchless case where no poll exists to fail.
         self._prompt_resync = False
+        #: The last health scores, in /state.
+        self._last_health: Optional[health.HealthScores] = None
 
     # -- counters (the daemon's lifetime; mirrored into an active capture) ----
+
+    def _metric(self, name: str) -> str:
+        return f"{name}@{self.label}" if self.label else name
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._counters_lock:
             self._counters[name] = self._counters.get(name, 0) + n
-        counter_add(name, n)
+        counter_add(self._metric(name), n)
 
     def counters(self) -> Dict[str, int]:
         with self._counters_lock:
             return dict(self._counters)
 
     def _log(self, msg: str) -> None:
-        print(f"ka-daemon: {msg}", file=self.err)
+        prefix = f"ka-daemon[{self.name}]" if self.label else "ka-daemon"
+        print(f"{prefix}: {msg}", file=self.err)
+
+    def note_lifecycle(self) -> None:
+        """Record a flight ``lifecycle`` event when the lifecycle changed
+        since the last one (called where it can change)."""
+        state = self.lifecycle()
+        if state != self._flight_lifecycle:
+            self._flight_lifecycle = state
+            flight.record("lifecycle", self.name, state=state)
 
     # -- live knobs ---------------------------------------------------------------
 
@@ -243,18 +295,28 @@ class ClusterSupervisor:
         with self._active_lock:
             return self._active
 
-    def start(self) -> None:
-        """Open the backend and run the first sync: bounded retries, then
-        :class:`IngestError` (a daemon that cannot read its one cluster has
-        nothing to serve). Then start the watch loop."""
+    def start(self, *, require_sync: bool = True) -> None:
+        """Open the backend and run the first sync, then start the watch
+        loop. ``require_sync`` (one cluster): bounded retries, then
+        :class:`IngestError`, since a daemon that cannot read its one
+        cluster has nothing to serve. Otherwise (many clusters) a cluster
+        that cannot sync starts in ``syncing`` behind its breaker and keeps
+        retrying on the resync cadence while the others serve."""
         try:
             self._open_backend()
             synced = self._resync_with_retries()
         except Exception as e:
-            raise IngestError(
-                f"daemon could not complete its initial cluster sync: {e}"
-            ) from e
-        if not synced:
+            if require_sync:
+                raise IngestError(
+                    f"daemon could not complete its initial cluster sync: {e}"
+                ) from e
+            self._log(
+                f"cluster backend unavailable at startup "
+                f"({type(e).__name__}: {e}); serving others, retrying "
+                "on the resync cadence"
+            )
+            synced = False
+        if require_sync and not synced:
             if self.backend is not None:
                 self.backend.close()
             raise IngestError(
@@ -310,6 +372,7 @@ class ClusterSupervisor:
         the callers own the retries and the breaker."""
         t0 = time.perf_counter()
         ok = False
+        error: Optional[str] = None
         try:
             fault_point("resync", cluster=self.name)
             backend = self.backend
@@ -339,9 +402,20 @@ class ClusterSupervisor:
                 self._armed_generation = gen_before
             self._count("daemon.resyncs")
             self._maybe_warm()
+            self._publish_health()
+            self._publish_traffic()
             ok = True
+        except BaseException as e:
+            error = f"{type(e).__name__}: {e}"
+            raise
         finally:
-            record_span("daemon/resync", (time.perf_counter() - t0) * 1e3, ok)
+            ms = (time.perf_counter() - t0) * 1e3
+            record_span(self._metric("daemon/resync"), ms, ok)
+            ev = {"outcome": "ok" if ok else "fail", "ms": round(ms, 3)}
+            if error is not None:
+                ev["error"] = error
+            flight.record("resync", self.name, **ev)
+            self.note_lifecycle()
 
     def _maybe_warm(self) -> None:
         """The post-resync warm hook: the cache pins the buckets of the next
@@ -381,6 +455,377 @@ class ClusterSupervisor:
         )
         self._warm_threads = [w for w in self._warm_threads if w.is_alive()] + [t]
         t.start()
+
+    # -- the health plane -------------------------------------------------------
+
+    def _publish_health(self) -> None:
+        """Score the cached assignment (``obs/health.py``) and publish the
+        ``health.*`` gauges, on every resync and every delta re-encode.
+        Only while the cumulative registry is on (in a daemon): outside one
+        no continuous gauge has anywhere to live."""
+        if obs_metrics.cumulative() is None:
+            return
+        with hist_ms(self._metric("health.score_ms")):
+            scores = health.score_assignment(
+                self.state.broker_id_set(),
+                self.state.all_assignments(),
+                self.state.rack_map(),
+            )
+        self._last_health = scores
+        gauge_set(self._metric("health.replica_spread"), scores.replica_spread)
+        gauge_set(self._metric("health.replica_stddev"), scores.replica_stddev)
+        gauge_set(self._metric("health.leader_spread"), scores.leader_spread)
+        gauge_set(self._metric("health.leader_stddev"), scores.leader_stddev)
+        gauge_set(self._metric("health.rack_violations"), scores.rack_violations)
+        gauge_set(self._metric("health.score"), scores.score)
+
+    def _publish_traffic(self) -> None:
+        """Per-partition traffic and lag through the backend's hook
+        (``io/base.py:fetch_partition_traffic``, the synthetic series where
+        it has no meters), published as gauge series labelled ``{topic,
+        partition}`` (and ``cluster`` for many clusters). Each family is
+        swapped whole, so a deleted topic's series go with it. At most
+        ``KA_OBS_TRAFFIC_SERIES_MAX`` series a cluster, the busiest by
+        produce rate; the rest are counted in ``traffic.series_dropped``. A
+        failed fetch counts ``traffic.fetch_failures`` and never fails the
+        resync."""
+        from ..utils.env import env_int
+
+        cum = obs_metrics.cumulative()
+        if cum is None:
+            return
+        partitions = {
+            t: sorted(parts)
+            for t, parts in self.state.all_assignments().items()
+        }
+        try:
+            fetch = getattr(self.backend, "fetch_partition_traffic", None)
+            if fetch is not None:
+                stats = fetch(partitions)
+            else:  # a backend without the hook
+                stats = health.synthetic_partition_traffic(partitions)
+        except Exception as e:
+            self._count("traffic.fetch_failures")
+            self._log(
+                f"traffic/lag fetch failed ({type(e).__name__}: {e}); "
+                "scrape series keep their last values"
+            )
+            return
+        flat = [
+            (t, p, tr)
+            for t in sorted(stats)
+            for p, tr in sorted(stats[t].items())
+        ]
+        cap = env_int("KA_OBS_TRAFFIC_SERIES_MAX")
+        dropped = 0
+        if cap and len(flat) > cap:
+            flat.sort(key=lambda row: (-row[2].in_bytes, row[0], row[1]))
+            dropped = len(flat) - cap
+            flat = sorted(flat[:cap], key=lambda row: (row[0], row[1]))
+        base = {"cluster": self.name} if self.label else {}
+
+        def series(field):
+            return {
+                (("partition", str(p)), ("topic", t)): getattr(tr, field)
+                for t, p, tr in flat
+            }
+
+        cum.replace_gauges("traffic.in_bytes", series("in_bytes"), base)
+        cum.replace_gauges("traffic.out_bytes", series("out_bytes"), base)
+        cum.replace_gauges("traffic.lag", series("lag"), base)
+        gauge_set(self._metric("traffic.series_dropped"), dropped)
+
+    def recommendations(
+        self, params: dict, request_id: Optional[str] = None,
+    ) -> Tuple[int, dict, dict]:
+        """``/recommendations``: a candidate plan solved against the cache
+        under the solve lock, the current and the projected assignment
+        scored, and a ``recommend`` or ``hold`` verdict against the cost of
+        change (``KA_HEALTH_MOVE_COST``; ``move_cost`` overrides it per
+        request). Read-only: computed, flight-recorded, never executed. The
+        envelope is byte-stable (no times, request ids or cache versions)."""
+        from ..utils.env import env_float
+
+        raw_cost = params.get("move_cost")
+        if raw_cost is None:
+            move_cost = env_float("KA_HEALTH_MOVE_COST")
+        else:
+            try:
+                move_cost = max(0.0, float(raw_cost))
+            except (TypeError, ValueError):
+                return 400, {
+                    "error": f"move_cost must be a number, got {raw_cost!r}"
+                }, {}
+        refusal = self._gate()
+        if refusal is not None:
+            return refusal
+        t0 = time.perf_counter()
+        ok = False
+        watchdog_timer = self._watchdog(
+            "/recommendations", self._request_budget(), request_id
+        )
+        try:
+            solver = params.get("solver") or self.solver
+            ev = self._score_candidate(solver, move_cost)
+            current, projected = ev["current"], ev["projected"]
+            moves, leader_moves = ev["moves"], ev["leader_moves"]
+            improvement, cost = ev["improvement"], ev["cost"]
+            verdict, degraded = ev["verdict"], ev["degraded"]
+            gauge_set(self._metric("health.movement_debt"), moves)
+            self._count("daemon.recommendations")
+            flight.record(
+                "recommendation", self.name,
+                verdict=verdict, moves=moves, improvement=improvement,
+                request_id=request_id,
+            )
+            ok = True
+            body = {
+                "schema_version": health.RECOMMENDATION_SCHEMA_VERSION,
+                "kind": "recommendations",
+                "policy": "observe",
+                "cluster": self.name,
+                "solver": solver,
+                "stale": self.state.stale,
+                "degraded": degraded,
+                "current": current.as_dict(),
+                "candidate": {
+                    "projected": projected.as_dict(),
+                    "moves_required": moves,
+                    "leader_moves": leader_moves,
+                },
+                "cost_model": {
+                    "move_cost": move_cost,
+                    "cost": cost,
+                    "improvement": improvement,
+                },
+                "verdict": verdict,
+            }
+            return 200, body, {}
+        except (ValueError, KeyError, IngestError) as e:
+            return 400, {"error": f"bad recommendation request: {e}"}, {}
+        except SolveError as e:
+            return 500, {"error": f"{type(e).__name__}: {e}"}, {}
+        except Exception as e:
+            self._count("daemon.request_errors")
+            return 500, {"error": f"{type(e).__name__}: {e}"}, {}
+        finally:
+            watchdog_timer.cancel()
+            record_span(
+                self._metric("daemon/recommend"),
+                (time.perf_counter() - t0) * 1e3, ok,
+            )
+            self._release()
+
+    def _score_candidate(self, solver: str, move_cost: float) -> dict:
+        """Solve one candidate plan against the cache under the solve lock,
+        score the current and the projected assignment, and price the
+        movement. The caller holds an admission slot."""
+        from ..exec.engine import parse_plan_payload
+
+        out = io.StringIO()
+        with self._solve_lock:
+            topics = self.state.all_assignments()
+            broker_ids = self.state.broker_id_set()
+            rack = self.state.rack_map()
+            current = health.score_assignment(broker_ids, topics, rack)
+            degraded = self._run_plan({"solver": solver}, out)
+        proposed, _order = parse_plan_payload(
+            out.getvalue(), origin="recommendation plan",
+        )
+        projected_topics = dict(topics)
+        projected_topics.update(proposed)
+        projected = health.score_assignment(broker_ids, projected_topics, rack)
+        moves, leader_moves = health.movement_debt(topics, proposed)
+        improvement = round(current.score - projected.score, 6)
+        cost = round(moves * move_cost, 6)
+        verdict = "recommend" if moves > 0 and improvement > cost else "hold"
+        return {
+            "current": current,
+            "projected": projected,
+            "moves": moves,
+            "leader_moves": leader_moves,
+            "improvement": improvement,
+            "cost": cost,
+            "verdict": verdict,
+            "degraded": degraded,
+        }
+
+    def execution_in_flight(self) -> bool:
+        """Whether this cluster's one /execute slot is taken."""
+        return self._exec_lock.locked()
+
+    # -- the consumer-group endpoints ----------------------------------------------
+
+    def groups_request(
+        self, kind: str, params: dict, request_id: Optional[str] = None,
+    ) -> Tuple[int, dict, dict]:
+        """``/groups/plan`` and ``/groups/sweep``: consumer-group packing
+        over the backend's live group state (fetched per request: membership
+        and lag move fast) and the cache's partitions, admitted and watched
+        as every solve-bearing request, the device work under the solve
+        lock. A backend without groups refuses (400, ``groups.refusals``)
+        unless the request opts into the synthetic family (``synthetic:
+        true``, marked ``groups_real: false``). The ``daemon:solver-crash``
+        seam re-runs a group on the host packing oracle; a crash of the
+        device solve follows the failure policy: under ``strict`` a 500,
+        under ``best-effort`` the oracle's plan, marked degraded."""
+        from ..groups.model import GROUPS_SCHEMA_VERSION
+        from ..groups.solve import (
+            build_group_bodies,
+            load_group_states,
+            parse_int_list,
+            subscribed_partitions,
+            throughput_weights,
+        )
+        from ..utils.env import env_float, env_int, env_str
+
+        refusal = self._gate()
+        if refusal is not None:
+            return refusal
+        t0 = time.perf_counter()
+        ok = False
+        watchdog_timer = self._watchdog(
+            f"/groups/{kind}", self._request_budget(), request_id
+        )
+        try:
+            raw_syn = params.get("synthetic", False)
+            if isinstance(raw_syn, str):
+                # A JSON body may carry a boolean as a string: "false" must
+                # never opt into the synthetic family.
+                low = raw_syn.strip().lower()
+                if low in ("1", "true", "yes", "on"):
+                    synthetic = True
+                elif low in ("", "0", "false", "no", "off"):
+                    synthetic = False
+                else:
+                    raise ValueError(
+                        f"synthetic must be a boolean, got {raw_syn!r}"
+                    )
+            else:
+                synthetic = bool(raw_syn)
+            weight = params.get("weight") or "lag"
+            raw_groups = params.get("group")
+            if isinstance(raw_groups, str):
+                group_names = raw_groups.split(",")
+            elif raw_groups is None:
+                group_names = None
+            elif isinstance(raw_groups, list) and all(
+                isinstance(g, str) for g in raw_groups
+            ):
+                group_names = raw_groups
+            else:
+                raise ValueError("group must be a name or list of names")
+            backend = self.backend
+            if backend is None:
+                # A session being re-established: transient, not a refusal.
+                return 503, {
+                    "error": "cluster backend unavailable (session "
+                             "re-establishment in progress)",
+                    "cluster": self.name,
+                }, {"Retry-After": "5"}
+            supports = bool(
+                getattr(backend, "supports_groups", lambda: False)()
+            )
+            if not synthetic and not supports:
+                self._count("groups.refusals")
+                flight.record(
+                    "groups", self.name, op=kind, outcome="refused",
+                    request_id=request_id,
+                )
+                return 400, {
+                    "error": "this cluster's backend cannot read consumer "
+                             "groups (no membership/offset surface); pass "
+                             "synthetic=true to explicitly opt into the "
+                             "deterministic synthetic family (marked "
+                             "groups_real=false)",
+                    "cluster": self.name,
+                }, {}
+            part_map = {
+                t: sorted(per)
+                for t, per in self.state.all_assignments().items()
+            }
+            headroom = env_float("KA_GROUPS_CAPACITY_HEADROOM")
+            max_cand = env_int("KA_GROUPS_MAX_CANDIDATES")
+            scales = parse_int_list(
+                params.get("scales"), env_str("KA_GROUPS_DEFAULT_SCALES")
+            )
+            counts = parse_int_list(params.get("counts"))
+            # The backend's reads happen before the solve lock, which every
+            # cluster's requests share.
+            states, groups_real = load_group_states(
+                backend, part_map, groups=group_names, synthetic=synthetic,
+            )
+            if not states:
+                raise ValueError("the backend reports no consumer groups")
+            weight_values = (
+                throughput_weights(
+                    backend, subscribed_partitions(states, part_map)
+                )
+                if weight == "throughput" else None
+            )
+            fallback = (
+                "greedy" if self.failure_policy == "best-effort" else "raise"
+            )
+            with self._solve_lock:
+                bodies = build_group_bodies(
+                    states, groups_real, part_map, kind, weight,
+                    weight_values, scales, headroom, max_cand,
+                    counts=counts, device=self.device, fallback=fallback,
+                    probe=lambda: fault_point("daemon", cluster=self.name),
+                )
+            degraded_any = False
+            for g, body in bodies.items():
+                # Per group, as the CLI counts.
+                if kind == "sweep":
+                    self._count("groups.sweeps")
+                else:
+                    self._count("groups.plans")
+                    self._count("groups.moves", body["moves"])
+                if body["solver"] == "greedy-fallback":
+                    self._count("groups.solve_fallbacks")
+                    degraded_any = True
+                    self._log(
+                        f"groups solve crashed in-request for group "
+                        f"{g!r}; served from the greedy packing oracle"
+                    )
+            if kind == "sweep":
+                hist_observe(
+                    self._metric("groups.sweep_ms"),
+                    (time.perf_counter() - t0) * 1e3,
+                )
+            flight.record(
+                "groups", self.name, op=kind,
+                outcome="degraded" if degraded_any else "ok",
+                groups=sorted(bodies), request_id=request_id,
+            )
+            ok = not degraded_any
+            envelope = {
+                "schema_version": GROUPS_SCHEMA_VERSION,
+                "kind": f"groups-{kind}",
+                "cluster": self.name,
+                "groups_real": groups_real,
+                "stale": self.state.stale,
+                "degraded": degraded_any,
+                "groups": bodies,
+            }
+            return 200, envelope, {}
+        except (ValueError, KeyError) as e:
+            return 400, {"error": f"bad groups request: {e}"}, {}
+        except IngestError as e:
+            self._count("groups.refusals")
+            return 400, {"error": str(e), "cluster": self.name}, {}
+        except SolveError as e:
+            return 500, {"error": f"{type(e).__name__}: {e}"}, {}
+        except Exception as e:
+            self._count("daemon.request_errors")
+            return 500, {"error": f"{type(e).__name__}: {e}"}, {}
+        finally:
+            watchdog_timer.cancel()
+            record_span(
+                self._metric("daemon/groups"),
+                (time.perf_counter() - t0) * 1e3, ok,
+            )
+            self._release()
 
     def _resync_with_retries(self) -> bool:
         """``KA_DAEMON_RESYNC_RETRIES`` prompt attempts with jittered
@@ -477,6 +922,7 @@ class ClusterSupervisor:
                         raise ZkConnectionError(
                             "session re-established underneath; watches lost"
                         )
+                    cache_v0 = self.state.version
                     for kind, arg in events:
                         self._count("daemon.watch_events")
                         if (
@@ -484,11 +930,19 @@ class ClusterSupervisor:
                             and self._faults.watch_delivery(cluster=self.name)
                         ):
                             self._count("daemon.watch_dropped")
+                            flight.record("watch", self.name, event=kind,
+                                          dropped=True)
                             continue
+                        flight.record("watch", self.name, event=kind)
                         if self._apply_event(kind, arg):
                             # A broker change ran a full resync: the interval
                             # restarts from it.
                             last_sync = time.monotonic()
+                    if self.state.version != cache_v0:
+                        # One score for each batch of events that changed
+                        # the cache: scoring is O(replicas), so scoring per
+                        # event would undo the delta store under churn.
+                        self._publish_health()
                 else:
                     self.stopped.wait(POLL_S)
                 if time.monotonic() - last_sync >= self.resync_interval \
@@ -514,6 +968,11 @@ class ClusterSupervisor:
                     self.stopped.wait(POLL_S)
                     continue
                 self._count("daemon.session_lost")
+                flight.record(
+                    "session", self.name, event="lost",
+                    error=f"{type(e).__name__}: {e}",
+                )
+                self.note_lifecycle()
                 self._log(
                     f"ZooKeeper session lost ({type(e).__name__}: {e}); "
                     "re-establishing, re-arming watches and resyncing "
@@ -556,12 +1015,22 @@ class ClusterSupervisor:
     # -- requests ---------------------------------------------------------------------
 
     def _gate(self) -> Optional[Tuple[int, dict, dict]]:
-        """Admission: the drain check, then the backpressure gate against
-        the live inflight knob. Returns the refusal ``(code, body,
-        headers)``, or None when the request is admitted: the caller then
-        holds one inflight slot and must call :meth:`_release`."""
+        """Admission: the drain check, the first-sync check, then the
+        backpressure gate against the live inflight knob. Returns the
+        refusal ``(code, body, headers)``, or None when the request is
+        admitted: the caller then holds one inflight slot and must call
+        :meth:`_release`."""
         if self.draining.is_set():
             return 503, {"error": "draining"}, {"Retry-After": "5"}
+        if not self.state.synced_once:
+            # A cluster of many that has not synced yet (one cluster does
+            # not serve before its first sync).
+            self._count("daemon.requests_unsynced")
+            return (
+                503,
+                {"error": "cluster not synced yet", "cluster": self.name},
+                {"Retry-After": "5"},
+            )
         limit = self.max_inflight()
         with self._active_lock:
             admitted = self._active < limit
@@ -581,14 +1050,22 @@ class ClusterSupervisor:
             self._active -= 1
 
     def _watchdog(self, path: str, budget: float,
-                  overran: threading.Event) -> threading.Timer:
-        """A started timer that, at the budget's end, flags and counts the
+                  request_id: Optional[str],
+                  overran: Optional[threading.Event] = None,
+                  ) -> threading.Timer:
+        """A started timer that, at the budget's end, counts and records the
         request still running (a check after the fact never sees a solve
-        that does not return). The caller cancels it on completion."""
+        that does not return) and sets ``overran`` when given. The caller
+        cancels it on completion."""
 
         def _overrun() -> None:
-            overran.set()
+            if overran is not None:
+                overran.set()
             self._count("daemon.watchdog_exceeded")
+            flight.record(
+                "watchdog", self.name, path=path, budget_s=budget,
+                request_id=request_id,
+            )
             self._log(
                 f"watchdog: {path} exceeded its {budget:.1f} s budget and is "
                 "still running"
@@ -599,18 +1076,23 @@ class ClusterSupervisor:
         timer.start()
         return timer
 
-    def handle(self, path: str, params: dict) -> Tuple[int, dict, dict]:
+    def handle(self, path: str, params: dict,
+               request_id: Optional[str] = None) -> Tuple[int, dict, dict]:
         """One POST request: the gate, then the solve under the shared solve
-        lock. Returns ``(http_code, body, extra_headers)``."""
+        lock. Returns ``(http_code, body, extra_headers)``. ``request_id``
+        is stamped into every span of the request's capture and into
+        ``result.request_id``."""
         refusal = self._gate()
         if refusal is not None:
             return refusal
         try:
-            return self._handle_admitted(path, params)
+            return self._handle_admitted(path, params, request_id)
         finally:
             self._release()
 
-    def _handle_admitted(self, path: str, params: dict) -> Tuple[int, dict, dict]:
+    def _handle_admitted(self, path: str, params: dict,
+                         request_id: Optional[str] = None,
+                         ) -> Tuple[int, dict, dict]:
         from .. import obs
 
         t0 = time.perf_counter()
@@ -625,12 +1107,15 @@ class ClusterSupervisor:
         # Armed before the solve lock: a request wedged behind another's
         # solve is flagged too.
         overran = threading.Event()
-        watchdog_timer = self._watchdog(path, budget, overran)
+        watchdog_timer = self._watchdog(path, budget, request_id, overran)
         # The capture is the handler thread's own, and the lock keeps every
         # other request's spans out of it.
         with self._solve_lock, obs.run_capture(local=True) as run:
+            if request_id is not None:
+                # First in the capture: every span carries the request id.
+                run.annotate("request_id", request_id)
             try:
-                with obs.span("daemon/request") as sp:
+                with obs.span(self._metric("daemon/request")) as sp:
                     if path == "/plan":
                         degraded = self._run_plan(params, out)
                     elif path == "/whatif":
@@ -675,6 +1160,10 @@ class ClusterSupervisor:
             "cache_version": self.state.version,
             "elapsed_ms": round(elapsed_ms, 3),
         }
+        if request_id is not None:
+            report["result"]["request_id"] = request_id
+        if self.label:
+            report["result"]["cluster"] = self.name
         if watchdog:
             report["result"]["watchdog_exceeded"] = True
         if degraded:
@@ -694,6 +1183,7 @@ class ClusterSupervisor:
         served from the stale-marked cache. The prompt flag covers the
         watchless case, where no poll exists to fail."""
         self.state.mark_stale()
+        self.note_lifecycle()
         self._prompt_resync = True
         zk = getattr(self.backend, "_zk", None)
         sock = getattr(zk, "_sock", None)
@@ -808,9 +1298,9 @@ class ClusterSupervisor:
         return deg.any()
 
     def _run_whatif(self, params: dict, out: io.StringIO) -> bool:
-        import os
         import tempfile
 
+        t0 = time.perf_counter()
         pk = self._plan_kwargs(params)
         scenario_file = None
         scenarios = params.get("scenarios")
@@ -846,12 +1336,212 @@ class ClusterSupervisor:
                 out.seek(0)
                 out.truncate()
                 rank_once()
+            # The request's wall over the scenarios it ranked (the
+            # candidates when none were named).
+            cand = pk["broker_ids"] - pk["excluded"]
+            n_scenarios = (
+                len(scenarios) if scenarios is not None
+                else len(cand) if cand else len(live)
+            )
+            hist_observe(
+                self._metric("whatif.scenario_ms"),
+                (time.perf_counter() - t0) * 1e3 / max(1, n_scenarios),
+            )
         finally:
             if scenario_file is not None:
                 os.unlink(scenario_file)
         return False
 
+    # -- /execute ---------------------------------------------------------------------
+
+    def prepare_execute(self, params: dict):
+        """Validate one ``/execute`` request and take the cluster's one
+        execution slot. Returns ``("error", code, body)`` for a refusal, or
+        ``("run", ctx)``: the caller must then call :meth:`run_execute`
+        with ``ctx`` (which releases the slot) or :meth:`abort_execute`."""
+        from ..exec.engine import parse_plan_payload
+        from ..exec.journal import plan_fingerprint
+        from ..utils.env import env_str
+
+        if self.draining.is_set():
+            return ("error", 503, {"error": "draining"})
+        if not self._exec_lock.acquire(blocking=False):
+            self._count("daemon.execute_conflicts")
+            return ("error", 409, {
+                "error": "an execution is already in flight on this "
+                         "cluster (single-flight lock)",
+                "cluster": self.name,
+            })
+        try:
+            plan_text = params.get("plan_text")
+            plan_obj = params.get("plan")
+            if (plan_text is None) == (plan_obj is None):
+                raise ValueError(
+                    "pass exactly one of 'plan_text' (a saved mode-3 "
+                    "stdout or bare reassignment JSON string) or 'plan' "
+                    "(the reassignment JSON object)"
+                )
+            if plan_text is None:
+                if not isinstance(plan_obj, dict):
+                    raise ValueError("'plan' must be a JSON object")
+                plan_text = json.dumps(plan_obj)
+            if not isinstance(plan_text, str):
+                raise ValueError("'plan_text' must be a string")
+            # Which half of a saved mode-3 stdout to drive: "new" (forward)
+            # or "current" (the rollback, as ``ka-execute --rollback``).
+            section = params.get("section") or "new"
+            if section not in ("new", "current"):
+                raise ValueError(
+                    f"section must be 'new' or 'current', got {section!r}"
+                )
+            plan, topic_order = parse_plan_payload(plan_text, section=section)
+            plan_hash = plan_fingerprint(plan, topic_order)
+            journal = params.get("journal")
+            if journal is None:
+                jdir = env_str("KA_DAEMON_JOURNAL_DIR") or "."
+                journal = os.path.join(
+                    jdir, f"ka-execute-{self.name}-{plan_hash[:12]}.journal",
+                )
+            wave_size = params.get("wave_size")
+            if wave_size is not None:
+                wave_size = int(wave_size)
+            throttle = params.get("throttle")
+            if throttle is not None:
+                throttle = float(throttle)
+            policy = params.get("failure_policy") or self.failure_policy
+            if policy not in ("strict", "best-effort"):
+                raise ValueError(f"unknown failure_policy {policy!r}")
+            ctx = {
+                "plan": plan,
+                "topic_order": topic_order,
+                "plan_hash": plan_hash,
+                "journal": journal,
+                "resume": bool(params.get("resume")),
+                "wave_size": wave_size,
+                "throttle": throttle,
+                "policy": policy,
+            }
+        except (TypeError, ValueError) as e:
+            self._exec_lock.release()
+            return ("error", 400, {"error": f"bad execute request: {e}"})
+        except Exception:
+            self._exec_lock.release()
+            raise
+        with self._active_lock:
+            self._active += 1  # the drain waits for executions too
+        return ("run", ctx)
+
+    def abort_execute(self) -> None:
+        """Give back a taken execution slot without running it (the client
+        went away before the stream opened); else every later /execute on
+        this cluster would answer 409."""
+        with self._active_lock:
+            self._active -= 1
+        self._exec_lock.release()
+
+    def run_execute(self, ctx: dict, emit: Callable[[dict], None]) -> None:
+        """Drive one prepared execution, each progress event through
+        ``emit`` (one dict per NDJSON line), on a fresh backend session (the
+        writes never share the watch loop's). Journaled as ``ka-execute``
+        journals: a daemon killed mid-run resumes through ``/execute`` with
+        ``resume`` or offline ``ka-execute --resume``.
+        :class:`InjectedExecCrash` (the stand-in for a kill) propagates
+        after the cleanup, with no terminal event, as a kill would end it."""
+        from ..exec.engine import PlanExecutor
+        from ..exec.journal import JournalError
+
+        self._count("daemon.executes")
+        flight.record(
+            "execute", self.name, event="start",
+            plan_hash=ctx["plan_hash"][:12], resume=ctx["resume"],
+        )
+        safe_emit = _SafeEmitter(emit, self)
+        backend = None
+        try:
+            backend = open_backend(self.spec)
+            executor = PlanExecutor(
+                backend,
+                ctx["plan"],
+                ctx["topic_order"],
+                ctx["journal"],
+                failure_policy=ctx["policy"],
+                resume=ctx["resume"],
+                wave_size=ctx["wave_size"],
+                throttle=ctx["throttle"],
+                err=self.err,
+                cluster=self.spec,
+                on_event=safe_emit,
+            )
+            try:
+                outcome = executor.execute()
+            except ExecuteError as e:
+                self._count("daemon.execute_halts")
+                safe_emit({
+                    "event": "exec/error", "kind": "execute",
+                    "message": str(e), "resumable": True, "exit_code": 8,
+                })
+                return
+            except InjectedExecCrash:
+                # A killed daemon emits nothing: the journal carries the run.
+                self._count("daemon.execute_interrupted")
+                raise
+            except (JournalError, ValueError, KeyError) as e:
+                safe_emit({
+                    "event": "exec/error", "kind": "validation",
+                    "message": str(e), "resumable": False, "exit_code": 5,
+                })
+                return
+            except Exception as e:
+                self._count("daemon.execute_errors")
+                safe_emit({
+                    "event": "exec/error", "kind": "internal",
+                    "message": f"{type(e).__name__}: {e}",
+                    "resumable": True,
+                })
+                return
+            if outcome.mismatches:
+                status, exit_code = "verify-mismatch", 7
+            elif outcome.skipped:
+                status, exit_code = "degraded", 6
+            else:
+                status, exit_code = "ok", 0
+            flight.record(
+                "execute", self.name, event="done", status=status,
+                plan_hash=ctx["plan_hash"][:12],
+            )
+            safe_emit({
+                "event": "exec/done",
+                "status": status,
+                "exit_code": exit_code,
+                "cluster": self.name,
+                "plan": {
+                    "waves": outcome.waves_total,
+                    "waves_run": outcome.waves_run,
+                    "moves_submitted": outcome.moves_submitted,
+                    "noops": outcome.noops,
+                    "resumed": outcome.resumed,
+                    "skipped_moves": [
+                        [t, p] for t, p in sorted(set(outcome.skipped))
+                    ],
+                    "verify_mismatches": outcome.mismatches,
+                },
+            })
+        finally:
+            if backend is not None:
+                backend.close()
+            with self._active_lock:
+                self._active -= 1
+            self._exec_lock.release()
+
     # -- views ----------------------------------------------------------------------------
+
+    def healthz_view(self) -> dict:
+        return {
+            "status": self.lifecycle(),
+            "stale": self.state.stale,
+            "cluster": self.name,
+            "breaker": self.breaker.snapshot(),
+        }
 
     def state_view(self) -> dict:
         shape = self.state.encode_shape()
@@ -867,5 +1557,38 @@ class ClusterSupervisor:
             "failure_policy": self.failure_policy,
             "cluster": self.name,
             "breaker": self.breaker.snapshot(),
+            "execution_in_flight": self._exec_lock.locked(),
+            "health": (
+                self._last_health.as_dict()
+                if self._last_health is not None else None
+            ),
+            "traffic_real": bool(
+                getattr(self.backend, "supports_traffic", lambda: False)()
+            ),
             "counters": self.counters(),
         }
+
+
+class _SafeEmitter:
+    """The stream's write callback, made safe: a client that goes away
+    mid-stream never aborts the execution (the journal, not the socket,
+    holds the run); the first failed write stops the emission, loudly."""
+
+    def __init__(self, emit: Callable[[dict], None],
+                 sup: ClusterSupervisor) -> None:
+        self._emit = emit
+        self._sup = sup
+
+    def __call__(self, event: dict) -> None:
+        if self._emit is None:
+            return
+        try:
+            self._emit(event)
+        except Exception as e:
+            self._emit = None
+            self._sup._count("daemon.execute_stream_broken")
+            self._sup._log(
+                f"/execute progress stream broke ({type(e).__name__}: "
+                f"{e}); execution continues, resume state lives in the "
+                "journal"
+            )

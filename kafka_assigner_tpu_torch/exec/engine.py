@@ -148,6 +148,7 @@ class PlanExecutor:
         throttle: Optional[float] = None,
         err: Optional[TextIO] = None,
         cluster: Optional[str] = None,
+        on_event=None,
     ) -> None:
         from ..utils.env import env_float, env_int
 
@@ -174,9 +175,26 @@ class PlanExecutor:
         #: never cross-resume. None: journals that resume under any
         #: cluster.
         self.cluster = cluster
+        #: Wave-by-wave progress callback (the daemon's ``/execute``
+        #: stream): one dict per event, named after the ``exec/*`` spans. A
+        #: callback that raises is dropped; the execution goes on.
+        self.on_event = on_event
         #: Plan identity ``--resume`` validates.
         self.plan_hash = plan_fingerprint(self.plan, self.topic_order)
         self.outcome = ExecOutcome()
+
+    def _emit(self, event: dict) -> None:
+        if self.on_event is None:
+            return
+        try:
+            self.on_event(event)
+        except Exception as e:
+            self.on_event = None
+            print(
+                f"ka-execute: progress callback failed ({type(e).__name__}:"
+                f" {e}); events disabled, execution continues",
+                file=self.err,
+            )
 
     # -- setup -------------------------------------------------------------
 
@@ -481,6 +499,16 @@ class PlanExecutor:
         out = self.outcome
         out.waves_total = journal.waves_total
         first = journal.waves_committed
+        self._emit({
+            "event": "exec/start",
+            "plan_sha": self.plan_hash,
+            "journal": self.journal_path,
+            "waves_total": journal.waves_total,
+            "waves_committed": first,
+            "moves": len(journal.moves),
+            "noops": out.noops,
+            "resumed": out.resumed,
+        })
         for i in range(first, journal.waves_total):
             # The kill-between-waves seam (`wave:i=crash`): fires BEFORE the
             # wave submits, exactly where a process kill leaves the journal.
@@ -488,6 +516,12 @@ class PlanExecutor:
             if i > first and self.throttle > 0:
                 time.sleep(self.throttle)
             wave = journal.wave(i)
+            self._emit({
+                "event": "exec/wave",
+                "wave": i + 1,
+                "of": journal.waves_total,
+                "moves": len(wave),
+            })
             t0 = time.perf_counter()
             with span("exec/wave"):
                 counter_add("exec.waves")
@@ -511,6 +545,13 @@ class PlanExecutor:
             journal.commit_wave(
                 i + 1, skipped=[(t, p) for t, p, _ in pending]
             )
+            self._emit({
+                "event": "exec/wave.committed",
+                "wave": i + 1,
+                "of": journal.waves_total,
+                "converged": len(wave) - len(pending),
+                "skipped": [[t, p] for t, p, _ in pending],
+            })
             print(
                 f"ka-execute: wave {i + 1}/{journal.waves_total} committed "
                 f"({len(wave) - len(pending)}/{len(wave)} move(s) "
@@ -519,6 +560,10 @@ class PlanExecutor:
             )
         with span("exec/verify"):
             out.mismatches = self._verify(journal)
+        self._emit({
+            "event": "exec/verify",
+            "mismatches": len(out.mismatches),
+        })
         journal.complete()
         if obs_active():
             gauge_set("plan.waves", journal.waves_total)

@@ -85,12 +85,19 @@ def build_group_bodies(
     solver: str = "device",
     device: str = "cuda",
     fallback: str = "raise",
+    probe=None,
 ) -> Dict[str, dict]:
     """Per group in sorted order: row universe -> candidate counts ->
     fan-out cap -> encode -> envelope. Returns ``{group: body}``; a body
     whose ``solver`` is ``greedy-fallback`` is a degraded one. With the
     device solver, the host encode's and decode's ms go to
-    ``parallel/whatif.py:last_groups`` beside the device phases."""
+    ``parallel/whatif.py:last_groups`` beside the device phases.
+
+    ``probe`` (the daemon's ``daemon:solver-crash`` seam) runs before each
+    group's solve; an :class:`InjectedSolverCrash` from it re-runs that
+    group on the host oracle, marked ``greedy-fallback``, whatever
+    ``fallback`` says, as the daemon's ``/plan`` re-runs on greedy."""
+    from ..faults.inject import InjectedSolverCrash
     from ..parallel import whatif
 
     bodies: Dict[str, dict] = {}
@@ -115,18 +122,29 @@ def build_group_bodies(
                 capacity_headroom=headroom,
             )
             encode_ms = (time.perf_counter() - t0) * 1e3
-            body = group_sweep_envelope(
-                enc, counts_g, scales, groups_real, solver=solver, device=device,
-                fallback=fallback,
-            )
+
+            def builder(sv, enc=enc, counts_g=counts_g):
+                return group_sweep_envelope(
+                    enc, counts_g, scales, groups_real, solver=sv,
+                    device=device, fallback=fallback,
+                )
         else:
             enc = encode_group(
                 st, partitions=universe, weight=weight,
                 weight_values=weight_values, capacity_headroom=headroom,
             )
             encode_ms = (time.perf_counter() - t0) * 1e3
-            body = group_plan_envelope(enc, groups_real, solver=solver, device=device,
-                                       fallback=fallback)
+
+            def builder(sv, enc=enc):
+                return group_plan_envelope(enc, groups_real, solver=sv,
+                                           device=device, fallback=fallback)
+        try:
+            if probe is not None:
+                probe()
+            body = builder(solver)
+        except InjectedSolverCrash:
+            body = builder("greedy")
+            body["solver"] = "greedy-fallback"
         if solver == "device":
             whatif.last_groups["encode"] = encode_ms
         bodies[g] = body

@@ -50,6 +50,17 @@ def build_config5():
     return rack_striped_cluster(1000, 100, 50, 3, 10)
 
 
+def build_config3(n_brokers=500, n_topics=1000, p_per_topic=64, rf=3,
+                  n_racks=5, added=50):
+    """BASELINE config 3, an expansion at scale: 500 brokers in 5 racks,
+    1,000 topics x 64 partitions at RF 3, and 50 brokers added, all 550
+    live (the added ones empty). Returns ``(topic_map, live, rack_map)``."""
+    topic_map, _, racks = rack_striped_cluster(
+        n_brokers, n_topics, p_per_topic, rf, n_racks, extra_brokers=added,
+    )
+    return topic_map, set(racks), racks
+
+
 def build_config4(n_brokers=5000, n_topics=2000, p_per_topic=100, rf=3,
                   n_racks=10, replaced=100):
     """BASELINE config 4, as ``bench.py:build_headline`` builds it: 5k

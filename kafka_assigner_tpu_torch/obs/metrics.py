@@ -112,6 +112,33 @@ class CumulativeMetrics:
         with self._lock:
             return self._counters.get(self._key(name, labels), 0)
 
+    def replace_gauges(
+        self,
+        name: str,
+        series: Dict[Tuple[Tuple[str, str], ...], float],
+        base_labels: Optional[Dict[str, str]] = None,
+    ) -> None:
+        """Swap, in one locked step, every series of gauge ``name`` whose
+        labels include ``base_labels`` for the given set (each ``series``
+        key is a sorted label tuple, merged over ``base_labels``). The
+        daemon's per-partition traffic and lag series take this write: a
+        deleted topic's series goes with it, and a concurrent scrape never
+        sees a family half replaced."""
+        base = tuple(sorted(
+            (str(k), str(v)) for k, v in (base_labels or {}).items()
+        ))
+        base_set = set(base)
+        with self._lock:
+            for key in [
+                k for k in self._gauges
+                if k[0] == name and base_set <= set(k[1])
+            ]:
+                del self._gauges[key]
+            for labels, value in series.items():
+                merged = dict(base)
+                merged.update((str(k), str(v)) for k, v in labels)
+                self._gauges[(name, tuple(sorted(merged.items())))] = value
+
     def snapshot(self) -> dict:
         """A structured copy: each section maps ``name → {labels:
         value-or-hist}`` (labels as sorted tuples)."""

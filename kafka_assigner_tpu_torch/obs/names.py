@@ -10,7 +10,8 @@ undeclared literal). Dynamic names compose on declared bases: the CLI's
 ``faults.injected.<kind>`` and the warm-up's per-outcome counters
 ``warmup.<outcome>``. The daemon's counters and spans are written through
 its supervisor (``daemon/supervisor.py``), not with literal names, and are
-declared here all the same.
+declared here all the same; for a daemon of many clusters they take an
+``@cluster`` suffix, which the cumulative registry turns into a label.
 """
 from __future__ import annotations
 
@@ -82,6 +83,29 @@ METRIC_NAMES: frozenset = frozenset({
     "daemon.warmups", "daemon.warmup_failures",
     "daemon.breaker_opened", "daemon.breaker_probes",
     "daemon.breaker_closed",
+    # ... requests refused before a cluster's first sync; /execute runs,
+    # their 409s, halts, errors, kills and broken progress streams; and
+    # /recommendations evaluated
+    "daemon.requests_unsynced",
+    "daemon.executes", "daemon.execute_conflicts", "daemon.execute_halts",
+    "daemon.execute_errors", "daemon.execute_interrupted",
+    "daemon.execute_stream_broken", "daemon.recommendations",
+    # daemon.http.* — the routing layer's requests and latency by endpoint,
+    # cluster and code (cumulative only, written with labels)
+    "daemon.http.requests", "daemon.http.request_ms",
+    # health.* — the cached assignment's scores on every resync and delta
+    # re-encode, the scoring's wall, and the last recommendation's moves
+    "health.replica_spread", "health.replica_stddev",
+    "health.leader_spread", "health.leader_stddev",
+    "health.rack_violations", "health.score", "health.score_ms",
+    "health.movement_debt",
+    # traffic.* — per-partition traffic and lag series (cumulative only),
+    # the series over KA_OBS_TRAFFIC_SERIES_MAX, and failed fetches
+    "traffic.in_bytes", "traffic.out_bytes", "traffic.lag",
+    "traffic.series_dropped", "traffic.fetch_failures",
+    # a served ranking's wall over its scenarios, and a served groups
+    # sweep's wall
+    "whatif.scenario_ms", "groups.sweep_ms",
 })
 
 #: Span names (``span(...)`` first argument). Paths derive from nesting at
@@ -97,7 +121,7 @@ SPAN_NAMES: frozenset = frozenset({
     "warmup",
     "exec/wave", "exec/submit", "exec/poll", "exec/verify",
     "groups/plan", "groups/sweep", "groups/dispatch",
-    "daemon/request", "daemon/resync",
+    "daemon/request", "daemon/resync", "daemon/recommend", "daemon/groups",
 })
 
 #: Both namespaces.

@@ -21,8 +21,11 @@ ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The three
 store (``utils/programstore.py``) and mode 3's ingest-overlapped warm-up
 (``solvers/warmup.py``). The seven ``KA_EXEC_*`` knobs size, pace and poll
 ``ka-execute``'s waves (``exec/engine.py``) and set the snapshot backend's
-simulated convergence and the default journal path. The ten ``KA_DAEMON_*``
-knobs bind, gate, time and resync ``ka-daemon`` (``daemon/``). The port reads every
+simulated convergence and the default journal path. The eleven ``KA_DAEMON_*``
+knobs bind, gate, time and resync ``ka-daemon`` and place its ``/execute``
+journals (``daemon/``); ``KA_HEALTH_MOVE_COST`` prices a moved replica for
+``/recommendations``, ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
+route its access log and cap its traffic series. The port reads every
 knob per call, where the
 reference reads some at trace time.
 """
@@ -132,16 +135,23 @@ KNOBS = {
     "KA_DAEMON_BREAKER_THRESHOLD": Knob(3, floor=1),
     "KA_DAEMON_BREAKER_COOLDOWN": Knob(1.0, floor=0.05),
     "KA_DAEMON_WATCH": Knob(True),
+    # The daemon's /execute journals when a request names none (None: the
+    # working directory), and /recommendations' cost of one moved replica.
+    "KA_DAEMON_JOURNAL_DIR": Knob(None),
+    "KA_HEALTH_MOVE_COST": Knob(1.0, floor=0.0),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report
-    # path, the histogram edges, the flight ring and its dump, the access
-    # log's rollover cap, and the device profiler's trace directory
+    # path, the histogram edges, the daemon's access log (None: stderr) and
+    # its rollover cap, the daemon's cap on traffic series a cluster, the
+    # flight ring and its dump, and the device profiler's trace directory
     # (KA_PROFILE is its older name).
     "KA_OBS_ENABLE": Knob(False),
     "KA_OBS_REPORT": Knob(None),
     "KA_OBS_HIST_EDGES": Knob(None),
+    "KA_OBS_ACCESS_LOG": Knob(None),
     "KA_OBS_ACCESS_LOG_MAX_MB": Knob(0, floor=0),
+    "KA_OBS_TRAFFIC_SERIES_MAX": Knob(512, floor=0),
     "KA_OBS_FLIGHT_EVENTS": Knob(512, floor=0),
     "KA_OBS_FLIGHT_DUMP": Knob(None),
     "KA_OBS_PROFILE_DIR": Knob(None),

@@ -61,9 +61,8 @@ from .jute_server import JuteZkServer, cluster_tree, exec_snapshot_cluster
 ROOT = Path(__file__).resolve().parent.parent
 #: The reference's name for each port solver lane.
 JAX_LANE = {"device": "tpu", "native": "native", "greedy": "greedy"}
-#: /state keys of the reference's later slices (controller, health plane,
-#: traffic, /execute).
-LATER_SLICE_KEYS = {"controller", "health", "traffic_real", "execution_in_flight"}
+#: /state keys of the reference's later slices (the controller).
+LATER_SLICE_KEYS = {"controller"}
 DAEMON_KNOBS = (
     "KA_DAEMON_BIND", "KA_DAEMON_PORT", "KA_DAEMON_MAX_INFLIGHT",
     "KA_DAEMON_REQUEST_TIMEOUT", "KA_DAEMON_RESYNC_INTERVAL",
@@ -265,11 +264,10 @@ def test_endpoints_and_plan_byte_identity(server):
         s, view, _ = req(port, "GET", "/state")
         assert s == 200 and view["lifecycle"] == "ready"
         assert view["topics"] == 2 and view["brokers"] == 4 and view["watches"] is True
-        # The paths of later slices are unknown here, as any unknown path.
-        for method, path in (("GET", "/nope"), ("GET", "/metrics"),
-                             ("GET", "/debug/flight"), ("GET", "/recommendations"),
-                             ("GET", "/clusters/default/state"), ("POST", "/execute"),
-                             ("POST", "/groups/plan"), ("POST", "/nope")):
+        # The controller's paths are a later slice's: unknown here, as any
+        # unknown path.
+        for method, path in (("GET", "/nope"), ("GET", "/controller"),
+                             ("POST", "/controller"), ("POST", "/nope")):
             s, nf, _ = req(port, method, path, {} if method == "POST" else None)
             assert s == 404 and nf == {"error": f"unknown path {path!r}"}, path
 

@@ -1043,3 +1043,50 @@ def test_executor_hooks_and_journal_helpers_match_the_reference(workdir, tmp_pat
     assert plan_hash == j.plan_hash and payload[0]
     assert [e["kind"] for e in scan["east-2"]] == ["rollback", "execute"]
     assert scan["north"] == [] and [e["kind"] for e in scan["west"]] == ["forward"]
+
+
+# --- the progress callback (the daemon's /execute stream) ----------------------------------
+
+
+@pytest.mark.parametrize("broken", [False, True])
+def test_on_event_streams_the_references_events(workdir, tmp_path, broken):
+    """``PlanExecutor(on_event=...)`` emits the reference engine's
+    ``exec/start``, ``exec/wave``, ``exec/wave.committed`` and
+    ``exec/verify`` events, in order, with the same fields (the journal path
+    apart); a consumer that raises is dropped with one stderr line and never
+    aborts the run, whose final snapshot is the reference's."""
+    from kafka_assigner_tpu.exec.engine import PlanExecutor as JaxExecutor
+    from kafka_assigner_tpu.exec.engine import load_plan_file as jax_load_plan
+    from kafka_assigner_tpu.io.snapshot import SnapshotBackend as JaxSnapshot
+    from kafka_assigner_tpu_torch.exec.engine import PlanExecutor
+    from kafka_assigner_tpu_torch.io.snapshot import SnapshotBackend
+
+    runs = {}
+    for pkg, executor, backend, load in (
+            ("torch", PlanExecutor, SnapshotBackend, load_plan_file),
+            ("jax", JaxExecutor, JaxSnapshot, jax_load_plan)):
+        _reset(workdir, _cluster())
+        plan, order = load(workdir["plan"])
+        events, err = [], io.StringIO()
+
+        def on_event(event, events=events):
+            events.append(event)
+            if broken:
+                raise BrokenPipeError("client went away")
+
+        out = executor(backend(workdir["cluster"]), plan, order,
+                       str(tmp_path / f"{pkg}.journal"), err=err,
+                       cluster=workdir["cluster"], on_event=on_event).execute()
+        with open(workdir["cluster"], encoding="utf-8") as f:
+            runs[pkg] = ([{k: v for k, v in e.items() if k != "journal"} for e in events],
+                         err.getvalue().count("progress callback failed"),
+                         f.read(), (out.waves_total, out.moves_submitted, out.mismatches))
+    assert runs["torch"] == runs["jax"]
+    events, dropped, _, (waves, moves, mismatches) = runs["torch"]
+    kinds = [e["event"] for e in events]
+    if broken:
+        assert kinds == ["exec/start"] and dropped == 1
+    else:
+        assert dropped == 0 and kinds[0] == "exec/start" and kinds[-1] == "exec/verify"
+        assert kinds[1:-1] == ["exec/wave", "exec/wave.committed"] * waves and waves >= 2
+        assert events[0]["moves"] == moves and events[-1]["mismatches"] == len(mismatches)
