@@ -261,7 +261,30 @@ Phases, each printing its own line; any failure exits non-zero:
     and the ``ka_health_*`` gauges, the scrape's bytes and time;
     ``/debug/flight?cluster=b`` with (d)'s ``execute`` and (f)'s
     ``recommendation`` events; (h) ``request_stop`` with a
-    ``/clusters/a/plan`` in flight: answered in full, ``serve`` returns 0.
+    ``/clusters/a/plan`` in flight: answered in full, ``serve`` returns 0;
+25. the dispatch plane (``daemon/dispatch.py``), in this process on cuda:
+    one daemon with the dispatcher over copies of config 4's snapshot (a1,
+    a2) and of phase 24's config 3 with its ``ingest`` group (b1, b2),
+    clients released through one barrier, each step's gather closed by a
+    size trigger of its job count: (a) ``/plan {}`` on a1 and a2 and the
+    64-topic prefix on a1: one ``place_batched`` call for the three jobs
+    (the ``dispatch`` flight event), stdout == phases 4's and 5's, one
+    leadership launch a plan, each held; (b) 8 identical ``/plan {}`` on
+    a1: one leader (one ``body`` event of 8 jobs), one launch; (c)
+    ``/whatif`` of four removals on a1 and a2: one packed sweep call, bytes
+    == a1's alone; (d) the ``ingest`` sweep on b1 and b2: one group-pack
+    launch at twice the candidates, held against plain in the workers and
+    timed with its bound and chain floor, each envelope == phase 24(e)'s
+    but the cluster name; (e) at the default window and at 250 ms, 8
+    distinct config-3 plans (8 topic slices of b1) and 8 identical ones
+    (one leadership launch a dedup leader): requests per
+    second, the walls' median and spread, ``daemon.solve.queue_ms`` and the
+    ``dispatch`` spans, against a second daemon under ``KA_DISPATCH=0``;
+    (f) ``dispatch:0=crash`` on b1's and b2's packed plans (each job re-run
+    alone on the card, bytes unchanged), the ``KA_DISPATCH=0`` daemon with
+    no ``dispatch.*`` series and (e)'s bytes, and ``request_stop`` while a
+    plan's job waits in a 30 s window: ``close()`` dispatches it and the
+    reply is complete.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -301,10 +324,11 @@ the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
-phase 23's and 24's requests, 21's and 23(e)'s counted inside each child
-process), and ``launches_by_path`` gives
+phase 23's, 24's and 25's requests, 21's and 23(e)'s counted inside each
+child process), and ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
-phases 14-16 and 24 (``daemon_multi_*``).
+phases 14-16, 24 (``daemon_multi_*``) and 25 (``dispatch_*``), and its
+``packed_sweep`` is phase 25(d)'s launch.
 
 The last lines are the ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. There is no fallback to
@@ -2557,7 +2581,7 @@ def span_summary(body):
     return f"{spans[top]['name']} {spans[top]['ms']:.1f} ms ({', '.join(kids)})"
 
 
-def daemon_phases(work, checks, text4, checked=()):
+def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=()):
     """Phase 23: the resident daemon (``daemon/``) on config 4 over phase
     20(d)'s ZooKeeper tree (brokers 0-99 still registered, 1 ms a reply).
     (a)-(d) run the daemon in this process on cuda, so the leadership
@@ -2569,9 +2593,12 @@ def daemon_phases(work, checks, text4, checked=()):
     kafka_assigner_tpu_torch.daemon`` in a child process, whose launches are
     counted inside it, as phase 21's children count theirs: the child runs
     the module through runpy behind an exit hook that prints the count.
-    Then phase 24 (:func:`multi_phases`) on the same server. Returns the
-    leadership kernel's launches per request of both phases, and phase 24's
-    group-pack launches."""
+    Then phase 24 (:func:`multi_phases`) on the same server, and phase 25
+    (:func:`dispatch_phases`) on ``snap4`` (phase 4's snapshot; ``text4`` its
+    plan, ``prefix4`` phase 5's topics and ``prefix_text4`` their plan) and
+    phase 24's config-3 snapshot. Returns the leadership kernel's launches
+    per request of the three phases, and phases 24's and 25's group-pack
+    launches."""
     import signal
     import threading
 
@@ -2891,8 +2918,14 @@ def daemon_phases(work, checks, text4, checked=()):
         phase("timing", f"phase 23 {time.perf_counter() - t_phase:.1f} s | {smi}")
 
         # Phase 24 on the same server, the tree as (d) left it.
-        multi, multi_groups = multi_phases(work, checks, spec, cli_text, hold)
+        multi, multi_groups, sweep_24 = multi_phases(work, checks, spec, cli_text, hold)
     launches.update(multi)
+    # Phase 25 on snapshots: config 4's (phase 4's) and phase 24's config 3.
+    packed, packed_groups = dispatch_phases(
+        work, checks, hold, snap4, text4, prefix4, prefix_text4,
+        os.path.join(work, "config3_groups.json"), sweep_24)
+    launches.update(packed)
+    multi_groups.update(packed_groups)
     return launches, multi_groups
 
 
@@ -2917,7 +2950,8 @@ def multi_phases(work, checks, spec_a, text_a, hold):
     leadership launch goes through ``hold`` (held against the plain version,
     or through a held launch with the same inputs and outputs); each
     group-pack launch is held against its plain version in a worker.
-    Returns the launches per step: ``(leadership, group_pack)``."""
+    Returns the launches per step, ``(leadership, group_pack)``, and (e)'s
+    sweep envelope."""
     import http.client
     import threading
 
@@ -3137,6 +3171,7 @@ def multi_phases(work, checks, spec_a, text_a, hold):
               f"meanwhile: 409; stream wall {stream['secs'] * 1e3:.1f} ms | {smi}")
 
         # (e) the ingest group's plan and sweep, each launch held.
+        group_bodies = {}
         for kind, query in (("plan", ""), ("sweep", f"?counts={MULTI_GROUP_COUNTS}"
                                                     f"&scales={MULTI_GROUP_SCALES}")):
             key = f"daemon_multi_b_groups_{kind}"
@@ -3179,6 +3214,7 @@ def multi_phases(work, checks, spec_a, text_a, hold):
                       f"bytes, {steps} orphan rows)")
             phase("daemon-multi", f"(e) GET /clusters/b/groups/{kind} (ingest, groups_real "
                   f"true): {what}; request wall {e_s * 1e3:.1f} ms | {smi}")
+            group_bodies[kind] = body
 
         # (f) recommendations, twice; the second's launch repeats the first's.
         recs = []
@@ -3267,7 +3303,359 @@ def multi_phases(work, checks, spec_a, text_a, hold):
         if not served:
             d.shutdown()
     phase("timing", f"phase 24 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return k1, kg1, group_bodies["sweep"]
+
+
+#: Phase 25: the dispatch plane. (a)-(d) and (f)'s crash make their packing
+#: deterministic with a size trigger of the step's job count behind a long
+#: window; (e) runs at the knob's default window and at the widened one,
+#: with no size trigger, as a client burst meets them.
+DISPATCH_WINDOW_MS = 250
+DISPATCH_LONG_WINDOW_MS = 20000
+#: (c)'s removals: four of config 4's live brokers (100-5,099).
+DISPATCH_SCENARIOS = [[100], [1100], [2100], [3100]]
+#: (e)'s requests a round, and the disjoint topic slices of config 3.
+DISPATCH_CLIENTS = 8
+
+
+def dispatch_phases(work, checks, hold, snap4, text4, prefix4, prefix_text4, snap3,
+                    sweep_24):
+    """Phase 25: the dispatch plane (``daemon/dispatch.py``) on the card, in
+    this process. One ``AssignerDaemon(clusters=..., solver="device")`` with
+    the dispatcher (the default) over four snapshot copies: ``a1`` and
+    ``a2`` of config 4 (``snap4``, ``text4`` its plan), ``b1`` and ``b2`` of
+    config 3 with the ``ingest`` group (``snap3``, ``sweep_24`` phase
+    24(e)'s sweep of it). Clients are released through one barrier. (a)
+    ``/plan`` on a1 and a2 and the ``prefix4`` subset on a1: their placement
+    rows in one call, each plan's stdout its solo bytes, one K1 launch a
+    plan; (b) 8 identical ``/plan`` on a1: one leader, one launch; (c) a
+    ``/whatif`` of four removals on a1 and a2: one sweep call; (d) the
+    sweep on b1 and b2: one KG1 launch at twice the candidates, held against
+    plain and timed; (e) requests per second at the default window and at
+    250 ms, 8 distinct config-3 plans (8 topic slices of b1) and 8
+    identical ones, against a second daemon under
+    ``KA_DISPATCH=0``; (f) ``dispatch:0=crash`` on a packed call, the kill
+    switch's daemon with no ``dispatch.*`` activity and the same bytes, and
+    a drain while a job waits in the gather window. Each leadership launch
+    goes through ``hold``; each group-pack launch to the workers. Returns
+    the launches per step: ``(leadership, group_pack)``."""
+    import threading
+
+    import torch
+
+    from kafka_assigner_tpu_torch import faults, obs
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+    from kafka_assigner_tpu_torch.obs import flight, metrics
+    from kafka_assigner_tpu_torch.ops import group_pack as gp
+    from kafka_assigner_tpu_torch.ops import group_pack_cases as gcases
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.utils.env import KNOBS
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    k1, kg1 = {}, {}
+    snaps = {}
+    for name, src in (("a1", snap4), ("a2", snap4), ("b1", snap3), ("b2", snap3)):
+        snaps[name] = os.path.join(work, f"dispatch_{name}.json")
+        shutil.copy(src, snaps[name])
+    with open(snap3, encoding="utf-8") as f:
+        topics3 = sorted(json.load(f)["topics"])
+    per = -(-len(topics3) // DISPATCH_CLIENTS)
+    slices = [topics3[i * per:(i + 1) * per] for i in range(DISPATCH_CLIENTS)]
+
+    def together(port, calls):
+        """``calls`` (method, path, payload) released through one barrier:
+        their ``(status, body, seconds)`` in order, and the round's wall."""
+        out = [None] * len(calls)
+        barrier = threading.Barrier(len(calls) + 1)
+
+        def one(i, method, path, payload):
+            barrier.wait(60)
+            out[i] = http_call(port, method, path, payload)
+
+        threads = [threading.Thread(target=one, args=(i, *c)) for i, c in enumerate(calls)]
+        for t in threads:
+            t.start()
+        barrier.wait(60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(DAEMON_WAIT_S)
+        wall = time.perf_counter() - t0
+        if any(o is None for o in out):
+            fail(f"25: {sum(o is None for o in out)} of {len(calls)} requests unanswered")
+        return out, wall
+
+    def counter(name):
+        return sum(metrics.cumulative().snapshot()["counters"].get(name, {}).values())
+
+    def hist(name):
+        h = metrics.cumulative().snapshot()["hists"].get(name, {}).values()
+        return sum(v["count"] for v in h), sum(v["sum"] for v in h)
+
+    def events(since, entry=None):
+        return [e for e in flight.recorder().snapshot(since=since)
+                if e["kind"] == "dispatch" and entry in (None, e["entry"])]
+
+    def mark():
+        return flight.recorder().stats()["recorded"]
+
+    def gather(jobs, window=DISPATCH_LONG_WINDOW_MS):
+        """Knobs for one step: the size trigger at ``jobs``."""
+        return knobs(KA_DISPATCH_WINDOW_MS=window, KA_DISPATCH_MAX_BATCH=jobs)
+
+    def plans(what, replies, want):
+        for i, (status, body, _s) in enumerate(replies):
+            if status != 200 or body.get("status") != "ok" \
+                    or body["result"]["stdout"] != want[i]:
+                fail(f"25 {what}: request {i}: HTTP {status}, status {body.get('status')}, "
+                     f"stdout equal {status == 200 and body['result']['stdout'] == want[i]}"
+                     f"; {body.get('error')}")
+
+    def launched(key, seen, want, what):
+        k1[key] = lead.launches["leadership"]
+        if k1[key] != want or len(seen["orders"]) != want:
+            fail(f"25 {what}: the leadership kernel launched {k1[key]} times "
+                 f"({len(seen['orders'])} ordering calls), not {want}")
+        hold(f"phase 25 {key}", seen["orders"])
+
+    def walls(replies):
+        secs = sorted(s for _, _, s in replies)
+        return (f"walls median {statistics.median(secs) * 1e3:.1f} ms (min "
+                f"{secs[0] * 1e3:.1f}, max {secs[-1] * 1e3:.1f})")
+
+    clusters = {n: f"file://{p}" for n, p in snaps.items()}
+    t0 = time.perf_counter()
+    with knobs(KA_DISPATCH="1", KA_DISPATCH_WINDOW_MS=DISPATCH_WINDOW_MS):
+        d = AssignerDaemon(clusters=clusters, solver="device", device="cuda")
+        d.start()
+    served = False
+    try:
+        port = d.http_port
+        if d.dispatcher is None or http_call(port, "GET", "/readyz")[0] != 200:
+            fail("25: the daemon has no dispatcher, or is not ready after start")
+        phase("dispatch", f"AssignerDaemon(clusters=a1,a2,b1,b2) on cuda with the "
+              f"dispatcher: construction to /readyz 200 "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms | {smi}")
+
+        # (a) two clusters' plans and a subset: one placement call.
+        m, b0 = mark(), counter("dispatch.batches")
+        lead.launches["leadership"] = 0
+        with solver_probe() as seen, gather(3):
+            replies, wall = together(port, [
+                ("POST", "/clusters/a1/plan", {}), ("POST", "/clusters/a2/plan", {}),
+                ("POST", "/clusters/a1/plan", {"topics": prefix4})])
+        plans("(a)", replies, [text4, text4, prefix_text4])
+        placed = events(m, "place_batched")
+        if [(e["jobs"], e["ok"]) for e in placed] != [(3, True)] \
+                or counter("dispatch.batches") - b0 < 1 or len(seen["chains"]) != 1:
+            fail(f"25 (a): placement calls {placed}, place_batched calls "
+                 f"{len(seen['chains'])}, dispatch.batches +{counter('dispatch.batches') - b0}")
+        launched("dispatch_a_packed_plans", seen, 3, "(a)")
+        phase("dispatch", f"(a) POST /clusters/a1/plan {{}}, /clusters/a2/plan {{}} and "
+              f"/clusters/a1/plan {{topics: {len(prefix4)}}} together: one place_batched "
+              f"call of {placed[0]['rows']} rows for the 3 jobs of both clusters "
+              f"({placed[0]['ms']:.1f} ms on the dispatcher's thread), each stdout its "
+              f"solo bytes (phase 4's and phase 5's), leadership kernel launches 3; "
+              f"round wall {wall * 1e3:.1f} ms, {walls(replies)} | {smi}")
+
+        # (b) 8 identical bodies: one leader, one launch.
+        m = mark()
+        lead.launches["leadership"] = 0
+        with solver_probe() as seen, gather(1):
+            replies, wall = together(port, [("POST", "/clusters/a1/plan", {})] * 8)
+        plans("(b)", replies, [text4] * 8)
+        body_ev = events(m, "body")
+        if [e["jobs"] for e in body_ev] != [8]:
+            fail(f"25 (b): body dedup events {body_ev}")
+        launched("dispatch_b_dedup", seen, 1, "(b)")
+        phase("dispatch", f"(b) 8 identical POST /clusters/a1/plan {{}}: one leader ran, 7 "
+              f"followers served its bytes (== phase 4's), leadership kernel launches 1; "
+              f"round wall {wall * 1e3:.1f} ms, {walls(replies)} | {smi}")
+
+        # (c) scenario rows of two clusters: one sweep call.
+        m = mark()
+        lead.launches["leadership"] = 0
+        whatif = {"scenarios": DISPATCH_SCENARIOS}
+        with gather(2):
+            replies, wall = together(port, [("POST", f"/clusters/{n}/whatif", whatif)
+                                            for n in ("a1", "a2")])
+        with gather(1):
+            solo = http_call(port, "POST", "/clusters/a1/whatif", whatif)
+        plans("(c)", replies, [solo[1]["result"]["stdout"]] * 2)
+        swept = [e for e in events(m) if e["entry"].startswith("whatif")]
+        if not swept or swept[0]["jobs"] != 2 or lead.launches["leadership"]:
+            fail(f"25 (c): sweep calls {swept}, leadership launches "
+                 f"{lead.launches['leadership']}")
+        phase("dispatch", f"(c) POST /whatif of {len(DISPATCH_SCENARIOS)} removals on a1 and "
+              f"a2 together: the first {swept[0]['entry']} call packed both "
+              f"({swept[0]['rows']} scenario rows, {swept[0]['ms']:.1f} ms), stdout "
+              f"byte-identical to a1's alone; sweep calls {[(e['entry'], e['jobs']) for e in swept]}"
+              f"; round wall {wall * 1e3:.1f} ms | {smi}")
+
+        # (d) two sweeps: one KG1 launch at twice the candidates.
+        query = f"?counts={MULTI_GROUP_COUNTS}&scales={MULTI_GROUP_SCALES}"
+        gp.launches["group_pack"] = 0
+        with scan_probe() as seen_g, gather(2):
+            replies, wall = together(port, [("GET", f"/clusters/{n}/groups/sweep{query}", None)
+                                            for n in ("b1", "b2")])
+        kg1["dispatch_d_packed_sweeps"] = gp.launches["group_pack"]
+        want = {k: v for k, v in sweep_24.items() if k != "cluster"}
+        for status, body, _s in replies:
+            if status != 200 or {k: v for k, v in body.items() if k != "cluster"} != want:
+                fail(f"25 (d): HTTP {status}, envelope equal to 24(e)'s sweep "
+                     f"{status == 200 and {k: v for k, v in body.items() if k != 'cluster'} == want}")
+        s_one = len(sweep_24["groups"]["ingest"]["candidates"])
+        if kg1["dispatch_d_packed_sweeps"] != 1 or len(seen_g) != 1 \
+                or seen_g[0][0][0].shape[0] != 2 * s_one:
+            fail(f"25 (d): group-pack launches {kg1['dispatch_d_packed_sweeps']}, "
+                 f"S {[x[0][0].shape[0] for x in seen_g]}")
+        inputs, outputs = seen_g[0]
+        s, p_pad, c_pad = inputs[0].shape[0], inputs[0].shape[1], inputs[1].shape[0]
+        shape = f"S={s} P_pad={p_pad} C_pad={c_pad}"
+        hold_group_launch(checks, "25 (d) the packed sweep", shape, inputs, outputs)
+        ms, lo, hi = scan_timing("25 (d)", inputs, outputs)
+        steps = inputs[4].sum(1)
+        steps_max, steps_sum = int(steps.max()), int(steps.sum())
+        nbytes = gcases.scan_bytes(s, p_pad, c_pad, steps_sum)
+        probe = gcases.probe_ns()[0]
+        phase("dispatch", f"(d) GET /clusters/b1/groups/sweep and b2's together: one "
+              f"group-pack launch at {shape} (each request alone S={s_one}), variant "
+              f"{variant_name(gp.last_variant, inputs[3].tolist())}, kernel median "
+              f"{ms:.3f} ms of {KERNEL_REPS} (min {lo:.3f}, max {hi:.3f}); byte bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes); chain floor "
+              f"{steps_max * probe * 1e-6:.3f} ms ({steps_max} steps x {probe:.2f} ns of the "
+              f"probe; {steps_sum} orphan rows); both envelopes == phase 24(e)'s but the "
+              f"cluster name; round wall {wall * 1e3:.1f} ms | {smi}")
+        packed_kg1 = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                          chain_bound_ms=steps_max * probe * 1e-6, shape=[s, p_pad, c_pad])
+
+        # (e) requests per second with the dispatcher, at the knob's default
+        # window and at the widened one; the lock's below.
+        def rounds(dd, tag):
+            out = {}
+            for kind, calls in (
+                    ("distinct", [("POST", "/clusters/b1/plan", {"topics": sl})
+                                  for sl in slices]),
+                    ("identical", [("POST", "/clusters/b1/plan", {})] * DISPATCH_CLIENTS)):
+                q0, b0, j0 = hist("daemon.solve.queue_ms"), counter("dispatch.batches"), \
+                    counter("dispatch.jobs")
+                m = mark()
+                lead.launches["leadership"] = 0
+                with obs.run_capture() as run, solver_probe() as seen:
+                    replies, wall = together(dd.http_port, calls)
+                q1 = hist("daemon.solve.queue_ms")
+                spans = [sp["ms"] for sp in run.spans if sp["name"] == "dispatch"]
+                want = DISPATCH_CLIENTS
+                if kind == "identical" and tag != "off":
+                    # One run a dedup entry: a body that arrives after its
+                    # leader finished leads an entry of its own (a ``body``
+                    # event only when it has followers).
+                    followed = events(m, "body")
+                    served = sum(e["jobs"] for e in followed)
+                    if served > DISPATCH_CLIENTS:
+                        fail(f"25 (e) identical {tag}: body dedup events {followed}")
+                    want = len(followed) + DISPATCH_CLIENTS - served
+                launched(f"dispatch_e_{kind}_{tag}", seen, want, f"(e) {kind} {tag}")
+                out[kind] = [b["result"]["stdout"] for _, b, _ in replies]
+                if any(st != 200 or b.get("status") != "ok" for st, b, _ in replies):
+                    fail(f"25 (e) {kind} {tag}: {[(st, b.get('error')) for st, b, _ in replies]}")
+                phase("dispatch", f"(e) {tag}: {DISPATCH_CLIENTS} {kind} config-3 POST "
+                      f"/clusters/b1/plan together: {DISPATCH_CLIENTS / wall:.3f} requests/s "
+                      f"(round wall {wall * 1e3:.1f} ms), {walls(replies)}; "
+                      f"daemon.solve.queue_ms {q1[1] - q0[1]:.1f} ms over {q1[0] - q0[0]} "
+                      f"waits; dispatch spans {len(spans)} totalling {sum(spans):.1f} ms; "
+                      f"dispatch.batches +{counter('dispatch.batches') - b0}, dispatch.jobs "
+                      f"+{counter('dispatch.jobs') - j0}; leadership kernel launches "
+                      f"{k1[f'dispatch_e_{kind}_{tag}']} | {smi}")
+            return out
+
+        default_ms = KNOBS["KA_DISPATCH_WINDOW_MS"].default
+        with knobs(KA_DISPATCH_WINDOW_MS=default_ms):
+            on = rounds(d, f"on_{default_ms:g}ms")
+        with knobs(KA_DISPATCH_WINDOW_MS=DISPATCH_WINDOW_MS):
+            on_wide = rounds(d, f"on_{DISPATCH_WINDOW_MS}ms")
+        if on_wide != on:
+            fail("25 (e): the two windows' replies differ")
+
+        # (f) a packed call that crashes: each job re-runs solo on the card.
+        m, f0 = mark(), counter("dispatch.solo_fallbacks")
+        faults.reset()
+        lead.launches["leadership"] = 0
+        with knobs(KA_FAULTS_SPEC="dispatch:0=crash"), solver_probe() as seen, gather(2):
+            replies, wall = together(port, [("POST", f"/clusters/{n}/plan", {})
+                                            for n in ("b1", "b2")])
+            fired = [str(e) for e in faults.active_injector().fired]
+        faults.reset()
+        plans("(f) the crash", replies, [on["identical"][0]] * 2)
+        crashed = [e for e in events(m, "place_batched") if not e["ok"]]
+        fell = counter("dispatch.solo_fallbacks") - f0
+        # Two bodies without followers, and the crashed call's jobs re-run.
+        if fired != ["dispatch:0=crash"] or [e["jobs"] for e in crashed] != [2] or fell != 4:
+            fail(f"25 (f): fired {fired}, failed calls {crashed}, solo fallbacks +{fell}")
+        launched("dispatch_f_crash", seen, 2, "(f) the crash")
+        phase("dispatch", f"(f) KA_FAULTS_SPEC=dispatch:0=crash on b1's and b2's plans "
+              f"together: the packed place_batched call of 2 jobs failed, each job re-ran "
+              f"its rows alone on the card (dispatch.solo_fallbacks +{fell}: 2 re-runs and "
+              f"2 bodies without followers), both stdouts == (e)'s, leadership kernel "
+              f"launches 2 | {smi}")
+
+        # (f) the drain: a job waits in a 30 s window when the stop comes.
+        answer = {}
+        lead.launches["leadership"] = 0
+        d.drain_timeout = 1.0
+        with solver_probe() as seen, knobs(KA_DISPATCH_WINDOW_MS=30000,
+                                           KA_DISPATCH_MAX_BATCH=64):
+            client = threading.Thread(target=lambda: answer.update(
+                r=http_call(port, "POST", "/clusters/b1/plan", {})))
+            client.start()
+            wait_for("a job in the gather window", lambda: d.dispatcher._queue
+                     or "r" in answer, every=0.005)
+            t0 = time.perf_counter()
+            d.request_stop()
+            rc = d.serve()
+            drain_s = time.perf_counter() - t0
+            served = True
+            client.join(DAEMON_WAIT_S)
+        status, body, _s = answer.get("r", (None, {}, 0.0))
+        if rc != 0 or status != 200 or body.get("status") != "ok" \
+                or body["result"]["stdout"] != on["identical"][0] or drain_s > 20:
+            fail(f"25 (f) the drain: serve {rc}, HTTP {status} {body.get('status')}, "
+                 f"{drain_s:.1f} s")
+        launched("dispatch_f_drain", seen, 1, "(f) the drain")
+        phase("dispatch", f"(f) request_stop with b1's plan waiting in a 30 s gather window "
+              f"(drain timeout 1 s): close() dispatched it, the reply complete and "
+              f"byte-identical, serve() returned 0 after {drain_s * 1e3:.1f} ms | {smi}")
+    finally:
+        if not served:
+            d.shutdown()
+
+    # (e) and (f): the kill switch, a second daemon under the lock.
+    with knobs(KA_DISPATCH="0"):
+        d0 = AssignerDaemon(clusters={"b1": clusters["b1"]}, solver="device",
+                            device="cuda")
+        d0.start()
+    try:
+        if d0.dispatcher is not None:
+            fail("25 (e): KA_DISPATCH=0 built a dispatcher")
+        off = rounds(d0, "off")
+        active = {n: v for sec in ("counters", "hists", "gauges")
+                  for n, v in metrics.cumulative().snapshot()[sec].items()
+                  if n.startswith("dispatch.") or n == "daemon.solve.queue_ms"}
+        if off != on or active:
+            fail(f"25 (f) the kill switch: bytes equal {off == on}, dispatch activity "
+                 f"{sorted(active)}")
+        phase("dispatch", f"(f) KA_DISPATCH=0: no dispatcher, no dispatch.* or "
+              f"daemon.solve.queue_ms series; every (e) reply byte-identical to the "
+              f"dispatcher's | {smi}")
+    finally:
+        d0.shutdown()
+    phase("timing", f"phase 25 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    DISPATCH_KG1.update(packed_kg1)
     return k1, kg1
+
+
+#: Phase 25(d)'s packed group-pack launch: time, bound, chain floor, shape.
+DISPATCH_KG1 = {}
 
 
 def main() -> int:
@@ -3478,7 +3866,8 @@ def smoke(checks) -> int:
     # --- 23: the resident daemon (before 22: its plain check of the churned
     # launch, a minute in a worker, then ends inside phase 22) ---------------
     daemon_launches, multi_groups = daemon_phases(
-        work, checks, text, [(tuple(k_args) + tuple(k_out), "phase 4's main-path shape")])
+        work, checks, text, snap, prefix.split(","), a,
+        [(tuple(k_args) + tuple(k_out), "phase 4's main-path shape")])
 
     # --- 22: plan execution ---------------------------------------------------
     exec_launches = exec_phases(work, checks, argv, text, snap, prefix, a)
@@ -3489,6 +3878,7 @@ def smoke(checks) -> int:
                             late.get("group_pack", 0))
     gk["launches_by_path"].update(multi_groups)
     gk["launches"] = sum(gk["launches_by_path"].values())
+    gk["packed_sweep"] = dict(DISPATCH_KG1)
     phase("timing", f"whole smoke {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"config4": launched, **{f"giant_{k}": v for k, v in launches.items()},

@@ -1,15 +1,17 @@
 """``kafka_assigner_tpu_torch.daemon``: the resident assigner daemon for one
 cluster or many, the port of the reference's ``kafka_assigner_tpu/daemon``
-under ``KA_DISPATCH=0`` (no dispatcher, controller or fleet scheduler).
+(its controller and fleet scheduler are a later slice's).
 
 :mod:`.service` holds the HTTP surface, its routing by
 ``/clusters/<name>/...``, the telemetry endpoints and the process entry;
 :mod:`.supervisor` each cluster's session, watch loop, lifecycle, request
 gate, circuit breaker, health plane, groups endpoints and ``/execute``;
 :mod:`.state` the watch-fed metadata cache and its incremental group
-encode. The command line is ``python -m kafka_assigner_tpu_torch.daemon``
-(``cli.daemon_main``).
+encode; :mod:`.dispatch` the dispatch plane that packs concurrent
+requests' device rows (``KA_DISPATCH=0``: one solve lock). The command
+line is ``python -m kafka_assigner_tpu_torch.daemon`` (``cli.daemon_main``).
 """
+from .dispatch import SolveDispatcher
 from .service import DEFAULT_CLUSTER, AssignerDaemon, run_daemon_process
 from .state import CacheBackend, DaemonState
 from .supervisor import CircuitBreaker, ClusterSupervisor
@@ -21,5 +23,6 @@ __all__ = [
     "ClusterSupervisor",
     "DEFAULT_CLUSTER",
     "DaemonState",
+    "SolveDispatcher",
     "run_daemon_process",
 ]

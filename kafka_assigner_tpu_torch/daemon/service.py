@@ -1,13 +1,15 @@
 """The resident assigner daemon, ``ka-daemon``: the port of the reference's
-``kafka_assigner_tpu/daemon/service.py`` under ``KA_DISPATCH=0`` (the
-reference's lock regime: one solve lock, no dispatcher).
+``kafka_assigner_tpu/daemon/service.py`` (its controller and fleet
+scheduler are a later slice's).
 
 One process keeps the torch import, the CUDA context, the kernels' modules
 and each cluster's encode resident, fed by ZooKeeper watches
 (``supervisor.py``), for one cluster (``zk_string``) or many
 (``clusters``: one :class:`~.supervisor.ClusterSupervisor` each, with its
-own session, watch loop, cache, inflight gate, watchdog and breaker, and
-one solve lock for all: one device). Requests route by path:
+own session, watch loop, cache, inflight gate, watchdog and breaker). One
+dispatch plane serves them all (one device): by default the coalescing
+:class:`~.dispatch.SolveDispatcher`, under ``KA_DISPATCH=0`` one solve lock.
+Requests route by path:
 
 ================================ ====== ======================================
 endpoint                         method behavior
@@ -77,24 +79,29 @@ and executions in flight finish within ``KA_DAEMON_DRAIN_TIMEOUT``, dumps
 the flight ring to ``KA_OBS_FLIGHT_DUMP`` and exits 0; a crashing exit
 dumps it too.
 
-The HTTP server is ``ThreadingHTTPServer``, one thread per connection. The
+The HTTP server hands accepted connections to a bounded pool of
+``KA_DAEMON_HTTP_WORKERS`` threads, with a listen backlog of 1,024: a burst
+of clients waits in the accept queue instead of forking a thread each. The
 drain waits for each handler's reply and access-log line, not only for its
-solve.
+solve; then the dispatcher dispatches what is still queued, and the drain
+waits again for the replies of the requests it served.
 """
 from __future__ import annotations
 
 import json
+import queue
 import sys
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from ..obs import flight
 from ..obs import metrics as obs_metrics
 from ..obs.report import REPORT_SCHEMA_VERSION, TOOL_NAME, AccessLog
+from .dispatch import SolveDispatcher
 from .supervisor import POLL_S, ClusterSupervisor
 
 #: The name of a single-cluster daemon's one cluster.
@@ -214,7 +221,7 @@ class AssignerDaemon:
         err=None,
     ) -> None:
         from ..solvers.torch_solver import solve_device
-        from ..utils.env import env_float, env_int, env_str
+        from ..utils.env import env_bool, env_float, env_int, env_str
 
         if (zk_string is None) == (clusters is None):
             raise ValueError(
@@ -258,20 +265,27 @@ class AssignerDaemon:
         #: One solve at a time across every cluster: one device, one
         #: capture. Admission and shedding stay per cluster.
         self._solve_lock = threading.Lock()
+        #: The coalescing dispatcher, one for every cluster (one device);
+        #: None under KA_DISPATCH=0, where every solve takes the lock. Read
+        #: once a daemon.
+        self.dispatcher: Optional[SolveDispatcher] = (
+            SolveDispatcher(err=self.err) if env_bool("KA_DISPATCH") else None
+        )
         self.supervisors: Dict[str, ClusterSupervisor] = {
             name: ClusterSupervisor(
                 name, connect,
                 solver=solver, device=device, failure_policy=failure_policy,
                 label="" if self.single else name,
                 draining=self.draining, stopped=self.stopped,
-                solve_lock=self._solve_lock, err=self.err,
+                solve_lock=self._solve_lock, dispatcher=self.dispatcher,
+                err=self.err,
             )
             for name, connect in connects.items()
         }
         #: HTTP handlers between their request and their access-log line.
         self._handlers = 0
         self._handlers_lock = threading.Lock()
-        self.httpd: Optional[ThreadingHTTPServer] = None
+        self.httpd: Optional[HTTPServer] = None
         self._serve_thread: Optional[threading.Thread] = None
 
     # -- accessors ------------------------------------------------------------------
@@ -376,6 +390,15 @@ class AssignerDaemon:
             self._log(
                 f"drain timeout: {left} request(s) still in flight; exiting anyway"
             )
+        if self.dispatcher is not None:
+            # After the drain window: a request the drain gave up on may
+            # still wait on a queued job. close() dispatches every queued
+            # job now (later jobs take their callers' direct paths), and
+            # the replies it unblocks get another window to be written.
+            self.dispatcher.close()
+            deadline = time.monotonic() + self.drain_timeout
+            while time.monotonic() < deadline and self._in_flight():
+                time.sleep(0.01)
         self.stopped.set()
         if self.httpd is not None:
             self.httpd.shutdown()
@@ -473,11 +496,116 @@ def _flight_view(cluster: Optional[str] = None) -> dict:
     return rec.view(cluster=cluster)
 
 
+class _PoolServer(HTTPServer):
+    """An HTTP server with a bounded pool of handler threads
+    (``KA_DAEMON_HTTP_WORKERS``), the reference's worker-pool ``Server``:
+    accepted connections queue to long-lived workers; when the queue is
+    full the accept loop blocks and further connections wait in the
+    listen backlog (``request_queue_size``), sized for a burst of 1,024
+    clients. A stop ends the block: the connection it held closes
+    unanswered."""
+
+    request_queue_size = 1024
+
+    def __init__(self, addr, handler) -> None:
+        super().__init__(addr, handler)
+        from ..utils.env import env_int
+
+        self._closing = False
+        n = env_int("KA_DAEMON_HTTP_WORKERS")
+        self._work: queue.Queue = queue.Queue(maxsize=max(2 * n, 8))
+        self._workers = [
+            threading.Thread(target=self._worker, name=f"ka-http-{i}", daemon=True)
+            for i in range(n)
+        ]
+        for t in self._workers:
+            t.start()
+
+    def _worker(self) -> None:
+        while True:
+            item = self._work.get()
+            if item is None:
+                return
+            request, client_address = item
+            try:
+                self.finish_request(request, client_address)
+            except Exception:
+                self.handle_error(request, client_address)
+            finally:
+                self.shutdown_request(request)
+
+    def process_request(self, request, client_address) -> None:
+        while True:
+            try:
+                self._work.put((request, client_address), timeout=0.1)
+                return
+            except queue.Full:
+                if self._closing:
+                    self.shutdown_request(request)
+                    return
+
+    def shutdown(self) -> None:
+        self._closing = True
+        super().shutdown()
+
+    def server_close(self) -> None:
+        super().server_close()
+        # Sentinels without blocking: with every worker busy and the queue
+        # full, the workers are daemon threads and die with the process.
+        for _ in self._workers:
+            try:
+                self._work.put_nowait(None)
+            except queue.Full:
+                break
+        # A short join: an idle worker takes its sentinel at once; one still
+        # streaming past the drain (a daemon thread) must not hold the exit.
+        deadline = time.monotonic() + 1.0
+        for t in self._workers:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+#: Seconds a pooled HTTP worker waits for the next request line of an idle
+#: keep-alive connection before it closes the connection.
+KEEPALIVE_TIMEOUT_S = 30.0
+
+
+class _ReplyOrder:
+    """Runs each request's telemetry record in the order the replies went
+    out. A reply draws a ticket just before its body is written, and its
+    record, made after the write, runs once every earlier ticket's has run:
+    a client's next request, served by another worker, can then never be
+    recorded before the reply that preceded it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._drawn = 0
+        self._due = 0
+        self._ready: Dict[int, object] = {}
+
+    def ticket(self) -> int:
+        with self._lock:
+            self._drawn += 1
+            return self._drawn - 1
+
+    def emit(self, ticket: int, record) -> None:
+        with self._lock:
+            self._ready[ticket] = record
+            while self._due in self._ready:
+                run = self._ready.pop(self._due)
+                self._due += 1
+                run()
+
+
 def _build_http_server(daemon: AssignerDaemon, bind: str,
-                       port: int) -> ThreadingHTTPServer:
+                       port: int) -> HTTPServer:
+    order = _ReplyOrder()
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        #: The socket's read timeout: an idle keep-alive connection waiting
+        #: on its next request line would otherwise pin a pooled worker for
+        #: good. After it the read fails and the connection closes.
+        timeout = KEEPALIVE_TIMEOUT_S
 
         def log_message(self, fmt, *args):  # stderr carries the daemon's lines only
             pass
@@ -491,41 +619,52 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
             self._sup: Optional[ClusterSupervisor] = None
             self._endpoint: Optional[str] = None
             self._status: Optional[str] = None
+            self._ticket: Optional[int] = None
 
         def _access(self, method: str, path: str) -> None:
             """One access-log line a request, the routing layer's latency
             histogram and request counter by endpoint, cluster and code, and
-            a flight summary of each POST."""
-            ms = round((time.perf_counter() - self._t0) * 1000.0, 3)
-            sup = self._sup
-            daemon.access_log.log(
-                request_id=self._rid,
-                method=method,
-                path=path,
-                cluster=sup.name if sup is not None else None,
-                code=self._code,
-                status=self._status,
-                ms=ms,
-                inflight=sup.active_requests() if sup is not None else 0,
-                stale=sup.stale() if sup is not None else False,
-                degraded=self._status == "degraded",
-            )
-            cum = obs_metrics.cumulative()
-            if cum is not None and self._endpoint is not None:
-                labels = {"endpoint": self._endpoint}
-                if sup is not None:
-                    labels["cluster"] = sup.name
-                cum.hist_observe("daemon.http.request_ms", ms, labels=labels)
-                cum.counter_add(
-                    "daemon.http.requests", 1,
-                    labels={**labels, "code": str(self._code)},
+            a flight summary of each POST, in the order of the replies."""
+            ticket = self._ticket if self._ticket is not None else order.ticket()
+            record = None
+            try:
+                ms = round((time.perf_counter() - self._t0) * 1000.0, 3)
+                sup = self._sup
+                line = dict(
+                    request_id=self._rid,
+                    method=method,
+                    path=path,
+                    cluster=sup.name if sup is not None else None,
+                    code=self._code,
+                    status=self._status,
+                    ms=ms,
+                    inflight=sup.active_requests() if sup is not None else 0,
+                    stale=sup.stale() if sup is not None else False,
+                    degraded=self._status == "degraded",
                 )
-            if method == "POST":
-                flight.record(
-                    "request", sup.name if sup is not None else None,
-                    request_id=self._rid, path=path, code=self._code,
-                    status=self._status, ms=ms,
-                )
+                endpoint = self._endpoint
+
+                def record() -> None:
+                    daemon.access_log.log(**line)
+                    cum = obs_metrics.cumulative()
+                    if cum is not None and endpoint is not None:
+                        labels = {"endpoint": endpoint}
+                        if sup is not None:
+                            labels["cluster"] = sup.name
+                        cum.hist_observe("daemon.http.request_ms", ms, labels=labels)
+                        cum.counter_add(
+                            "daemon.http.requests", 1,
+                            labels={**labels, "code": str(line["code"])},
+                        )
+                    if method == "POST":
+                        flight.record(
+                            "request", line["cluster"], request_id=line["request_id"],
+                            path=path, code=line["code"], status=line["status"],
+                            ms=ms,
+                        )
+            finally:
+                # Every ticket is emitted, or every later record would wait.
+                order.emit(ticket, record or (lambda: None))
 
         def _serve(self, method: str, body) -> None:
             with daemon._handlers_lock:
@@ -550,6 +689,8 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
+            if self._ticket is None:
+                self._ticket = order.ticket()
             try:
                 self.wfile.write(raw)
             except (BrokenPipeError, ConnectionResetError):  # the client went away
@@ -767,9 +908,7 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
                 print(f"ka-daemon: /execute aborted ({type(e).__name__}: {e}); "
                       "journal retains every committed wave", file=daemon.err)
 
-    httpd = ThreadingHTTPServer((bind, port), Handler)
-    httpd.daemon_threads = True
-    return httpd
+    return _PoolServer((bind, port), Handler)
 
 
 def run_daemon_process(daemon: AssignerDaemon) -> int:

@@ -1,7 +1,7 @@
 """``ClusterSupervisor``: one cluster's bulkhead inside the daemon, the port
-of the reference's ``kafka_assigner_tpu/daemon/supervisor.py`` under
-``KA_DISPATCH=0`` (one solve lock, no dispatcher). One per cluster; each
-owns:
+of the reference's ``kafka_assigner_tpu/daemon/supervisor.py``, under
+either dispatch regime (the controller's members are a later slice's).
+One per cluster; each owns:
 
 - the metadata backend's session and the one watch-loop thread;
 - the :class:`~.state.DaemonState` cache and its delta encode store;
@@ -26,12 +26,16 @@ owns:
   session, journaled as ``ka-execute`` journals (the identity is the
   cluster's connect spec and the plan's hash), its progress streamed.
 
-Each ``/plan`` runs mode 3's pipeline (``generator.py``) against the cache,
-under the solve lock that the service shares with every request of every
-cluster (one device), so one request's run report never holds another's
-spans. Where the request keeps the whole broker set and the racks, the
-device lane takes the cache's merged preencode; a request that narrows
-either encodes for itself. In a daemon of many clusters (``label`` set)
+Each ``/plan`` runs mode 3's pipeline (``generator.py``) against the cache
+under the daemon's dispatch regime (``_solve_lock_scope``). Under
+``KA_DISPATCH=0`` that is the one solve lock the service shares with every
+request of every cluster (one device). By default it is the dispatcher's
+scope (``dispatch.py``): request bodies run concurrently, identical ones
+once, and their device rows pack on the dispatcher's thread. Either way a
+request's capture is its thread's own, so its run report holds only its
+own spans. Where the request keeps the whole broker set and the racks,
+the device lane takes the cache's merged preencode; a request that
+narrows either encodes for itself. In a daemon of many clusters (``label`` set)
 metric and span names carry an ``@cluster`` suffix; for one cluster they
 are the plain names.
 
@@ -70,6 +74,7 @@ from ..obs import metrics as obs_metrics
 from ..obs.metrics import counter_add, gauge_set, hist_ms, hist_observe
 from ..obs.trace import record_span
 from ..utils.backoff import JitteredBackoff
+from .dispatch import SolveDispatcher, dispatch_scope
 from .state import CacheBackend, DaemonState
 
 #: Watch-poll block per loop iteration (also the drain-check cadence).
@@ -174,6 +179,7 @@ class ClusterSupervisor:
         draining: threading.Event,
         stopped: threading.Event,
         solve_lock: threading.Lock,
+        dispatcher: Optional[SolveDispatcher] = None,
         err=None,
     ) -> None:
         from ..utils.env import env_bool, env_choice, env_float, env_int
@@ -211,6 +217,9 @@ class ClusterSupervisor:
         self._watch_thread: Optional[threading.Thread] = None
         #: Shared with the service: one device, one capture at a time.
         self._solve_lock = solve_lock
+        #: The daemon's dispatcher, shared like the lock it replaces; None
+        #: under KA_DISPATCH=0, where every solve takes the lock.
+        self._dispatcher = dispatcher
         #: Admitted requests, gated against the live inflight knob.
         self._active = 0
         self._active_lock = threading.Lock()
@@ -617,18 +626,18 @@ class ClusterSupervisor:
             self._release()
 
     def _score_candidate(self, solver: str, move_cost: float) -> dict:
-        """Solve one candidate plan against the cache under the solve lock,
-        score the current and the projected assignment, and price the
-        movement. The caller holds an admission slot."""
+        """Solve one candidate plan against the cache under the dispatch
+        regime, score the current and the projected assignment, and price
+        the movement. The caller holds an admission slot."""
         from ..exec.engine import parse_plan_payload
 
         out = io.StringIO()
-        with self._solve_lock:
+        with self._solve_lock_scope():
             topics = self.state.all_assignments()
             broker_ids = self.state.broker_id_set()
             rack = self.state.rack_map()
             current = health.score_assignment(broker_ids, topics, rack)
-            degraded = self._run_plan({"solver": solver}, out)
+            degraded = self._solve_plan({"solver": solver}, out)
         proposed, _order = parse_plan_payload(
             out.getvalue(), origin="recommendation plan",
         )
@@ -750,8 +759,8 @@ class ClusterSupervisor:
                 params.get("scales"), env_str("KA_GROUPS_DEFAULT_SCALES")
             )
             counts = parse_int_list(params.get("counts"))
-            # The backend's reads happen before the solve lock, which every
-            # cluster's requests share.
+            # The backend's reads happen before the solve's scope (under
+            # KA_DISPATCH=0 the lock that every cluster's requests share).
             states, groups_real = load_group_states(
                 backend, part_map, groups=group_names, synthetic=synthetic,
             )
@@ -766,7 +775,9 @@ class ClusterSupervisor:
             fallback = (
                 "greedy" if self.failure_policy == "best-effort" else "raise"
             )
-            with self._solve_lock:
+            # Under the dispatcher the sweep's candidate rows go to its
+            # queue, where other requests' rows over the same group join them.
+            with self._solve_lock_scope():
                 bodies = build_group_bodies(
                     states, groups_real, part_map, kind, weight,
                     weight_values, scales, headroom, max_cand,
@@ -1049,6 +1060,48 @@ class ClusterSupervisor:
         with self._active_lock:
             self._active -= 1
 
+    def _solve_lock_scope(self):
+        """The regime of one solve-bearing request body: the shared solve
+        lock under ``KA_DISPATCH=0``; else the dispatcher's scope, where the
+        body runs concurrently with other requests and only its device work
+        queues, packed, on the dispatcher's thread. The watchdog arms before
+        the scope, so queue wait counts against the request's budget."""
+        if self._dispatcher is None:
+            return self._solve_lock
+        return dispatch_scope(self._dispatcher)
+
+    def _solve_body(self, kind: str, runner, params: dict, out: io.StringIO) -> bool:
+        """One solve body under the regime: direct under the lock (the
+        caller holds it); under the dispatcher, identical concurrent bodies
+        (cluster, cache version, solver, policy and params) run once and
+        the leader's stdout serves every waiter, while distinct bodies run
+        concurrently. The live cache version splits followers across a
+        resync."""
+        d = self._dispatcher
+        if d is None:
+            return runner(params, out)
+        res = d.run_job(self._body_job_key(kind, params),
+                        lambda buf: runner(params, buf), out,
+                        version=lambda: self.state.version)
+        if res is None:
+            # The dispatcher is closed (a drain): the straggler takes the lock.
+            with self._solve_lock:
+                return runner(params, out)
+        degraded, _coalesced = res
+        return degraded
+
+    def _solve_plan(self, params: dict, out: io.StringIO) -> bool:
+        return self._solve_body("plan", self._run_plan, params, out)
+
+    def _solve_whatif(self, params: dict, out: io.StringIO) -> bool:
+        return self._solve_body("whatif", self._run_whatif, params, out)
+
+    def _body_job_key(self, kind: str, params: dict) -> str:
+        """The dedup key of a request body: equal keys give equal stdout."""
+        payload = json.dumps(params, sort_keys=True, default=repr)
+        return (f"{kind}|{self.name}|{self.state.version}|{self.solver}|"
+                f"{self.failure_policy}|{payload}")
+
     def _watchdog(self, path: str, budget: float,
                   request_id: Optional[str],
                   overran: Optional[threading.Event] = None,
@@ -1078,8 +1131,8 @@ class ClusterSupervisor:
 
     def handle(self, path: str, params: dict,
                request_id: Optional[str] = None) -> Tuple[int, dict, dict]:
-        """One POST request: the gate, then the solve under the shared solve
-        lock. Returns ``(http_code, body, extra_headers)``. ``request_id``
+        """One POST request: the gate, then the solve under the dispatch
+        regime. Returns ``(http_code, body, extra_headers)``. ``request_id``
         is stamped into every span of the request's capture and into
         ``result.request_id``."""
         refusal = self._gate()
@@ -1104,22 +1157,22 @@ class ClusterSupervisor:
         error: Optional[BaseException] = None
         degraded = False
         budget = self._request_budget()
-        # Armed before the solve lock: a request wedged behind another's
-        # solve is flagged too.
+        # Armed before the solve's scope: a request wedged behind another's
+        # solve, or waiting in the dispatcher's queue, is flagged too.
         overran = threading.Event()
         watchdog_timer = self._watchdog(path, budget, request_id, overran)
-        # The capture is the handler thread's own, and the lock keeps every
-        # other request's spans out of it.
-        with self._solve_lock, obs.run_capture(local=True) as run:
+        # The capture is the handler thread's own: no other request's spans
+        # land in it.
+        with self._solve_lock_scope(), obs.run_capture(local=True) as run:
             if request_id is not None:
                 # First in the capture: every span carries the request id.
                 run.annotate("request_id", request_id)
             try:
                 with obs.span(self._metric("daemon/request")) as sp:
                     if path == "/plan":
-                        degraded = self._run_plan(params, out)
+                        degraded = self._solve_plan(params, out)
                     elif path == "/whatif":
-                        degraded = self._run_whatif(params, out)
+                        degraded = self._solve_whatif(params, out)
                     else:
                         raise ValueError(f"unknown endpoint {path!r}")
                     if degraded or self.state.stale:

@@ -106,6 +106,14 @@ METRIC_NAMES: frozenset = frozenset({
     # a served ranking's wall over its scenarios, and a served groups
     # sweep's wall
     "whatif.scenario_ms", "groups.sweep_ms",
+    # dispatch.* — the coalescing dispatcher (daemon/dispatch.py): packed
+    # device calls, jobs routed through it, jobs that ran alone or re-ran
+    # solo, jobs per packed call, a job's queue wait (apart from its solve
+    # time), the queue depth at a gather cycle's start, the window it used,
+    # and the padded share of a packed call's rows
+    "dispatch.batches", "dispatch.jobs", "dispatch.solo_fallbacks",
+    "dispatch.batch_size", "daemon.solve.queue_ms",
+    "dispatch.queue_depth", "dispatch.window_ms", "dispatch.pad_waste_frac",
 })
 
 #: Span names (``span(...)`` first argument). Paths derive from nesting at
@@ -122,6 +130,9 @@ SPAN_NAMES: frozenset = frozenset({
     "exec/wave", "exec/submit", "exec/poll", "exec/verify",
     "groups/plan", "groups/sweep", "groups/dispatch",
     "daemon/request", "daemon/resync", "daemon/recommend", "daemon/groups",
+    # one packed device call of the dispatcher, on its own thread (outside
+    # every request's capture)
+    "dispatch",
 })
 
 #: Both namespaces.

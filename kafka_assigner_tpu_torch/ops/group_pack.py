@@ -25,6 +25,7 @@ header of the ``.cu``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -34,8 +35,10 @@ from . import build
 BIG = 0x3FFFFFFF
 I32 = torch.int32
 
-#: Kernel launches per kernel name; reset by whoever reads it.
+#: Kernel launches per kernel name; reset by whoever reads it. Requests of
+#: the daemon launch from several threads, so the count is taken under a lock.
 launches: Dict[str, int] = {"group_pack": 0}
+_launches_lock = threading.Lock()
 
 #: The kernel's variants, by their code in ``ka_group_pack_scan``.
 VARIANTS = ("registers", "shared", "global")
@@ -210,7 +213,8 @@ def pack_scan(
         raise RuntimeError(
             f"group pack kernel launch failed ({variant} variant, C_pad {c}): "
             f"cudaError {err}")
-    launches["group_pack"] += 1
+    with _launches_lock:
+        launches["group_pack"] += 1
     last_variant = variant
     return over
 

@@ -22,6 +22,7 @@ The kernel's design and what bounds it are in the header of the ``.cu``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,8 +32,10 @@ from . import build
 BIG = 0x3FFFFFFF
 I32 = torch.int32
 
-#: Kernel launches per kernel name; reset by whoever reads it.
+#: Kernel launches per kernel name; reset by whoever reads it. Requests of
+#: the daemon launch from several threads, so the count is taken under a lock.
 launches: Dict[str, int] = {"leadership": 0}
+_launches_lock = threading.Lock()
 
 _smem_limit: Dict[int, int] = {}
 
@@ -193,7 +196,8 @@ def leadership_order(
         )
     if err != 0:
         raise RuntimeError(f"leadership kernel launch failed: cudaError {err}")
-    launches["leadership"] += 1
+    with _launches_lock:
+        launches["leadership"] += 1
     return ordered[: rows * rf].view(b, p, rf), counters_out
 
 

@@ -28,13 +28,25 @@ device work. The fan-out gauges keep the reference's definition, the
 power-of-two bucket of the scenario or candidate count, though the port
 places no padding rows.
 
-Left for later slices: the reference's ``mesh`` argument (scenario rows
-sharded across cards), ``_submit_coalesced`` and the daemon's dispatcher,
-and the persistent program store. :data:`last_sweep` and
-:data:`last_groups` record what the most recent call did.
+On a daemon request thread under the dispatch plane
+(``daemon/dispatch.py``), each device call here becomes a row job through
+``submit_routed`` there, as in the reference (:98): the dense sweep (its
+budgeted blocks one job each, packing with nothing), the incremental subset
+sweep, the rescue and the group sweep. Concurrent requests whose shared
+operands agree (the same cluster, or clusters whose encodings agree) then
+share one call. The call runs on the dispatcher thread, so its spans and
+counters go to the cumulative registry, not to the request's capture, as in
+the reference.
+
+Left for a later slice: the reference's ``mesh`` argument (scenario rows
+sharded across cards). :data:`last_sweep` and :data:`last_groups` record
+what the most recent call of the process did; under the dispatch plane
+concurrent requests overwrite them, and a packed call's ``rows``,
+``chunks`` and ``waves`` are the packed call's.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Set, Tuple
@@ -44,6 +56,7 @@ import torch
 
 from ..assigner import infer_topic_rf
 from ..carry import to_tensor
+from ..daemon.dispatch import submit_routed
 from ..faults.inject import fault_point
 from ..models.problem import _pad8, batch_bucket, encode_cluster, encode_topic_group
 from ..obs.metrics import counter_add, gauge_set
@@ -74,6 +87,12 @@ last_sweep: Dict[str, object] = {}
 #: sync), ``download``; ``groups/solve.py`` adds the host ``encode`` and
 #: ``decode``.
 last_groups: Dict[str, object] = {}
+
+
+#: Per-request token of the budgeted blocks of a large dense sweep: each
+#: block is a job of its own and packs with no other block, since two
+#: blocks together are the slab the budget exists to avoid.
+_chunk_token = itertools.count(1)
 
 
 class _OnDevice(NamedTuple):
@@ -154,43 +173,51 @@ def _topic_stats(currents: np.ndarray, p_reals, rfs, rack_idx, n):
     return clean, loads, loads.max(axis=1)
 
 
-def _rescue_flagged(
-    flagged, alive, currents, rack_idx, jhashes, p_reals, rfs, n, rf, r_cap,
-    moved, infeasible, max_load,
-):
+def _rescue_flagged(flagged, alive, on, host, n, rf, r_cap, moved, infeasible,
+                    max_load):
     """Re-run flagged scenarios through the FULL auto-chain sweep and write
     the results back in place. The fast-only sweep (dense or incremental)
     raises its infeasible flag for both true infeasibility and fast-leg
     strandings; this shared rescue tells them apart identically for both
     paths, as the actual solver would for that scenario. ``alive`` is the
-    host (S, N_pad) mask matrix; the topic tensors are on the device.
+    host (S, N_pad) mask matrix; ``on`` holds the topic tensors on the
+    device and ``host`` the same arrays on the host (the dispatch key).
     Returns the rescue's waves per leg."""
     counter_add("whatif.rescued", len(flagged))
-    with span("whatif/rescue", hist="whatif.dispatch_ms"):
-        sub = torch.as_tensor(np.asarray(alive)[flagged]).to(currents.device)
-        res = whatif_sweep(
-            currents, rack_idx, jhashes, p_reals, sub, n, rf, wave_mode="auto",
-            rfs=rfs, r_cap=r_cap,
-        )
-        moved2, infeasible2, max_load2 = (t.cpu().numpy() for t in res[:3])
+    dev = on.currents.device
+
+    def _rescue_call(rows):
+        with span("whatif/rescue", hist="whatif.dispatch_ms"):
+            res = whatif_sweep(
+                on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                torch.as_tensor(rows["alive"]).to(dev), n, rf, wave_mode="auto",
+                rfs=on.rfs, r_cap=r_cap,
+            )
+            return tuple(t.cpu().numpy() for t in res[:3]) + (res.waves,)
+
+    # The "rescue" tag keeps these rows apart from the fast-leg sweeps'.
+    rows = {"alive": np.asarray(alive)[flagged]}
+    routed = submit_routed("whatif_sweep", host, ("rescue", n, rf, r_cap), rows,
+                           len(flagged), _rescue_call)
+    moved2, infeasible2, max_load2, waves = (
+        routed if routed is not None else _rescue_call(rows))
     for i, s in enumerate(flagged):
         moved[s] = moved2[i]
         infeasible[s] = infeasible2[i]
         max_load[s] = max_load2[i]
-    return res.waves
+    return waves
 
 
-def _results(scenarios, alive, on, n, rf, r_cap, moved, infeasible, max_load):
+def _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
+             max_load):
     """Rescue the flagged scenarios, then one :class:`ScenarioResult` per
     scenario (both paths end here)."""
     t0 = time.perf_counter()
     flagged = [s for s in range(len(scenarios)) if infeasible[s]]
     waves = {}
     if flagged:
-        waves = _rescue_flagged(
-            flagged, alive, on.currents, on.rack_idx, on.jhashes, on.p_reals,
-            on.rfs, n, rf, r_cap, moved, infeasible, max_load,
-        )
+        waves = _rescue_flagged(flagged, alive, on, host, n, rf, r_cap, moved,
+                                infeasible, max_load)
     last_sweep.update(rescued=len(flagged), rescue=_ms(t0), rescue_waves=waves)
     return [
         ScenarioResult(
@@ -205,7 +232,7 @@ def _results(scenarios, alive, on, n, rf, r_cap, moved, infeasible, max_load):
 
 def _evaluate_incremental(
     currents, jhashes, p_reals, rfs, cluster, alive, scenarios, s_real,
-    rf, r_cap, b_real, on, t_start,
+    rf, r_cap, b_real, on, host, t_start,
 ):
     """Incremental sweep: solve only the (scenario, topic) pairs whose
     outcome can differ from the input.
@@ -216,8 +243,8 @@ def _evaluate_incremental(
     provably reproduces its input — zero movement, unchanged loads. The
     dense sweep remains the oracle, and this path declines (returns None)
     when the affected fraction makes it unprofitable. ``on`` holds the
-    topics on the device; ``t_start`` is when the evaluation began (the
-    host prep clock).
+    topics on the device and ``host`` on the host; ``t_start`` is when the
+    evaluation began (the host prep clock).
 
     Scenarios whose fast-leg pair solve strands re-run through the FULL
     auto-chain sweep, exactly like the dense path's rescue.
@@ -253,19 +280,26 @@ def _evaluate_incremental(
     for s, tops in enumerate(affected):
         topics[s, : len(tops)] = tops
     dev = on.currents.device
-    topics_t = to_tensor(topics, dev)
-    alive_t = torch.as_tensor(alive).to(dev)
-    _sync(dev)
     last_sweep.update(prep=_ms(t_start), t_pad=t_pad)
 
+    def _subset_rows(rows):
+        res = whatif_subset_sweep(
+            on.currents, on.rack_idx, on.jhashes, on.p_reals,
+            to_tensor(rows["topics"], dev), torch.as_tensor(rows["alive"]).to(dev),
+            n, rf, rfs=on.rfs, r_cap=r_cap,
+        )
+        return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+
+    # Every operand but the index table and the masks is the cluster's, so
+    # requests over the same encoding pack, across clusters too.
     t0 = time.perf_counter()
-    res = whatif_subset_sweep(
-        on.currents, on.rack_idx, on.jhashes, on.p_reals, topics_t, alive_t,
-        n, rf, rfs=on.rfs, r_cap=r_cap,
-    )
-    moved_s, infeas_s, loads_s = (t.cpu().numpy() for t in res[:3])
-    last_sweep.update(sweep=_ms(t0), rows=res.rows, chunks=res.chunks,
-                      waves=res.waves)
+    rows = {"topics": topics, "alive": alive}
+    routed = submit_routed(
+        "whatif_subset_sweep", host, ("subset", n, rf, r_cap, t_pad, alive.shape[1]),
+        rows, s_real, _subset_rows)
+    moved_s, infeas_s, loads_s, rec = (
+        routed if routed is not None else _subset_rows(rows))
+    last_sweep.update(sweep=_ms(t0), **rec)
 
     t0 = time.perf_counter()
     moved = moved_s.astype(np.int64)
@@ -275,7 +309,14 @@ def _evaluate_incremental(
         load_vec[s] += loads_s[s] - loads_t[tops].sum(axis=0)
     max_load = load_vec.max(axis=1) if n else np.zeros(s_real, dtype=np.int64)
     last_sweep.update(compose=_ms(t0))
-    return _results(scenarios, alive, on, n, rf, r_cap, moved, infeasible, max_load)
+    return _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
+                    max_load)
+
+
+def _record(res) -> Dict[str, object]:
+    """A sweep call's rows, placement calls and waves, for :data:`last_sweep`
+    (it passes whole through a packed call)."""
+    return {"rows": res.rows, "chunks": res.chunks, "waves": res.waves}
 
 
 def evaluate_removal_scenarios(
@@ -324,15 +365,15 @@ def evaluate_removal_scenarios(
     gauge_set("whatif.fanout", int(batch_bucket(s_real)))
     if not s_real:
         return []
-    on = _OnDevice(*(to_tensor(a, dev) for a in
-                     (currents, enc0.rack_idx, jhashes, p_reals, rfs)))
+    host = (currents, enc0.rack_idx, jhashes, p_reals, rfs)
+    on = _OnDevice(*(to_tensor(a, dev) for a in host))
     last_sweep.update(scenarios=s_real)
 
     if env_bool("KA_WHATIF_INCREMENTAL"):
         with span("whatif/incremental"):
             res = _evaluate_incremental(
                 currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
-                s_real, rf, enc0.r_cap, len(items), on, t_start,
+                s_real, rf, enc0.r_cap, len(items), on, host, t_start,
             )
         if res is not None:
             counter_add("whatif.incremental_sweeps")
@@ -343,31 +384,41 @@ def evaluate_removal_scenarios(
     # stays under ~KA_WHATIF_MEMBUDGET int32 elements.
     per_scenario = max(1, currents.shape[0] * currents.shape[1] * max(rf, 1))
     s_chunk = max(1, env_int("KA_WHATIF_MEMBUDGET") // per_scenario)
-    alive_t = torch.as_tensor(alive).to(dev)
-    _sync(dev)
     last_sweep.update(path="dense", prep=_ms(t_start), t_pad=None)
 
+    def _dense_rows(rows):
+        with span("whatif/dispatch", hist="whatif.dispatch_ms"):
+            res = whatif_sweep(
+                on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                torch.as_tensor(rows["alive"]).to(dev), enc0.n, rf, rfs=on.rfs,
+                r_cap=enc0.r_cap,
+            )
+            return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+
+    # Only the masks are the request's own: requests over the same encoding
+    # (one cluster, or clusters whose encodings agree) pack. Past the budget
+    # each block is a job of its own, tagged so that it packs with nothing.
+    chunked = s_real > s_chunk
+    token = next(_chunk_token) if chunked else 0
     t0 = time.perf_counter()
     blocks = []
     for lo in range(0, s_real, s_chunk):
-        with span("whatif/dispatch", hist="whatif.dispatch_ms"):
-            blocks.append(whatif_sweep(
-                on.currents, on.rack_idx, on.jhashes, on.p_reals,
-                alive_t[lo:lo + s_chunk], enc0.n, rf, rfs=on.rfs,
-                r_cap=enc0.r_cap,
-            ))
-            _sync(dev)
+        rows = {"alive": alive[lo:lo + s_chunk]}
+        statics = (("chunk", enc0.n, rf, enc0.r_cap, token, lo) if chunked
+                   else ("dense", enc0.n, rf, enc0.r_cap))
+        routed = submit_routed("whatif_sweep", host, statics, rows,
+                               len(rows["alive"]), _dense_rows)
+        blocks.append(routed if routed is not None else _dense_rows(rows))
     moved, infeasible, max_load = (
-        torch.cat([blk[i] for blk in blocks]).cpu().numpy() for i in range(3)
-    )
+        np.concatenate([blk[i] for blk in blocks]) for i in range(3))
     waves: Dict[str, int] = {}
-    for blk in blocks:
-        for leg, w in blk.waves.items():
+    for *_, rec in blocks:
+        for leg, w in rec["waves"].items():
             waves[leg] = waves.get(leg, 0) + w
-    last_sweep.update(sweep=_ms(t0), rows=sum(blk.rows for blk in blocks),
-                      chunks=sum(blk.chunks for blk in blocks), waves=waves,
+    last_sweep.update(sweep=_ms(t0), rows=sum(b[3]["rows"] for b in blocks),
+                      chunks=sum(b[3]["chunks"] for b in blocks), waves=waves,
                       compose=0.0)
-    return _results(scenarios, alive, on, enc0.n, rf, enc0.r_cap,
+    return _results(scenarios, alive, on, host, enc0.n, rf, enc0.r_cap,
                     moved, infeasible, max_load)
 
 
@@ -448,27 +499,39 @@ def evaluate_group_candidates(
     host arrays ``(moved (S,), overflowed (S,), infeasible (S,), load (S,
     C_pad))``. The batch is not padded (the port has no compiled shapes).
     Records its shapes, steps and phase times in :data:`last_groups`. The
-    ``solve`` fault point fires before any device work."""
+    ``solve`` fault point fires before any device work. Under the dispatch
+    plane the candidate rows of concurrent requests whose group tensors
+    agree share one call: one KG1 launch."""
     s_real = len(alive_masks)
     counter_add("groups.candidates", s_real)
     fault_point("solve")
-    counter_add("groups.dispatches")
-    gauge_set("groups.fanout", int(batch_bucket(s_real)))
-    with span("groups/dispatch", hist="whatif.dispatch_ms"):
-        t0 = time.perf_counter()
-        dev = solve_device(device, "evaluate_group_candidates")
-        last_groups.clear()
-        w, cap, cur, order = _group_tensors(dev, weights, capacities, current,
-                                            proc_order)
-        alive_t = torch.as_tensor(np.asarray(alive_masks, dtype=bool)).to(dev)
-        scales = to_tensor(np.asarray(scale_pcts), dev)
-        _sync(dev)
-        last_groups.update(kind="sweep", s=int(alive_t.shape[0]),
-                           p_pad=int(w.shape[0]), c_pad=int(cap.shape[0]),
-                           upload=_ms(t0))
-        out = group_pack_sweep(w, cap, cur, order, alive_t, scales, int(p_real),
-                               last_groups)
-        t0 = time.perf_counter()
-        moved, overflowed, infeasible, load = (t.cpu().numpy() for t in out)
-        last_groups["download"] = _ms(t0)
-    return moved, overflowed, infeasible, load
+    dev = solve_device(device, "evaluate_group_candidates")
+
+    def _sweep_rows(rows):
+        counter_add("groups.dispatches")
+        gauge_set("groups.fanout", int(batch_bucket(len(rows["alive"]))))
+        with span("groups/dispatch", hist="whatif.dispatch_ms"):
+            t0 = time.perf_counter()
+            last_groups.clear()
+            w, cap, cur, order = _group_tensors(dev, weights, capacities, current,
+                                                proc_order)
+            alive_t = torch.as_tensor(rows["alive"]).to(dev)
+            scales = to_tensor(rows["scales"], dev)
+            _sync(dev)
+            last_groups.update(kind="sweep", s=int(alive_t.shape[0]),
+                               p_pad=int(w.shape[0]), c_pad=int(cap.shape[0]),
+                               upload=_ms(t0))
+            out = group_pack_sweep(w, cap, cur, order, alive_t, scales, int(p_real),
+                                   last_groups)
+            t0 = time.perf_counter()
+            moved, overflowed, infeasible, load = (t.cpu().numpy() for t in out)
+            last_groups["download"] = _ms(t0)
+        return moved, overflowed, infeasible, load
+
+    rows = {"alive": np.asarray(alive_masks, dtype=bool),
+            "scales": np.asarray(scale_pcts, dtype=np.int32)}
+    routed = submit_routed(
+        "group_sweep", (weights, capacities, current, proc_order),
+        ("group", int(p_real), int(rows["alive"].shape[1])), rows, s_real,
+        _sweep_rows)
+    return routed if routed is not None else _sweep_rows(rows)

@@ -25,6 +25,14 @@ leadership kernel → host decode. The counterpart of
   ``KA_HOSTCODEC`` (``models/problem.py``); ``assign_many`` takes mode 3's
   streamed ``preencoded`` group and skips its own encode
   (``solvers/tpu.py:440-475``);
+- on a daemon request thread under the dispatch plane
+  (``daemon/dispatch.py``), ``assign_many`` sends its placement rows to the
+  dispatcher as one row job (the reference's ``_place_routed``,
+  ``solvers/tpu.py:754-822``): distinct plans whose encodings agree in
+  shape, statics and rack bytes share one ``place_batched`` call on the
+  dispatcher thread, each plan takes its own rows back (placement is
+  independent per row) and orders its leaders on its request thread, K1 or
+  the host pass, on the device's default stream as the placement;
 - observability as the reference's (``solvers/tpu.py:321-329``, :414-494,
   :552, :612, :878-880): ``fault_point("solve")`` before any work of
   ``assign`` and ``assign_many``, the ``solver.assign_calls`` and
@@ -58,7 +66,7 @@ from ..models.problem import (
 from ..native.leadership import leadership_backend, order_many
 from ..obs.metrics import counter_add, gauge_set, obs_active
 from ..obs.trace import span
-from ..ops.assignment import WAVE_MODES, place_batched
+from ..ops.assignment import WAVE_MODES, PlaceResult, place_batched
 from ..ops.leadership import leadership_order
 from ..utils.env import env_bool, env_choice, env_int
 from ..utils.logging import get_logger
@@ -144,7 +152,9 @@ class TorchSolver:
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = solve_device(device)
         #: phase wall-clock (ms) of the most recent solve: encode, place,
-        #: leadership, decode; each phase ends in a device synchronize.
+        #: leadership, decode; each phase ends in a device synchronize. In a
+        #: daemon under the dispatch plane ``place`` includes the queue wait,
+        #: and a synchronize also waits for other requests' device work.
         self.last_timers: Dict[str, float] = {}
         #: batched waves per leg of the most recent placement.
         self.last_waves: Dict[str, int] = {}
@@ -313,7 +323,7 @@ class TorchSolver:
             enc_slab = dataclasses.replace(encs[0], rf=width or rf_max)
             counters_before = context_to_array(context, enc_slab)
             b_real = len(encs)
-            rfs = None
+            rfs_np, rfs = None, None
             if any(r != rf_max for r in rf_list):
                 rfs_np = np.full(currents.shape[0], rf_max, dtype=np.int32)
                 rfs_np[:b_real] = rf_list
@@ -325,11 +335,18 @@ class TorchSolver:
 
         with _phase("solve", None, record, log):
             t0 = time.perf_counter()
-            placed = place_batched(
-                cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max,
-                "fresh" if fresh else wave_mode(), rfs, r_cap=encs[0].r_cap,
-                width=width,
-            )
+            mode = "fresh" if fresh else wave_mode()
+            # The batched path of a daemon request under the dispatch plane
+            # places through the dispatcher (the reference routes
+            # assign_many only); None: no dispatcher routes.
+            placed = (self._place_routed(currents, encs[0], jhashes, p_reals,
+                                         rf_max, mode, rfs_np, width)
+                      if record and not fresh else None)
+            if placed is None:
+                placed = place_batched(
+                    cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, mode, rfs,
+                    r_cap=encs[0].r_cap, width=width,
+                )
             self.last_waves = placed.waves
             infeasible = placed.infeasible[:b_real].cpu().numpy()
             timers["place"] = (time.perf_counter() - t0) * 1e3
@@ -361,6 +378,40 @@ class TorchSolver:
             )
         self.last_codec = dict(problem.last_codec)
         return [(enc.topic, a) for enc, a in zip(encs, decoded)]
+
+    def _place_routed(self, currents, enc, jhashes, p_reals, rf, mode, rfs_np,
+                      width):
+        """The placement's rows as one row job on the calling thread's
+        dispatcher: this plan's whole (bucketed) topic batch, its rows the
+        topics. The key holds everything the rows share: the shapes and
+        statics, whether the batch has per-topic RFs, and the rack bytes, so
+        two plans that remove different brokers never pack, two clusters
+        read from one snapshot do, and a ``--topics`` subset packs with the
+        whole cluster. The key hashes host arrays only. Returns the
+        :class:`PlaceResult` of these rows (tensors on this solver's
+        device), or None when no dispatcher routes."""
+        from ..daemon.dispatch import submit_routed
+
+        rows = {"cur": currents, "jh": jhashes, "pr": p_reals}
+        if rfs_np is not None:
+            rows["rfs"] = rfs_np
+        statics = ("place_batched", enc.n, rf, mode, enc.r_cap, width,
+                   currents.shape[1], currents.shape[2], str(currents.dtype),
+                   rfs_np is None)
+
+        def _call(r):
+            # On the dispatcher thread: every tensor names the device.
+            placed = place_batched(
+                self._t(r["cur"]), self._t(enc.rack_idx), self._t(r["jh"]),
+                self._t(r["pr"]), enc.n, rf, mode,
+                None if rfs_np is None else self._t(r["rfs"]),
+                r_cap=enc.r_cap, width=width,
+            )
+            return tuple(placed[:4]) + (placed.waves,)
+
+        out = submit_routed("place_batched", (enc.rack_idx,), statics, rows,
+                            int(currents.shape[0]), _call)
+        return None if out is None else PlaceResult(*out)
 
     def _order(self, placed, b_real, jhashes, p_reals, counters_before,
                counters_t, jh_t, native_order, p_pad):

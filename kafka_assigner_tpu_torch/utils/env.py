@@ -21,9 +21,11 @@ ingest (``io/zkwire.py``, ``io/zk.py``, ``generator.py``). The three
 store (``utils/programstore.py``) and mode 3's ingest-overlapped warm-up
 (``solvers/warmup.py``). The seven ``KA_EXEC_*`` knobs size, pace and poll
 ``ka-execute``'s waves (``exec/engine.py``) and set the snapshot backend's
-simulated convergence and the default journal path. The eleven ``KA_DAEMON_*``
-knobs bind, gate, time and resync ``ka-daemon`` and place its ``/execute``
-journals (``daemon/``); ``KA_HEALTH_MOVE_COST`` prices a moved replica for
+simulated convergence and the default journal path. The twelve ``KA_DAEMON_*``
+knobs bind, gate, time and resync ``ka-daemon``, size its HTTP worker pool
+and place its ``/execute`` journals (``daemon/``); the four ``KA_DISPATCH*``
+knobs turn on and tune its coalescing dispatcher (``daemon/dispatch.py``);
+``KA_HEALTH_MOVE_COST`` prices a moved replica for
 ``/recommendations``, ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
 route its access log and cap its traffic series. The port reads every
 knob per call, where the
@@ -135,6 +137,16 @@ KNOBS = {
     "KA_DAEMON_BREAKER_THRESHOLD": Knob(3, floor=1),
     "KA_DAEMON_BREAKER_COOLDOWN": Knob(1.0, floor=0.05),
     "KA_DAEMON_WATCH": Knob(True),
+    # The dispatch plane (daemon/dispatch.py): the coalescing dispatcher on
+    # or off (0: the one solve lock; read once at daemon startup), its
+    # gather window, the size trigger and the adaptive window's cap (read
+    # live per gather cycle), and the HTTP server's worker threads (read
+    # once at daemon startup).
+    "KA_DISPATCH": Knob(True),
+    "KA_DISPATCH_WINDOW_MS": Knob(3.0, floor=0.0),
+    "KA_DISPATCH_MAX_BATCH": Knob(64, floor=1),
+    "KA_DISPATCH_WINDOW_MAX_MS": Knob(25.0, floor=0.0),
+    "KA_DAEMON_HTTP_WORKERS": Knob(64, floor=1),
     # The daemon's /execute journals when a request names none (None: the
     # working directory), and /recommendations' cost of one moved replica.
     "KA_DAEMON_JOURNAL_DIR": Knob(None),

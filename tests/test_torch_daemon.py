@@ -272,7 +272,11 @@ def test_endpoints_and_plan_byte_identity(server):
             assert s == 404 and nf == {"error": f"unknown path {path!r}"}, path
 
 
-def test_state_keys_are_the_references_less_later_slices(server):
+def test_state_keys_are_the_references_less_later_slices(server, monkeypatch):
+    # Both daemons must read their first sync's cache_version: with the
+    # fixture's 0.5 s resync interval a loaded host can let one daemon
+    # resync (and bump its version) before /state and not the other.
+    monkeypatch.setenv("KA_DAEMON_RESYNC_INTERVAL", "3600")
     views = {}
     for pkg in ("torch", "jax"):
         with running(pkg, zk(server), solver="device") as d:

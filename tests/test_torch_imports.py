@@ -59,7 +59,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "utils.backoff", "utils.programstore", "solvers.warmup", "warm",
                 "warm.__main__", "exec", "exec.engine", "exec.journal",
                 "exec.__main__", "utils.atomicwrite", "daemon", "daemon.state",
-                "daemon.supervisor", "daemon.service", "daemon.__main__"):
+                "daemon.supervisor", "daemon.service", "daemon.__main__",
+                "daemon.dispatch"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
