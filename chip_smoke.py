@@ -284,7 +284,36 @@ Phases, each printing its own line; any failure exits non-zero:
     alone on the card, bytes unchanged), the ``KA_DISPATCH=0`` daemon with
     no ``dispatch.*`` series and (e)'s bytes, and ``request_stop`` while a
     plan's job waits in a 30 s window: ``close()`` dispatches it and the
-    reply is complete.
+    reply is complete. (e) also runs one round at ``KA_DISPATCH_MAX_BATCH=1``
+    (the hand-off to the dispatcher's thread without packing), and prints
+    each request's queue wait (``daemon.solve.queue_ms``, read by the
+    thread that waited);
+26. the closed-loop controller (``daemon/controller.py``), in this process
+    on cuda, each round started by the daemon's shared ticker
+    (``SharedTicker.advance``) and run on the controllers' own threads:
+    cluster ``a`` is config 4's steady cluster (phase 11's) with
+    ``CONTROLLER_SEEDED`` replicas of ``topic-0000`` piled on broker 0 (the
+    reference's ``scripts/controller_smoke.py`` imbalance at config 4's
+    size), under ``KA_HEALTH_MOVE_COST=0``, ``KA_CONTROLLER_CONFIRMATIONS=2``
+    and the default ``KA_CONTROLLER_MAX_MOVES`` (16). (a) ``a`` on ``auto``
+    beside phase 24's config 3 as ``b`` (``off``): one ``confirmed`` round,
+    then one round that truncates the plan to a prefix of whole partitions
+    within 16 replica moves and acts; the forward journal complete, the
+    action record gone, the snapshot re-scored better, ``b``'s bytes
+    untouched with no controller activity, ``ka_controller_actions_total``
+    for ``a`` only; (b) a fresh daemon of ``a`` under
+    ``KA_FAULTS_SPEC=controller@a:1=exec-crash`` and 8-move waves: the
+    crash at the second wave boundary rolls the assignment back to the
+    bytes before the action and opens the controller's breaker (view and
+    trail); (c) a fresh daemon of two copies of config 3 seeded as ``a``
+    is, on ``observe`` (rows of different clusters never share a batch
+    key, so ``b`` cannot pack with ``a``; config 3 keeps the phase near 90
+    s): each of two rounds packs both evaluations into one
+    ``place_batched`` call (``dispatch.batches`` +1 a round), the trails
+    ``confirmed`` then ``would-act``. Every evaluation's leadership launch
+    is held against plain (in a worker, through ``hold``); each evaluation's
+    wall and span split, each job's queue wait, the packed call and the
+    kernel's time on the recorded inputs are printed.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -324,8 +353,8 @@ the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
-phase 23's, 24's and 25's requests, 21's and 23(e)'s counted inside each
-child process), and ``launches_by_path`` gives
+phase 23's, 24's and 25's requests, phase 26's evaluations, 21's and
+23(e)'s counted inside each child process), and ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
 phases 14-16, 24 (``daemon_multi_*``) and 25 (``dispatch_*``), and its
 ``packed_sweep`` is phase 25(d)'s launch.
@@ -2596,8 +2625,9 @@ def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=())
     Then phase 24 (:func:`multi_phases`) on the same server, and phase 25
     (:func:`dispatch_phases`) on ``snap4`` (phase 4's snapshot; ``text4`` its
     plan, ``prefix4`` phase 5's topics and ``prefix_text4`` their plan) and
-    phase 24's config-3 snapshot. Returns the leadership kernel's launches
-    per request of the three phases, and phases 24's and 25's group-pack
+    phase 24's config-3 snapshot, and phase 26 (:func:`controller_phases`).
+    Returns the leadership kernel's launches per request of phases 23-25
+    and per evaluation of phase 26, and phases 24's and 25's group-pack
     launches."""
     import signal
     import threading
@@ -2926,6 +2956,8 @@ def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=())
         os.path.join(work, "config3_groups.json"), sweep_24)
     launches.update(packed)
     multi_groups.update(packed_groups)
+    # Phase 26 on config 4's steady cluster, seeded, and phase 24's config 3.
+    launches.update(controller_phases(work, hold, os.path.join(work, "config3_groups.json")))
     return launches, multi_groups
 
 
@@ -3541,7 +3573,8 @@ def dispatch_phases(work, checks, hold, snap4, text4, prefix4, prefix_text4, sna
                     counter("dispatch.jobs")
                 m = mark()
                 lead.launches["leadership"] = 0
-                with obs.run_capture() as run, solver_probe() as seen:
+                with obs.run_capture() as run, solver_probe() as seen, \
+                        queue_probe() as waits:
                     replies, wall = together(dd.http_port, calls)
                 q1 = hist("daemon.solve.queue_ms")
                 spans = [sp["ms"] for sp in run.spans if sp["name"] == "dispatch"]
@@ -3565,8 +3598,11 @@ def dispatch_phases(work, checks, hold, snap4, text4, prefix4, prefix_text4, sna
                       f"daemon.solve.queue_ms {q1[1] - q0[1]:.1f} ms over {q1[0] - q0[0]} "
                       f"waits; dispatch spans {len(spans)} totalling {sum(spans):.1f} ms; "
                       f"dispatch.batches +{counter('dispatch.batches') - b0}, dispatch.jobs "
-                      f"+{counter('dispatch.jobs') - j0}; leadership kernel launches "
-                      f"{k1[f'dispatch_e_{kind}_{tag}']} | {smi}")
+                      f"+{counter('dispatch.jobs') - j0}; each placement job's queue wait (ms) "
+                      f"{sorted(round(ms, 1) for _t, w, ms in waits if w == 'rows')}, each "
+                      f"body's {sorted(round(ms, 1) for _t, w, ms in waits if w == 'body')}; "
+                      f"leadership kernel "
+                      f"launches {k1[f'dispatch_e_{kind}_{tag}']} | {smi}")
             return out
 
         default_ms = KNOBS["KA_DISPATCH_WINDOW_MS"].default
@@ -3574,8 +3610,12 @@ def dispatch_phases(work, checks, hold, snap4, text4, prefix4, prefix_text4, sna
             on = rounds(d, f"on_{default_ms:g}ms")
         with knobs(KA_DISPATCH_WINDOW_MS=DISPATCH_WINDOW_MS):
             on_wide = rounds(d, f"on_{DISPATCH_WINDOW_MS}ms")
-        if on_wide != on:
-            fail("25 (e): the two windows' replies differ")
+        # The hand-off alone: every job goes to the dispatcher's thread and
+        # runs there by itself.
+        with knobs(KA_DISPATCH_WINDOW_MS=default_ms, KA_DISPATCH_MAX_BATCH=1):
+            on_alone = rounds(d, "on_max_batch_1")
+        if on_wide != on or on_alone != on:
+            fail("25 (e): the windows' or the unpacked round's replies differ")
 
         # (f) a packed call that crashes: each job re-runs solo on the card.
         m, f0 = mark(), counter("dispatch.solo_fallbacks")
@@ -3656,6 +3696,349 @@ def dispatch_phases(work, checks, hold, snap4, text4, prefix4, prefix_text4, sna
 
 #: Phase 25(d)'s packed group-pack launch: time, bound, chain floor, shape.
 DISPATCH_KG1 = {}
+
+
+@contextlib.contextmanager
+def queue_probe():
+    """Each dispatcher wait of the block, ``(thread name, what, ms)``, what
+    ``rows`` for a placement job's wait for its packed call and ``body`` for
+    a request body's wait in the dedup entry: wraps the name
+    ``daemon/dispatch.py`` records ``daemon.solve.queue_ms`` through (on the
+    waiting thread, apart from the solve's time)."""
+    import threading
+
+    from kafka_assigner_tpu_torch.daemon import dispatch as dispatch_mod
+
+    waits = []
+    observe = dispatch_mod.hist_observe
+
+    def recorded(name, value, *args, **kw):
+        if name == "daemon.solve.queue_ms":
+            caller = sys._getframe(1).f_code.co_name
+            waits.append((threading.current_thread().name,
+                          "rows" if caller == "submit_rows" else "body", value))
+        return observe(name, value, *args, **kw)
+
+    dispatch_mod.hist_observe = recorded
+    try:
+        yield waits
+    finally:
+        dispatch_mod.hist_observe = observe
+
+
+#: Phase 26: the replicas of ``topic-0000`` piled on broker
+#: ``CONTROLLER_HOT`` (its rack's replica of each partition replaced), more
+#: than ``KA_CONTROLLER_MAX_MOVES``' default 16, so the action truncates.
+CONTROLLER_SEEDED = 24
+CONTROLLER_HOT = 0
+#: (b)'s wave size: the 16-move action runs in two waves.
+CONTROLLER_WAVE_SIZE = 8
+
+
+def seeded_snapshot(path, topic_map, live, racks):
+    """``topic_map`` with ``CONTROLLER_SEEDED`` partitions of its first topic
+    moved onto broker ``CONTROLLER_HOT``, each in place of its replica in
+    that broker's rack (every partition stays rack-unique): the per-topic
+    cap of one replica a broker evicts them again. Written to ``path``."""
+    seeded = 0
+    for _p, reps in sorted(topic_map[min(topic_map)].items()):
+        if seeded == CONTROLLER_SEEDED:
+            break
+        same = [i for i, b in enumerate(reps) if racks[b] == racks[CONTROLLER_HOT]]
+        if CONTROLLER_HOT not in reps and same:
+            reps[same[0]] = CONTROLLER_HOT
+            seeded += 1
+    if seeded != CONTROLLER_SEEDED:
+        fail(f"26: only {seeded} partitions of {min(topic_map)} could be seeded")
+    write_snapshot(path, topic_map, live, racks)
+
+
+def snapshot_health(path):
+    """A snapshot's health scores and its assignment as canonical plan
+    bytes (topics sorted)."""
+    from kafka_assigner_tpu_torch.io.json_io import format_reassignment_json
+    from kafka_assigner_tpu_torch.obs.health import score_assignment
+
+    with open(path, encoding="utf-8") as f:
+        data = json.load(f)
+    topics = {t: {int(p): r for p, r in parts.items()} for t, parts in data["topics"].items()}
+    scores = score_assignment({b["id"] for b in data["brokers"]}, topics,
+                              {b["id"]: b["rack"] for b in data["brokers"] if b.get("rack")})
+    return scores, format_reassignment_json(topics, topic_order=sorted(topics))
+
+
+def controller_phases(work, hold, snap3):
+    """Phase 26: the closed-loop controller on the card, in this process
+    (module doc). ``hold`` holds each leadership launch against plain;
+    ``snap3`` is phase 24's config-3 snapshot, cluster ``b``. Returns the
+    leadership kernel's launches per evaluation round."""
+    from kafka_assigner_tpu_torch import faults, obs
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+    from kafka_assigner_tpu_torch.obs import flight, metrics
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.ops import leadership_cases as cases
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    root = os.path.join(work, "controller")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    from kafka_assigner_tpu_torch.models.synthetic import build_config3, rack_striped_cluster
+
+    snap_a = os.path.join(root, "a.json")
+    # Config 4's steady cluster, phase 11's.
+    seeded_snapshot(snap_a, *rack_striped_cluster(
+        N_BROKERS, N_TOPICS, P_PER_TOPIC, RF, N_RACKS, name_fmt="topic-{:04d}"))
+    seeded_bytes = open(snap_a, encoding="utf-8").read()
+    before, before_text = snapshot_health(snap_a)
+    k1 = {}
+    base = dict(KA_HEALTH_MOVE_COST=0, KA_CONTROLLER_CONFIRMATIONS=2,
+                KA_CONTROLLER_INTERVAL=DAEMON_INTERVAL_S,
+                KA_DAEMON_RESYNC_INTERVAL=DAEMON_INTERVAL_S,
+                KA_EXEC_POLL_INTERVAL=EXEC_POLL_INTERVAL, KA_DISPATCH=1)
+    if os.environ.get("KA_CONTROLLER_MAX_MOVES"):
+        fail("26 runs at the default KA_CONTROLLER_MAX_MOVES; unset it")
+
+    def journal_dir(part):
+        """A journal directory of the part's own (the daemon reads the knob
+        live, so it stays set while the daemon runs)."""
+        jdir = os.path.join(root, f"journal_{part}")
+        os.makedirs(jdir)
+        return jdir
+
+    def start(clusters):
+        """A daemon of ``clusters`` on cuda, its warm-ups finished; each
+        controller's ticks counted."""
+        t0 = time.perf_counter()
+        d = AssignerDaemon(clusters=clusters, solver="device", device="cuda")
+        d.start()
+        wait_for("the warm-ups", lambda: all(
+            sum(s.counters().get(k, 0) for k in ("daemon.warmups", "daemon.warmup_failures"))
+            for s in d.supervisors.values()))
+        ticks = {}
+        for name, sup in d.supervisors.items():
+            ctl = sup.controller
+            if ctl.policy != "off":
+                out = ticks[name] = []
+                ctl.tick = lambda tick=ctl.tick, out=out: out.append(tick()) or out[-1]
+        return d, ticks, time.perf_counter() - t0
+
+    def one_round(d, ticks, i, part):
+        """Round ``i`` (from 0) of the shared ticker, awaited until every
+        controller's tick returned: (decisions, wall, capture)."""
+        with obs.run_capture() as run:
+            t0 = time.perf_counter()
+            d.ticker.advance()
+            wait_for(f"26 {part} round {i + 1}",
+                     lambda: all(len(t) > i for t in ticks.values()))
+            wall = time.perf_counter() - t0
+        return {n: t[i] for n, t in ticks.items()}, wall, run
+
+    def split(run, cluster):
+        """The round's spans, by name: total ms and count."""
+        by = {}
+        for sp in run.spans:
+            ms, c = by.get(sp["name"], (0.0, 0))
+            by[sp["name"]] = (ms + sp["ms"], c + 1)
+        keep = (f"controller/evaluate@{cluster}", "metadata/assignment", "feasibility",
+                "plan/solve", "plan/emit", "dispatch", f"controller/act@{cluster}",
+                "exec/wave", "exec/verify")
+        return ", ".join(f"{k} {by[k][0]:.1f}" + (f" x{by[k][1]}" if by[k][1] > 1 else "")
+                         for k in keep if k in by)
+
+    def k1_ms(orders):
+        times = cases.event_ms(lambda: lead.leadership_order(*orders[0][0]), 5)
+        return statistics.median(times), tuple(orders[0][0][0].shape)
+
+    def evaluated(key, seen, want, part):
+        k1[key] = lead.launches["leadership"]
+        if k1[key] != want or len(seen["orders"]) != want:
+            fail(f"26 {part}: the leadership kernel launched {k1[key]} times "
+                 f"({len(seen['orders'])} ordering calls) for {want} evaluations")
+        hold(f"phase 26 {key}", seen["orders"])
+
+    faults.reset()
+    # (a) act once.
+    shutil.copy(snap3, os.path.join(root, "b.json"))
+    snap_b = os.path.join(root, "b.json")
+    b_bytes = open(snap_b, encoding="utf-8").read()
+    jdir = journal_dir("a")
+    with knobs(**base, KA_DAEMON_JOURNAL_DIR=jdir):
+        d, ticks, boot_s = start({"a": f"file://{snap_a}#controller=auto",
+                                  "b": f"file://{snap_b}"})
+        try:
+            lead.launches["leadership"] = 0
+            m_act = flight.recorder().stats()["recorded"]
+            with solver_probe() as seen, queue_probe() as waits:
+                got = [one_round(d, ticks, i, "(a)") for i in range(2)]
+            evaluated("controller_a_act", seen, 2, "(a)")
+            sup = d.supervisors["a"]
+            view = sup.controller_view()
+            trail = [e["decision"] for e in view["decisions"]]
+            if [g[0]["a"]["decision"] for g in got] != ["confirmed", "acted"] \
+                    or trail != ["confirmed", "truncate", "act", "acted"]:
+                fail(f"26 (a): trail {view['decisions']}")
+            acted = view["decisions"][-1]
+            trunc = view["decisions"][1]
+            # The resync the action prompted, to its end (its health and
+            # traffic publishing follow the swap that makes `a` ready).
+            wait_for("26 (a) the resync after the action", lambda: any(
+                e["kind"] == "resync" and e.get("cluster") == "a"
+                for e in flight.recorder().snapshot(since=m_act)))
+            resync = [e for e in flight.recorder().snapshot(since=m_act)
+                      if e["kind"] == "resync" and e.get("cluster") == "a"][0]
+            # Timed on a quiet host: a launch timed while another thread
+            # holds the GIL waits between its two events.
+            ms, shape = k1_ms(seen["orders"])
+            after, _ = snapshot_health(snap_a)
+            names = sorted(os.listdir(jdir))
+            journal = f"ka-controller-a-{acted['plan_sha']}.journal"
+            with open(os.path.join(jdir, journal), encoding="utf-8") as f:
+                jr = json.load(f)
+            if jr["status"] != "complete" or any(n.endswith(".action.json") for n in names):
+                fail(f"26 (a): journal {jr['status']}, files {names}")
+            if not after.score < before.score or acted["moves"] > 16 or acted["moves"] < 1:
+                fail(f"26 (a): score {before.score} -> {after.score}, moves {acted['moves']}")
+            # The scrape's ka_controller_actions_total family, read from the
+            # registry it renders (the rounds' captures left the engine's list
+            # gauges in it, which the exposition does not render).
+            acts = sorted(metrics.cumulative().snapshot()["counters"].get(
+                "controller.actions", {}))
+            b_view = d.supervisors["b"].controller_view()
+            b_counters = [k for k in d.counters() if k.startswith("controller.")
+                          and k.endswith("@b")]
+            if open(snap_b, encoding="utf-8").read() != b_bytes or b_view["decisions"] \
+                    or b_counters or acts != [(("cluster", "a"),)]:
+                fail(f"26 (a): b's bytes equal {open(snap_b).read() == b_bytes}, b's "
+                     f"decisions {b_view['decisions']}, counters {b_counters}, "
+                     f"ka_controller_actions_total {acts}")
+        finally:
+            d.shutdown()
+    phase("controller", f"(a) a (config 4, {CONTROLLER_SEEDED} replicas of topic-0000 on "
+          f"broker {CONTROLLER_HOT}) on auto beside b (config 3, off): construction to "
+          f"warm {boot_s * 1e3:.1f} ms; trail confirmed, truncate ({trunc['full_moves']} "
+          f"moves to {trunc['moves']} within the cap {trunc['cap']}), act, acted; "
+          f"forward journal complete in {jr['waves_committed']} waves of "
+          f"{jr['wave_size']}, action record discarded; health score {before.score} -> "
+          f"{after.score} (replica spread {before.replica_spread} -> "
+          f"{after.replica_spread}; achieved {acted['achieved']}, projected "
+          f"{acted['projected']}); the resync after it {resync['outcome']} in "
+          f"{resync['ms']:.1f} ms; "
+          f"b's bytes untouched, no decision or controller.* counter for b, "
+          f"ka_controller_actions_total for a only | {smi}")
+    for i, (dec, wall, run) in enumerate(got):
+        phase("controller", f"(a) round {i + 1} ({dec['a']['decision']}): wall "
+              f"{wall * 1e3:.1f} ms; spans (ms): {split(run, 'a')} | {smi}")
+    phase("controller", f"(a) queue waits (ms): "
+          f"{[(w, round(v, 1)) for _t, w, v in waits]}; leadership kernel launches 2 (one "
+          f"an evaluation), {ms:.3f} ms median of 5 at {shape} on the recorded inputs, "
+          f"after the resync | {smi}")
+
+    # (b) roll back once.
+    with open(snap_a, "w", encoding="utf-8") as f:
+        f.write(seeded_bytes)
+    faults.reset()
+    jdir = journal_dir("b")
+    with knobs(**base, KA_DAEMON_JOURNAL_DIR=jdir, KA_FAULTS_SPEC="controller@a:1=exec-crash",
+               KA_EXEC_WAVE_SIZE=CONTROLLER_WAVE_SIZE):
+        d, ticks, boot_s = start({"a": f"file://{snap_a}#controller=auto"})
+        try:
+            lead.launches["leadership"] = 0
+            with solver_probe() as seen:
+                got_b = [one_round(d, ticks, i, "(b)") for i in range(2)]
+            evaluated("controller_b_rollback", seen, 2, "(b)")
+            fired = [str(e) for e in faults.active_injector().fired]
+            sup = d.supervisors["a"]
+            view = sup.controller_view()
+            decs = view["decisions"]
+            trail = [e["decision"] for e in decs]
+            wait_for("26 (b) the resync after the rollback", lambda: sup.lifecycle() == "ready")
+            _, back_text = snapshot_health(snap_a)
+            names = sorted(os.listdir(jdir))
+            rb = [n for n in names if n.endswith(".rollback.journal")]
+            rjr = {}
+            if rb:
+                with open(os.path.join(jdir, rb[0]), encoding="utf-8") as f:
+                    rjr = json.load(f)
+        finally:
+            d.shutdown()
+            faults.reset()
+    if fired != ["controller@a:1=exec-crash"] or trail != [
+            "confirmed", "truncate", "act", "abort", "rollback", "breaker-open"] \
+            or not decs[4]["ok"] or view["breaker"]["state"] != "open" \
+            or back_text != before_text or rjr.get("status") != "complete" \
+            or [n for n in names if n.endswith((".action.json", ".journal"))] != rb:
+        fail(f"26 (b): fired {fired}, trail {decs}, breaker {view['breaker']}, assignment "
+             f"restored {back_text == before_text}, files {names}")
+    act_ms = sum(sp["ms"] for sp in got_b[1][2].spans if sp["name"] == "controller/act@a")
+    waves = sum(sp["name"] == "exec/wave" for sp in got_b[1][2].spans)
+    rb_ms = (decs[4]["t"] - decs[3]["t"]) * 1e3
+    phase("controller", f"(b) a fresh daemon of a, KA_FAULTS_SPEC=controller@a:1=exec-crash, "
+          f"{CONTROLLER_WAVE_SIZE}-move waves: construction to warm {boot_s * 1e3:.1f} ms; trail {', '.join(trail)} (rollback ok); the "
+          f"assignment byte-identical to the one before the action; breaker open in the "
+          f"view; act {act_ms:.1f} ms in all, {waves - rjr['waves_committed']} forward "
+          f"wave(s) before the crash, the rollback {rb_ms:.0f} ms (abort to rollback "
+          f"decision) in {rjr['waves_committed']} wave(s) | {smi}")
+    for i, (dec, wall, run) in enumerate(got_b):
+        phase("controller", f"(b) round {i + 1} ({dec['a']['decision']}): wall "
+              f"{wall * 1e3:.1f} ms; spans (ms): {split(run, 'a')} | {smi}")
+
+    # (c) shared ticks: two copies of config 3, seeded as a is, on observe,
+    # their evaluations packed (a's rows and b's never share a batch key:
+    # another cluster; config 3 keeps the phase near 90 s).
+    snap_c1, snap_c2 = (os.path.join(root, f"{n}.json") for n in ("c1", "c2"))
+    seeded_snapshot(snap_c1, *build_config3(**CONFIG3))
+    c_bytes = open(snap_c1, encoding="utf-8").read()
+    shutil.copy(snap_c1, snap_c2)
+    jdir = journal_dir("c")
+    with knobs(**base, KA_DAEMON_JOURNAL_DIR=jdir, KA_DISPATCH_WINDOW_MS=DISPATCH_LONG_WINDOW_MS,
+               KA_DISPATCH_MAX_BATCH=2):
+        d, ticks, boot_s = start({"c1": f"file://{snap_c1}#controller=observe",
+                                  "c2": f"file://{snap_c2}#controller=observe"})
+        try:
+            def batches_now():
+                return sum(metrics.cumulative().snapshot()["counters"].get(
+                    "dispatch.batches", {}).values())
+
+            lead.launches["leadership"] = 0
+            batches = [batches_now()]
+            m = flight.recorder().stats()["recorded"]
+            per_round = []
+            with solver_probe() as seen, queue_probe() as waits:
+                for i in range(2):
+                    n_before = len(waits)
+                    _, wall, run = one_round(d, ticks, i, "(c)")
+                    batches.append(batches_now())
+                    per_round.append((wall, waits[n_before:], run))
+            evaluated("controller_c_shared_ticks", seen, 4, "(c)")
+            ms, shape = k1_ms(seen["orders"])
+            calls = [e for e in flight.recorder().snapshot(since=m)
+                     if e["kind"] == "dispatch" and e["entry"] == "place_batched"]
+            trails = {n: [e["decision"] for e in s.controller_view()["decisions"]]
+                      for n, s in d.supervisors.items()}
+            names = os.listdir(jdir)
+        finally:
+            d.shutdown()
+    if any(y - x < 1 for x, y in zip(batches, batches[1:])) \
+            or [(e["jobs"], e["ok"]) for e in calls] != [(2, True), (2, True)] \
+            or trails != {"c1": ["confirmed", "would-act"], "c2": ["confirmed", "would-act"]} \
+            or any(open(p, encoding="utf-8").read() != c_bytes for p in (snap_c1, snap_c2)) \
+            or any(n.endswith((".journal", ".action.json")) for n in names):
+        fail(f"26 (c): dispatch.batches {batches}, place_batched calls {calls}, trails "
+             f"{trails}, files {names}")
+    phase("controller", f"(c) c1 and c2 (config 3 with {CONTROLLER_SEEDED} replicas of its "
+          f"first topic on broker {CONTROLLER_HOT}, copies) on observe, "
+          f"KA_DISPATCH_MAX_BATCH=2: construction to warm {boot_s * 1e3:.1f} ms; trails "
+          f"{trails['c1']} on both, no write; dispatch.batches {batches} | {smi}")
+    for i, (wall, w, run) in enumerate(per_round):
+        phase("controller", f"(c) round {i + 1}: wall {wall * 1e3:.1f} ms; one "
+              f"place_batched call of {calls[i]['rows']} rows for both jobs, "
+              f"{calls[i]['ms']:.1f} ms on the dispatcher's thread; each job's queue wait "
+              f"(ms) {[(t, k, round(v, 1)) for t, k, v in w]}; leadership kernel {ms:.3f} ms "
+              f"(median of 5 at {shape} on the recorded inputs) on each evaluating "
+              f"thread; spans (ms): {split(run, 'c1')} | {smi}")
+    phase("timing", f"phase 26 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return k1
 
 
 def main() -> int:

@@ -965,9 +965,10 @@ def build_daemon_parser() -> argparse.ArgumentParser:
         "cluster state in memory, keeps them fresh through ZooKeeper watches "
         "with incremental re-encode, and serves /plan, /whatif, /execute, "
         "/recommendations, /groups/plan, /groups/sweep, /healthz, /readyz, "
-        "/state, /metrics and /debug/flight over HTTP, for one cluster "
-        "(--zk_string) or many (--clusters, routed by /clusters/<name>/...). "
-        "SIGTERM drains and exits 0.",
+        "/state, /controller, /metrics and /debug/flight over HTTP, for one "
+        "cluster (--zk_string) or many (--clusters, routed by "
+        "/clusters/<name>/...), with an optional closed-loop rebalance "
+        "controller per cluster. SIGTERM drains and exits 0.",
     )
     p.add_argument("--zk_string", default=None,
                    help="the cluster to serve: ZooKeeper host:port pairs, or a "
@@ -979,9 +980,10 @@ def build_daemon_parser() -> argparse.ArgumentParser:
                         "strings may hold commas), e.g. "
                         "'west=zk1:2181,zk2:2181;east=file://east.json', or "
                         "a path to a JSON file mapping names to connect "
-                        "strings. A '#controller=off' suffix (or the object "
-                        "form {\"connect\": ..., \"controller\": \"off\"}) "
-                        "is accepted; any other controller policy is refused. "
+                        "strings. Append '#controller=off|observe|auto' to an "
+                        "entry (or use the object form {\"connect\": ..., "
+                        "\"controller\": ...}) to override the KA_CONTROLLER "
+                        "policy of that cluster. "
                         "Each cluster has its own session, watch loop, cache, "
                         "inflight gate, watchdog and breaker. Exclusive with "
                         "--zk_string")

@@ -1,6 +1,6 @@
 """``kafka_assigner_tpu_torch.daemon``: the resident assigner daemon for one
 cluster or many, the port of the reference's ``kafka_assigner_tpu/daemon``
-(its controller and fleet scheduler are a later slice's).
+(its fleet scheduler is a later slice's).
 
 :mod:`.service` holds the HTTP surface, its routing by
 ``/clusters/<name>/...``, the telemetry endpoints and the process entry;
@@ -8,9 +8,12 @@ cluster or many, the port of the reference's ``kafka_assigner_tpu/daemon``
 gate, circuit breaker, health plane, groups endpoints and ``/execute``;
 :mod:`.state` the watch-fed metadata cache and its incremental group
 encode; :mod:`.dispatch` the dispatch plane that packs concurrent
-requests' device rows (``KA_DISPATCH=0``: one solve lock). The command
+requests' device rows (``KA_DISPATCH=0``: one solve lock); :mod:`.controller`
+each cluster's closed-loop rebalance controller and the daemon's shared
+ticker. The command
 line is ``python -m kafka_assigner_tpu_torch.daemon`` (``cli.daemon_main``).
 """
+from .controller import RebalanceController
 from .dispatch import SolveDispatcher
 from .service import DEFAULT_CLUSTER, AssignerDaemon, run_daemon_process
 from .state import CacheBackend, DaemonState
@@ -23,6 +26,7 @@ __all__ = [
     "ClusterSupervisor",
     "DEFAULT_CLUSTER",
     "DaemonState",
+    "RebalanceController",
     "SolveDispatcher",
     "run_daemon_process",
 ]

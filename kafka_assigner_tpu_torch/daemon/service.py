@@ -1,6 +1,6 @@
 """The resident assigner daemon, ``ka-daemon``: the port of the reference's
-``kafka_assigner_tpu/daemon/service.py`` (its controller and fleet
-scheduler are a later slice's).
+``kafka_assigner_tpu/daemon/service.py`` (its fleet scheduler is a later
+slice's).
 
 One process keeps the torch import, the CUDA context, the kernels' modules
 and each cluster's encode resident, fed by ZooKeeper watches
@@ -44,6 +44,13 @@ endpoint                         method behavior
 /clusters/<name>/groups/sweep    POST   autoscale sweep, over the backend's
                                         group state (``synthetic=true`` opts
                                         into the synthetic family)
+/clusters/<name>/controller      GET,   the closed-loop controller
+                                 POST   (``controller.py``): GET returns
+                                        its policy (``off``, ``observe``,
+                                        ``auto``), pause and breaker state,
+                                        streak, window budget, last decision
+                                        and decision ring; POST ``{"action":
+                                        "pause"}`` or ``"resume"`` gates it
 /clusters/<name>/healthz         GET    lifecycle, staleness and breaker
 /clusters/<name>/readyz          GET    that cluster's readiness
 /clusters/<name>/state           GET    that cluster's cache
@@ -54,6 +61,8 @@ endpoint                         method behavior
                                         any cluster serves, every view
 /plan /whatif /execute           POST   one cluster only; with many a 400
 /recommendations /groups/...     GET    naming the clusters
+/controller                      GET,
+                                 POST
 /metrics                         GET    Prometheus text of the cumulative
                                         registry (``obs/promtext.py``):
                                         ``@cluster`` names as ``cluster``
@@ -101,6 +110,7 @@ from urllib.parse import parse_qs, urlsplit
 from ..obs import flight
 from ..obs import metrics as obs_metrics
 from ..obs.report import REPORT_SCHEMA_VERSION, TOOL_NAME, AccessLog
+from .controller import SharedTicker, resolve_policy
 from .dispatch import SolveDispatcher
 from .supervisor import POLL_S, ClusterSupervisor
 
@@ -156,24 +166,6 @@ def _split_cluster_spec(name: str, spec) -> Tuple[str, Optional[str]]:
     return spec, None
 
 
-def _refuse_controller(name: str, policy: Optional[str]) -> None:
-    """The closed-loop controller is not part of this package: a cluster
-    may name the ``off`` policy, and any other is refused at startup."""
-    if policy is None or policy == "off":
-        return
-    if policy not in ("observe", "auto"):
-        raise ValueError(
-            f"unknown controller policy {policy!r} (expected one of "
-            "['off', 'observe', 'auto'])"
-        )
-    raise ValueError(
-        f"cluster {name!r}: controller policy {policy!r} needs the "
-        "closed-loop controller and the fleet scheduler, which "
-        "kafka_assigner_tpu_torch does not have yet (ROADMAP queue 1 "
-        "item 4); use 'off' or leave the override out"
-    )
-
-
 def _norm_query_value(key: str, raw: str):
     """A known boolean query parameter's spellings map both ways
     (``?synthetic=0`` is False, not the truthy string); every other
@@ -202,10 +194,13 @@ class AssignerDaemon:
     """The daemon: the clusters' supervisors and the HTTP surface.
 
     Pass ``zk_string`` for one cluster (the single-cluster surface, bare
-    paths) or ``clusters`` (name -> connect spec) for many. ``device`` is
-    where the device solver, the what-if sweep and the group packing run
+    paths) or ``clusters`` (name -> connect spec) for many; a spec may
+    carry a controller policy (``connect#controller=auto`` or ``{"connect":
+    ..., "controller": ...}``), else ``KA_CONTROLLER`` decides. ``device``
+    is where the device solver, the what-if sweep and the group packing run
     (``cuda`` unless the caller asks for the CPU); a ``cuda`` daemon
-    without a card raises here, before anything is served."""
+    without a card raises here, before anything is served.
+    ``controller_rng`` draws every controller's jitter (tests seed it)."""
 
     def __init__(
         self,
@@ -218,6 +213,7 @@ class AssignerDaemon:
         bind: Optional[str] = None,
         port: Optional[int] = None,
         access_log: Optional[str] = None,
+        controller_rng=None,
         err=None,
     ) -> None:
         from ..solvers.torch_solver import solve_device
@@ -233,7 +229,7 @@ class AssignerDaemon:
             clusters = {DEFAULT_CLUSTER: zk_string}
         if not clusters:
             raise ValueError("clusters must name at least one cluster")
-        connects: Dict[str, str] = {}
+        connects: Dict[str, Tuple[str, str]] = {}
         for name, spec in clusters.items():
             if not _valid_cluster_name(name):
                 raise ValueError(
@@ -241,8 +237,7 @@ class AssignerDaemon:
                     "'_', '.', '-' only)"
                 )
             connect, policy = _split_cluster_spec(name, spec)
-            _refuse_controller(name, policy)
-            connects[name] = connect
+            connects[name] = (connect, resolve_policy(policy))
         solve_device(device, "ka-daemon")
         self.solver = solver
         self.device = device
@@ -271,6 +266,10 @@ class AssignerDaemon:
         self.dispatcher: Optional[SolveDispatcher] = (
             SolveDispatcher(err=self.err) if env_bool("KA_DISPATCH") else None
         )
+        #: One tick generator for every cluster's controller, so their
+        #: evaluations start together and pack into one dispatch a round.
+        #: Its thread starts with the first controller that is not `off`.
+        self.ticker = SharedTicker(self.stopped)
         self.supervisors: Dict[str, ClusterSupervisor] = {
             name: ClusterSupervisor(
                 name, connect,
@@ -278,9 +277,10 @@ class AssignerDaemon:
                 label="" if self.single else name,
                 draining=self.draining, stopped=self.stopped,
                 solve_lock=self._solve_lock, dispatcher=self.dispatcher,
-                err=self.err,
+                controller_policy=policy, ticker=self.ticker,
+                controller_rng=controller_rng, err=self.err,
             )
-            for name, connect in connects.items()
+            for name, (connect, policy) in connects.items()
         }
         #: HTTP handlers between their request and their access-log line.
         self._handlers = 0
@@ -449,9 +449,11 @@ class AssignerDaemon:
 
 
 #: Per-cluster path suffixes of the POST and GET routes.
-_POST_SUFFIXES = ("/plan", "/whatif", "/execute", "/groups/plan", "/groups/sweep")
+_POST_SUFFIXES = ("/plan", "/whatif", "/execute", "/groups/plan", "/groups/sweep",
+                  "/controller")
 _GET_SUFFIXES = ("/healthz", "/readyz", "/state", "/debug/flight",
-                 "/recommendations", "/groups/plan", "/groups/sweep")
+                 "/recommendations", "/groups/plan", "/groups/sweep",
+                 "/controller")
 #: The consumer-group endpoints, on GET (query) and POST (body) alike.
 _GROUPS_SUFFIXES = ("/groups/plan", "/groups/sweep")
 
@@ -829,6 +831,8 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
                 self._groups(sup, suffix, {
                     k: _norm_query_value(k, vals[-1]) for k, vals in query.items()
                 })
+            elif suffix == "/controller":
+                self._reply(200, sup.controller_view())
             else:  # /debug/flight
                 self._reply(200, _flight_view(sup.name))
 
@@ -857,6 +861,13 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
                 params.setdefault(key, _norm_query_value(key, vals[-1]))
             if suffix in _GROUPS_SUFFIXES:
                 self._groups(sup, suffix, params)
+            elif suffix == "/controller":
+                code, body, headers = sup.controller_request(params)
+                self._status = (
+                    body.get("error") and "error"
+                    or ("paused" if body.get("paused") else "ok")
+                )
+                self._reply(code, body, headers)
             elif suffix == "/execute":
                 self._status = "stream"
                 self._execute(sup, params)

@@ -1,7 +1,6 @@
 """``ClusterSupervisor``: one cluster's bulkhead inside the daemon, the port
 of the reference's ``kafka_assigner_tpu/daemon/supervisor.py``, under
-either dispatch regime (the controller's members are a later slice's).
-One per cluster; each owns:
+either dispatch regime. One per cluster; each owns:
 
 - the metadata backend's session and the one watch-loop thread;
 - the :class:`~.state.DaemonState` cache and its delta encode store;
@@ -24,7 +23,10 @@ One per cluster; each owns:
 - the groups endpoints over the backend's live consumer-group state;
 - ``/execute``: one execution at a time (409 past it), on a fresh backend
   session, journaled as ``ka-execute`` journals (the identity is the
-  cluster's connect spec and the plan's hash), its progress streamed.
+  cluster's connect spec and the plan's hash), its progress streamed;
+- the closed-loop controller (``controller.py``), which reaches the cache,
+  the solve and ``/execute`` only through this class's ``controller_*``
+  members.
 
 Each ``/plan`` runs mode 3's pipeline (``generator.py``) against the cache
 under the daemon's dispatch regime (``_solve_lock_scope``). Under
@@ -74,6 +76,7 @@ from ..obs import metrics as obs_metrics
 from ..obs.metrics import counter_add, gauge_set, hist_ms, hist_observe
 from ..obs.trace import record_span
 from ..utils.backoff import JitteredBackoff
+from .controller import RebalanceController, resolve_policy
 from .dispatch import SolveDispatcher, dispatch_scope
 from .state import CacheBackend, DaemonState
 
@@ -180,6 +183,9 @@ class ClusterSupervisor:
         stopped: threading.Event,
         solve_lock: threading.Lock,
         dispatcher: Optional[SolveDispatcher] = None,
+        controller_policy: Optional[str] = None,
+        ticker=None,
+        controller_rng=None,
         err=None,
     ) -> None:
         from ..utils.env import env_bool, env_choice, env_float, env_int
@@ -237,8 +243,26 @@ class ClusterSupervisor:
         #: A prompt resync asked for by the request path (the session
         #: seam), for the watchless case where no poll exists to fail.
         self._prompt_resync = False
+        #: A session reopen asked for after a controller action, done by the
+        #: watch loop (the one thread that owns the session) before its next
+        #: resync: a load-once backend (a snapshot file) would otherwise
+        #: never show the cache the action's writes.
+        self._reopen_requested = False
         #: The last health scores, in /state.
         self._last_health: Optional[health.HealthScores] = None
+        #: The daemon's shared tick generator: every cluster's controller
+        #: waits on it, so their evaluations pack in the dispatcher. None for
+        #: a supervisor built alone, whose controller keeps its own timer.
+        self._ticker = ticker
+        #: The reference's daemon-wide admission arbiter (its fleet
+        #: scheduler), not ported: None, so the controller acts ungated, as
+        #: the reference's does when no fleet is set.
+        self.fleet = None
+        #: The closed-loop controller: the --clusters override's policy, else
+        #: the KA_CONTROLLER knob's (``off`` by default: no thread starts).
+        self.controller = RebalanceController(
+            self, resolve_policy(controller_policy), rng=controller_rng
+        )
 
     # -- counters (the daemon's lifetime; mirrored into an active capture) ----
 
@@ -337,6 +361,8 @@ class ClusterSupervisor:
             daemon=True,
         )
         self._watch_thread.start()
+        # Nothing under the default `off` policy.
+        self.controller.start()
 
     def _open_backend(self) -> None:
         self.backend = open_backend(self.spec)
@@ -367,6 +393,7 @@ class ClusterSupervisor:
         process), close the backend."""
         if self._watch_thread is not None:
             self._watch_thread.join(timeout=5.0)
+        self.controller.join()
         for t in self._warm_threads:
             t.join(timeout=30.0)
         self._warm_threads = []
@@ -628,8 +655,10 @@ class ClusterSupervisor:
     def _score_candidate(self, solver: str, move_cost: float) -> dict:
         """Solve one candidate plan against the cache under the dispatch
         regime, score the current and the projected assignment, and price
-        the movement. The caller holds an admission slot."""
+        the movement (``/recommendations`` and the controller). The caller
+        holds an admission slot."""
         from ..exec.engine import parse_plan_payload
+        from ..exec.journal import plan_fingerprint
 
         out = io.StringIO()
         with self._solve_lock_scope():
@@ -638,7 +667,7 @@ class ClusterSupervisor:
             rack = self.state.rack_map()
             current = health.score_assignment(broker_ids, topics, rack)
             degraded = self._solve_plan({"solver": solver}, out)
-        proposed, _order = parse_plan_payload(
+        proposed, order = parse_plan_payload(
             out.getvalue(), origin="recommendation plan",
         )
         projected_topics = dict(topics)
@@ -651,17 +680,141 @@ class ClusterSupervisor:
         return {
             "current": current,
             "projected": projected,
+            # The evaluation's assignment: the baseline every later overlay
+            # score (a truncation's projection, the achieved score) shares
+            # with the projection above.
+            "topics": topics,
             "moves": moves,
             "leader_moves": leader_moves,
             "improvement": improvement,
             "cost": cost,
             "verdict": verdict,
             "degraded": degraded,
+            "plan_text": out.getvalue(),
+            "plan_sha": plan_fingerprint(proposed, order),
         }
 
+    # -- the controller's surface ---------------------------------------------------
+
     def execution_in_flight(self) -> bool:
-        """Whether this cluster's one /execute slot is taken."""
+        """Whether this cluster's one /execute slot is taken (the controller
+        does not even evaluate while it is)."""
         return self._exec_lock.locked()
+
+    def controller_evaluate(self) -> Tuple[str, object]:
+        """One controller evaluation of the recommendation pipeline, gated
+        and watched as every solve-bearing request (the controller takes
+        the same inflight slots as clients). Returns ``("ok", evaluation)``
+        or ``("skip", reason)``; it never raises: the next tick retries."""
+        from ..utils.env import env_float
+
+        refusal = self._gate()
+        if refusal is not None:
+            return (
+                "skip",
+                f"admission refused: {refusal[1].get('error', refusal[0])}",
+            )
+        watchdog_timer = self._watchdog("/controller", self._request_budget(), None)
+        try:
+            ev = self._score_candidate(self.solver, env_float("KA_HEALTH_MOVE_COST"))
+            return ("ok", ev)
+        except (InjectedSolverCrash, SolveError, ValueError, KeyError,
+                IngestError) as e:
+            return ("skip", f"evaluation failed: {type(e).__name__}: {e}")
+        except Exception as e:
+            self._count("daemon.request_errors")
+            return ("skip", f"evaluation error: {type(e).__name__}: {e}")
+        finally:
+            watchdog_timer.cancel()
+            self._release()
+
+    def health_score(self) -> Optional[float]:
+        """The last composite health score (lower is healthier), or None
+        before the first."""
+        return self._last_health.score if self._last_health is not None else None
+
+    def controller_execute(
+        self, plan_text: str, *,
+        section: str = "new",
+        probe=None,
+        on_verified=None,
+        on_start=None,
+        journal: Optional[str] = None,
+    ) -> dict:
+        """Run one controller action (or its rollback, ``section="current"``)
+        through the same one-at-a-time ``/execute`` machinery a client's
+        request takes: a refusal comes back as ``{"refused": ...}``, the
+        journaling and the fresh write session are the same. ``on_start``
+        fires once the run is admitted, never on a refusal. Returns the
+        terminal event; :class:`InjectedExecCrash` propagates (the
+        controller owns the rollback)."""
+        params: dict = {"plan_text": plan_text, "section": section}
+        if journal is not None:
+            params["journal"] = journal
+        prep = self.prepare_execute(params)
+        if prep[0] == "error":
+            _, code, body = prep
+            return {"refused": body.get("error", f"http {code}")}
+        _, ctx = prep
+        ctx["probe"] = probe
+        ctx["on_verified"] = on_verified
+        if on_start is not None:
+            on_start()
+        terminal: dict = {}
+
+        def collect(event: dict) -> None:
+            if event.get("event") in ("exec/done", "exec/error"):
+                terminal.update(event)
+
+        self.run_execute(ctx, collect)
+        if not terminal:
+            terminal.update({
+                "event": "exec/error", "kind": "internal",
+                "message": "execution ended without a terminal event",
+            })
+        return terminal
+
+    def controller_refresh(self) -> None:
+        """After a controller action or rollback the cache lags the cluster
+        it moved: mark it stale and ask the watch loop for a reopen and a
+        resync, so the next evaluation scores the world after the move."""
+        self.state.mark_stale()
+        self.note_lifecycle()
+        self._reopen_requested = True
+        self._prompt_resync = True
+
+    def score_with_overlay(self, observed, base=None) -> health.HealthScores:
+        """Score the cluster as the verify pass read it: the assignment
+        overlaid with the executed topics' observed replicas. ``base`` pins
+        the baseline to the evaluation's snapshot the projection was scored
+        on, so a watch delta landing during the run is not read as this
+        plan's regression."""
+        topics = (
+            {t: dict(parts) for t, parts in base.items()}
+            if base is not None else self.state.all_assignments()
+        )
+        for t, parts in observed.items():
+            merged = dict(topics.get(t, {}))
+            merged.update({int(p): list(r) for p, r in parts.items() if r})
+            topics[t] = merged
+        return health.score_assignment(
+            self.state.broker_id_set(), topics, self.state.rack_map()
+        )
+
+    def controller_view(self) -> dict:
+        return self.controller.view()
+
+    def controller_request(self, params: dict) -> Tuple[int, dict, dict]:
+        """POST ``/clusters/<name>/controller``: pause or resume."""
+        action = params.get("action")
+        if action == "pause":
+            return 200, self.controller.pause(), {}
+        if action == "resume":
+            return 200, self.controller.resume(), {}
+        return 400, {
+            "error": f"unknown controller action {action!r} "
+                     "(expected \"pause\" or \"resume\")",
+        }, {}
 
     # -- the consumer-group endpoints ----------------------------------------------
 
@@ -960,8 +1113,26 @@ class ClusterSupervisor:
                         or (self._prompt_resync and self.state.stale):
                     prompted = self._prompt_resync
                     self._prompt_resync = False
+                    reopened = False
+                    if self._reopen_requested:
+                        # A controller action moved the cluster: a load-once
+                        # backend must read its source again, or the cache
+                        # resyncs the world before the move for ever.
+                        try:
+                            self._reopen_backend()
+                            reopened = True
+                            self._reopen_requested = False
+                        except Exception as e:
+                            # The request stays: dropped on a failed reopen,
+                            # it would leave the old world cached.
+                            self._count("daemon.resync_failures")
+                            self._log(
+                                f"post-action session reopen failed "
+                                f"({type(e).__name__}: {e}); retrying on "
+                                "the interval cadence"
+                            )
                     if prompted or self.state.stale or not self.state.synced_once:
-                        self._probe_or_resync()
+                        self._probe_or_resync(fresh_session=reopened)
                     else:
                         # The routine resync of a healthy cache, the escape
                         # hatch for lost notifications: not a recovery, so
@@ -1524,6 +1695,8 @@ class ClusterSupervisor:
                 err=self.err,
                 cluster=self.spec,
                 on_event=safe_emit,
+                probe=ctx.get("probe"),
+                on_verified=ctx.get("on_verified"),
             )
             try:
                 outcome = executor.execute()
@@ -1611,6 +1784,11 @@ class ClusterSupervisor:
             "cluster": self.name,
             "breaker": self.breaker.snapshot(),
             "execution_in_flight": self._exec_lock.locked(),
+            "controller": {
+                "policy": self.controller.policy,
+                "paused": self.controller.paused(),
+                "breaker": self.controller.breaker_view(),
+            },
             "health": (
                 self._last_health.as_dict()
                 if self._last_health is not None else None

@@ -149,6 +149,9 @@ class PlanExecutor:
         err: Optional[TextIO] = None,
         cluster: Optional[str] = None,
         on_event=None,
+        probe=None,
+        on_verified=None,
+        plan_hash: Optional[str] = None,
     ) -> None:
         from ..utils.env import env_float, env_int
 
@@ -179,8 +182,26 @@ class PlanExecutor:
         #: stream): one dict per event, named after the ``exec/*`` spans. A
         #: callback that raises is dropped; the execution goes on.
         self.on_event = on_event
-        #: Plan identity ``--resume`` validates.
-        self.plan_hash = plan_fingerprint(self.plan, self.topic_order)
+        #: Called at each wave boundary, right after the engine's own
+        #: ``wave`` fault point and before the wave submits (the daemon's
+        #: controller puts its ``controller:exec-crash`` seam here). What it
+        #: raises propagates as the engine's own injected crashes do.
+        self.probe = probe
+        #: Called with the ``{topic: {partition: [replicas]}}`` state the
+        #: verify pass read, so a controller can score the achieved
+        #: assignment without a second read. A hook that raises is reported
+        #: and ignored: the execution has already converged.
+        self.on_verified = on_verified
+        #: Plan identity ``--resume`` validates. A caller that rebuilt the
+        #: plan from a journal's own moves asserts that journal's hash: the
+        #: rebuilt plan fingerprints differently (noops are never
+        #: journaled) yet is that journal's run.
+        self.plan_hash = (
+            plan_hash if plan_hash is not None
+            else plan_fingerprint(self.plan, self.topic_order)
+        )
+        #: The state the verify pass read (handed to ``on_verified``).
+        self.observed_state: Dict[str, Dict[int, List[int]]] = {}
         self.outcome = ExecOutcome()
 
     def _emit(self, event: dict) -> None:
@@ -483,6 +504,7 @@ class PlanExecutor:
                 "expected": want_bytes, "observed": got_bytes,
                 "kind": "byte-diff",
             })
+        self.observed_state = observed
         return mismatches
 
     # -- drive -------------------------------------------------------------
@@ -513,6 +535,8 @@ class PlanExecutor:
             # The kill-between-waves seam (`wave:i=crash`): fires BEFORE the
             # wave submits, exactly where a process kill leaves the journal.
             fault_point("wave")
+            if self.probe is not None:
+                self.probe()
             if i > first and self.throttle > 0:
                 time.sleep(self.throttle)
             wave = journal.wave(i)
@@ -564,6 +588,16 @@ class PlanExecutor:
             "event": "exec/verify",
             "mismatches": len(out.mismatches),
         })
+        if self.on_verified is not None:
+            try:
+                self.on_verified(self.observed_state)
+            except Exception as e:
+                print(
+                    f"ka-execute: post-verify hook failed "
+                    f"({type(e).__name__}: {e}); execution outcome "
+                    "unaffected",
+                    file=self.err,
+                )
         journal.complete()
         if obs_active():
             gauge_set("plan.waves", journal.waves_total)

@@ -11,7 +11,9 @@ undeclared literal). Dynamic names compose on declared bases: the CLI's
 ``warmup.<outcome>``. The daemon's counters and spans are written through
 its supervisor (``daemon/supervisor.py``), not with literal names, and are
 declared here all the same; for a daemon of many clusters they take an
-``@cluster`` suffix, which the cumulative registry turns into a label.
+``@cluster`` suffix, which the cumulative registry turns into a label. So
+are the controller's (``daemon/controller.py``), which it writes through
+its cluster's supervisor.
 """
 from __future__ import annotations
 
@@ -114,6 +116,19 @@ METRIC_NAMES: frozenset = frozenset({
     "dispatch.batches", "dispatch.jobs", "dispatch.solo_fallbacks",
     "dispatch.batch_size", "daemon.solve.queue_ms",
     "dispatch.queue_depth", "dispatch.window_ms", "dispatch.pad_waste_frac",
+    # controller.* — the closed-loop rebalance controller
+    # (daemon/controller.py): evaluations and holds, actions and the
+    # replica moves they executed, truncations, rollbacks, regressions,
+    # failed executions, the controller breaker's transitions, and the live
+    # hysteresis streak and window-budget gauges
+    "controller.evaluations", "controller.holds", "controller.actions",
+    "controller.truncations", "controller.rollbacks",
+    "controller.regressions", "controller.exec_failures",
+    "controller.breaker_opened", "controller.breaker_closed",
+    "controller.moves", "controller.window_moves", "controller.streak",
+    # a verdict memory reset by the controller (the reference counts it in
+    # its fleet scheduler's namespace; the scheduler itself is not ported)
+    "fleet.memory_resets",
 })
 
 #: Span names (``span(...)`` first argument). Paths derive from nesting at
@@ -133,6 +148,10 @@ SPAN_NAMES: frozenset = frozenset({
     # one packed device call of the dispatcher, on its own thread (outside
     # every request's capture)
     "dispatch",
+    # the rebalance controller: one evaluation of the recommendation
+    # pipeline, and one supervised action (the forward run, the post-move
+    # re-score and any rollback)
+    "controller/evaluate", "controller/act",
 })
 
 #: Both namespaces.

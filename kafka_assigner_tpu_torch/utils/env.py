@@ -26,7 +26,9 @@ knobs bind, gate, time and resync ``ka-daemon``, size its HTTP worker pool
 and place its ``/execute`` journals (``daemon/``); the four ``KA_DISPATCH*``
 knobs turn on and tune its coalescing dispatcher (``daemon/dispatch.py``);
 ``KA_HEALTH_MOVE_COST`` prices a moved replica for
-``/recommendations``, ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
+``/recommendations`` and the controller, the seven ``KA_CONTROLLER*`` knobs
+set the closed-loop controller's policy and its safety rails
+(``daemon/controller.py``), ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
 route its access log and cap its traffic series. The port reads every
 knob per call, where the
 reference reads some at trace time.
@@ -151,6 +153,18 @@ KNOBS = {
     # working directory), and /recommendations' cost of one moved replica.
     "KA_DAEMON_JOURNAL_DIR": Knob(None),
     "KA_HEALTH_MOVE_COST": Knob(1.0, floor=0.0),
+    # The closed-loop rebalance controller (daemon/controller.py): its
+    # policy (a cluster's --clusters override wins), the evaluation cadence,
+    # the hysteresis streak, the blast-radius cap per action and per rolling
+    # window, the jittered cooldown between actions and the post-move
+    # regression tolerance. Each is read live where it is used.
+    "KA_CONTROLLER": Knob("off", choices=("off", "observe", "auto")),
+    "KA_CONTROLLER_INTERVAL": Knob(30.0, floor=0.05),
+    "KA_CONTROLLER_CONFIRMATIONS": Knob(3, floor=1),
+    "KA_CONTROLLER_MAX_MOVES": Knob(16, floor=1),
+    "KA_CONTROLLER_WINDOW": Knob(3600.0, floor=1.0),
+    "KA_CONTROLLER_COOLDOWN": Knob(300.0, floor=0.0),
+    "KA_CONTROLLER_REGRESSION_TOL": Knob(0.0, floor=0.0),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

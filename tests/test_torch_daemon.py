@@ -61,8 +61,6 @@ from .jute_server import JuteZkServer, cluster_tree, exec_snapshot_cluster
 ROOT = Path(__file__).resolve().parent.parent
 #: The reference's name for each port solver lane.
 JAX_LANE = {"device": "tpu", "native": "native", "greedy": "greedy"}
-#: /state keys of the reference's later slices (the controller).
-LATER_SLICE_KEYS = {"controller"}
 DAEMON_KNOBS = (
     "KA_DAEMON_BIND", "KA_DAEMON_PORT", "KA_DAEMON_MAX_INFLIGHT",
     "KA_DAEMON_REQUEST_TIMEOUT", "KA_DAEMON_RESYNC_INTERVAL",
@@ -264,10 +262,13 @@ def test_endpoints_and_plan_byte_identity(server):
         s, view, _ = req(port, "GET", "/state")
         assert s == 200 and view["lifecycle"] == "ready"
         assert view["topics"] == 2 and view["brokers"] == 4 and view["watches"] is True
-        # The controller's paths are a later slice's: unknown here, as any
-        # unknown path.
-        for method, path in (("GET", "/nope"), ("GET", "/controller"),
-                             ("POST", "/controller"), ("POST", "/nope")):
+        # The controller's paths answer under the default `off` policy; an
+        # unknown path is a 404.
+        s, ctl, _ = req(port, "GET", "/controller")
+        assert s == 200 and ctl["policy"] == "off" and ctl["decisions"] == []
+        s, bad, _ = req(port, "POST", "/controller", {})
+        assert s == 400 and "unknown controller action None" in bad["error"]
+        for method, path in (("GET", "/nope"), ("POST", "/nope")):
             s, nf, _ = req(port, method, path, {} if method == "POST" else None)
             assert s == 404 and nf == {"error": f"unknown path {path!r}"}, path
 
@@ -283,9 +284,10 @@ def test_state_keys_are_the_references_less_later_slices(server, monkeypatch):
             _, views[pkg], _ = req(d.http_port, "GET", "/state")
             _, health, _ = req(d.http_port, "GET", "/healthz")
             assert health == {"status": "ready", "stale": False}
-    assert set(views["torch"]) == set(views["jax"]) - LATER_SLICE_KEYS
+    assert set(views["torch"]) == set(views["jax"])
     for key in ("lifecycle", "stale", "cache_version", "brokers", "topics",
-                "encode_shape", "watches", "failure_policy", "cluster", "breaker"):
+                "encode_shape", "watches", "failure_policy", "cluster", "breaker",
+                "controller"):
         assert views["torch"][key] == views["jax"][key], key
     assert (views["torch"]["solver"], views["jax"]["solver"]) == ("device", "tpu")
 

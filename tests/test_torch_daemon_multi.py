@@ -49,8 +49,6 @@ KNOBS = ("KA_FAULTS_SPEC", "KA_FAILURE_POLICY", "KA_OBS_REPORT", "KA_OBS_ENABLE"
          "KA_DAEMON_WATCH", "KA_DAEMON_RESYNC_RETRIES", "KA_HEALTH_MOVE_COST",
          "KA_EXEC_WAVE_SIZE", "KA_EXEC_POLL_INTERVAL", "KA_EXEC_POLL_TIMEOUT",
          "KA_EXEC_SIM_POLLS", "KA_EXEC_JOURNAL", "KA_ZK_PIPELINE", "KA_HOSTCODEC")
-#: /state keys of the reference's later slices (the controller and the fleet).
-LATER_SLICE_KEYS = {"controller"}
 
 
 def _reset_planes():
@@ -195,10 +193,10 @@ def test_routing_plans_and_aggregates_match_the_reference(servers, monkeypatch):
     assert got[12][3]["breaker"]["state"] == "closed"
     # The aggregate /state: the reference adds its fleet scheduler's view.
     assert set(state) == set(state_j) - {"fleet"} and set(state["clusters"]) == {"a", "b"}
-    assert set(one) == set(one_j) - LATER_SLICE_KEYS
+    assert set(one) == set(one_j)
     for key in ("lifecycle", "cache_version", "brokers", "topics", "encode_shape",
                 "watches", "breaker", "execution_in_flight", "health",
-                "traffic_real", "cluster"):
+                "traffic_real", "cluster", "controller"):
         assert one[key] == one_j[key], key
     assert {k: v for k, v in counters.items() if "warmup" not in k} \
         == {k: v for k, v in counters_j.items() if "warmup" not in k}
@@ -440,7 +438,8 @@ def _wait_http(cum_mod, n):
 
 
 #: Families whose values are the process's or the artifact's own, and the
-#: reference's fleet scheduler's (a later slice).
+#: reference's fleet scheduler's: of the controller and the fleet, only the
+#: fleet is left to port.
 OWN_FAMILIES = ("ka_process_", "ka_build_info", "ka_compile_store_", "ka_flight_events_",
                 "ka_fleet_")
 #: Gauges of the padded fan-out: the reference pads a sweep to its device
@@ -448,15 +447,25 @@ OWN_FAMILIES = ("ka_process_", "ka_build_info", "ka_compile_store_", "ka_flight_
 #: batch bucket; the sharded sweep is a later slice.
 MESH_PADDED = ("ka_whatif_fanout", "ka_groups_fanout")
 #: Flight events of the reference's fleet scheduler (its startup journal
-#: scan), a later slice.
+#: scan): only the fleet is left to port.
 LATER_KINDS = ("fleet",)
+
+
+def _logged(log, n):
+    """``n`` lines in the access log: a request's line is written after its
+    reply, and it reads the cluster's ``inflight`` then. The next request
+    waits for it, so both daemons read ``inflight`` at rest."""
+    def lines():
+        return log.exists() and len(log.read_text().splitlines()) >= n
+    assert _await(lines, timeout=10), f"access log never reached {n} lines"
 
 
 def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch):
     """One request sequence through each package's daemon over two
     snapshot clusters: the ``/metrics`` families, every counter's samples,
     the gauges' samples and the histograms' counts; the access log's lines
-    less their times and ids; the flight ring's event kinds in order."""
+    less their times and ids; the flight ring's event kinds in order. Each
+    request waits for the last one's access-log line."""
     monkeypatch.setenv("KA_DAEMON_RESYNC_INTERVAL", "60")
     for k, v in EXEC_KNOBS.items():
         monkeypatch.setenv(k, v)
@@ -482,11 +491,13 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
         with running(pkg, {"a": snap_a, "b": snap_b}, access_log=str(log),
                      err=io.StringIO()) as d:
             port = d.http_port
-            for method, path, body in sequence:
+            for i, (method, path, body) in enumerate(sequence):
                 req(port, method, path, body)
+                _logged(log, i + 1)
             s, events = stream_execute(port, "/clusters/b/execute",
                                        {"plan_text": plan_text})
             assert s == 200 and events[-1]["event"] == "exec/done"
+            _logged(log, len(sequence) + 1)
             # Nine requests and the execution carry an endpoint (the bare
             # /plan's 400 does not); seven are POSTs.
             _wait_http(metrics_mod, len(sequence))
@@ -498,8 +509,11 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
             text = conn.getresponse().read().decode("utf-8")
             conn.close()
             _wait_http(metrics_mod, len(sequence) + 1)
+            _logged(log, len(sequence) + 2)
             _, view, _ = req(port, "GET", "/debug/flight")
+            _logged(log, len(sequence) + 3)
             _, per_b, _ = req(port, "GET", "/clusters/b/debug/flight")
+            _logged(log, len(sequence) + 4)
         parse = promtext.parse if pkg == "torch" else jax_promtext.parse
         lines = [json.loads(ln) for ln in log.read_text().splitlines()]
         seen[pkg] = (parse(text), lines, view, per_b)

@@ -429,41 +429,67 @@ def test_clusters_spec_file_parses_as_the_references(tmp_path):
 @pytest.mark.parametrize("spec,ok", [
     ({"a": "FILE#controller=off"}, True),
     ({"a": {"connect": "FILE", "controller": "off"}}, True),
-    ({"a": "FILE#controller=auto"}, False),
-    ({"a": "FILE#controller=observe"}, False),
-    ({"a": {"connect": "FILE", "controller": "auto"}}, False),
+    ({"a": "FILE#controller=auto"}, True),
+    ({"a": "FILE#controller=observe"}, True),
+    ({"a": {"connect": "FILE", "controller": "auto"}}, True),
     ({"a": "FILE#controller=bogus"}, False),
     ({"bad name": "FILE"}, False),
     ({"a": {"connect": "FILE", "extra": 1}}, False),
 ])
-def test_a_controller_policy_is_refused_at_startup(tmp_path, spec, ok):
-    """The closed-loop controller is a later slice: ``off`` is accepted,
-    ``observe`` and ``auto`` are refused before anything starts, naming
-    ROADMAP queue 1 item 4."""
+def test_a_controller_policy_is_refused_at_startup(tmp_path, monkeypatch, spec, ok):
+    """A cluster's controller policy at startup, in both packages: ``off``,
+    ``observe`` and ``auto`` start with that policy in the cluster's
+    ``/state``; an unknown policy, a bad cluster name and an unknown spec key
+    are refused before anything starts, with the reference's message."""
+    monkeypatch.setenv("KA_CONTROLLER_INTERVAL", "3600")
     snap = tmp_path / "c.json"
     snap.write_text(json.dumps(exec_snapshot_cluster()))
     clusters = json.loads(json.dumps(spec).replace("FILE", str(snap)))
-    if ok:
+    seen = {}
+    for pkg, daemon_cls, kw in (("torch", AssignerDaemon, {"device": "cpu"}),
+                                ("jax", JaxDaemon, {})):
+        if not ok:
+            with pytest.raises(ValueError) as info:
+                daemon_cls(clusters=clusters, solver="greedy", **kw)
+            seen[pkg] = str(info.value)
+            continue
         with contextlib.closing(io.StringIO()) as err:
-            d = AssignerDaemon(clusters=clusters, solver="greedy", device="cpu", err=err)
+            d = daemon_cls(clusters=clusters, solver="greedy", err=err, **kw)
             d.start()
-            d.shutdown()
-        return
-    with pytest.raises(ValueError) as info:
-        AssignerDaemon(clusters=clusters, solver="greedy", device="cpu")
-    if "auto" in json.dumps(spec) or "observe" in json.dumps(spec):
-        assert "item 4" in str(info.value)
+            try:
+                _, state, _ = req(d.http_port, "GET", "/clusters/a/state")
+                seen[pkg] = state["controller"]
+            finally:
+                d.shutdown()
+    assert seen["torch"] == seen["jax"]
+    if ok:
+        policy = json.dumps(spec).split("controller")[-1].strip('":= }')
+        assert seen["torch"] == {"policy": policy, "paused": False,
+                                 "breaker": {"state": "closed"}}
+    elif "bogus" in json.dumps(spec):
+        assert seen["torch"] == ("unknown controller policy 'bogus' (expected one "
+                                 "of ['off', 'observe', 'auto'])")
 
 
 def test_the_cli_refuses_a_controller_and_a_double_spec(tmp_path, capsys):
+    """``ka-daemon --clusters 'a=...#controller=bogus'`` exits with the
+    validation code and the reference's message, as the reference's CLI
+    does; a double spec and a malformed one are usage errors."""
     snap = tmp_path / "c.json"
     snap.write_text(json.dumps(exec_snapshot_cluster()))
-    with pytest.raises(SystemExit) as code:
-        sys_argv = ["ka-daemon", "--clusters", f"a={snap}#controller=auto", "--device", "cpu"]
-        with _argv(sys_argv):
-            cli.daemon_main()
-    assert code.value.code == cli.EXIT_VALIDATION
-    assert "item 4" in capsys.readouterr().err
+    from kafka_assigner_tpu import cli as jax_cli_mod
+
+    errs = []
+    for main, extra in ((cli.daemon_main, ["--device", "cpu"]),
+                        (jax_cli_mod.daemon_main, ["--solver", "greedy"])):
+        with pytest.raises(SystemExit) as code:
+            sys_argv = ["ka-daemon", "--clusters", f"a={snap}#controller=bogus", *extra]
+            with _argv(sys_argv):
+                main()
+        assert code.value.code == cli.EXIT_VALIDATION
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1]
+    assert "unknown controller policy 'bogus'" in errs[0]
     assert cli.run_daemon(["--zk_string", str(snap), "--clusters", f"a={snap}",
                            "--device", "cpu"]) == cli.EXIT_USAGE
     assert cli.run_daemon(["--clusters", "nonsense", "--device", "cpu"]) == cli.EXIT_USAGE
