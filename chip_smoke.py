@@ -313,6 +313,32 @@ Phases, each printing its own line; any failure exits non-zero:
     ``confirmed`` then ``would-act``. Every evaluation's leadership launch
     is held against plain (in a worker, through ``hold``); each evaluation's
     wall and span split, each job's queue wait, the packed call and the
+    kernel's time on the recorded inputs are printed;
+27. the fleet scheduler (``daemon/fleet.py``), the shape of the
+    reference's ``scripts/fleet_smoke.py`` on config 3, at the default
+    ``KA_FLEET_*`` knobs (one lease at a time, 64 moves an hour): (a) in
+    this process on cuda, one daemon of ``a`` (``FLEET_SEED_A`` replicas
+    of its first topic on broker 0, ``auto``), ``b`` (``FLEET_SEED_B``,
+    ``auto``) and ``c`` (``off``, with a planted in-progress ``/execute``
+    journal of one-move waves throttled by ``KA_EXEC_SIM_POLLS``): the
+    boot recovery finishes ``c``'s journal before the HTTP server exists,
+    and while it holds the one slot (its first wave boundary held until
+    then) a round of the shared ticker has both controllers denied
+    (``recovery pending``); then rounds until ``b`` acts: the first action
+    lease goes to ``a``, the worse-off cluster, then ``b``'s; no ledger
+    the fleet writes holds two leases; ``GET /fleet``, the aggregate
+    ``/state``'s ``fleet`` key and ``ka_fleet_*`` on ``/metrics`` match
+    the decisions; (b) ``python -c FLEET_CHILD`` (the daemon module, each
+    leadership launch saved and counted inside the child) of one seeded
+    cluster on ``auto`` with 8-move waves and ``KA_EXEC_THROTTLE``,
+    SIGKILLed once its forward journal commits its first wave; a restart
+    with no fault knob and no client ``resume`` converges at boot (journal
+    complete, snapshot bytes the action record's plan applied, the record
+    gone, ``ka_fleet_recoveries_total`` 1) and exits 0 on SIGTERM; (c) a
+    boot under ``fleet:0=recovery-crash`` keeps a planted journal
+    (``fleet.recovery_failures`` 1), the next boot completes it. Every
+    evaluation's leadership launch, in process or saved by the child, is
+    held against plain; each round's wall and job's queue waits and the
     kernel's time on the recorded inputs are printed.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
@@ -353,8 +379,9 @@ the memory rate); ``chain_bound_ms`` is the design's latency floor, which
 the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
-phase 23's, 24's and 25's requests, phase 26's evaluations, 21's and
-23(e)'s counted inside each child process), and ``launches_by_path`` gives
+phase 23's, 24's and 25's requests, phase 26's and 27's evaluations,
+21's, 23(e)'s and 27(b)'s counted inside each child process), and
+``launches_by_path`` gives
 each; the group-pack entry's counts are those of
 phases 14-16, 24 (``daemon_multi_*``) and 25 (``dispatch_*``), and its
 ``packed_sweep`` is phase 25(d)'s launch.
@@ -2958,6 +2985,8 @@ def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=())
     multi_groups.update(packed_groups)
     # Phase 26 on config 4's steady cluster, seeded, and phase 24's config 3.
     launches.update(controller_phases(work, hold, os.path.join(work, "config3_groups.json")))
+    # Phase 27: the fleet scheduler on config 3, seeded three ways.
+    launches.update(fleet_phases(work, hold))
     return launches, multi_groups
 
 
@@ -3735,21 +3764,21 @@ CONTROLLER_HOT = 0
 CONTROLLER_WAVE_SIZE = 8
 
 
-def seeded_snapshot(path, topic_map, live, racks):
-    """``topic_map`` with ``CONTROLLER_SEEDED`` partitions of its first topic
-    moved onto broker ``CONTROLLER_HOT``, each in place of its replica in
-    that broker's rack (every partition stays rack-unique): the per-topic
-    cap of one replica a broker evicts them again. Written to ``path``."""
+def seeded_snapshot(path, topic_map, live, racks, count=CONTROLLER_SEEDED):
+    """``topic_map`` with ``count`` partitions of its first topic moved onto
+    broker ``CONTROLLER_HOT``, each in place of its replica in that broker's
+    rack (every partition stays rack-unique): the per-topic cap of one
+    replica a broker evicts them again. Written to ``path``."""
     seeded = 0
     for _p, reps in sorted(topic_map[min(topic_map)].items()):
-        if seeded == CONTROLLER_SEEDED:
+        if seeded == count:
             break
         same = [i for i, b in enumerate(reps) if racks[b] == racks[CONTROLLER_HOT]]
         if CONTROLLER_HOT not in reps and same:
             reps[same[0]] = CONTROLLER_HOT
             seeded += 1
-    if seeded != CONTROLLER_SEEDED:
-        fail(f"26: only {seeded} partitions of {min(topic_map)} could be seeded")
+    if seeded != count:
+        fail(f"only {seeded} partitions of {min(topic_map)} could be seeded")
     write_snapshot(path, topic_map, live, racks)
 
 
@@ -4039,6 +4068,536 @@ def controller_phases(work, hold, snap3):
               f"thread; spans (ms): {split(run, 'c1')} | {smi}")
     phase("timing", f"phase 26 {time.perf_counter() - t_phase:.1f} s | {smi}")
     return k1
+
+
+#: Phase 27: the fleet scheduler on config 3 (``CONFIG3``). (a)'s ``a`` has
+#: ``FLEET_SEED_A`` replicas of its first topic on broker ``CONTROLLER_HOT``,
+#: ``b`` ``FLEET_SEED_B``: each action truncates to ``KA_CONTROLLER_MAX_MOVES``'
+#: 16 (a truncated plan leaves out the partitions whose replicas only change
+#: order, so an action is two 8-move waves), and ``a`` after its action is
+#: better off than ``b`` before its own. ``c`` carries a planted
+#: ``/execute`` journal of ``FLEET_C_MOVES`` moves, one a wave, each
+#: converging after ``FLEET_SIM_POLLS`` polls ``FLEET_POLL_S`` apart
+#: (``KA_EXEC_SIM_POLLS``).
+FLEET_SEED_A = 24
+FLEET_SEED_B = 18
+FLEET_C_MOVES = 4
+FLEET_SIM_POLLS = 4
+FLEET_POLL_S = 0.1
+#: (b): ``FLEET_SEED_KILL`` seeded replicas, an action truncated to 16 moves
+#: in two 8-move waves with ``KA_EXEC_THROTTLE`` seconds between them, the
+#: window the SIGKILL lands in; the child's controller ticks every
+#: ``FLEET_CHILD_INTERVAL_S``.
+FLEET_SEED_KILL = 24
+FLEET_KILL_WAVE = 8
+FLEET_KILL_THROTTLE_S = 3.0
+FLEET_CHILD_INTERVAL_S = 1.0
+#: The daemon in a child process with each leadership launch recorded: its
+#: inputs and outputs saved to ``CHIP_SMOKE_LAUNCH_DIR`` and the kernel
+#: wrapper's count printed after it, so a child that is killed has told its
+#: count already.
+FLEET_CHILD = (
+    "import json, os, runpy, sys, torch\n"
+    "from kafka_assigner_tpu_torch.ops import leadership\n"
+    "from kafka_assigner_tpu_torch.solvers import torch_solver as ts\n"
+    "order, out = ts.leadership_order, os.environ['CHIP_SMOKE_LAUNCH_DIR']\n"
+    "def recorded(*args, **kw):\n"
+    "    inputs = [t.clone() for t in args[:4]]\n"
+    "    outputs = order(*args, **kw)\n"
+    "    torch.save({'inputs': [t.cpu() for t in inputs],\n"
+    "                'outputs': [t.cpu() for t in outputs]},\n"
+    "               os.path.join(out, f\"launch_{leadership.launches['leadership']}.pt\"))\n"
+    "    print('KA_CHILD_LAUNCHES ' + json.dumps(leadership.launches), file=sys.stderr,\n"
+    "          flush=True)\n"
+    "    return outputs\n"
+    "ts.leadership_order = recorded\n"
+    "runpy.run_module('kafka_assigner_tpu_torch.daemon', run_name='__main__', "
+    "alter_sys=True)\n"
+)
+FLEET_KNOBS = ("KA_FLEET_MAX_MOVES", "KA_FLEET_WINDOW", "KA_FLEET_MAX_CONCURRENT",
+               "KA_FLEET_LEASE_TTL")
+
+
+def plant_execute_journal(jdir, cluster, spec, topic_map, racks, n_moves, wave_size):
+    """An in-progress ``/execute`` journal of ``cluster`` (connect ``spec``)
+    as a daemon killed before its first wave leaves it: ``n_moves``
+    partitions of the first topic, each with its first replica moved to an
+    empty broker of the same rack. Returns ``(path, plan)``."""
+    from kafka_assigner_tpu_torch.exec.journal import ExecutionJournal, plan_fingerprint
+
+    topic = min(topic_map)
+    spare = sorted(b for b in racks if b >= CONFIG3["n_brokers"])
+    plan = {topic: {}}
+    for p in range(n_moves):
+        reps = list(topic_map[topic][p])
+        new = next(b for b in spare if racks[b] == racks[reps[0]])
+        spare.remove(new)
+        plan[topic][p] = [new] + reps[1:]
+    sha = plan_fingerprint(plan, [topic])
+    path = os.path.join(jdir, f"ka-execute-{cluster}-{sha[:12]}.journal")
+    moves = [(topic, p, reps) for p, reps in plan[topic].items()]
+    ExecutionJournal(path, sha, wave_size, moves, cluster=spec).save()
+    return path, plan
+
+
+def journal_status(path):
+    with open(path, encoding="utf-8") as f:
+        j = json.load(f)
+    return j["status"], j["waves_committed"]
+
+
+def metric_totals(port, families):
+    """``/metrics`` parsed with the port's ``promtext``: each family's
+    samples summed (None when the family is absent)."""
+    import http.client
+
+    from kafka_assigner_tpu_torch.obs import promtext
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        raw = resp.read().decode("utf-8")
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"27: /metrics answered {resp.status}")
+    fams = promtext.parse(raw)
+    return {f: (sum(v for _, _, v in fams[f]["samples"]) if f in fams else None)
+            for f in families}
+
+
+def waiting_on_ticker(ctl):
+    """Whether the controller's thread is parked in the shared ticker's
+    wait (it has read the generation a round must pass)."""
+    frame = sys._current_frames().get(ctl._thread.ident)
+    while frame is not None:
+        if frame.f_code.co_name == "wait_next":
+            return True
+        frame = frame.f_back
+    return False
+
+
+def fleet_phases(work, hold):
+    """Phase 27: the fleet scheduler (``daemon/fleet.py``) on the card, on
+    config 3 seeded three ways (module doc). (a) and (c) run the daemon in
+    this process on cuda, so each evaluation's leadership launch counts
+    here and is held against plain through ``hold``; (b) runs it in child
+    processes (:data:`FLEET_CHILD`), whose launches are counted and saved
+    inside them and held here. Returns the kernel's launches by path."""
+    import signal
+    import threading
+
+    import torch
+
+    from kafka_assigner_tpu_torch import faults
+    from kafka_assigner_tpu_torch.daemon import AssignerDaemon
+    from kafka_assigner_tpu_torch.exec.engine import parse_plan_payload
+    from kafka_assigner_tpu_torch.models.synthetic import build_config3
+    from kafka_assigner_tpu_torch.obs import metrics
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.ops import leadership_cases as cases
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    set_knobs = [k for k in FLEET_KNOBS if os.environ.get(k)]
+    if set_knobs:
+        fail(f"27 runs the fleet at its defaults; unset {set_knobs}")
+    root = os.path.join(work, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    topic_map, live, racks = build_config3(**CONFIG3)
+
+    def config3(name, seed=0):
+        path = os.path.join(root, name)
+        tm = {t: {p: list(r) for p, r in parts.items()} for t, parts in topic_map.items()}
+        if seed:
+            seeded_snapshot(path, tm, live, racks, count=seed)
+        else:
+            write_snapshot(path, tm, live, racks)
+        return path
+
+    def journal_dir(part):
+        jdir = os.path.join(root, f"journal_{part}")
+        os.makedirs(jdir)
+        return jdir
+
+    launches = {}
+    base = dict(KA_HEALTH_MOVE_COST=0, KA_CONTROLLER_CONFIRMATIONS=1, KA_CONTROLLER_COOLDOWN=0,
+                KA_CONTROLLER_INTERVAL=DAEMON_INTERVAL_S,
+                KA_DAEMON_RESYNC_INTERVAL=DAEMON_INTERVAL_S, KA_DISPATCH=1)
+
+    # (a) arbitration: a and b on auto, c off with an interrupted /execute.
+    snap_a, snap_b, snap_c = config3("a.json", FLEET_SEED_A), config3("b.json", FLEET_SEED_B), \
+        config3("c.json")
+    score_a, score_b = snapshot_health(snap_a)[0].score, snapshot_health(snap_b)[0].score
+    if not score_a > score_b:
+        fail(f"27 (a): a ({score_a}) must score worse than b ({score_b})")
+    jdir = journal_dir("a")
+    faults.reset()
+    with knobs(**base, KA_DAEMON_JOURNAL_DIR=jdir, KA_EXEC_POLL_INTERVAL=FLEET_POLL_S,
+               KA_EXEC_SIM_POLLS=FLEET_SIM_POLLS):
+        d = AssignerDaemon(clusters={"a": f"file://{snap_a}#controller=auto",
+                                     "b": f"file://{snap_b}#controller=auto",
+                                     "c": f"file://{snap_c}"},
+                           solver="device", device="cuda")
+        c_journal, c_plan = plant_execute_journal(
+            jdir, "c", d.supervisors["c"].spec, topic_map, racks, FLEET_C_MOVES, 1)
+        c_expected = canonical_snapshot(snap_c, os.path.join(root, "c_expected.json"), c_plan)
+        fs = d.fleet
+        ctls = {n: d.supervisors[n].controller for n in ("a", "b")}
+        ticks = {n: [] for n in ctls}
+        for n, ctl in ctls.items():
+            ctl.tick = lambda tick=ctl.tick, out=ticks[n]: out.append(tick()) or out[-1]
+        # Every ledger the fleet writes, its leases counted.
+        ledgers = []
+        persist = fs._persist
+
+        def persist_seen(path, text):
+            ledgers.append(json.loads(text)["leases"])
+            return persist(path, text)
+
+        fs._persist = persist_seen
+        # c's recovery holds its first wave boundary until both controllers
+        # have asked for a lease once: the order is the fleet's priority
+        # contest, not thread timing.
+        gate = {"entered": threading.Event(), "open": threading.Event()}
+        heartbeat = fs.heartbeat
+
+        def gated_heartbeat(cluster):
+            if cluster == "c" and not gate["entered"].is_set():
+                gate["httpd"] = d.httpd
+                gate["recovered"] = fs.recovered()
+                gate["entered"].set()
+                gate["waited"] = gate["open"].wait(DAEMON_WAIT_S)
+            return heartbeat(cluster)
+
+        fs.heartbeat = gated_heartbeat
+        rounds = []
+
+        def run_round(i):
+            t0 = time.perf_counter()
+            n0 = len(waits)
+            d.ticker.advance()
+            deadline = time.monotonic() + DAEMON_WAIT_S
+            while not all(len(t) > i for t in ticks.values()):
+                if time.monotonic() > deadline:
+                    return False
+                time.sleep(0.02)
+            rounds.append(({n: t[i] for n, t in ticks.items()},
+                           time.perf_counter() - t0, waits[n0:]))
+            return True
+
+        def round_one():
+            if not gate["entered"].wait(DAEMON_WAIT_S):
+                return
+            deadline = time.monotonic() + DAEMON_WAIT_S
+            while not all(waiting_on_ticker(c) for c in ctls.values()):
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
+            gate["round_one"] = run_round(0)
+            gate["open"].set()
+
+        lead.launches["leadership"] = 0
+        helper = threading.Thread(target=round_one, name="fleet-round-one", daemon=True)
+        try:
+            with solver_probe() as seen, queue_probe() as waits:
+                helper.start()
+                t0 = time.perf_counter()
+                d.start()
+                boot_s = time.perf_counter() - t0
+                helper.join(DAEMON_WAIT_S)
+                recovery = fs.view()
+                if not gate.get("round_one") or not gate.get("waited") \
+                        or gate.get("httpd") is not None or gate.get("recovered"):
+                    fail(f"27 (a): c's recovery gate {gate}")
+                c_status = journal_status(c_journal)
+                with open(snap_c, encoding="utf-8") as f:
+                    c_bytes = f.read()
+                if recovery["recovery"] != {"resumed": 1, "rolled_back": 0, "failed": 0,
+                                            "skipped": 0} or c_status != ("complete",
+                                                                          FLEET_C_MOVES) \
+                        or c_bytes != c_expected:
+                    fail(f"27 (a): c's boot recovery {recovery['recovery']}, journal "
+                         f"{c_status}, bytes the plan applied {c_bytes == c_expected}")
+                for i in (1, 2):
+                    if any(e["decision"] == "acted" for e in ctls["b"].view()["decisions"]):
+                        break
+                    wait_for(f"27 (a) ready before round {i + 1}", lambda: all(
+                        d.supervisors[n].lifecycle() == "ready" for n in ctls))
+                    if not run_round(i):
+                        fail(f"27 (a): round {i + 1} did not end: {ticks}")
+            wait_for("27 (a) the resyncs after the actions", lambda: all(
+                d.supervisors[n].lifecycle() == "ready" for n in ctls))
+            evaluations = sum(d.supervisors[n].counters().get("controller.evaluations", 0)
+                              for n in ctls)
+            launches["fleet_a_arbitration"] = lead.launches["leadership"]
+            if lead.launches["leadership"] != evaluations \
+                    or len(seen["orders"]) != evaluations or not evaluations:
+                fail(f"27 (a): the leadership kernel launched {lead.launches['leadership']} "
+                     f"times ({len(seen['orders'])} ordering calls) for {evaluations} "
+                     "evaluations")
+            hold("phase 27 fleet_a_arbitration", seen["orders"])
+            times = cases.event_ms(lambda: lead.leadership_order(*seen["orders"][0][0]), 5)
+            k1_ms, k1_shape = statistics.median(times), tuple(seen["orders"][0][0][0].shape)
+            trails = {n: [e["decision"] for e in c.view()["decisions"]]
+                      for n, c in ctls.items()}
+            decs = {n: c.view()["decisions"] for n, c in ctls.items()}
+            view = fs.view()
+            _, fleet_http, _ = http_call(d.http_port, "GET", "/fleet")
+            _, state, _ = http_call(d.http_port, "GET", "/state")
+            totals = metric_totals(d.http_port, (
+                "ka_fleet_grants_total", "ka_fleet_deferrals_total",
+                "ka_fleet_preemptions_total", "ka_fleet_recoveries_total",
+                "ka_fleet_leases", "ka_fleet_window_moves"))
+            cum = metrics.cumulative().snapshot()["counters"]
+            after_a, after_b = snapshot_health(snap_a)[0], snapshot_health(snap_b)[0]
+        finally:
+            d.shutdown()
+            fs.heartbeat = heartbeat
+    fleet_decs = view["decisions"]
+    for n, e in rounds[0][0].items():
+        if (e["decision"], e.get("reason"), e.get("fleet_reason")) \
+                != ("hold", "fleet deferred", "recovery pending"):
+            fail(f"27 (a): {n}'s round 1 during c's recovery: {e}")
+    got = {n: [r[0][n]["decision"] for r in rounds] for n in ctls}
+    grants = [e for e in fleet_decs if e["decision"] == "granted"]
+    action_grants = [e["cluster"] for e in grants if e.get("kind") != "recovery"]
+    held, most = 0, 0
+    for e in fleet_decs:
+        held += {"granted": 1, "released": -1, "lease-expired": -1}.get(e["decision"], 0)
+        most = max(most, held)
+    if action_grants != ["a", "b"] or got["a"][1] != "acted" or got["b"][-1] != "acted" \
+            or "acted" in got["a"][2:] + got["b"][:-1] \
+            or [trails[n].count("act") for n in ctls] != [1, 1] \
+            or most != 1 or max(len(x) for x in ledgers) != 1 or view["leases"]:
+        fail(f"27 (a): action grants {action_grants}, rounds {got}, trails {trails}, leases "
+             f"at once {most} (ledgers {max(len(x) for x in ledgers)}), fleet {fleet_decs}")
+    moves = {n: next(e["moves"] for e in decs[n] if e["decision"] == "acted") for n in ctls}
+    window = FLEET_C_MOVES + moves["a"] + moves["b"]
+    want_fleet = {"recovered": True, "leases": {}, "max_concurrent": 1,
+                  "window": {"seconds": 3600.0, "max_moves": 64, "moves": window}}
+    summary = {k: fleet_http.get(k) for k in want_fleet}
+    count = {k: sum(e["decision"] in ks for e in fleet_decs) for k, ks in (
+        ("grants", ("granted",)), ("deferrals", ("deferred", "budget-hold", "preempted")),
+        ("preemptions", ("preempted",)), ("recoveries", ("recovered",)))}
+    want_totals = {"ka_fleet_grants_total": count["grants"],
+                   "ka_fleet_deferrals_total": count["deferrals"],
+                   "ka_fleet_preemptions_total": count["preemptions"] or None,
+                   "ka_fleet_recoveries_total": 1, "ka_fleet_leases": 0,
+                   "ka_fleet_window_moves": window}
+    if summary != want_fleet or state.get("fleet") != want_fleet \
+            or fleet_http["recovery"] != recovery["recovery"] or totals != want_totals \
+            or count["recoveries"] != 1 or sum(cum.get("fleet.grants", {}).values()) \
+            != count["grants"]:
+        fail(f"27 (a): /fleet {summary}, /state's fleet {state.get('fleet')}, expected "
+             f"{want_fleet}; /metrics {totals}, expected {want_totals}")
+    if not (after_a.score < score_a and after_b.score < score_b):
+        fail(f"27 (a): scores a {score_a} -> {after_a.score}, b {score_b} -> {after_b.score}")
+    phase("fleet", f"(a) AssignerDaemon(a=config 3 with {FLEET_SEED_A} replicas of its first "
+          f"topic on broker {CONTROLLER_HOT}, auto; b={FLEET_SEED_B}, auto; c=unseeded, off, "
+          f"with an in-progress /execute journal of {FLEET_C_MOVES} one-move waves at "
+          f"KA_EXEC_SIM_POLLS={FLEET_SIM_POLLS}) on cuda: construction to served "
+          f"{boot_s * 1e3:.1f} ms, c's journal resumed by the boot scan before the HTTP "
+          f"server existed (complete, bytes the plan applied); round 1 during c's recovery: "
+          f"a and b hold (fleet deferred, recovery pending); first action lease to a "
+          f"(score {score_a} > b's {score_b}), then b; rounds a {got['a']}, b {got['b']}; "
+          f"trails a {trails['a']}, b {trails['b']}; never more than one lease in "
+          f"{len(ledgers)} ledger writes; "
+          f"/fleet and /state's fleet {want_fleet}; /metrics {totals}; scores a "
+          f"{score_a} -> {after_a.score}, b {score_b} -> {after_b.score} | {smi}")
+    for i, (dec, wall, w) in enumerate(rounds):
+        phase("fleet", f"(a) round {i + 1} ({dec['a']['decision']} / "
+              f"{dec['a'].get('reason', '')}; {dec['b']['decision']} / "
+              f"{dec['b'].get('reason', '')}): wall {wall * 1e3:.1f} ms; each job's queue "
+              f"wait (ms) {[(t, k, round(v, 1)) for t, k, v in w]} | {smi}")
+    phase("fleet", f"(a) leadership kernel launches {launches['fleet_a_arbitration']} (one an "
+          f"evaluation), {k1_ms:.3f} ms median of 5 at {k1_shape} on the recorded inputs; "
+          f"fleet decisions {[(e['decision'], e.get('cluster')) for e in fleet_decs]} | {smi}")
+
+    # (b) a real SIGKILL mid-action in a child daemon, then a restart.
+    snap_k = config3("k.json", FLEET_SEED_KILL)
+    orig_k = os.path.join(root, "k_before.json")
+    shutil.copy(snap_k, orig_k)
+    jdir = journal_dir("b")
+    spec = f"a=file://{snap_k}#controller=auto"
+
+    def child(tag, **env):
+        out = os.path.join(root, f"launches_{tag}")
+        os.makedirs(out)
+        full = dict(os.environ, PYTHONPATH=ROOT, KA_DAEMON_JOURNAL_DIR=jdir,
+                    CHIP_SMOKE_LAUNCH_DIR=out, KA_HEALTH_MOVE_COST="0",
+                    KA_CONTROLLER_CONFIRMATIONS="1", KA_CONTROLLER_COOLDOWN="0",
+                    KA_DAEMON_RESYNC_INTERVAL=str(DAEMON_INTERVAL_S),
+                    KA_EXEC_POLL_INTERVAL=str(EXEC_POLL_INTERVAL),
+                    KA_EXEC_WAVE_SIZE=str(FLEET_KILL_WAVE), KA_DISPATCH="1",
+                    **{k: str(v) for k, v in env.items()})
+        proc = subprocess.Popen([sys.executable, "-c", FLEET_CHILD, "--clusters", spec,
+                                 "--solver", "device"],
+                                cwd=ROOT, env=full, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        lines = []
+
+        def read_stderr():
+            for ln in proc.stderr:
+                lines.append(ln)
+
+        reader = threading.Thread(target=read_stderr, daemon=True)
+        reader.start()
+        return proc, lines, reader, out
+
+    def child_launches(lines, out, tag):
+        counted = [json.loads(ln.split(" ", 1)[1])["leadership"] for ln in lines
+                   if ln.startswith("KA_CHILD_LAUNCHES ")]
+        files = sorted(os.listdir(out))
+        n = counted[-1] if counted else 0
+        if len(files) != n:
+            fail(f"27 (b) {tag}: {n} launches counted, {len(files)} recorded")
+        orders = []
+        for name in files:
+            rec = torch.load(os.path.join(out, name))
+            orders.append((tuple(t.cuda() for t in rec["inputs"]),
+                           tuple(t.cuda() for t in rec["outputs"])))
+        return n, orders
+
+    def forward_in_flight():
+        for name in sorted(os.listdir(jdir)):
+            if name.startswith("ka-controller-a-") and name.endswith(".journal") \
+                    and ".rollback." not in name:
+                st = journal_status(os.path.join(jdir, name))
+                if st[0] == "in-progress" and st[1] >= 1:
+                    return os.path.join(jdir, name)
+        return None
+
+    t0 = time.perf_counter()
+    proc, lines, reader, out1 = child("killed", KA_CONTROLLER_INTERVAL=FLEET_CHILD_INTERVAL_S,
+                                      KA_EXEC_THROTTLE=FLEET_KILL_THROTTLE_S)
+    try:
+        deadline = time.monotonic() + DAEMON_WAIT_S
+        jpath = None
+        while jpath is None:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail(f"27 (b): no forward journal with a committed wave (exit "
+                     f"{proc.poll()}): {''.join(lines)[-1500:]}")
+            time.sleep(0.01)
+            jpath = forward_in_flight()
+        kill_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGKILL)
+        rc_kill = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    reader.join(30)
+    n_killed, orders = child_launches(lines, out1, "killed")
+    killed_status = journal_status(jpath)
+    records = [n for n in sorted(os.listdir(jdir)) if n.endswith(".action.json")]
+    if rc_kill != -signal.SIGKILL or killed_status != ("in-progress", 1) or len(records) != 1:
+        fail(f"27 (b): exit {rc_kill}, journal {killed_status}, records {records}")
+    with open(os.path.join(jdir, records[0]), encoding="utf-8") as f:
+        record = json.load(f)
+    plan_new, _ = parse_plan_payload(record["plan_text"])
+    k_expected = canonical_snapshot(orig_k, os.path.join(root, "k_expected.json"), plan_new)
+    if n_killed < 1:
+        fail("27 (b): the killed child launched the leadership kernel no time")
+    launches["fleet_b_killed_child"] = n_killed
+    hold("phase 27 fleet_b_killed_child", orders)
+
+    t0 = time.perf_counter()
+    proc, lines, reader, out2 = child("restart", KA_CONTROLLER_INTERVAL=DAEMON_INTERVAL_S)
+    try:
+        wait_for("27 (b) the restarted child's banner", lambda: proc.poll() is not None or any(
+            "listening on http://" in ln for ln in lines), every=0.02)
+        if proc.poll() is not None:
+            fail(f"27 (b): the restarted child exited {proc.returncode}: "
+                 f"{''.join(lines)[-1500:]}")
+        banner = next(ln for ln in lines if "listening on http://" in ln)
+        port = int(banner.split("http://127.0.0.1:")[1].split()[0])
+        restart_s = time.perf_counter() - t0
+        _, fleet_view, _ = http_call(port, "GET", "/fleet")
+        totals_b = metric_totals(port, ("ka_fleet_recoveries_total",
+                                        "ka_fleet_recovery_failures_total"))
+        resumed_status = journal_status(jpath)
+        left = [n for n in sorted(os.listdir(jdir)) if n.endswith(".action.json")]
+        with open(snap_k, encoding="utf-8") as f:
+            k_bytes = f.read()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(DAEMON_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    reader.join(30)
+    n_restart, _ = child_launches(lines, out2, "restart")
+    if fleet_view.get("recovery") != {"resumed": 1, "rolled_back": 0, "failed": 0,
+                                      "skipped": 0} \
+            or totals_b != {"ka_fleet_recoveries_total": 1,
+                            "ka_fleet_recovery_failures_total": None} \
+            or resumed_status != ("complete", 2) or left or k_bytes != k_expected \
+            or rc != 0 or not any("drained; exiting 0" in ln for ln in lines) or n_restart:
+        fail(f"27 (b): restart recovery {fleet_view.get('recovery')}, /metrics {totals_b}, "
+             f"journal {resumed_status}, records {left}, bytes the plan applied "
+             f"{k_bytes == k_expected}, exit {rc}, launches {n_restart}: "
+             f"{''.join(lines)[-1500:]}")
+    phase("fleet", f"(b) python -c FLEET_CHILD --clusters a=config 3 with {FLEET_SEED_KILL} "
+          f"seeded replicas, auto, {FLEET_KILL_WAVE}-move waves, KA_EXEC_THROTTLE="
+          f"{FLEET_KILL_THROTTLE_S}: the forward journal's first wave committed "
+          f"{kill_s:.2f} s after the spawn, SIGKILL (exit {rc_kill}): journal in-progress "
+          f"at 1 of 2 waves, the action record kept; the restart (no fault knob, no "
+          f"client resume, controller parked) served after {restart_s:.2f} s with the "
+          f"boot scan's {fleet_view['recovery']}: journal complete, snapshot bytes equal to "
+          f"the record's plan applied, action record removed, "
+          f"ka_fleet_recoveries_total {totals_b['ka_fleet_recoveries_total']:.0f}; "
+          f"SIGTERM exit 0; leadership kernel launches {n_killed} in the killed child "
+          f"(saved and held against plain here), 0 in the restart | {smi}")
+
+    # (c) the fleet:0=recovery-crash seam keeps a journal for the next boot.
+    snap_r = config3("r.json")
+    jdir = journal_dir("c")
+    boots = []
+    with knobs(**base, KA_DAEMON_JOURNAL_DIR=jdir, KA_EXEC_POLL_INTERVAL=EXEC_POLL_INTERVAL):
+        for spec_r in ("fleet:0=recovery-crash", None):
+            faults.reset()
+            env = {"KA_FAULTS_SPEC": spec_r} if spec_r else {}
+            with knobs(**env):
+                t0 = time.perf_counter()
+                d = AssignerDaemon(clusters={"r": f"file://{snap_r}"}, solver="device",
+                                   device="cuda")
+                if spec_r:
+                    r_journal, r_plan = plant_execute_journal(
+                        jdir, "r", d.supervisors["r"].spec, topic_map, racks,
+                        FLEET_C_MOVES, FLEET_C_MOVES)
+                    r_expected = canonical_snapshot(
+                        snap_r, os.path.join(root, "r_expected.json"), r_plan)
+                try:
+                    d.start()
+                    boot = time.perf_counter() - t0
+                    cum = metrics.cumulative().snapshot()["counters"]
+                    boots.append((d.fleet.view()["recovery"], journal_status(r_journal),
+                                  {k: sum(cum.get(k, {}).values()) for k in (
+                                      "fleet.recoveries", "fleet.recovery_failures")},
+                                  boot))
+                finally:
+                    d.shutdown()
+            faults.reset()
+    with open(snap_r, encoding="utf-8") as f:
+        r_bytes = f.read()
+    if [b[:3] for b in boots] != [
+            ({"resumed": 0, "rolled_back": 0, "failed": 1, "skipped": 0}, ("in-progress", 0),
+             {"fleet.recoveries": 0, "fleet.recovery_failures": 1}),
+            ({"resumed": 1, "rolled_back": 0, "failed": 0, "skipped": 0}, ("complete", 1),
+             {"fleet.recoveries": 1, "fleet.recovery_failures": 0})] \
+            or r_bytes != r_expected:
+        fail(f"27 (c): boots {boots}, bytes the plan applied {r_bytes == r_expected}")
+    phase("fleet", f"(c) config 3 with a planted /execute journal of {FLEET_C_MOVES} moves: "
+          f"a boot under KA_FAULTS_SPEC=fleet:0=recovery-crash kept it in progress "
+          f"(fleet.recovery_failures 1) in {boots[0][3] * 1e3:.1f} ms; the next boot, the "
+          f"seam cleared, completed it (fleet.recoveries 1, bytes the plan applied) in "
+          f"{boots[1][3] * 1e3:.1f} ms; no leadership launch (recovery solves nothing) "
+          f"| {smi}")
+    phase("timing", f"phase 27 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launches
 
 
 def main() -> int:

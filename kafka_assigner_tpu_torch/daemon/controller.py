@@ -33,18 +33,24 @@ machinery. Its safety rails, each visible in the decision trail:
   through the engine's ``on_verified`` hook) drives the plan's own
   ``CURRENT ASSIGNMENT:`` back through the wave engine and opens the
   controller's breaker.
+- **The fleet** (``daemon/fleet.py``, ``ClusterSupervisor.fleet``): a
+  daemon-wide lease before acting, denied on the fleet's concurrency cap,
+  its move budget or a worse-off cluster's want (a hold like any other),
+  stamped at every wave boundary and released after; a rollback charges
+  its moves to the fleet's window too. A supervisor built alone has no
+  fleet and acts ungated, as the reference's.
 
 Every decision is a flight ``controller`` event and an entry of the ring
 served at ``/clusters/<name>/controller`` (POST ``{"action": "pause"}`` or
 ``"resume"``). The ``controller:{verdict-flap,exec-crash,regress}`` seams
 (``faults/inject.py``) sit where the reference's do.
 
-The reference also asks its fleet scheduler for a lease before acting.
-The hooks stay (``getattr(self.sup, "fleet", None)``); the port's
-supervisors have no fleet yet, so they are no-ops, as in the reference
-when no fleet is set. The per-action record is written before an
-action's first wave and discarded after it, as the reference's; reading
-records back at boot is the fleet's recovery, not ported.
+The per-action record is written before an action's first wave and
+discarded after it. A daemon killed mid-action leaves it for the fleet's
+boot-time recovery, which reads it back (:meth:`load_action_record`),
+finishes the action the way this controller would have
+(:meth:`resume_recovery`) and sweeps what no journal needs any more
+(:meth:`discard_superseded`, :meth:`discard_orphan_records`).
 
 This module never touches a supervisor's cache or session: everything goes
 through the supervisor's methods (``controller_evaluate``,
@@ -482,6 +488,28 @@ class RebalanceController:
                 "action recovers under journal authority instead"
             )
 
+    def load_action_record(self, sha: str) -> Optional[dict]:
+        """One action record read back (the boot recovery's view); None when
+        it is missing or unusable, and recovery falls back to the journal's
+        authority."""
+        path = self._record_path(sha)
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                raw = json.load(f)
+            if not isinstance(raw, dict) \
+                    or raw.get("version") != ACTION_RECORD_VERSION \
+                    or not isinstance(raw.get("plan_text"), str):
+                raise ValueError("not a valid action record")
+            return raw
+        except FileNotFoundError:
+            return None
+        except (OSError, ValueError, TypeError) as e:
+            self._log(
+                f"action record {path!r} unusable ({e}); recovery falls "
+                "back to journal authority"
+            )
+            return None
+
     def _discard_action_record(self, sha: str) -> None:
         try:
             os.unlink(self._record_path(sha))
@@ -492,6 +520,104 @@ class RebalanceController:
                 f"could not remove action record "
                 f"{self._record_path(sha)!r} ({e})"
             )
+
+    def discard_superseded(self, sha: str) -> None:
+        """Remove an action's forward journal and its record once a rollback
+        superseded them (the boot recovery's cleanup after a rollback
+        resumed under the journal's authority): left in progress, the
+        forward journal would refuse a later run of the same plan bytes."""
+        forward = self._journal_path(sha)
+        try:
+            os.unlink(forward)
+        except FileNotFoundError:  # already gone: the state wanted
+            pass
+        except OSError as e:
+            self._log(
+                f"could not remove superseded forward journal "
+                f"{forward!r} ({e})"
+            )
+        self._discard_action_record(sha)
+
+    def discard_orphan_records(self, active_shas) -> None:
+        """The boot sweep (the fleet's recovery scan calls it): remove this
+        cluster's action records whose sha has no in-progress journal left.
+        The kill came before the journal existed (nothing moved) or after
+        the action ended but before its record went; either way nothing is
+        left to recover."""
+        jdir = env_str("KA_DAEMON_JOURNAL_DIR") or "."
+        prefix = f"ka-controller-{self.sup.name}-"
+        suffix = ".action.json"
+        try:
+            names = sorted(os.listdir(jdir))
+        except OSError:
+            return
+        for fname in names:
+            if not (fname.startswith(prefix) and fname.endswith(suffix)):
+                continue
+            sha = fname[len(prefix):-len(suffix)]
+            if len(sha) == 12 and sha not in active_shas:
+                self._log(
+                    f"dropping orphan action record {fname!r}: no "
+                    "in-progress journal references it (the action never "
+                    "moved a replica, or already completed)"
+                )
+                self._discard_action_record(sha)
+
+    def resume_recovery(
+        self, record: dict, journal_path: Optional[str], *,
+        what: str, moves: int = 0, probe=None, heartbeat=None,
+    ) -> dict:
+        """Finish an interrupted action as this controller would have (the
+        fleet's boot scan calls it, holding the recovery lease):
+
+        - ``what="rollback-resume"``: the rollback journal ``journal_path``
+          in flight completes;
+        - ``what="rollback-fresh"``: the record says the controller had
+          aborted, but the kill came before the rollback journal existed:
+          the record's ``CURRENT`` snapshot runs back through the engine
+          under a fresh rollback journal;
+        - ``what="forward"``: the forward journal ``journal_path`` resumes
+          to the verified plan.
+
+        On success the files the live path would have removed go, the
+        window's ledger charges the resumed moves, and after a rollback the
+        controller's breaker opens (the plan failed before the kill; a
+        restart grants it no free probe). :class:`InjectedExecCrash` (the
+        ``fleet:recovery-crash`` seam) propagates: the journal stays in
+        progress for the next boot."""
+        sha = str(record["sha"])
+        plan_text = record["plan_text"]
+        rollback = what in ("rollback-resume", "rollback-fresh")
+        if journal_path is None:
+            journal_path = self._journal_path(sha, rollback=True)
+        terminal = self.sup.controller_execute(
+            plan_text,
+            section="current" if rollback else "new",
+            journal=journal_path,
+            resume=what != "rollback-fresh",
+            probe=probe,
+            heartbeat=heartbeat,
+        )
+        if "refused" in terminal:
+            return terminal
+        ok = (
+            terminal.get("event") == "exec/done"
+            and terminal.get("status") in ("ok", "degraded")
+        )
+        self._decide(
+            "recovered" if ok else "recovery-failed", what=what,
+            plan_sha=sha[:12],
+            status=terminal.get("status") or terminal.get("kind"),
+        )
+        if ok:
+            self._record_moves(max(0, int(moves)))
+            self.sup.controller_refresh()
+            if rollback:
+                self.discard_superseded(sha)
+                self._breaker_open("recovered rollback")
+            else:
+                self._discard_action_record(sha)
+        return terminal
 
     # -- the controller's breaker -------------------------------------------------------
 

@@ -1,6 +1,5 @@
 """The resident assigner daemon, ``ka-daemon``: the port of the reference's
-``kafka_assigner_tpu/daemon/service.py`` (its fleet scheduler is a later
-slice's).
+``kafka_assigner_tpu/daemon/service.py``.
 
 One process keeps the torch import, the CUDA context, the kernels' modules
 and each cluster's encode resident, fed by ZooKeeper watches
@@ -9,6 +8,10 @@ and each cluster's encode resident, fed by ZooKeeper watches
 own session, watch loop, cache, inflight gate, watchdog and breaker). One
 dispatch plane serves them all (one device): by default the coalescing
 :class:`~.dispatch.SolveDispatcher`, under ``KA_DISPATCH=0`` one solve lock.
+One :class:`~.fleet.FleetScheduler` arbitrates every cluster's controller
+actions and their move budget (``ka-fleet.json`` in the journal directory)
+and, at boot, after the first syncs and before the HTTP surface exists,
+drives the interrupted executions it finds there to an end.
 Requests route by path:
 
 ================================ ====== ======================================
@@ -58,7 +61,8 @@ endpoint                         method behavior
 /healthz /readyz /state          GET    one cluster: its own (``/healthz``
                                         ``{"status", "stale"}``); many: the
                                         worst lifecycle of all, ready while
-                                        any cluster serves, every view
+                                        any cluster serves, every view, and
+                                        the fleet's summary
 /plan /whatif /execute           POST   one cluster only; with many a 400
 /recommendations /groups/...     GET    naming the clusters
 /controller                      GET,
@@ -70,6 +74,10 @@ endpoint                         method behavior
                                         and cluster, process gauges
 /debug/flight                    GET    the flight ring (``?cluster=`` one
                                         cluster's events)
+/fleet                           GET    the fleet scheduler (one cluster or
+                                        many): recovery summary, live
+                                        leases, the rolling move budget, the
+                                        decision ring
 /debug/profile?seconds=N         GET    one ``torch.profiler`` window into
                                         ``KA_OBS_PROFILE_DIR`` (400 when
                                         unset, 409 while another runs)
@@ -112,6 +120,7 @@ from ..obs import metrics as obs_metrics
 from ..obs.report import REPORT_SCHEMA_VERSION, TOOL_NAME, AccessLog
 from .controller import SharedTicker, resolve_policy
 from .dispatch import SolveDispatcher
+from .fleet import FleetScheduler
 from .supervisor import POLL_S, ClusterSupervisor
 
 #: The name of a single-cluster daemon's one cluster.
@@ -282,6 +291,11 @@ class AssignerDaemon:
             )
             for name, (connect, policy) in connects.items()
         }
+        #: The daemon-wide fleet scheduler, shared by every cluster's
+        #: controller; it also owns the boot-time journal recovery.
+        self.fleet = FleetScheduler(err=self.err)
+        for sup in self.supervisors.values():
+            sup.fleet = self.fleet
         #: HTTP handlers between their request and their access-log line.
         self._handlers = 0
         self._handlers_lock = threading.Lock()
@@ -342,6 +356,10 @@ class AssignerDaemon:
         get_solver(self.solver, device=self.device)
         for sup in self.supervisors.values():
             sup.start(require_sync=self.single)
+        # Boot recovery, synchronous and before the HTTP surface exists: a
+        # killed daemon's interrupted journals converge first, and the
+        # controllers are deferred ("recovery pending") until it ends.
+        self.fleet.recover(self.supervisors)
         self.httpd = _build_http_server(self, self.bind, self.port)
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, kwargs={"poll_interval": POLL_S},
@@ -783,6 +801,11 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
             if path == "/debug/profile":
                 self._debug_profile(split.query)
                 return
+            if path == "/fleet":
+                # Daemon-wide, as /metrics: one fleet for every cluster.
+                self._endpoint = "fleet"
+                self._reply(200, daemon.fleet.view())
+                return
             routed = self._route(path)
             if routed is None:
                 return
@@ -797,8 +820,11 @@ def _build_http_server(daemon: AssignerDaemon, bind: str,
                     self._reply(200 if ready else 503, body,
                                 None if ready else {"Retry-After": "5"})
                 elif suffix == "/state":
+                    fv = daemon.fleet.view()
                     self._reply(200, {
                         "lifecycle": daemon.lifecycle(),
+                        "fleet": {k: fv[k] for k in ("recovered", "leases", "window",
+                                                     "max_concurrent")},
                         "clusters": {n: s.state_view()
                                      for n, s in daemon.supervisors.items()},
                     })

@@ -254,9 +254,10 @@ class ClusterSupervisor:
         #: waits on it, so their evaluations pack in the dispatcher. None for
         #: a supervisor built alone, whose controller keeps its own timer.
         self._ticker = ticker
-        #: The reference's daemon-wide admission arbiter (its fleet
-        #: scheduler), not ported: None, so the controller acts ungated, as
-        #: the reference's does when no fleet is set.
+        #: The daemon-wide fleet scheduler (``daemon/fleet.py``), set by the
+        #: daemon on every supervisor: the controller's leases and move
+        #: budget, and the boot recovery. None for a supervisor built alone,
+        #: whose controller acts ungated, as the reference's.
         self.fleet = None
         #: The closed-loop controller: the --clusters override's policy, else
         #: the KA_CONTROLLER knob's (``off`` by default: no thread starts).
@@ -730,49 +731,45 @@ class ClusterSupervisor:
 
     def health_score(self) -> Optional[float]:
         """The last composite health score (lower is healthier), or None
-        before the first."""
+        before the first: the fleet's most-degraded-first priority key (the
+        controller and the fleet read it here, never ``_last_health``)."""
         return self._last_health.score if self._last_health is not None else None
 
     def controller_execute(
         self, plan_text: str, *,
         section: str = "new",
         probe=None,
+        heartbeat=None,
         on_verified=None,
         on_start=None,
         journal: Optional[str] = None,
+        resume: bool = False,
     ) -> dict:
         """Run one controller action (or its rollback, ``section="current"``)
         through the same one-at-a-time ``/execute`` machinery a client's
         request takes: a refusal comes back as ``{"refused": ...}``, the
         journaling and the fresh write session are the same. ``on_start``
-        fires once the run is admitted, never on a refusal. Returns the
-        terminal event; :class:`InjectedExecCrash` propagates (the
+        fires once the run is admitted, never on a refusal. ``resume`` (the
+        fleet's boot recovery finishing an interrupted action's journal)
+        replays the journal's frozen waves, as a client's ``resume=1`` does;
+        ``heartbeat`` runs at each wave boundary before ``probe``. Returns
+        the terminal event; :class:`InjectedExecCrash` propagates (the
         controller owns the rollback)."""
         params: dict = {"plan_text": plan_text, "section": section}
         if journal is not None:
             params["journal"] = journal
+        if resume:
+            params["resume"] = True
         prep = self.prepare_execute(params)
         if prep[0] == "error":
             _, code, body = prep
             return {"refused": body.get("error", f"http {code}")}
         _, ctx = prep
-        ctx["probe"] = probe
+        ctx["probe"] = _wave_probe(probe, heartbeat)
         ctx["on_verified"] = on_verified
         if on_start is not None:
             on_start()
-        terminal: dict = {}
-
-        def collect(event: dict) -> None:
-            if event.get("event") in ("exec/done", "exec/error"):
-                terminal.update(event)
-
-        self.run_execute(ctx, collect)
-        if not terminal:
-            terminal.update({
-                "event": "exec/error", "kind": "internal",
-                "message": "execution ended without a terminal event",
-            })
-        return terminal
+        return self._run_to_terminal(ctx, "execution")
 
     def controller_refresh(self) -> None:
         """After a controller action or rollback the cache lags the cluster
@@ -1655,6 +1652,67 @@ class ClusterSupervisor:
             self._active += 1  # the drain waits for executions too
         return ("run", ctx)
 
+    def recover_journal(self, path: str, *, probe=None, heartbeat=None) -> dict:
+        """Resume one in-progress journal under its own authority (the
+        fleet's boot recovery of an orphaned client ``/execute`` journal, or
+        of a controller journal whose action record is lost): the plan bytes
+        are gone, so the plan is rebuilt from the journal's frozen moves and
+        the journal's plan hash is asserted as the executor's identity (the
+        rebuilt plan fingerprints otherwise: noops were never journaled).
+        Returns the terminal event, or ``{"refused": ...}``;
+        :class:`InjectedExecCrash` propagates (the scan leaves the journal
+        for the next boot)."""
+        from ..exec.journal import (
+            ExecutionJournal,
+            JournalError,
+            journal_resume_payload,
+        )
+
+        try:
+            journal = ExecutionJournal.load(path)
+        except JournalError as e:
+            return {"event": "exec/error", "kind": "validation", "message": str(e)}
+        if self.draining.is_set():
+            return {"refused": "draining"}
+        if not self._exec_lock.acquire(blocking=False):
+            return {
+                "refused": "an execution is already in flight on this "
+                           "cluster (single-flight lock)",
+            }
+        plan, topic_order = journal_resume_payload(journal)
+        ctx = {
+            "plan": plan,
+            "topic_order": topic_order,
+            "plan_hash": journal.plan_hash,
+            "asserted_hash": journal.plan_hash,
+            "journal": path,
+            "resume": True,
+            "wave_size": None,
+            "throttle": None,
+            "policy": self.failure_policy,
+            "probe": _wave_probe(probe, heartbeat),
+        }
+        with self._active_lock:
+            self._active += 1
+        return self._run_to_terminal(ctx, "recovery")
+
+    def _run_to_terminal(self, ctx: dict, what: str) -> dict:
+        """:meth:`run_execute` on a prepared ``ctx``, keeping only the
+        terminal event (``exec/done`` or ``exec/error``)."""
+        terminal: dict = {}
+
+        def collect(event: dict) -> None:
+            if event.get("event") in ("exec/done", "exec/error"):
+                terminal.update(event)
+
+        self.run_execute(ctx, collect)
+        if not terminal:
+            terminal.update({
+                "event": "exec/error", "kind": "internal",
+                "message": f"{what} ended without a terminal event",
+            })
+        return terminal
+
     def abort_execute(self) -> None:
         """Give back a taken execution slot without running it (the client
         went away before the stream opened); else every later /execute on
@@ -1697,6 +1755,7 @@ class ClusterSupervisor:
                 on_event=safe_emit,
                 probe=ctx.get("probe"),
                 on_verified=ctx.get("on_verified"),
+                plan_hash=ctx.get("asserted_hash"),
             )
             try:
                 outcome = executor.execute()
@@ -1798,6 +1857,21 @@ class ClusterSupervisor:
             ),
             "counters": self.counters(),
         }
+
+
+def _wave_probe(probe, heartbeat):
+    """The engine's wave-boundary hook: ``heartbeat`` (the fleet lease's
+    stamp), then ``probe`` (a fault seam); ``probe`` alone when there is no
+    heartbeat."""
+    if heartbeat is None:
+        return probe
+
+    def _probe():
+        heartbeat()
+        if probe is not None:
+            probe()
+
+    return _probe
 
 
 class _SafeEmitter:

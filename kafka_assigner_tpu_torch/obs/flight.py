@@ -3,7 +3,8 @@ port of the reference's ``kafka_assigner_tpu/obs/flight.py``. Every event
 carries a monotonic ``seq``, a wall-clock ``t``, its ``kind`` and
 ``cluster`` when cluster-scoped; overflow drops the oldest and is counted,
 never silent. ``faults/inject.py`` records each fired fault here (kind
-``fault``).
+``fault``); ``obs/names.py:FLIGHT_KINDS`` lists every kind, down to the
+fleet scheduler's ``fleet`` decisions (``daemon/fleet.py``).
 
 Activation as the rest of ``obs/``: nothing records until :func:`enable`
 runs (``KA_OBS_FLIGHT_EVENTS`` entries; the one-shot CLI never enables it),

@@ -13,7 +13,11 @@ its supervisor (``daemon/supervisor.py``), not with literal names, and are
 declared here all the same; for a daemon of many clusters they take an
 ``@cluster`` suffix, which the cumulative registry turns into a label. So
 are the controller's (``daemon/controller.py``), which it writes through
-its cluster's supervisor.
+its cluster's supervisor. The fleet scheduler's (``daemon/fleet.py``) are
+daemon-wide and carry no cluster label.
+
+:data:`FLIGHT_KINDS` lists the flight recorder's event kinds
+(``obs/flight.py``), each with the reference's fields.
 """
 from __future__ import annotations
 
@@ -126,8 +130,13 @@ METRIC_NAMES: frozenset = frozenset({
     "controller.regressions", "controller.exec_failures",
     "controller.breaker_opened", "controller.breaker_closed",
     "controller.moves", "controller.window_moves", "controller.streak",
-    # a verdict memory reset by the controller (the reference counts it in
-    # its fleet scheduler's namespace; the scheduler itself is not ported)
+    # fleet.* — the daemon-wide fleet scheduler (daemon/fleet.py):
+    # admission grants and denials, the live-lease and window-move gauges,
+    # expired leases, the boot-time recovery scan's resumed and failed
+    # journals, and a verdict memory reset by the controller
+    "fleet.grants", "fleet.deferrals", "fleet.preemptions",
+    "fleet.leases", "fleet.window_moves", "fleet.lease_expired",
+    "fleet.recoveries", "fleet.recovery_failures",
     "fleet.memory_resets",
 })
 
@@ -156,3 +165,16 @@ SPAN_NAMES: frozenset = frozenset({
 
 #: Both namespaces.
 ALL_NAMES: frozenset = METRIC_NAMES | SPAN_NAMES
+
+#: The flight recorder's event kinds (``flight.record``'s first argument),
+#: the reference's taxonomy (``kafka_assigner_tpu/obs/flight.py``).
+FLIGHT_KINDS: frozenset = frozenset({
+    "daemon", "lifecycle", "breaker", "session", "resync", "watch",
+    "watchdog", "request", "execute", "fault", "profile", "recommendation",
+    "groups", "dispatch", "controller",
+    # one decision of the fleet scheduler: granted / deferred / budget-hold
+    # / preempted / released / lease-expired / recovered / recovery-failed
+    # / recovery-done (+ ``cluster``, ``sha``, ``moves``, ``lease_kind``,
+    # ``reason``, ...)
+    "fleet",
+})

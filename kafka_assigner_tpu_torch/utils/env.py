@@ -28,7 +28,9 @@ knobs turn on and tune its coalescing dispatcher (``daemon/dispatch.py``);
 ``KA_HEALTH_MOVE_COST`` prices a moved replica for
 ``/recommendations`` and the controller, the seven ``KA_CONTROLLER*`` knobs
 set the closed-loop controller's policy and its safety rails
-(``daemon/controller.py``), ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
+(``daemon/controller.py``), the four ``KA_FLEET_*`` knobs the fleet
+scheduler's move budget, concurrency cap and lease life
+(``daemon/fleet.py``), ``KA_OBS_ACCESS_LOG`` and ``KA_OBS_TRAFFIC_SERIES_MAX``
 route its access log and cap its traffic series. The port reads every
 knob per call, where the
 reference reads some at trace time.
@@ -165,6 +167,14 @@ KNOBS = {
     "KA_CONTROLLER_WINDOW": Knob(3600.0, floor=1.0),
     "KA_CONTROLLER_COOLDOWN": Knob(300.0, floor=0.0),
     "KA_CONTROLLER_REGRESSION_TOL": Knob(0.0, floor=0.0),
+    # The fleet scheduler (daemon/fleet.py): the daemon-wide rolling move
+    # budget and its window, how many clusters may hold an action lease at
+    # once, and a lease's life without a heartbeat. Each is read live per
+    # admission request.
+    "KA_FLEET_MAX_MOVES": Knob(64, floor=1),
+    "KA_FLEET_WINDOW": Knob(3600.0, floor=1.0),
+    "KA_FLEET_MAX_CONCURRENT": Knob(1, floor=1),
+    "KA_FLEET_LEASE_TTL": Knob(300.0, floor=0.1),
     # stderr diagnostics level (utils/logging.py).
     "KA_LOG": Knob("ERROR", choices=("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL")),
     # Observability (obs/): collect spans and metrics, the default report

@@ -5,13 +5,13 @@ package's, on the CPU, over snapshot clusters.
 Each case of ``tests/test_controller.py`` runs the same scenario through
 both packages' daemons, one after the other in the same directory (the same
 snapshot path, the same journal directory), and compares, less times: the
-decision trail (the ring, the flight ``controller`` events and the
-``controller.*`` counters), ``GET /controller``, the window ledger, the
-verdict memory, the journals and the snapshot's bytes. The reference's
-fleet scheduler is not ported: its ``ka-fleet.json`` and ``fleet`` events
-stay out of the comparison, and with one cluster it grants every lease, so
-nothing else differs. The daemon-level cases (restarts, rollbacks, the
-pause race, the shared ticker) are in ``test_torch_controller_daemon.py``.
+decision trail (the ring, the flight ``controller`` and ``fleet`` events,
+the ``controller.*`` counters and the ``fleet.*`` series), ``GET
+/controller``, the window ledger, the verdict memory, the fleet's ledger
+``ka-fleet.json``, the journals and the snapshot's bytes. The daemon-level
+cases (restarts, rollbacks, the pause race, two ``auto`` clusters under the
+fleet, the shared ticker) are in ``test_torch_controller_daemon.py``; the
+fleet's own cases in ``test_torch_fleet.py``.
 
 Ticks are driven by hand with the loop parked on an hour's interval, the
 resync interval is an hour too (an action prompts its own resync), the
@@ -54,10 +54,9 @@ from .test_torch_daemon import _await, req
 PKGS = ("torch", "jax")
 FAULTS = {"torch": torch_faults, "jax": jax_faults}
 FLIGHT = {"torch": torch_flight, "jax": jax_flight}
+METRICS = {"torch": torch_metrics, "jax": jax_metrics}
 #: Keys that hold a wall-clock or monotonic time.
-TIMES = frozenset({"t", "retry_in_s", "cooldown_remaining_s"})
-#: Files of the reference's fleet scheduler, not ported.
-FLEET_FILES = frozenset({"ka-fleet.json"})
+TIMES = frozenset({"t", "retry_in_s", "cooldown_remaining_s", "granted", "heartbeat"})
 
 
 def _reset_planes():
@@ -141,8 +140,7 @@ def controller_daemon(pkg, snap=None, **kw):
 
 
 def scrub(x):
-    """``x`` less its times (and the flight ring's global sequence, which
-    counts the reference's fleet events too)."""
+    """``x`` less its times."""
     if isinstance(x, dict):
         return {k: scrub(v) for k, v in x.items() if k not in TIMES}
     if isinstance(x, list):
@@ -157,16 +155,19 @@ def await_ready(sup, timeout=20.0):
 
 
 def files_of(run):
-    """The journal directory's files (less the snapshots and the fleet's),
-    each parsed, the window ledger less its times."""
+    """The journal directory's files (less the snapshots), each parsed, the
+    window ledger and the fleet's ledger less their times."""
     out = {}
     for name in sorted(os.listdir(run)):
-        if name.endswith(".json") and not name.startswith("ka-") or name in FLEET_FILES:
+        if name.endswith(".json") and not name.startswith("ka-"):
             continue
         text = (run / name).read_text()
         body = json.loads(text)
         if name.endswith(".window.json"):
             body = {"actions": [n for _t, n in body["actions"]]}
+        elif name == "ka-fleet.json":
+            body["actions"] = [[n, c] for _t, n, c in body["actions"]]
+            body["leases"] = {c: scrub(lease) for c, lease in body["leases"].items()}
         out[name] = body
     return out
 
@@ -174,12 +175,18 @@ def files_of(run):
 def record(pkg, d, run, snaps):
     """Everything a case compares, for one package's finished daemon."""
     events = [scrub({k: v for k, v in e.items() if k != "seq"})
-              for e in FLIGHT[pkg].recorder().snapshot() if e["kind"] == "controller"]
+              for e in FLIGHT[pkg].recorder().snapshot()
+              if e["kind"] in ("controller", "fleet")]
+    cum = METRICS[pkg].cumulative().snapshot()
     return {
         "views": {n: scrub(s.controller_view()) for n, s in sorted(d.supervisors.items())},
+        "fleet": scrub(d.fleet.view()),
         "events": events,
         "counters": {k: v for k, v in d.counters().items()
                      if k.startswith("controller.")},
+        "fleet_series": {f"{section}:{name}": sorted(by.items())
+                         for section in ("counters", "gauges")
+                         for name, by in cum[section].items() if name.startswith("fleet.")},
         "files": files_of(run),
         "snapshots": [open(p).read() for p in snaps],
     }
@@ -401,8 +408,8 @@ def test_controller_endpoint_get_and_pause_resume(tmp_path, monkeypatch):
 def test_controller_routes_of_many_clusters(tmp_path, monkeypatch):
     """With many clusters the bare ``/controller`` is a 400 naming them, an
     unknown cluster a 404, and each cluster's view its own policy; the
-    aggregate ``/state`` holds each cluster's ``controller`` key (the
-    reference's ``fleet`` key is the unported scheduler's)."""
+    aggregate ``/state`` holds each cluster's ``controller`` key and the
+    fleet's summary."""
     calls = [("GET", "/controller", None), ("POST", "/controller", {"action": "pause"}),
              ("GET", "/clusters/a/controller", None), ("GET", "/clusters/b/controller", None),
              ("POST", "/clusters/b/controller", {"action": "pause"}),
@@ -412,7 +419,7 @@ def test_controller_routes_of_many_clusters(tmp_path, monkeypatch):
         got = [(s, scrub(b)) for s, b, _ in
                (req(d.http_port, m, p, payload) for m, p, payload in calls)]
         _, state, _ = req(d.http_port, "GET", "/state")
-        return got, {n: v["controller"] for n, v in state["clusters"].items()}
+        return got, {n: v["controller"] for n, v in state["clusters"].items()}, state["fleet"]
 
     out = {}
     for pkg in PKGS:
@@ -421,7 +428,9 @@ def test_controller_routes_of_many_clusters(tmp_path, monkeypatch):
         with controller_daemon(pkg, clusters={"a": f"{a}#controller=observe", "b": b}) as d:
             out[pkg] = body(pkg, d)
     assert out["torch"] == out["jax"]
-    got, state = out["torch"]
+    got, state, fleet = out["torch"]
+    assert fleet == {"recovered": True, "leases": {}, "max_concurrent": 1,
+                     "window": {"seconds": 3600.0, "max_moves": 64, "moves": 0}}
     assert [s for s, _ in got] == [400, 400, 200, 200, 200, 404]
     assert got[2][1]["policy"] == "observe" and got[3][1]["policy"] == "off"
     assert state == {"a": {"policy": "observe", "paused": False, "breaker": {"state": "closed"}},

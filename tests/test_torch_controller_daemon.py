@@ -1,14 +1,12 @@
 """The port's rebalance controller against the JAX package's at the daemon
 level, on the CPU, over snapshot clusters: the window ledger across a
 daemon restart, a pause racing an action in flight, the two abort-to-
-rollback paths, two ``auto`` clusters, and the shared ticker packing two
-clusters' evaluations into one dispatch.
+rollback paths, two ``auto`` clusters under the fleet scheduler, and the
+shared ticker packing two clusters' evaluations into one dispatch.
 
 Each comparison is the one of ``test_torch_controller.py`` (the decision
-trail, ``GET /controller``, the ledger, memory and journal files, the
-snapshot's bytes, less times). The reference's fleet scheduler is not
-ported; where it changes a decision (a second cluster's action while the
-first's runs), the difference is pinned here as a kept divergence.
+trail, the fleet's decisions, ``GET /controller``, the ledgers, memory and
+journal files, the snapshot's bytes, less times).
 """
 from __future__ import annotations
 
@@ -211,13 +209,12 @@ def test_two_auto_clusters_act_one_after_the_other_as_the_reference(tmp_path, mo
     assert snaps[0] == snaps[1] != json.dumps(IMBALANCED)
 
 
-def test_a_second_auto_cluster_acts_where_the_reference_fleet_defers(tmp_path, monkeypatch):
-    """Kept divergence (the fleet scheduler is not ported). Entry: a daemon
-    of two ``auto`` clusters; input: ``b`` ticks while ``a``'s action is in
-    flight (its first write held). The reference's fleet (``KA_FLEET_MAX_CONCURRENT`` 1) defers
-    ``b`` on its concurrency cap; the port's ``b`` acts. First differing
-    cell: ``b``'s decision, ``acted`` against ``hold``/``fleet deferred``.
-    ``a``'s trail is the same in both."""
+def test_a_second_auto_cluster_holds_on_the_fleet_cap_as_the_reference(tmp_path, monkeypatch):
+    """A daemon of two ``auto`` clusters; ``b`` ticks while ``a``'s action
+    is in flight (its first write held). The fleet (``KA_FLEET_MAX_CONCURRENT``
+    1) defers ``b`` on its concurrency cap in both packages: ``b`` holds
+    with ``fleet deferred`` / ``concurrency cap``, ``a`` acts, and the
+    fleet's decisions are the same."""
     monkeypatch.setenv("KA_CONTROLLER_CONFIRMATIONS", "1")
     out = {}
     for pkg in PKGS:
@@ -236,12 +233,13 @@ def test_a_second_auto_cluster_acts_where_the_reference_fleet_defers(tmp_path, m
             t.join(timeout=60)
             assert not t.is_alive()
             out[pkg] = (scrub(box["a"]), entry_b,
-                        scrub(sa.controller_view())["decisions"])
-    assert out["torch"][0] == out["jax"][0] and out["torch"][2] == out["jax"][2]
+                        scrub(sa.controller_view())["decisions"],
+                        [e["decision"] for e in d.fleet.view()["decisions"]])
+    assert out["torch"] == out["jax"]
     assert out["torch"][0]["decision"] == "acted"
-    assert out["torch"][1]["decision"] == "acted"
-    assert out["jax"][1] == {"seq": 1, "decision": "hold", "reason": "fleet deferred",
-                             "fleet_reason": "concurrency cap"}
+    assert out["torch"][1] == {"seq": 1, "decision": "hold", "reason": "fleet deferred",
+                               "fleet_reason": "concurrency cap"}
+    assert out["torch"][3] == ["recovery-done", "granted", "deferred", "released"]
 
 
 # --- the shared ticker ------------------------------------------------------------------

@@ -191,8 +191,9 @@ def test_routing_plans_and_aggregates_match_the_reference(servers, monkeypatch):
     assert [g[2] for g in got[6:10]] == [404] * 4
     assert got[10][3]["status"] == "ready" and set(got[10][3]["clusters"]) == {"a", "b"}
     assert got[12][3]["breaker"]["state"] == "closed"
-    # The aggregate /state: the reference adds its fleet scheduler's view.
-    assert set(state) == set(state_j) - {"fleet"} and set(state["clusters"]) == {"a", "b"}
+    # The aggregate /state, the fleet scheduler's summary included.
+    assert set(state) == set(state_j) and set(state["clusters"]) == {"a", "b"}
+    assert state["fleet"] == state_j["fleet"] and state["fleet"]["recovered"] is True
     assert set(one) == set(one_j)
     for key in ("lifecycle", "cache_version", "brokers", "topics", "encode_shape",
                 "watches", "breaker", "execution_in_flight", "health",
@@ -437,18 +438,12 @@ def _wait_http(cum_mod, n):
     assert _await(counted, timeout=10)
 
 
-#: Families whose values are the process's or the artifact's own, and the
-#: reference's fleet scheduler's: of the controller and the fleet, only the
-#: fleet is left to port.
-OWN_FAMILIES = ("ka_process_", "ka_build_info", "ka_compile_store_", "ka_flight_events_",
-                "ka_fleet_")
+#: Families whose values are the process's or the artifact's own.
+OWN_FAMILIES = ("ka_process_", "ka_build_info", "ka_compile_store_", "ka_flight_events_")
 #: Gauges of the padded fan-out: the reference pads a sweep to its device
 #: mesh (the test process's eight virtual CPU devices), the port to its
 #: batch bucket; the sharded sweep is a later slice.
 MESH_PADDED = ("ka_whatif_fanout", "ka_groups_fanout")
-#: Flight events of the reference's fleet scheduler (its startup journal
-#: scan): only the fleet is left to port.
-LATER_KINDS = ("fleet",)
 
 
 def _logged(log, n):
@@ -533,7 +528,7 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
             assert fams[fam]["samples"] == fams_j[fam]["samples"], fam
     assert {"ka_daemon_http_requests_total", "ka_health_score", "ka_traffic_lag",
             "ka_whatif_scenario_ms", "ka_groups_sweep_ms", "ka_daemon_executes_total",
-            "ka_health_movement_debt"} <= ours
+            "ka_health_movement_debt", "ka_fleet_leases", "ka_fleet_window_moves"} <= ours
     keep = ("method", "path", "cluster", "code", "status", "inflight", "stale",
             "degraded")
     assert [{k: ln[k] for k in keep} for ln in lines] == \
@@ -541,8 +536,7 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
     assert {k for ln in lines for k in ln} == {k for ln in lines_j for k in ln}
     assert len(lines) == len(sequence) + 4  # the execution, the scrape, two flight views
     for v, v_j in ((view, view_j), (per_b, per_b_j)):
-        assert [e["kind"] for e in v["events"]] == [
-            e["kind"] for e in v_j["events"] if e["kind"] not in LATER_KINDS]
+        assert [e["kind"] for e in v["events"]] == [e["kind"] for e in v_j["events"]]
     kinds = [e["kind"] for e in per_b["events"]]
     assert {"daemon", "lifecycle", "resync", "request", "recommendation", "groups",
             "execute"} <= set(kinds)

@@ -60,7 +60,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "warm.__main__", "exec", "exec.engine", "exec.journal",
                 "exec.__main__", "utils.atomicwrite", "daemon", "daemon.state",
                 "daemon.supervisor", "daemon.service", "daemon.__main__",
-                "daemon.dispatch", "daemon.controller"):
+                "daemon.dispatch", "daemon.controller", "daemon.fleet"):
         assert f"kafka_assigner_tpu_torch.{new}" in mods, new
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(

@@ -570,8 +570,8 @@ def test_a_cuda_daemon_of_many_clusters_needs_a_card(tmp_path):
 
 
 def test_the_reference_daemon_serves_the_same_exposition_families(server):
-    """The port's scrape after one plan has the reference's families, less
-    the process's own and the fleet's (a later slice)."""
+    """The port's scrape after one plan has the reference's families, the
+    fleet's among them, less the program store's own."""
     fams = {}
     for pkg in ("torch", "jax"):
         cls, kw = (AssignerDaemon, {"device": "cpu"}) if pkg == "torch" else (JaxDaemon, {})
@@ -585,6 +585,6 @@ def test_the_reference_daemon_serves_the_same_exposition_families(server):
             fams[pkg] = set(promtext.parse(scrape(d.http_port)[2]))
         finally:
             d.shutdown()
-    own = ("ka_fleet_", "ka_compile_store_")
+    own = ("ka_compile_store_",)
     assert {f for f in fams["torch"] if not f.startswith(own)} == \
         {f for f in fams["jax"] if not f.startswith(own)}
