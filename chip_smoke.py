@@ -340,6 +340,23 @@ Phases, each printing its own line; any failure exits non-zero:
     evaluation's leadership launch, in process or saved by the child, is
     held against plain; each round's wall and job's queue waits and the
     kernel's time on the recorded inputs are printed.
+28. the mesh (``parallel/mesh.py``) on the one card, every position on
+    ``cuda:0``, after phase 27: (a) config 5's 256 removals on
+    ``MESH_POSITIONS`` in-process positions of the scenario axis,
+    incremental and dense, == phase 10's unsharded results; (b) the same
+    sweep in ``MESH_PROCS`` child processes (``mesh_child``, a process
+    group over ``gloo``: the ranks share the card) of
+    ``MESH_PROC_POSITIONS`` positions each, every rank == (a); (c) in the
+    same children, phase 7's giant expansion and saturated cells at full
+    size through ``TopicAssigner(TorchSolver("cuda", mesh=build_mesh(1,
+    MESH_PROCS)))``: plan bytes == phase 7's, 10,000 and 12,000 moved,
+    phase 7's chain and waves, and each rank's leadership launch at (1,
+    200000, 3) on phase 7's inputs, bit-equal to its held launch; (d) (c)'s
+    expansion on ``MESH_PROCS`` in-process positions, plan == (c)'s, one
+    launch a position. Each part prints its wall, its collectives a solve,
+    and the sharded time beside the unsharded one of this run: the cost of
+    the collectives with every position on one card, not a speedup. A
+    child that exits non-zero fails the smoke.
 
 Phase 3b holds the group-pack kernel (KG1, ``csrc/group_pack.cu``) bit-equal
 to its plain version on the stress cases of ``ops/group_pack_cases.py``,
@@ -380,7 +397,8 @@ the throughput bound does not see; ``launches`` sums the counts of every
 path driven (config 4, the three giant cells, the reduced ``cuda`` runs,
 phase 17's CLI runs on each lane, phase 19's, 20's, 21's and 22's runs,
 phase 23's, 24's and 25's requests, phase 26's and 27's evaluations,
-21's, 23(e)'s and 27(b)'s counted inside each child process), and
+phase 28's part-axis solves, 21's, 23(e)'s, 27(b)'s and 28(c)'s counted
+inside each child process), and
 ``launches_by_path`` gives
 each; the group-pack entry's counts are those of
 phases 14-16, 24 (``daemon_multi_*``) and 25 (``dispatch_*``), and its
@@ -490,7 +508,8 @@ def solver_probe():
     def place_recorded(*args, **kw):
         a = signature.bind(*args, **kw).arguments
         placed = place(*args, **kw)
-        legs, _, giant = resolve_chain(a["wave_mode"], a["currents"].shape[1],
+        legs, _, giant = resolve_chain(a["wave_mode"],
+                                       a.get("p_pad") or a["currents"].shape[1],
                                        a["rack_idx"].shape[0], a.get("r_cap"))
         seen["chains"].append((legs, giant, dict(placed.waves)))
         return placed
@@ -756,7 +775,11 @@ def giant_main_paths(cells, work, lead, checks):
     """Phase 7: the three giant cells through the CLI on the card, the
     kernel counts reset just before each and read just after; each
     placement's chain checked, and each kernel launch handed to ``checks``.
-    Returns the launches per cell and (a)'s kernel inputs and outputs."""
+    Returns the launches per cell, (a)'s kernel inputs and outputs, and per
+    cell the sha256 of the NEW (FRESH) ASSIGNMENT payload, the chain
+    ``(legs, giant, waves)`` and the kernel launch ``(inputs, outputs)``."""
+    import hashlib
+
     snaps = {}
     for cell in ("expansion", "saturated"):
         topic_map, live, rack_map, _, _ = cells[cell]
@@ -772,7 +795,7 @@ def giant_main_paths(cells, work, lead, checks):
                   "--mode", "PRINT_FRESH_ASSIGNMENT", "--topics", "giant-fresh",
                   "--partition_count", str(p), "--desired_replication_factor", str(RF)],
     }
-    launches, k_expansion = {}, None
+    launches, k_expansion, record = {}, None, {}
     for cell, argv in argvs.items():
         topic_map, live, rack_map, cap, expected = cells[cell]
         with solver_probe() as seen:
@@ -796,7 +819,10 @@ def giant_main_paths(cells, work, lead, checks):
                           "gave it,", inputs, outputs)
         if cell == "expansion":
             k_expansion = seen["orders"][0]
-    return launches, k_expansion
+        payload = text.split(marker, 1)[1].strip()
+        record[cell] = {"sha": hashlib.sha256(payload.encode()).hexdigest(),
+                        "chain": seen["chains"][0], "order": seen["orders"][0]}
+    return launches, k_expansion, record
 
 
 def reduced_parity(work, lead):
@@ -970,7 +996,8 @@ def as_tuples(results):
 def whatif_config5():
     """Phase 10: BASELINE config 5 on both sweep paths on the card, against
     each other and the port's cpu run; warm medians by phase, waves, rows,
-    chunks and peak device memory per path."""
+    chunks and peak device memory per path. Returns them per path, with the
+    results (``as_tuples``)."""
     import torch
 
     from kafka_assigner_tpu_torch.models.synthetic import build_config5
@@ -1019,6 +1046,8 @@ def whatif_config5():
     phase("whatif", f"config 5: incremental == dense == cpu ({time.perf_counter() - t0:.1f} s "
           f"on the CPU) on all {CONFIG5_SCENARIOS} scenarios, all feasible, moved == "
           f"replicas held ({span[0]}-{span[-1]})")
+    for path in out:
+        out[path]["results"] = results[path]
     return out
 
 
@@ -2637,6 +2666,31 @@ def span_summary(body):
     return f"{spans[top]['name']} {spans[top]['ms']:.1f} ms ({', '.join(kids)})"
 
 
+def launch_holder(checks, checked=()):
+    """``hold(what, orders)``: each recorded leadership launch ``(inputs,
+    outputs)`` against the plain version in a worker, or, when its inputs
+    and outputs are bit-equal to a launch already held (``checked`` seeds
+    them as ``(tensors, what)`` pairs), through that one."""
+    import torch
+
+    sent = list(checked)
+
+    def hold(what, orders):
+        for inputs, outputs in orders:
+            tensors = tuple(inputs) + tuple(outputs)
+            for s_tensors, s_what in sent:
+                if all(a.shape == b.shape and torch.equal(a, b)
+                       for a, b in zip(tensors, s_tensors)):
+                    phase("kernels", f"leadership at {what}: inputs and outputs "
+                          f"bit-equal to the launch of {s_what}, held against plain")
+                    break
+            else:
+                sent.append((tensors, what))
+                checks.submit(what, inputs, outputs)
+
+    return hold
+
+
 def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=()):
     """Phase 23: the resident daemon (``daemon/``) on config 4 over phase
     20(d)'s ZooKeeper tree (brokers 0-99 still registered, 1 ms a reply).
@@ -2670,21 +2724,7 @@ def daemon_phases(work, checks, text4, snap4, prefix4, prefix_text4, checked=())
     t_phase = time.perf_counter()
     smi = nvidia_smi()
     launches = {}
-    sent = list(checked)  # (inputs + outputs, what) of launches held against plain
-
-    def hold(what, orders):
-        """Each recorded launch against plain (or a launch already sent)."""
-        for inputs, outputs in orders:
-            tensors = tuple(inputs) + tuple(outputs)
-            for s_tensors, s_what in sent:
-                if all(a.shape == b.shape and torch.equal(a, b)
-                       for a, b in zip(tensors, s_tensors)):
-                    phase("kernels", f"leadership at {what}: inputs and outputs "
-                          f"bit-equal to the launch of {s_what}, held against plain")
-                    break
-            else:
-                sent.append((tensors, what))
-                checks.submit(what, inputs, outputs)
+    hold = launch_holder(checks, checked)
 
     def request(key, port, payload, what, want):
         """One /plan through the in-process daemon: status ok, stdout
@@ -4600,6 +4640,295 @@ def fleet_phases(work, hold):
     return launches
 
 
+#: Phase 28: the mesh on the one card, every position on ``cuda:0``. (a)
+#: puts MESH_POSITIONS positions in this process; (b) and (c) run in
+#: MESH_PROCS child processes (``gloo``: the ranks share the card), (b) with
+#: MESH_PROC_POSITIONS positions a rank, (c) one; (d) MESH_PROCS positions
+#: in this process.
+MESH_POSITIONS = 4
+MESH_PROCS = 2
+MESH_PROC_POSITIONS = 2
+MESH_SOLVES = 2  # (c) and (d): a first solve, then a warm one
+MESH_CHILD_TIMEOUT_S = 300
+
+
+def mesh_child(argv) -> int:
+    """Phase 28's child process, one rank of MESH_PROCS (run as ``python -c
+    "import chip_smoke; ..."`` from the repository root; ``argv``: port,
+    rank, launch directory). Starts the process group, then (b) config 5's
+    sweep over MESH_PROC_POSITIONS positions a rank on both paths and (c)
+    the giant expansion and saturated cells through ``TorchSolver("cuda",
+    mesh=build_mesh(1, MESH_PROCS))``, MESH_SOLVES solves each, every
+    leadership launch saved to the launch directory. Prints one
+    ``KA_MESH_CHILD {...}`` line."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from kafka_assigner_tpu_torch.assigner import TopicAssigner
+    from kafka_assigner_tpu_torch.io.json_io import format_reassignment_pairs
+    from kafka_assigner_tpu_torch.models.synthetic import build_config5
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.parallel import mesh as mesh_mod
+    from kafka_assigner_tpu_torch.parallel import whatif
+    from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
+
+    import torch
+
+    port, rank, out_dir = int(argv[0]), int(argv[1]), argv[2]
+    t_start = time.perf_counter()
+    mesh_mod.initialize_distributed(f"127.0.0.1:{port}", MESH_PROCS, rank)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "init_s": time.perf_counter() - t_start}
+    gathers = {"n": 0}
+    for name in ("all_gather", "all_gather_object"):
+        def counted(*a, _real=getattr(dist, name), **kw):
+            gathers["n"] += 1
+            return _real(*a, **kw)
+        setattr(dist, name, counted)
+
+    # (b) the scenario axis across the ranks.
+    topic_map, live, racks = build_config5()
+    scenarios = [[b] for b in range(CONFIG5_SCENARIOS)]
+    mesh = mesh_mod.build_mesh(devices=mesh_mod.visible_devices("cuda") * MESH_PROC_POSITIONS)
+    rec["b_shape"] = mesh.shape
+    for path, flag in (("incremental", 1), ("dense", 0)):
+        with knobs(KA_WHATIF_INCREMENTAL=flag):
+            walls = []
+            for _ in range(WHATIF_REPS + 1):
+                n0 = gathers["n"]
+                t0 = time.perf_counter()
+                res = whatif.evaluate_removal_scenarios(topic_map, live, racks, scenarios,
+                                                        3, device="cuda", mesh=mesh)
+                walls.append((time.perf_counter() - t0) * 1e3)
+        rec[f"b_{path}"] = {"results": as_tuples(res), "path": whatif.last_sweep["path"],
+                            "first_ms": walls[0], "ms": statistics.median(walls[1:]),
+                            "gathers": gathers["n"] - n0}
+
+    # (c) the part axis across the ranks, on the full giant cells.
+    cells = giant_cells()
+    part = mesh_mod.build_mesh(1, MESH_PROCS)
+    rec["c_shape"] = part.shape
+    for cell in ("expansion", "saturated"):
+        topic_map, live, rack_map, _, _ = cells[cell]
+        topics = list(topic_map.items())
+        runs = []
+        with solver_probe() as seen:
+            lead.launches["leadership"] = 0
+            for _ in range(MESH_SOLVES):
+                solver = TorchSolver("cuda", mesh=part)
+                t0 = time.perf_counter()
+                pairs = TopicAssigner(solver).generate_assignments(topics, live, rack_map)
+                runs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                             "timers": dict(solver.last_timers),
+                             "collectives": solver.last_collectives})
+            launched = lead.launches["leadership"]
+        for i, (inputs, outputs) in enumerate(seen["orders"]):
+            torch.save({"inputs": [t.cpu() for t in inputs],
+                        "outputs": [t.cpu() for t in outputs]},
+                       os.path.join(out_dir, f"{cell}_{rank}_{i}.pt"))
+        payload = format_reassignment_pairs(pairs)
+        moved = sum(len(set(reps) - set(topic_map[t][p]))
+                    for t, a in pairs for p, reps in a.items())
+        rec[f"c_{cell}"] = {
+            "sha": hashlib.sha256(payload.encode()).hexdigest(), "moved": moved,
+            "launches": launched, "saved": len(seen["orders"]),
+            "chains": [[list(legs), giant, waves] for legs, giant, waves in seen["chains"]],
+            "runs": runs,
+        }
+    rec["wall_s"] = time.perf_counter() - t_start
+    print("KA_MESH_CHILD " + json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phases(work, checks, config5, giant_rec, giant_med, cells):
+    """Phase 28: the mesh on the one card, every position on ``cuda:0``;
+    sharded results must equal the unsharded ones of this run. (a) config
+    5's 256 removals on MESH_POSITIONS in-process positions, both paths,
+    == phase 10's; (b) the same sweep in MESH_PROCS child processes of
+    MESH_PROC_POSITIONS positions each, every rank == (a); (c) phase 7's
+    giant expansion and saturated cells at full size through
+    ``TorchSolver("cuda", mesh=build_mesh(1, MESH_PROCS))`` in the same
+    children: plan bytes == phase 7's, moved 10,000 and 12,000, phase 7's
+    chain and waves, each rank's launches at (1, 200000, 3) bit-equal to
+    phase 7's held launch; (d) (c)'s expansion on MESH_PROCS in-process
+    positions, plan == (c)'s. ``config5`` is phase 10's record,
+    ``giant_rec`` phase 7's and ``giant_med`` phase 9's medians. Prints each
+    part's wall, collectives a solve, and the sharded time beside the
+    unsharded one: the cost of the collectives with every position on one
+    card, not a speedup. Returns the leadership launches per path."""
+    import hashlib
+    import socket
+
+    import torch
+
+    from kafka_assigner_tpu_torch.assigner import TopicAssigner
+    from kafka_assigner_tpu_torch.io.json_io import format_reassignment_pairs
+    from kafka_assigner_tpu_torch.models.synthetic import build_config5
+    from kafka_assigner_tpu_torch.ops import leadership as lead
+    from kafka_assigner_tpu_torch.parallel import whatif
+    from kafka_assigner_tpu_torch.parallel.mesh import build_mesh
+    from kafka_assigner_tpu_torch.solvers.torch_solver import TorchSolver
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    hold = launch_holder(checks, [
+        (tuple(giant_rec[cell]["order"][0]) + tuple(giant_rec[cell]["order"][1]),
+         f"phase 7's giant {cell} cell") for cell in ("expansion", "saturated")])
+    launches = {}
+
+    # (a) the scenario axis in process.
+    t0 = time.perf_counter()
+    topic_map, live, racks = build_config5()
+    scenarios = [[b] for b in range(CONFIG5_SCENARIOS)]
+    mesh = build_mesh(devices=["cuda:0"] * MESH_POSITIONS)
+    lead.launches["leadership"] = 0
+    sweeps = {}
+    for path, flag in (("incremental", 1), ("dense", 0)):
+        with knobs(KA_WHATIF_INCREMENTAL=flag):
+            walls = []
+            for _ in range(WHATIF_REPS + 1):
+                t1 = time.perf_counter()
+                res = whatif.evaluate_removal_scenarios(topic_map, live, racks, scenarios, 3,
+                                                        device="cuda", mesh=mesh)
+                walls.append((time.perf_counter() - t1) * 1e3)
+        got = as_tuples(res)
+        if whatif.last_sweep["path"] != path or got != config5[path]["results"]:
+            fail(f"28 (a) config 5 {path} on {MESH_POSITIONS} positions: path "
+                 f"{whatif.last_sweep['path']}, results equal to phase 10's "
+                 f"{got == config5[path]['results']}")
+        sweeps[path] = got
+        phase("mesh", f"(a) config 5 {path}, {CONFIG5_SCENARIOS} scenarios on "
+              f"{mesh.shape} positions of cuda:0 in this process: == phase 10's "
+              f"unsharded results; warm median {statistics.median(walls[1:]):.1f} ms "
+              f"(first {walls[0]:.1f}) beside phase 10's unsharded {config5[path]['total']:.1f} "
+              f"ms: the cost of the split with every position on one card, not a speedup; "
+              f"0 collectives a sweep (the blocks join in process); chunks "
+              f"{whatif.last_sweep['chunks']}, waves {whatif.last_sweep['waves']}")
+    if lead.launches["leadership"]:
+        fail("28 (a): the what-if sweep launched the leadership kernel")
+    phase("mesh", f"(a) wall {time.perf_counter() - t0:.1f} s")
+
+    # (b) and (c) in MESH_PROCS children, one rank each.
+    t0 = time.perf_counter()
+    out = os.path.join(work, "mesh_launches")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.mesh_child(sys.argv[1:]))",
+         str(port), str(rank), out],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(MESH_PROCS)]
+    recs = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=MESH_CHILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                fail(f"28: a mesh child exited {proc.returncode}: {stderr[-2000:]}")
+            line = [ln for ln in stdout.splitlines() if ln.startswith("KA_MESH_CHILD ")]
+            if not line:
+                fail(f"28: a mesh child printed no record: {stderr[-2000:]}")
+            recs.append(json.loads(line[-1].split(" ", 1)[1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    children_s = time.perf_counter() - t0
+    for r in recs:
+        for path in ("incremental", "dense"):
+            b = r[f"b_{path}"]
+            same = b["results"] == json.loads(json.dumps(sweeps[path]))
+            if b["path"] != path or not same:
+                fail(f"28 (b) rank {r['rank']} config 5 {path}: path {b['path']}, results "
+                     f"equal to (a)'s {same}")
+            phase("mesh", f"(b) rank {r['rank']} of {MESH_PROCS} ({r['backend']}, init "
+                  f"{r['init_s']:.1f} s), config 5 {path} on {r['b_shape']} positions: == (a)'s "
+                  f"results; warm median {b['ms']:.1f} ms (first {b['first_ms']:.1f}) beside "
+                  f"phase 10's unsharded {config5[path]['total']:.1f} ms, {b['gathers']} "
+                  f"cross-rank gathers a sweep: the cost of the collectives with every "
+                  f"position on one card, not a speedup")
+    orders_by_cell = {}
+    for cell in ("expansion", "saturated"):
+        ref = giant_rec[cell]
+        _, _, _, _, expected = cells[cell]
+        total = 0
+        for r in recs:
+            c = r[f"c_{cell}"]
+            chains = [(tuple(legs), giant, waves) for legs, giant, waves in c["chains"]]
+            if c["sha"] != ref["sha"] or c["moved"] != expected:
+                fail(f"28 (c) rank {r['rank']} giant {cell}: plan bytes equal to phase 7's "
+                     f"{c['sha'] == ref['sha']}, moved {c['moved']} (expected {expected})")
+            if any(ch[:2] != ref["chain"][:2] or ch[2] != ref["chain"][2] for ch in chains):
+                fail(f"28 (c) rank {r['rank']} giant {cell}: chains {chains}, phase 7's "
+                     f"{ref['chain']}")
+            if c["launches"] != MESH_SOLVES or c["saved"] != MESH_SOLVES:
+                fail(f"28 (c) rank {r['rank']} giant {cell}: {c['launches']} launches "
+                     f"counted, {c['saved']} saved, not {MESH_SOLVES}")
+            total += c["launches"]
+            warm = c["runs"][-1]
+            phase("mesh", f"(c) rank {r['rank']} giant {cell} on {r['c_shape']} positions: "
+                  f"plan bytes == phase 7's, moved {c['moved']}, chain {chains[0][0]}, waves "
+                  f"{chains[0][2]} as phase 7's; leadership launches {c['launches']}; "
+                  f"{warm['collectives']} part-axis collectives a solve (each an "
+                  f"all_gather over gloo); solve {warm['ms']:.1f} ms (first "
+                  f"{c['runs'][0]['ms']:.1f}; place {warm['timers'].get('place', 0):.1f}, "
+                  f"leadership {warm['timers'].get('leadership', 0):.1f}) beside phase 9's "
+                  f"unsharded {giant_med[cell]['c']['total']:.1f} ms: the cost of the "
+                  f"collectives with both positions on one card, not a speedup")
+            for i in range(c["saved"]):
+                saved = torch.load(os.path.join(out, f"{cell}_{r['rank']}_{i}.pt"))
+                inputs = tuple(t.cuda() for t in saved["inputs"])
+                outputs = tuple(t.cuda() for t in saved["outputs"])
+                if tuple(inputs[0].shape) != (1, GIANT_P, RF) or any(
+                        not torch.equal(a, b) for a, b in zip(inputs, ref["order"][0])):
+                    fail(f"28 (c) rank {r['rank']} giant {cell}: a launch's inputs differ "
+                         f"from phase 7's at {tuple(inputs[0].shape)}")
+                orders_by_cell.setdefault(cell, []).append((inputs, outputs))
+        launches[f"mesh_part_{cell}"] = total
+        hold(f"phase 28 (c) giant {cell}, each rank", orders_by_cell[cell])
+    phase("mesh", f"(b)+(c) wall {children_s:.1f} s for {MESH_PROCS} child processes "
+          f"(slowest rank {max(r['wall_s'] for r in recs):.1f} s inside)")
+
+    # (d) the part axis in process.
+    t0 = time.perf_counter()
+    topic_map, live, rack_map, _, expected = cells["expansion"]
+    topics = list(topic_map.items())
+    walls = []
+    with solver_probe() as seen:
+        lead.launches["leadership"] = 0
+        for _ in range(MESH_SOLVES):
+            solver = TorchSolver("cuda", mesh=build_mesh(1, MESH_PROCS,
+                                                         devices=["cuda:0"] * MESH_PROCS))
+            t1 = time.perf_counter()
+            pairs = TopicAssigner(solver).generate_assignments(topics, live, rack_map)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        launched = lead.launches["leadership"]
+    sha = hashlib.sha256(format_reassignment_pairs(pairs).encode()).hexdigest()
+    if sha != recs[0]["c_expansion"]["sha"]:
+        fail("28 (d): the in-process part-axis plan differs from (c)'s")
+    if launched != MESH_SOLVES * MESH_PROCS or len(seen["orders"]) != launched:
+        fail(f"28 (d): {launched} leadership launches ({len(seen['orders'])} ordering "
+             f"calls), not {MESH_SOLVES * MESH_PROCS}")
+    waves = check_chains(seen["chains"], "28 (d)", rescue_allowed=False)
+    launches["mesh_part_in_process_expansion"] = launched
+    hold("phase 28 (d) giant expansion, each position", seen["orders"])
+    phase("mesh", f"(d) giant expansion on {MESH_PROCS} positions of cuda:0 in this process: "
+          f"plan bytes == (c)'s, waves {waves[0]}, leadership launches {launched} (one a "
+          f"position a solve), {solver.last_collectives} collectives a solve; solve "
+          f"{walls[-1]:.1f} ms (first {walls[0]:.1f}) beside phase 9's unsharded "
+          f"{giant_med['expansion']['c']['total']:.1f} ms: the cost of the collectives with "
+          f"both positions on one card, not a speedup; wall {time.perf_counter() - t0:.1f} s")
+    phase("timing", f"phase 28 {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4743,10 +5072,10 @@ def smoke(checks) -> int:
 
     # --- 7-9: the giant cells --------------------------------------------
     cells = giant_cells()
-    launches, (k_giant, checked) = giant_main_paths(cells, work, lead, checks)
+    launches, (k_giant, checked), giant_rec = giant_main_paths(cells, work, lead, checks)
     reduced, err = reduced_parity(work, lead)
     max_err = max(max_err, err)
-    giant_timing(cells)
+    giant_med = giant_timing(cells)
     g_times = cases.event_ms(lambda: lead.leadership_order(*k_giant), KERNEL_REPS)
     g_ms = statistics.median(g_times)
     if any(not torch.equal(x, y) for x, y in zip(lead.leadership_order(*k_giant), checked)):
@@ -4766,7 +5095,7 @@ def smoke(checks) -> int:
     # --- 10-13: what-if sweeps, RANK_DECOMMISSION, host modes -----------
     # Placement only: the leadership kernel is not on these paths.
     lead.launches["leadership"] = 0
-    whatif_config5()
+    config5 = whatif_config5()
     steady_snap, rank_rec = rank_config4(work)
     groups.add_synthetic(steady_snap)
     rescue_parity()
@@ -4811,6 +5140,9 @@ def smoke(checks) -> int:
         work, checks, text, snap, prefix.split(","), a,
         [(tuple(k_args) + tuple(k_out), "phase 4's main-path shape")])
 
+    # --- 28: the mesh on the card (after 27, which ends daemon_phases) ------
+    mesh_launches = mesh_phases(work, checks, config5, giant_rec, giant_med, cells)
+
     # --- 22: plan execution ---------------------------------------------------
     exec_launches = exec_phases(work, checks, argv, text, snap, prefix, a)
     late = checks.collect()
@@ -4828,7 +5160,7 @@ def smoke(checks) -> int:
                **{f"lane_{k.replace(' ', '_')}_{lane}": v["cli_launches"][lane]
                   for k, v in lanes.items() for lane in ("native", "device")},
                **obs_launches, **zk_launches, **warm_launches, **exec_launches,
-               **daemon_launches}
+               **daemon_launches, **mesh_launches}
     kernels = {"kernels": [{
         "name": "leadership",
         "route": "cuda",

@@ -199,7 +199,11 @@ def print_decommission_ranking(
     removals on ``device``, printed least-disruptive-first as a JSON array.
     Default: every live broker (or each of ``candidate_brokers``) as a
     singleton scenario; ``scenario_file`` ranks arbitrary removal sets in
-    the same sweep."""
+    the same sweep. The sweep spreads over every visible card of
+    ``device`` (and every rank of a process group) on the scenario axis, as
+    the reference's CLI does (``generator.py:201-209``); on one card the
+    path does not change."""
+    from .parallel import mesh as mesh_mod
     from .parallel.whatif import (
         evaluate_removal_scenarios,
         rank_decommission_candidates,
@@ -211,6 +215,14 @@ def print_decommission_ranking(
     brokers = {b.id for b in live_brokers}
     topic_list = list(topics) if topics is not None else backend.all_topics()
     initial = backend.partition_assignment(topic_list)
+    # The scenario axis is embarrassingly parallel (sharded == unsharded is
+    # test-pinned); only the CLI auto-meshes, the library call stays
+    # explicit.
+    local = mesh_mod.visible_devices(device)
+    mesh = None
+    if len(local) > 1 or mesh_mod.process_count() > 1:
+        mesh = mesh_mod.build_mesh(devices=local)
+
     topic_map = {t: initial[t] for t in topic_list}
     racks = {k: v for k, v in rack_assignment.items() if k in brokers}
     if scenario_file is not None:
@@ -218,7 +230,7 @@ def print_decommission_ranking(
         with span("whatif/rank"):
             results = evaluate_removal_scenarios(
                 topic_map, brokers, racks, scenarios,
-                desired_replication_factor, device=device,
+                desired_replication_factor, device=device, mesh=mesh,
             )
         ranked = sorted(
             results, key=lambda r: (not r.feasible, r.moved_replicas, r.removed)
@@ -237,7 +249,7 @@ def print_decommission_ranking(
             ranked = rank_decommission_candidates(
                 topic_map, brokers, racks,
                 sorted(candidate_brokers) if candidate_brokers else None,
-                desired_replication_factor, device=device,
+                desired_replication_factor, device=device, mesh=mesh,
             )
         rows = [
             {

@@ -44,6 +44,18 @@ and rotation start are per row either way. :func:`whatif_sweep` and
 :func:`whatif_subset_sweep` (the reference's :1393 and :1458) flatten
 (scenario, topic) into the batch axis and reduce per scenario.
 
+The partition axis may be sharded (``TorchSolver(mesh=)``, the reference's
+``TpuSolver(mesh=)`` under GSPMD): each mesh position then holds a
+contiguous block of every topic's partition rows, everything per node
+(loads, capacity, segments) stays replicated, and every step that crosses
+partitions goes through the position's part-axis group (``part``): a
+request's rank adds the requests of the positions before it, a wave's node
+loads sum every position's accepts, the stranded and active flags are an
+``any`` over positions, and the sequential ``seq`` leg runs on the gathered
+rows in every position. ``part`` is :data:`UNSHARDED` otherwise, and none
+of those steps runs. Every host decision reads replicated values only, so
+every position runs the same waves and the same collectives.
+
 The consumer-group family's :func:`pack_group` and :func:`group_pack_sweep`
 (the reference's :1552 and :1638) close the module: sticky admission here,
 the orphan scan in ``ops/group_pack.py``.
@@ -72,6 +84,31 @@ DENSE_CHUNK_ELEMS = 1 << 26
 #: scenarios in chunks of at most this many elements. Rows are independent:
 #: the chunking changes no value.
 SWEEP_CHUNK_ELEMS = 1 << 25
+
+
+class _Unsharded:
+    """The part axis of an unsharded placement: one position, whose
+    collectives return their input (the prefix of nothing is zero). The
+    placement skips every collective when ``size`` is 1."""
+
+    size = 1
+    index = 0
+
+    def exclusive_prefix(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def any(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x
+
+
+#: The part-axis group of every unsharded placement.
+UNSHARDED = _Unsharded()
 
 
 class AssignState(NamedTuple):
@@ -142,7 +179,7 @@ def _rows(x: torch.Tensor, idx) -> torch.Tensor:
 
 
 def _requests_rank(
-    pick: torch.Tensor, valid: torch.Tensor, sentinel: int
+    pick: torch.Tensor, valid: torch.Tensor, sentinel: int, part=UNSHARDED
 ) -> torch.Tensor:
     """(B, P) rank of each valid request among the requests of its topic for
     the same key, in ascending partition-row order — the stand-in for
@@ -150,7 +187,9 @@ def _requests_rank(
 
     One stable sort over (topic, key) composites; rank = sorted position
     minus the first position of that composite. Valid keys lie in
-    [0, sentinel); invalid rows get the sentinel and an unused rank."""
+    [0, sentinel); invalid rows get the sentinel and an unused rank. On a
+    sharded part axis the rank is global: the local rank plus the requests
+    for the same (topic, key) on the positions before this one."""
     b, p = pick.shape
     dev = pick.device
     keys = torch.where(valid, pick, sentinel).long()
@@ -159,14 +198,21 @@ def _requests_rank(
     first = torch.searchsorted(sorted_keys, sorted_keys, side="left")
     rank_sorted = torch.arange(b * p, device=dev) - first
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    if part.size > 1:
+        # A (B, sentinel + 1) histogram of valid requests per call: about
+        # 40 MB of int32 at config 4's B 2,000 x N 5,001, but the part axis
+        # is for giant single topics, where it is (1, 5,101).
+        hist = torch.bincount(comp[valid.reshape(-1)], minlength=b * (sentinel + 1))
+        rank = rank + part.exclusive_prefix(hist.to(I32))[comp]
     return rank.view(b, p).to(I32)
 
 
 def _accept_batch(
-    state: AssignState, cand: torch.Tensor, accept: torch.Tensor
+    state: AssignState, cand: torch.Tensor, accept: torch.Tensor, part=UNSHARDED
 ) -> AssignState:
     """Record one accepted replica per accepting partition (``Node.accept``
-    + ``Rack.accept``, ``KafkaAssignmentStrategy.java:326-331``)."""
+    + ``Rack.accept``, ``KafkaAssignmentStrategy.java:326-331``). On a
+    sharded part axis the node loads add every position's accepts."""
     rf = state.acc_nodes.shape[2]
     n_scratch = state.node_load.shape[1] - 1
     slots = torch.arange(rf, dtype=I32, device=cand.device)
@@ -174,9 +220,12 @@ def _accept_batch(
     acc_nodes = torch.where(write, cand.to(I32)[..., None], state.acc_nodes)
     acc_count = state.acc_count + accept.to(I32)
     target = torch.where(accept, cand, n_scratch).long()
-    node_load = state.node_load.scatter_add(
-        1, target, torch.ones_like(target, dtype=I32)
-    )
+    ones = torch.ones_like(target, dtype=I32)
+    if part.size > 1:
+        delta = torch.zeros_like(state.node_load).scatter_add_(1, target, ones)
+        node_load = state.node_load + part.sum(delta)
+    else:
+        node_load = state.node_load.scatter_add(1, target, ones)
     deficit = state.deficit - accept.to(I32)
     return state._replace(
         acc_nodes=acc_nodes, acc_count=acc_count, node_load=node_load,
@@ -219,6 +268,7 @@ def sticky_fill(
     alive: torch.Tensor,      # (N_pad,), or (1|B, N_pad) per row, bool
     rf_actual: torch.Tensor,  # (B,) per-topic RF <= rf
     width: int | None = None,  # compat slot width > rf (RF decrease)
+    part=UNSHARDED,
 ) -> AssignState:
     """Vectorized sticky fill (``fillNodesFromAssignment``, ``:101-131``):
     slot by slot (slot 0 of every partition before any slot 1), ascending
@@ -227,10 +277,15 @@ def sticky_fill(
     ``width`` (``KA_RF_DECREASE_COMPAT=1`` on an RF decrease) makes the
     state ``width`` slots wide and bounds retention by the slot width
     instead of the RF, so every current replica that passes the node, rack
-    and capacity gates is kept, as in the reference (``:233-236``)."""
+    and capacity gates is kept, as in the reference (``:233-236``).
+
+    On a sharded part axis ``current`` is this position's block of rows,
+    the ``part.index``-th of equal blocks."""
     b, p, hist_width = current.shape
     dev = current.device
     rows = torch.arange(p, device=dev)
+    if part.size > 1:
+        rows = rows + part.index * p
     deficit = torch.where(
         rows[None, :] < p_real[:, None], rf_actual[:, None], 0
     ).to(I32)
@@ -246,10 +301,10 @@ def sticky_fill(
     for s in range(hist_width):
         cand = current[:, :, s]
         ok = _candidate_ok(state, cand, rack_idx, retain, alive)
-        rank = _requests_rank(cand, ok, n)
+        rank = _requests_rank(cand, ok, n, part)
         load = state.node_load.gather(1, cand.clamp(min=0).long())
         accept = ok & (load + rank < cap[:, None])
-        state = _accept_batch(state, cand, accept)
+        state = _accept_batch(state, cand, accept, part)
     return state
 
 
@@ -328,6 +383,7 @@ def _wave_body(
     balance: bool = False,
     slot_pack: bool = False,
     quota: bool = False,
+    part=UNSHARDED,
 ):
     """One rack-factored auction wave over every deficient partition of
     every topic (the reference's ``_wave_body``).
@@ -405,18 +461,24 @@ def _wave_body(
             cum_q = torch.cumsum(q_cand, dim=2, dtype=I32)
             total_q = cum_q[:, :, -1]
             rank_valid = torch.cumsum(valid.to(I32), dim=1, dtype=I32) - 1
+            if part.size > 1:
+                rank_valid = rank_valid + part.exclusive_prefix(
+                    valid.sum(1, dtype=I32))[:, None]
             choice = torch.where(valid, rank_valid % total_q.clamp(min=1), 0)
             first_ok = torch.argmax((cum_q > choice[..., None]).to(I32), dim=2)
         else:
             first_ok = torch.argmax(ok.to(I32), dim=2)   # first True
         # Monotone eligibility: no eligible rack now means never again.
-        infeasible = state.infeasible | (wanting & ~has_choice).any(1)
+        stranded = (wanting & ~has_choice).any(1)
+        if part.size > 1:
+            stranded = part.any(stranded)
+        infeasible = state.infeasible | stranded
 
         # Rank among same-rack requesters, then hand out that rack's j-th
         # best available node in rotated order.
         rack_choice = cand_racks.gather(1, first_ok)
         pick_rack = torch.where(valid, rack_choice, r_cap)
-        j = _requests_rank(pick_rack, valid, r_cap)
+        j = _requests_rank(pick_rack, valid, r_cap, part)
         accept = valid & (j < seg_avail.gather(1, rack_choice))
         pick = pick_rack.clamp(0, r_cap - 1)
         a_after_p = a_after.gather(1, pick)
@@ -427,7 +489,7 @@ def _wave_body(
         )
         slot = torch.searchsorted(ca, target).clamp(0, n - 1)
         node = _gather1(order, slot)
-        state = _accept_batch(state, node, accept)
+        state = _accept_batch(state, node, accept, part)
         return state._replace(infeasible=infeasible)
 
     return body
@@ -443,6 +505,7 @@ def _hybrid_quota_body(
     seg: Segments,
     start: torch.Tensor,
     n_alive: torch.Tensor,
+    part=UNSHARDED,
 ):
     """The ``balance_quota`` leg (the reference's ``_hybrid_quota_body``):
     quota waves while a topic's fullest rack has more headroom than
@@ -451,10 +514,11 @@ def _hybrid_quota_body(
     batch with topics on both sides computes both waves and selects."""
     quota_body = _wave_body(
         rack_idx, cap, n, alive, rf, r_cap, seg, start, n_alive,
-        balance=True, quota=True,
+        balance=True, quota=True, part=part,
     )
     endgame_body = _wave_body(
         rack_idx, cap, n, alive, rf, r_cap, seg, start, n_alive, balance=True,
+        part=part,
     )
     endgame = quota_endgame_headroom()
     rack_n = rack_idx[:n].long()
@@ -486,6 +550,7 @@ def _wave_body_dense(
     n: int,
     alive: torch.Tensor,   # (1|B, N_pad)
     r_cap: int,
+    part=UNSHARDED,
 ):
     """Dense-eligibility wave: every deficient partition bids for its best
     eligible node over an explicit (P x N) mask (the reference's
@@ -513,12 +578,15 @@ def _wave_body_dense(
         pick = torch.argmin(score, dim=2)
         has_choice = eligible.any(2)
         valid = wanting & has_choice
-        infeasible = state.infeasible | (wanting & ~has_choice).any(1)
+        stranded = (wanting & ~has_choice).any(1)
+        if part.size > 1:
+            stranded = part.any(stranded)
+        infeasible = state.infeasible | stranded
 
-        rank = _requests_rank(pick, valid, n)
+        rank = _requests_rank(pick, valid, n, part)
         load = state.node_load.gather(1, pick)
         accept = valid & (load + rank < cap[:, None])
-        state = _accept_batch(state, pick, accept)
+        state = _accept_batch(state, pick, accept, part)
         return state._replace(infeasible=infeasible)
 
     return body
@@ -648,13 +716,35 @@ def _positions(alive: torch.Tensor, start: torch.Tensor,
     return torch.where(alive, pos, BIG).to(I32)
 
 
-def _wave_loop(body, state: AssignState) -> Tuple[AssignState, int]:
+def _gather_rows(state: AssignState, part) -> AssignState:
+    """Every position's partition rows of ``state`` (node loads and flags
+    are replicated already); ``state`` itself when unsharded."""
+    if part.size == 1:
+        return state
+    return state._replace(**{f: part.gather(getattr(state, f), 1)
+                             for f in ("acc_nodes", "acc_count", "deficit")})
+
+
+def _block_rows(state: AssignState, part, p: int) -> AssignState:
+    """This position's block of ``p`` rows of a gathered ``state``."""
+    if part.size == 1:
+        return state
+    lo = part.index * p
+    return state._replace(**{f: getattr(state, f)[:, lo:lo + p]
+                             for f in ("acc_nodes", "acc_count", "deficit")})
+
+
+def _wave_loop(body, state: AssignState, part=UNSHARDED) -> Tuple[AssignState, int]:
     """Run ``body`` until every topic is placed or stranded. A topic that is
     done is frozen (its state selected back), as its own ``while_loop``
-    would stop. One host sync per wave."""
+    would stop. One host sync per wave, on a value every position of a
+    sharded part axis holds alike."""
     waves = 0
     while True:
-        active = (state.deficit > 0).any(1) & ~state.infeasible
+        wanting = (state.deficit > 0).any(1)
+        if part.size > 1:
+            wanting = part.any(wanting)
+        active = wanting & ~state.infeasible
         if not bool(active.any()):
             return state, waves
         state = _select(active, body(state), state)
@@ -674,6 +764,8 @@ def place_batched(
     width: int | None = None,  # compat slot width (see sticky_fill)
     alive: torch.Tensor | None = None,      # (M, N_pad) liveness masks
     alive_row: torch.Tensor | None = None,  # (B,) each row's mask in `alive`
+    part=UNSHARDED,           # this position's part-axis group
+    p_pad: int | None = None,  # the whole batch's P_pad (default: currents')
 ) -> PlaceResult:
     """Place every topic of the batch: the port of ``place_scan``.
 
@@ -687,13 +779,20 @@ def place_batched(
     Returns per topic the accepted nodes and counts (``width`` slots wide
     when given, else ``rf``), the infeasible flag and the deficit vector
     (for the reference's error message); ``waves`` names every leg that
-    ran. Inert padding topics (p_real 0) have nothing to place."""
+    ran. Inert padding topics (p_real 0) have nothing to place.
+
+    On a sharded part axis (``part`` a position of a mesh's part axis),
+    ``currents`` is this position's block of rows, one of ``part.size``
+    equal blocks, and the results are this block's; ``p_pad`` is the
+    batch's own P_pad, which resolves the chain (the giant-shape gate) as
+    the unsharded placement resolves it."""
     dev = currents.device
     currents = currents.to(I32)
     rack_idx = rack_idx.to(I32)
     jhashes = jhashes.to(I32)
     p_reals = p_reals.to(I32)
-    b, p_pad, _ = currents.shape
+    b, p_rows, _ = currents.shape
+    p_pad = p_rows if p_pad is None else p_pad
     n_pad = rack_idx.shape[0]
     legs, r_cap, giant = resolve_chain(wave_mode, p_pad, n_pad, r_cap)
     rfs = torch.full((b,), rf, dtype=I32, device=dev) if rfs is None else rfs.to(I32)
@@ -714,7 +813,8 @@ def place_batched(
     cap = (p_reals * rfs + n_alive - 1) // n_alive
     start = jhashes % n_alive
 
-    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, per_row(masks), rfs, width)
+    sticky = sticky_fill(currents, rack_idx, rf, cap, n, p_reals, per_row(masks), rfs, width,
+                         part)
     w = sticky.acc_nodes.shape[2]
     seg = None
     if any(leg in ("fast", "balance", "balance_quota") for leg in legs):
@@ -728,10 +828,13 @@ def place_batched(
         cap_t, start_t = cap[todo], start[todo]
         alive_t, n_alive_t = live(masks, todo), live(n_alive_m, todo)
         if leg == "seq":
+            # Sequential over rows: on a sharded part axis every position
+            # runs it on the gathered rows and keeps its own block.
             out = _seq_fill(
-                sub, rack_idx, _positions(alive_t, start_t, n_alive_t), cap_t, n,
-                alive_t,
+                _gather_rows(sub, part), rack_idx,
+                _positions(alive_t, start_t, n_alive_t), cap_t, n, alive_t,
             )
+            out = _block_rows(out, part, p_rows)
             waves[leg] = 1
         elif leg == "dense":
             # Masks are (P x N) per topic: chunk the stranded topics.
@@ -742,10 +845,10 @@ def place_batched(
                 alive_c = _rows(alive_t, sl)
                 body = _wave_body_dense(
                     rack_idx, _positions(alive_c, start_t[sl], _rows(n_alive_t, sl)),
-                    cap_t[sl], n, alive_c, r_cap,
+                    cap_t[sl], n, alive_c, r_cap, part,
                 )
-                part, k = _wave_loop(body, sub.take(sl))
-                parts.append(part)
+                placed_c, k = _wave_loop(body, sub.take(sl), part)
+                parts.append(placed_c)
                 trips += k
             out = AssignState(*(torch.cat(ts) for ts in zip(*parts)))
             waves[leg] = trips
@@ -753,14 +856,15 @@ def place_batched(
             seg_t = Segments(*(live(f, todo) for f in seg))
             args = (rack_idx, cap_t, n, alive_t, w, r_cap, seg_t, start_t, n_alive_t)
             if leg == "balance_quota":
-                body = _hybrid_quota_body(*args)
+                body = _hybrid_quota_body(*args, part=part)
             else:
                 body = _wave_body(
                     *args,
                     balance=leg in ("balance", "balance_slots"),
                     slot_pack=leg == "balance_slots" or (leg == "fast" and giant),
+                    part=part,
                 )
-            out, waves[leg] = _wave_loop(body, sub)
+            out, waves[leg] = _wave_loop(body, sub, part)
         result = result.put(todo, out)
         todo = todo[out.infeasible]
         if todo.numel() == 0:

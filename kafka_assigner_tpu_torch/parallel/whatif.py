@@ -38,11 +38,23 @@ share one call. The call runs on the dispatcher thread, so its spans and
 counters go to the cumulative registry, not to the request's capture, as in
 the reference.
 
-Left for a later slice: the reference's ``mesh`` argument (scenario rows
-sharded across cards). :data:`last_sweep` and :data:`last_groups` record
-what the most recent call of the process did; under the dispatch plane
-concurrent requests overwrite them, and a packed call's ``rows``,
-``chunks`` and ``waves`` are the packed call's.
+``mesh`` (``parallel/mesh.py:build_mesh``) shards the scenario axis of
+``evaluate_removal_scenarios``, ``_evaluate_incremental`` and
+``rank_decommission_candidates``, as the reference's does (:482-537): each
+position sweeps its contiguous block of scenarios on its own device (a
+thread each), chunked under ``KA_WHATIF_MEMBUDGET`` within the position,
+and the blocks are gathered in every process (``fetch_global``). Results
+are the unsharded sweep's. No padding rows are placed; ``whatif.fanout``
+is the reference's tiled width, the power-of-two bucket rounded up to a
+multiple of the scenario axis. The rescue of flagged scenarios runs
+unsharded after the gather, on ``device``. A call under the dispatch plane
+drops the mesh, as the reference's does (:452-461): a mesh never reaches
+``submit_routed``.
+
+:data:`last_sweep` and :data:`last_groups` record what the most recent
+call of the process did; under the dispatch plane concurrent requests
+overwrite them, and a packed call's ``rows``, ``chunks`` and ``waves`` are
+the packed call's; under a mesh they sum every position's.
 """
 from __future__ import annotations
 
@@ -56,7 +68,7 @@ import torch
 
 from ..assigner import infer_topic_rf
 from ..carry import to_tensor
-from ..daemon.dispatch import submit_routed
+from ..daemon.dispatch import active_broker, submit_routed
 from ..faults.inject import fault_point
 from ..models.problem import _pad8, batch_bucket, encode_cluster, encode_topic_group
 from ..obs.metrics import counter_add, gauge_set
@@ -69,6 +81,7 @@ from ..ops.assignment import (
 )
 from ..solvers.torch_solver import solve_device
 from ..utils.env import env_bool, env_int
+from .mesh import Sharded, block_bounds, fetch_global, gather_blocks, owned_blocks, run_positions
 
 #: What the most recent sweep of this process did (read like
 #: ``TorchSolver.last_timers``): ``path`` ("incremental" or "dense"),
@@ -232,7 +245,7 @@ def _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
 
 def _evaluate_incremental(
     currents, jhashes, p_reals, rfs, cluster, alive, scenarios, s_real,
-    rf, r_cap, b_real, on, host, t_start,
+    rf, r_cap, b_real, on, host, t_start, mesh=None,
 ):
     """Incremental sweep: solve only the (scenario, topic) pairs whose
     outcome can differ from the input.
@@ -244,7 +257,8 @@ def _evaluate_incremental(
     dense sweep remains the oracle, and this path declines (returns None)
     when the affected fraction makes it unprofitable. ``on`` holds the
     topics on the device and ``host`` on the host; ``t_start`` is when the
-    evaluation began (the host prep clock).
+    evaluation began (the host prep clock). ``mesh`` shards the subset
+    sweep's scenarios; the composition is unchanged.
 
     Scenarios whose fast-leg pair solve strands re-run through the FULL
     auto-chain sweep, exactly like the dense path's rescue.
@@ -279,10 +293,10 @@ def _evaluate_incremental(
     topics = np.full((s_real, t_pad), -1, dtype=np.int32)
     for s, tops in enumerate(affected):
         topics[s, : len(tops)] = tops
-    dev = on.currents.device
     last_sweep.update(prep=_ms(t_start), t_pad=t_pad)
 
-    def _subset_rows(rows):
+    def _subset_rows(rows, on=on):
+        dev = on.currents.device
         res = whatif_subset_sweep(
             on.currents, on.rack_idx, on.jhashes, on.p_reals,
             to_tensor(rows["topics"], dev), torch.as_tensor(rows["alive"]).to(dev),
@@ -294,11 +308,16 @@ def _evaluate_incremental(
     # requests over the same encoding pack, across clusters too.
     t0 = time.perf_counter()
     rows = {"topics": topics, "alive": alive}
-    routed = submit_routed(
-        "whatif_subset_sweep", host, ("subset", n, rf, r_cap, t_pad, alive.shape[1]),
-        rows, s_real, _subset_rows)
-    moved_s, infeas_s, loads_s, rec = (
-        routed if routed is not None else _subset_rows(rows))
+    if mesh is not None:
+        empty = (np.zeros(0, np.int64), np.zeros(0, bool), np.zeros((0, n), np.int64))
+        (moved_s, infeas_s, loads_s), rec = _mesh_sweep(
+            mesh, host, rows, empty, lambda on_b, r: _subset_rows(r, on_b))
+    else:
+        routed = submit_routed(
+            "whatif_subset_sweep", host, ("subset", n, rf, r_cap, t_pad, alive.shape[1]),
+            rows, s_real, _subset_rows)
+        moved_s, infeas_s, loads_s, rec = (
+            routed if routed is not None else _subset_rows(rows))
     last_sweep.update(sweep=_ms(t0), **rec)
 
     t0 = time.perf_counter()
@@ -319,6 +338,51 @@ def _record(res) -> Dict[str, object]:
     return {"rows": res.rows, "chunks": res.chunks, "waves": res.waves}
 
 
+def _add_records(recs) -> Dict[str, object]:
+    """Records of several sweep calls, summed."""
+    waves: Dict[str, int] = {}
+    for rec in recs:
+        for leg, w in rec["waves"].items():
+            waves[leg] = waves.get(leg, 0) + w
+    return {"rows": sum(r["rows"] for r in recs),
+            "chunks": sum(r["chunks"] for r in recs), "waves": waves}
+
+
+def _mesh_sweep(mesh, host, rows, empty, call):
+    """A sweep's scenario rows over ``mesh``'s scenario axis: each block of
+    ``rows`` (host arrays with a leading scenario axis) this process holds
+    goes to ``call(on, block_rows)`` on its position's device, a thread a
+    block; ``call`` returns host arrays with the block's scenarios first and
+    a record. Returns the outputs gathered in every process (``empty``
+    gives each one's dtype and trailing shape, for a block with no
+    scenario) and the records summed over every block."""
+    s = len(next(iter(rows.values())))
+    k = mesh.shape["scenarios"]
+    owned = owned_blocks(mesh, "scenarios")
+    ons = {}
+    for pos in owned.values():
+        if pos.device not in ons:
+            ons[pos.device] = _OnDevice(*(to_tensor(a, pos.device) for a in host))
+
+    def run(b):
+        lo, hi = block_bounds(s, k, b)
+        if lo == hi:
+            return tuple(empty) + (None,)
+        out = call(ons[owned[b].device], {name: v[lo:hi] for name, v in rows.items()})
+        return tuple(np.asarray(a, dtype=e.dtype) for a, e in zip(out, empty)) + out[-1:]
+
+    blocks = list(owned)
+    outs = dict(zip(blocks, run_positions(blocks, run)))
+    gathered = tuple(
+        fetch_global(Sharded(mesh, "scenarios", 0, s, {
+            b: (owned[b], torch.from_numpy(np.ascontiguousarray(out[i])))
+            for b, out in outs.items()}))
+        for i in range(len(empty)))
+    recs = gather_blocks(mesh, "scenarios",
+                         {b: out[-1] for b, out in outs.items() if out[-1] is not None})
+    return gathered, _add_records(list(recs.values()))
+
+
 def evaluate_removal_scenarios(
     topic_assignments: Mapping[str, Mapping[int, Sequence[int]]],
     brokers: Set[int],
@@ -326,13 +390,21 @@ def evaluate_removal_scenarios(
     scenarios: Sequence[Sequence[int]],
     replication_factor: int = -1,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> List[ScenarioResult]:
     """For each candidate broker-removal set, solve the full cluster
     reassignment and report movement/feasibility/load metrics. The sweep
-    runs on ``device`` (``cuda`` by default; raises without a card)."""
+    runs on ``device`` (``cuda`` by default; raises without a card).
+
+    ``mesh``: scenario rows are sharded across its ``scenarios`` axis, each
+    position sweeping its block on its own device; the rescue runs on
+    ``device``. Dropped on a daemon request thread under the dispatch
+    plane, where the dispatcher packs requests instead."""
     t_start = time.perf_counter()
     dev = solve_device(device, "evaluate_removal_scenarios")
     last_sweep.clear()
+    if mesh is not None and active_broker() is not None:
+        mesh = None
     all_items = list(topic_assignments.items())
     all_rfs = _topic_rfs(all_items, replication_factor)
     # Topics with no partitions contribute nothing to any scenario.
@@ -360,9 +432,13 @@ def evaluate_removal_scenarios(
                 raise ValueError(f"scenario {s}: unknown broker {b}")
             alive[s, idx] = False
     # Fan-out telemetry: the scenario count, and the reference's padded
-    # batch width for it.
+    # batch width for it (under a mesh, tiled to the scenario axis).
     counter_add("whatif.scenarios", s_real)
-    gauge_set("whatif.fanout", int(batch_bucket(s_real)))
+    fanout = batch_bucket(s_real)
+    if mesh is not None:
+        m = mesh.shape["scenarios"]
+        fanout = -(-fanout // m) * m
+    gauge_set("whatif.fanout", int(fanout))
     if not s_real:
         return []
     host = (currents, enc0.rack_idx, jhashes, p_reals, rfs)
@@ -373,7 +449,7 @@ def evaluate_removal_scenarios(
         with span("whatif/incremental"):
             res = _evaluate_incremental(
                 currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
-                s_real, rf, enc0.r_cap, len(items), on, host, t_start,
+                s_real, rf, enc0.r_cap, len(items), on, host, t_start, mesh,
             )
         if res is not None:
             counter_add("whatif.incremental_sweeps")
@@ -386,14 +462,39 @@ def evaluate_removal_scenarios(
     s_chunk = max(1, env_int("KA_WHATIF_MEMBUDGET") // per_scenario)
     last_sweep.update(path="dense", prep=_ms(t_start), t_pad=None)
 
+    def _sweep_rows(rows, on=on):
+        res = whatif_sweep(
+            on.currents, on.rack_idx, on.jhashes, on.p_reals,
+            torch.as_tensor(rows["alive"]).to(on.currents.device), enc0.n, rf,
+            rfs=on.rfs, r_cap=enc0.r_cap,
+        )
+        return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+
     def _dense_rows(rows):
         with span("whatif/dispatch", hist="whatif.dispatch_ms"):
-            res = whatif_sweep(
-                on.currents, on.rack_idx, on.jhashes, on.p_reals,
-                torch.as_tensor(rows["alive"]).to(dev), enc0.n, rf, rfs=on.rfs,
-                r_cap=enc0.r_cap,
-            )
-            return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+            return _sweep_rows(rows)
+
+    if mesh is not None:
+        # Past the budget the sweep goes in blocks of the budget's
+        # scenarios rounded down to a multiple of the scenario axis (at
+        # least one a position), each split over the positions and timed
+        # on this thread, as the reference keeps its chunks tileable
+        # (:535-537): a position's share of a block stays under the budget.
+        m = mesh.shape["scenarios"]
+        s_block = max(m, s_chunk // m * m)
+        empty = (np.zeros(0, np.int64), np.zeros(0, bool), np.zeros(0, np.int64))
+        t0 = time.perf_counter()
+        blocks = []
+        for lo in range(0, s_real, s_block):
+            with span("whatif/dispatch", hist="whatif.dispatch_ms"):
+                blocks.append(_mesh_sweep(mesh, host, {"alive": alive[lo:lo + s_block]},
+                                          empty, lambda on_b, r: _sweep_rows(r, on_b)))
+        moved, infeasible, max_load = (
+            np.concatenate([blk[0][i] for blk in blocks]) for i in range(3))
+        last_sweep.update(sweep=_ms(t0), compose=0.0,
+                          **_add_records([blk[1] for blk in blocks]))
+        return _results(scenarios, alive, on, host, enc0.n, rf, enc0.r_cap,
+                        moved, infeasible, max_load)
 
     # Only the masks are the request's own: requests over the same encoding
     # (one cluster, or clusters whose encodings agree) pack. Past the budget
@@ -411,13 +512,8 @@ def evaluate_removal_scenarios(
         blocks.append(routed if routed is not None else _dense_rows(rows))
     moved, infeasible, max_load = (
         np.concatenate([blk[i] for blk in blocks]) for i in range(3))
-    waves: Dict[str, int] = {}
-    for *_, rec in blocks:
-        for leg, w in rec["waves"].items():
-            waves[leg] = waves.get(leg, 0) + w
-    last_sweep.update(sweep=_ms(t0), rows=sum(b[3]["rows"] for b in blocks),
-                      chunks=sum(b[3]["chunks"] for b in blocks), waves=waves,
-                      compose=0.0)
+    last_sweep.update(sweep=_ms(t0), compose=0.0,
+                      **_add_records([blk[3] for blk in blocks]))
     return _results(scenarios, alive, on, host, enc0.n, rf, enc0.r_cap,
                     moved, infeasible, max_load)
 
@@ -429,14 +525,16 @@ def rank_decommission_candidates(
     candidates: Optional[Sequence[int]] = None,
     replication_factor: int = -1,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> List[ScenarioResult]:
     """Rank single-broker removals by disruption (feasible first, then fewest
     moved replicas) — the fleet-scale question the reference can only answer
-    one process run at a time."""
+    one process run at a time. ``mesh`` shards the scenarios, as in
+    :func:`evaluate_removal_scenarios`."""
     cands = sorted(candidates) if candidates is not None else sorted(brokers)
     results = evaluate_removal_scenarios(
         topic_assignments, brokers, rack_assignment,
-        [[c] for c in cands], replication_factor, device,
+        [[c] for c in cands], replication_factor, device, mesh=mesh,
     )
     return sorted(
         results, key=lambda r: (not r.feasible, r.moved_replicas, r.removed)

@@ -33,6 +33,16 @@ leadership kernel → host decode. The counterpart of
   dispatcher thread, each plan takes its own rows back (placement is
   independent per row) and orders its leaders on its request thread, K1 or
   the host pass, on the device's default stream as the placement;
+- ``TorchSolver(mesh=)`` shards the partition axis over the mesh's ``part``
+  axis, as ``TpuSolver(mesh=)`` does (``solvers/tpu.py:521-530``): the
+  batch is padded to tile the axis, each position places its block of
+  rows through its part-axis group (``parallel/mesh.py:part_axis``, a
+  thread per position this process owns), gathers the placement, and
+  orders leaders on the whole of it (K1, or the host pass under
+  ``KA_LEADERSHIP=native``), so every process returns the same
+  assignments. No routing through the dispatcher under a mesh, as the
+  reference routes none (:549, :669); ``fresh_assignment`` stays
+  unsharded, as the reference's does;
 - observability as the reference's (``solvers/tpu.py:321-329``, :414-494,
   :552, :612, :878-880): ``fault_point("solve")`` before any work of
   ``assign`` and ``assign_many``, the ``solver.assign_calls`` and
@@ -46,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import sys
+import threading
 import time
 from typing import Dict, List, Mapping, Sequence, Set
 
@@ -140,7 +151,10 @@ class TorchSolver:
 
     ``device`` defaults to ``cuda`` and the constructor raises when no card
     is present; pass ``device="cpu"`` to run the plain versions on the CPU
-    (the tests do)."""
+    (the tests do). ``mesh`` (``parallel/mesh.py:build_mesh``) with a
+    ``part`` axis of more than one position shards the partition axis of
+    :meth:`assign` and :meth:`assign_many` over it; each position runs on
+    its own device."""
 
     #: ``assign_many`` takes one batch of topics of different replication
     #: factors (``TopicAssigner.generate_assignments`` reads this).
@@ -149,8 +163,9 @@ class TorchSolver:
     #: The lane's name in the best-effort fallback's stderr line.
     name = "device"
 
-    def __init__(self, device: str | torch.device = "cuda") -> None:
+    def __init__(self, device: str | torch.device = "cuda", mesh=None) -> None:
         self.device = solve_device(device)
+        self.mesh = mesh
         #: phase wall-clock (ms) of the most recent solve: encode, place,
         #: leadership, decode; each phase ends in a device synchronize. In a
         #: daemon under the dispatch plane ``place`` includes the queue wait,
@@ -166,10 +181,14 @@ class TorchSolver:
         #: ``{"encode": "c" | "numpy", "decode": "c" | "numpy"}``; encode is
         #: ``"preencoded"`` when the solve took a streamed preencode.
         self.last_codec: Dict[str, str] = {}
+        #: collectives one position of the most recent part-sharded solve
+        #: ran (placement and gather); None after an unsharded solve.
+        self.last_collectives: int | None = None
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device: torch.device | None = None) -> None:
+        device = self.device if device is None else device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return to_tensor(a, self.device)
@@ -336,22 +355,31 @@ class TorchSolver:
         with _phase("solve", None, record, log):
             t0 = time.perf_counter()
             mode = "fresh" if fresh else wave_mode()
-            # The batched path of a daemon request under the dispatch plane
-            # places through the dispatcher (the reference routes
-            # assign_many only); None: no dispatcher routes.
-            placed = (self._place_routed(currents, encs[0], jhashes, p_reals,
-                                         rf_max, mode, rfs_np, width)
-                      if record and not fresh else None)
-            if placed is None:
-                placed = place_batched(
-                    cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, mode, rfs,
-                    r_cap=encs[0].r_cap, width=width,
+            self.last_collectives = None
+            sharded = self._part_sharded(fresh)
+            if sharded:
+                placed, order_out = self._solve_part(
+                    currents, encs[0], jhashes, p_reals, rf_max, mode, rfs_np, width,
+                    b_real, counters_before, native_order,
                 )
+            else:
+                # The batched path of a daemon request under the dispatch
+                # plane places through the dispatcher (the reference routes
+                # assign_many only); None: no dispatcher routes.
+                placed = (self._place_routed(currents, encs[0], jhashes, p_reals,
+                                             rf_max, mode, rfs_np, width)
+                          if record and not fresh else None)
+                if placed is None:
+                    placed = place_batched(
+                        cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, mode, rfs,
+                        r_cap=encs[0].r_cap, width=width,
+                    )
             self.last_waves = placed.waves
             infeasible = placed.infeasible[:b_real].cpu().numpy()
-            timers["place"] = (time.perf_counter() - t0) * 1e3
+            if not sharded:
+                timers["place"] = (time.perf_counter() - t0) * 1e3
             if not infeasible.any():
-                ordered, counters_after = self._order(
+                ordered, counters_after = order_out if sharded else self._order(
                     placed, b_real, jhashes, p_reals, counters_before,
                     counters_t, jh_t, native_order, currents.shape[1],
                 )
@@ -378,6 +406,65 @@ class TorchSolver:
             )
         self.last_codec = dict(problem.last_codec)
         return [(enc.topic, a) for enc, a in zip(encs, decoded)]
+
+    def _part_sharded(self, fresh: bool) -> bool:
+        """Whether this solve shards the partition axis: a mesh with a part
+        axis of more than one position, and not a fresh placement."""
+        return self.mesh is not None and not fresh and self.mesh.shape["part"] > 1
+
+    def _solve_part(self, currents, enc, jhashes, p_reals, rf, mode, rfs_np, width,
+                    b_real, counters_before, native_order):
+        """The partition-sharded placement and ordering: ``P_pad`` padded
+        with empty rows to tile the part axis, each of this process's
+        positions placing its block (a thread each), gathering the whole
+        placement and ordering it. Returns the first position's
+        :class:`PlaceResult` (rows cut back to ``P_pad``) and ``(ordered,
+        counters_after)`` (None when infeasible). The chain is resolved for
+        the batch's own ``P_pad``, as the unsharded solve resolves it."""
+        from ..parallel.mesh import part_axis, run_positions
+
+        positions = part_axis(self.mesh)
+        k = positions[0].size
+        b, p_pad, w = currents.shape
+        blk = -(-p_pad // k)
+        tiled = np.full((b, blk * k, w), -1, dtype=currents.dtype)
+        tiled[:, :p_pad] = currents
+        timers = self.last_timers
+        order_lock = threading.Lock()
+
+        def position(pos):
+            t0 = time.perf_counter()
+            dev = pos.device
+            lo = pos.index * blk
+            placed = place_batched(
+                to_tensor(tiled[:, lo:lo + blk], dev), to_tensor(enc.rack_idx, dev),
+                to_tensor(jhashes, dev), to_tensor(p_reals, dev), enc.n, rf, mode,
+                None if rfs_np is None else to_tensor(rfs_np, dev),
+                r_cap=enc.r_cap, width=width, part=pos, p_pad=p_pad,
+            )
+            placed = PlaceResult(
+                pos.gather(placed.acc_nodes, 1)[:, :p_pad],
+                pos.gather(placed.acc_count, 1)[:, :p_pad],
+                placed.infeasible, pos.gather(placed.deficit, 1)[:, :p_pad],
+                placed.waves,
+            )
+            self._sync(dev)
+            if pos.index == positions[0].index:
+                timers["place"] = (time.perf_counter() - t0) * 1e3
+            if bool(placed.infeasible[:b_real].any()):
+                return placed, None, pos.collectives
+            # The positions order one after the other: the ordering crosses
+            # no position, and the plain version's loop over rows would
+            # only contend for the interpreter lock.
+            with order_lock:
+                return placed, self._order(
+                    placed, b_real, jhashes, p_reals, counters_before,
+                    None if native_order else to_tensor(counters_before, dev),
+                    to_tensor(jhashes, dev), native_order, p_pad, dev,
+                ), pos.collectives
+
+        placed, order_out, self.last_collectives = run_positions(positions, position)[0]
+        return placed, order_out
 
     def _place_routed(self, currents, enc, jhashes, p_reals, rf, mode, rfs_np,
                       width):
@@ -414,10 +501,12 @@ class TorchSolver:
         return None if out is None else PlaceResult(*out)
 
     def _order(self, placed, b_real, jhashes, p_reals, counters_before,
-               counters_t, jh_t, native_order, p_pad):
+               counters_t, jh_t, native_order, p_pad, device=None):
         """The leadership phase (``last_timers["leadership"]``): the host C++
         lane or the device lane (the kernel on cuda, its plain version on
-        cpu). Returns ``(ordered, counters_after)``."""
+        cpu) on ``device`` (default the solver's). Returns ``(ordered,
+        counters_after)``."""
+        device = self.device if device is None else device
         t0 = time.perf_counter()
         if native_order:
             # The host lane: the placement comes to the host (inside this
@@ -431,14 +520,14 @@ class TorchSolver:
                 counters_before,
             )
         else:
-            self.last_leadership = "cuda" if self.device.type == "cuda" else "plain"
+            self.last_leadership = "cuda" if device.type == "cuda" else "plain"
             out = leadership_order(
                 placed.acc_nodes[:b_real].contiguous(),
                 placed.acc_count[:b_real].contiguous(),
                 counters_t, jh_t[:b_real].contiguous(),
                 chunk=leader_chunk(p_pad),
             )
-            self._sync()
+            self._sync(device)
         self.last_timers["leadership"] = (time.perf_counter() - t0) * 1e3
         return out
 

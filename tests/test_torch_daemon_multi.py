@@ -26,6 +26,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from kafka_assigner_tpu import faults as jax_faults
 from kafka_assigner_tpu.cli import execute as jax_execute
@@ -39,6 +40,7 @@ from kafka_assigner_tpu_torch.daemon import AssignerDaemon
 from kafka_assigner_tpu_torch.obs import flight as torch_flight
 from kafka_assigner_tpu_torch.obs import metrics as torch_metrics
 from kafka_assigner_tpu_torch.obs import promtext
+from kafka_assigner_tpu_torch.parallel import mesh as torch_mesh
 
 from .jute_server import JuteZkServer, cluster_tree, exec_snapshot_cluster
 from .test_torch_daemon import JAX_LANE, _await, both_clis, req
@@ -440,10 +442,6 @@ def _wait_http(cum_mod, n):
 
 #: Families whose values are the process's or the artifact's own.
 OWN_FAMILIES = ("ka_process_", "ka_build_info", "ka_compile_store_", "ka_flight_events_")
-#: Gauges of the padded fan-out: the reference pads a sweep to its device
-#: mesh (the test process's eight virtual CPU devices), the port to its
-#: batch bucket; the sharded sweep is a later slice.
-MESH_PADDED = ("ka_whatif_fanout", "ka_groups_fanout")
 
 
 def _logged(log, n):
@@ -464,6 +462,12 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
     monkeypatch.setenv("KA_DAEMON_RESYNC_INTERVAL", "60")
     for k, v in EXEC_KNOBS.items():
         monkeypatch.setenv(k, v)
+    # Under KA_DISPATCH=0 the reference's /whatif auto-meshes over the test
+    # process's eight virtual CPU devices and tiles its fan-out gauge to
+    # them; the port's daemon sees eight cpu positions, so it meshes alike
+    # and every gauge compares.
+    monkeypatch.setattr(torch_mesh, "visible_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 8)
     original = groups_cluster()
     snap_a = snapshot(tmp_path, "a.json", exec_snapshot_cluster())
     snap_b = str(tmp_path / "b.json")
@@ -524,7 +528,7 @@ def test_metrics_access_log_and_flight_match_the_reference(tmp_path, monkeypatch
             counts = [x for x in fams[fam]["samples"] if x[0].endswith("_count")]
             assert counts == [x for x in fams_j[fam]["samples"]
                               if x[0].endswith("_count")], fam
-        elif fam not in MESH_PADDED:
+        else:
             assert fams[fam]["samples"] == fams_j[fam]["samples"], fam
     assert {"ka_daemon_http_requests_total", "ka_health_score", "ka_traffic_lag",
             "ka_whatif_scenario_ms", "ka_groups_sweep_ms", "ka_daemon_executes_total",

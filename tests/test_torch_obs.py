@@ -170,9 +170,10 @@ def cluster8(tmp_path):
     path = tmp_path / "cluster8.json"
     path.write_text(json.dumps(cluster))
     # 8 scenarios, as the ranking's 8 candidates: the reference CLI shards
-    # the scenario axis over the test process's 8 CPU devices (a mesh, an
-    # unported module: ROADMAP item 9) and pads its fan-out to a multiple
-    # of 8; the library-level test below holds the unsharded bucket.
+    # the scenario axis over the test process's 8 CPU devices and tiles its
+    # fan-out to them; the port's CLI meshes alike where it sees 8
+    # positions (the report test below), and the library-level test below
+    # holds the unsharded bucket.
     scen = tmp_path / "scenarios.json"
     scen.write_text(json.dumps([[100, 103], [101], ["h7"], [], [102, 105], [104],
                                 ["h6", "h1"], [107]]))
@@ -460,7 +461,14 @@ def test_report_over_zookeeper_matches_the_reference(tmp_path, monkeypatch, empt
     assert ("ingest.overlap_ms" in gauges) == (solver[1] == "device")
 
 
-def test_scenario_file_report_matches_the_reference(cluster8, tmp_path, empty_stores):
+def test_scenario_file_report_matches_the_reference(cluster8, tmp_path, empty_stores,
+                                                   monkeypatch):
+    # Eight visible positions, as the reference CLI sees eight devices: both
+    # shard the sweep, and the spans and gauges compare.
+    from kafka_assigner_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "visible_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 8)
     snap, scen = cluster8
     argv = ["--zk_string", f"file://{snap}", "--mode", "RANK_DECOMMISSION",
             "--scenario_file", scen]
