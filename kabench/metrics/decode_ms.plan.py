@@ -1,0 +1,12 @@
+"""decode_ms.plan: the plan's ``decode`` phase (``TorchSolver.last_timers``,
+which ends in a device synchronize), mean over the window's plans."""
+SOURCE = "program_span"
+MOVES = "plan_ms"
+
+
+def read(run):
+    vals = [r["timers"]["decode"] for r in run.records
+            if r["ok"] and "decode" in r.get("timers", {})]
+    if run.kind != "plan" or not vals:
+        return None
+    return sum(vals) / len(vals)
