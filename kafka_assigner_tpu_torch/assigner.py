@@ -11,6 +11,7 @@ from typing import Dict, List, Mapping, Sequence, Set, Tuple
 
 from .obs.metrics import counter_add
 from .obs.profile import dispatch_trace
+from .obs.trace import collector_pauses, span
 from .solvers.base import Context, Solver, get_solver
 
 
@@ -170,28 +171,41 @@ class TopicAssigner:
         ignored by solvers that cannot take it.
 
         Under ``KA_OBS_PROFILE_DIR`` (or ``KA_PROFILE``) the call is one
-        ``torch.profiler`` trace (``obs/profile.py:dispatch_trace``)."""
+        ``torch.profiler`` trace (``obs/profile.py:dispatch_trace``).
+
+        After the solves, the solver's ``last_timers`` (where it keeps them)
+        gain ``infer``, the RF inference's ms (the span ``infer``), and,
+        under a ``torch.profiler`` session on this thread, ``gc``, the
+        collector's pauses inside the call
+        (``obs/trace.py:collector_pauses``)."""
         with dispatch_trace():
-            return self._generate_assignments(
-                topic_assignments, brokers, rack_assignment,
-                desired_replication_factor, preencoded,
-            )
+            timers: Dict[str, float] = {}
+            with collector_pauses(timers):
+                out = self._generate_assignments(
+                    topic_assignments, brokers, rack_assignment,
+                    desired_replication_factor, preencoded, timers,
+                )
+            last = getattr(self.solver, "last_timers", None)
+            if out and last is not None:
+                last.update(timers)
+            return out
 
     def _generate_assignments(
         self, topic_assignments, brokers, rack_assignment,
-        desired_replication_factor, preencoded=None,
+        desired_replication_factor, preencoded, timers,
     ) -> List[Tuple[str, Dict[int, List[int]]]]:
         items = (
             list(topic_assignments.items())
             if isinstance(topic_assignments, Mapping)
             else list(topic_assignments)
         )
-        rfs = [
-            self._infer_replication_factor(
-                topic, cur, brokers, desired_replication_factor
-            )
-            for topic, cur in items
-        ]
+        with span("infer", sink=timers, report=False):
+            rfs = [
+                self._infer_replication_factor(
+                    topic, cur, brokers, desired_replication_factor
+                )
+                for topic, cur in items
+            ]
         self.fallbacks = 0
         if not items:
             return []

@@ -56,6 +56,10 @@ Request captures are thread-local: a request's stdout, its request ID and
 its queue wait land in its own capture. Work on the dispatcher thread (the
 packed device call, the ``dispatch`` span, the batch counters) records into
 the cumulative registry, and into a process-wide capture when one is open.
+The packed call itself is also the live label ``ka/dispatch/packed`` while
+a ``torch.profiler`` session records the dispatcher thread: a
+``/debug/profile`` window (``obs/profile.py:capture_window``) records
+every thread.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ import numpy as np
 from ..faults.inject import fault_point
 from ..obs import flight
 from ..obs.metrics import counter_add, gauge_set, hist_observe
-from ..obs.trace import record_span
+from ..obs.trace import record_span, span
 
 #: The dispatcher installed for a thread (a request body's scope), so the
 #: sweep and solve entries find it without a process global: an in-process
@@ -400,7 +404,8 @@ class SolveDispatcher:
             else:
                 rows = {name: np.concatenate([j.rows[name] for j in jobs], axis=0)
                         for name in jobs[0].rows}
-            outs = jobs[0].call(rows)
+            with span("dispatch/packed", report=False):
+                outs = jobs[0].call(rows)
             off = 0
             for job in jobs:
                 job.result = tuple(_rows_of(a, off, off + job.n_rows) for a in outs)

@@ -16,6 +16,10 @@ are the controller's (``daemon/controller.py``), which it writes through
 its cluster's supervisor. The fleet scheduler's (``daemon/fleet.py``) are
 daemon-wide and carry no cluster label.
 
+:data:`LABEL_NAMES` lists the port's own span names, apart from the
+reference's: they label the ``torch.profiler`` trace and never reach the
+run report.
+
 :data:`FLIGHT_KINDS` lists the flight recorder's event kinds
 (``obs/flight.py``), each with the reference's fields.
 """
@@ -165,6 +169,27 @@ SPAN_NAMES: frozenset = frozenset({
 
 #: Both namespaces.
 ALL_NAMES: frozenset = METRIC_NAMES | SPAN_NAMES
+
+#: The port's own span names, none of them the reference's: phases written
+#: with ``span(name, report=False)`` and the collector's ``gc``. Each reaches
+#: ``torch.profiler`` as the label ``ka/<name>`` and the per-solve records
+#: (``TorchSolver.last_timers``, ``whatif.last_sweep``), never the run
+#: report, which keeps the reference's span tree. (Every span of
+#: :data:`SPAN_NAMES` is labelled ``ka/<name>`` too.)
+LABEL_NAMES: frozenset = frozenset({
+    # the plan: RF inference (assigner.py), and within ``solve`` its two
+    # phases (solvers/torch_solver.py)
+    "infer", "place", "leadership",
+    # the what-if sweep (parallel/whatif.py; each placement call of
+    # ops/assignment.py:_sweep is a chunk; the rescue phase holds the
+    # reference's ``whatif/rescue`` when a scenario is rescued)
+    "whatif/prep", "whatif/chunk", "whatif/rescue_phase", "whatif/compose",
+    # one packed device call on the dispatcher thread (daemon/dispatch.py),
+    # recorded by a /debug/profile window (obs/profile.py:capture_window)
+    "dispatch/packed",
+    # a full collection (obs/trace.py:collector_pauses)
+    "gc",
+})
 
 #: The flight recorder's event kinds (``flight.record``'s first argument),
 #: the reference's taxonomy (``kafka_assigner_tpu/obs/flight.py``).

@@ -15,7 +15,9 @@ is one Chrome trace file (``export_chrome_trace``), readable in Perfetto or
   reader finds the dispatch window in the trace. Unset, the default, it
   costs two env reads.
 - **window capture** (:func:`capture_window`): one bounded trace of
-  whatever the process does for N seconds.
+  whatever the process does for N seconds, on every thread: the request
+  threads' and the dispatcher's operators and ``ka/`` span labels
+  (``obs/trace.py``).
 
 Both share one non-blocking lock: a dispatch trace that overlaps a window
 capture skips tracing (observability is best-effort; a busy profiler never
@@ -57,23 +59,31 @@ def profile_dir() -> Optional[str]:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str, what: str = "trace") -> Iterator[str]:
+def device_trace(log_dir: str, what: str = "trace",
+                 every_thread: bool = False) -> Iterator[str]:
     """Profile everything in the block and write one Chrome trace into
     ``log_dir`` (created if missing), also when the block raises; yields
     the trace's path. The CPU activity always, the CUDA activity when CUDA
-    is initialised in this process. The raw primitive: no gating, no lock;
-    callers that may race a window capture use :func:`dispatch_trace`."""
+    is initialised in this process. The host side of the calling thread,
+    or with ``every_thread`` of every thread. The raw primitive: no gating,
+    no lock; callers that may race a window capture use
+    :func:`dispatch_trace`."""
     import torch
+
+    from .trace import labelling_every_thread
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"ka_{what}_{os.getpid()}_{next(_SEQ)}.json")
-    prof = torch.profiler.profile(activities=activities)
+    config = (torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+              if every_thread else None)
+    prof = torch.profiler.profile(activities=activities, experimental_config=config)
     prof.start()
     try:
-        yield path
+        with labelling_every_thread() if every_thread else contextlib.nullcontext():
+            yield path
     finally:
         prof.stop()
         prof.export_chrome_trace(path)
@@ -126,7 +136,7 @@ def capture_window(seconds: float,
             "a profiler capture is already in progress; retry when it ends"
         )
     try:
-        with device_trace(log_dir, "window"):
+        with device_trace(log_dir, "window", every_thread=True):
             time.sleep(seconds)
     finally:
         _PROFILER_LOCK.release()

@@ -15,10 +15,28 @@ one shared no-op singleton and every metric call is a single ``None``
 check: no allocation, no files, byte-identical output. Spans wrap host
 work; a span around device work measures it only where the work ends in a
 device synchronize (the solver's phases do).
+
+While a ``torch.profiler`` session records on the calling thread, every
+span is also a label, ``ka/<name>``, on the profiler's own clock, around
+exactly the interval the span times. A label is a host operator event
+(``torch._C._profiler._RecordFunctionFast``), not a ``record_function``
+user annotation: an annotation leaves a device-side copy spanning the
+kernels it launched, which a trace reader that keys on the device can take
+for device activity (``kabench/trace.py`` does where torch's events carry
+no activity type, as in torch 2.11).
+A session records only the thread that started it, apart from a window
+capture (``obs/profile.py:capture_window``), which records every thread and
+says so through :func:`labelling_every_thread`. ``report=False`` makes a
+span the port's own phase (``obs/names.py:LABEL_NAMES``): its label and its
+sink, never the run report, which stays the reference's.
+:func:`collector_pauses` times the collector's pauses inside a profiled
+block and labels each full collection ``ka/gc``.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
+import sys
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -27,6 +45,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 #: cannot turn the report into a huge artifact. Overflow is counted
 #: (``spans_dropped`` in the report).
 MAX_SPANS = 4096
+
+#: The prefix of every span's ``torch.profiler`` label.
+LABEL_PREFIX = "ka/"
 
 
 class RunCollector:
@@ -166,6 +187,9 @@ class _NullSpan:
     def fail(self) -> None:
         pass
 
+    def end(self) -> None:
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
@@ -189,25 +213,61 @@ def active_run() -> Optional[RunCollector]:
     return _current()
 
 
+#: True while a ``torch.profiler`` session records every thread of the
+#: process (:func:`labelling_every_thread`), where ``torch`` reports the
+#: session on the thread that started it only.
+_EVERY_THREAD = False
+
+
+@contextlib.contextmanager
+def labelling_every_thread() -> Iterator[None]:
+    """Inside the block a profiler session records every thread, so
+    :func:`profiling` holds on every thread."""
+    global _EVERY_THREAD
+    _EVERY_THREAD = True
+    try:
+        yield
+    finally:
+        _EVERY_THREAD = False
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records on this thread. torch
+    is looked up, never imported: a process without it has no session."""
+    torch = sys.modules.get("torch")
+    return torch is not None and (_EVERY_THREAD or torch.autograd._profiler_enabled())
+
+
+def _label(name: str):
+    """The label of ``name``, not yet entered: a host operator event. Its
+    class is private to torch; a torch without it labels nothing, which
+    ``tests/test_torch_tracing.py`` reports."""
+    make = getattr(sys.modules["torch"]._C._profiler, "_RecordFunctionFast", None)
+    return NULL_SPAN if make is None else make(LABEL_PREFIX + name)
+
+
 class _Span:
-    """One live span: records into the run (when active) and optionally
-    accumulates its elapsed ms into a plain dict ``sink`` (the solver's
-    ``last_timers``, which keep working with obs disabled) and/or an obs
-    histogram ``hist``."""
+    """One live span: records into the run (when active), under a profiler
+    labels its interval ``ka/<name>``, and optionally accumulates its
+    elapsed ms into a plain dict ``sink`` (the solver's ``last_timers``,
+    which keep working with obs disabled) and/or an obs histogram
+    ``hist``."""
 
     __slots__ = (
-        "_run", "_name", "_sink", "_key", "_hist", "_log", "_t0", "_idx",
-        "_failed",
+        "_run", "_name", "_sink", "_key", "_hist", "_log", "_label", "_t0",
+        "_idx", "_failed", "_open",
     )
 
-    def __init__(self, run, name, sink, key, hist, log) -> None:
+    def __init__(self, run, name, sink, key, hist, log, label) -> None:
         self._run = run
         self._name = name
         self._sink = sink
         self._key = key
         self._hist = hist
         self._log = log
+        self._label = _label(name) if label else None
         self._failed = False
+        self._open = False
 
     def fail(self) -> None:
         """Force error status at exit: for failures signaled by return code
@@ -215,16 +275,28 @@ class _Span:
         span log and the report's top-level status never disagree."""
         self._failed = True
 
+    def end(self) -> None:
+        """End the span now, inside its ``with`` block, whose exit then
+        does nothing: for a phase that ends before the block around it
+        does (the what-if sweep's ``prep``)."""
+        self.__exit__(None, None, None)
+
     def __enter__(self) -> "_Span":
+        if self._label is not None:
+            self._label.__enter__()
         if self._run is not None:
             self._idx = self._run._start(self._name)
         else:
             self._idx = None
+        self._open = True
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, etype, evalue, tb) -> bool:
+        if not self._open:
+            return False
         ms = (time.perf_counter() - self._t0) * 1000.0
+        self._open = False
         if self._sink is not None:
             k = self._key if self._key is not None else self._name
             self._sink[k] = self._sink.get(k, 0.0) + ms
@@ -237,6 +309,8 @@ class _Span:
             # Every phase logs its own elapsed ms at INFO, success or
             # failure, obs capture active or not.
             self._log.info("phase %s: %.2f ms", self._name, ms)
+        if self._label is not None:
+            self._label.__exit__(etype, evalue, tb)
         return False
 
 
@@ -248,22 +322,73 @@ def record_span(name: str, ms: float, ok: bool = True) -> None:
         run.record_complete(name, ms, ok)
 
 
-def span(name: str, *, sink=None, key=None, hist=None, log=None):
+def span(name: str, *, sink=None, key=None, hist=None, log=None, report=True):
     """A context manager timing one section of host work.
 
     - active run: records a nested span (wall ms, failure status when an
       exception unwinds through it or ``.fail()`` was called), optionally
-      observing the elapsed ms into histogram ``hist``;
+      observing the elapsed ms into histogram ``hist``; ``report=False``
+      keeps the span out of the run (the port's own phases, declared in
+      ``obs/names.py:LABEL_NAMES``);
+    - a ``torch.profiler`` session recording on this thread: the label
+      ``ka/<name>`` around the span's interval;
     - ``sink``: a plain dict that always accumulates ``sink[key or name] +=
       ms``, run or no run;
     - ``log``: a logger that always gets ``phase <name>: <ms> ms`` at INFO
       on exit, success or failure;
-    - disabled and no sink/log: returns the shared no-op singleton.
+    - none of these: returns the shared no-op singleton.
     """
-    run = _current()
-    if run is None and sink is None and log is None:
+    run = _current() if report else None
+    label = profiling()
+    if run is None and sink is None and log is None and not label:
         return NULL_SPAN
-    return _Span(run, name, sink, key, hist, log)
+    return _Span(run, name, sink, key, hist, log, label)
+
+
+class _Pauses:
+    """A ``gc.callbacks`` entry: the collector's pause time in ms, and the
+    label ``ka/gc`` around each full collection while a profiler records
+    on the collecting thread."""
+
+    __slots__ = ("ms", "_t0", "_label")
+
+    def __init__(self) -> None:
+        self.ms = 0.0
+        self._t0 = None
+        self._label = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            if info["generation"] == 2 and profiling():
+                self._label = _label("gc")
+                self._label.__enter__()
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1000.0
+            self._t0 = None
+            if self._label is not None:
+                self._label.__exit__(None, None, None)
+                self._label = None
+
+
+@contextlib.contextmanager
+def collector_pauses(sink: dict) -> Iterator[None]:
+    """Under a ``torch.profiler`` session on this thread: the collector's
+    pause time inside the block, from ``gc.callbacks``, added to
+    ``sink["gc"]`` in ms (0.0 when nothing was collected), each full
+    collection labelled ``ka/gc``. Pauses of a collection that another
+    thread triggers count too: every thread waits for it. Unprofiled,
+    nothing is installed and ``sink`` is left alone."""
+    if not profiling():
+        yield
+        return
+    pauses = _Pauses()
+    gc.callbacks.append(pauses)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(pauses)
+        sink["gc"] = sink.get("gc", 0.0) + pauses.ms
 
 
 @contextlib.contextmanager

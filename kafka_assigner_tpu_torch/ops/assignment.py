@@ -62,13 +62,17 @@ the orphan scan in ``ops/group_pack.py``.
 """
 from __future__ import annotations
 
+import contextlib
+import operator
+import threading
 import time
 from types import MappingProxyType
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..obs.trace import profiling, span
 from ..utils.env import env_int
 
 BIG = 0x3FFFFFFF
@@ -138,6 +142,58 @@ class PlaceResult(NamedTuple):
     infeasible: torch.Tensor  # (B,) bool
     deficit: torch.Tensor     # (B, P_pad) int32
     waves: Dict[str, int]     # leg -> batched waves run (1 for seq)
+
+
+class HostReads:
+    """The device-to-host reads inside one :func:`host_reads` block: how
+    many (``syncs``) and the host's wall ms blocked in them (``wait``)."""
+
+    __slots__ = ("syncs", "wait")
+
+    def __init__(self) -> None:
+        self.syncs = 0
+        self.wait = 0.0
+
+
+class _OpenReads(threading.local):
+    """Each thread's open :class:`HostReads` (``on``), if any."""
+
+    on: Optional[HostReads] = None
+
+
+_READS = _OpenReads()
+
+
+@contextlib.contextmanager
+def host_reads() -> Iterator[Optional[HostReads]]:
+    """Count this thread's reads of the device inside the block
+    (:func:`host_read`) while a ``torch.profiler`` session records on it
+    (``obs/trace.py:profiling``): yields the :class:`HostReads`, else None
+    and counts nothing. The innermost open block counts."""
+    if not profiling():
+        yield None
+        return
+    outer = _READS.on
+    reads = _READS.on = HostReads()
+    try:
+        yield reads
+    finally:
+        _READS.on = outer
+
+
+def host_read(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a call that reads the device and so waits
+    for it: one read, and its wall ms, in this thread's open
+    :func:`host_reads` block; else just the call."""
+    reads = _READS.on
+    if reads is None:
+        return fn(*args, **kwargs)
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        reads.syncs += 1
+        reads.wait += (time.perf_counter() - t0) * 1e3
 
 
 def dense_mask_budget() -> int:
@@ -526,9 +582,9 @@ def _hybrid_quota_body(
     def body(state: AssignState) -> AssignState:
         room = _rack_room(_headroom(state, cap, n, alive), rack_n, r_cap)
         bulk = room.amax(1) > endgame
-        if bool(bulk.all()):
+        if host_read(bool, bulk.all()):
             return quota_body(state)
-        if not bool(bulk.any()):
+        if not host_read(bool, bulk.any()):
             return endgame_body(state)
         return _select(bulk, quota_body(state), endgame_body(state))
 
@@ -619,7 +675,7 @@ def _seq_fill(
     deficit = state.deficit.clone()
     node_load = state.node_load
     infeasible = state.infeasible.clone()
-    todo_rows = torch.nonzero((deficit > 0).any(0)).flatten().tolist()
+    todo_rows = host_read(lambda: torch.nonzero((deficit > 0).any(0)).flatten().tolist())
     for r in todo_rows:
         nodes, count, dfc = acc_nodes[:, r], acc_count[:, r], deficit[:, r]
         for _ in range(w):  # a row's deficit <= its slot width
@@ -737,15 +793,15 @@ def _block_rows(state: AssignState, part, p: int) -> AssignState:
 def _wave_loop(body, state: AssignState, part=UNSHARDED) -> Tuple[AssignState, int]:
     """Run ``body`` until every topic is placed or stranded. A topic that is
     done is frozen (its state selected back), as its own ``while_loop``
-    would stop. One host sync per wave, on a value every position of a
-    sharded part axis holds alike."""
+    would stop. One host sync per wave and one to stop, on a value every
+    position of a sharded part axis holds alike."""
     waves = 0
     while True:
         wanting = (state.deficit > 0).any(1)
         if part.size > 1:
             wanting = part.any(wanting)
         active = wanting & ~state.infeasible
-        if not bool(active.any()):
+        if not host_read(bool, active.any()):
             return state, waves
         state = _select(active, body(state), state)
         waves += 1
@@ -780,6 +836,10 @@ def place_batched(
     when given, else ``rf``), the infeasible flag and the deficit vector
     (for the reference's error message); ``waves`` names every leg that
     ran. Inert padding topics (p_real 0) have nothing to place.
+
+    Its reads of the device go through :func:`host_read`: a wave loop's
+    flag a wave and one to stop, the quota leg's two branch flags a wave,
+    the ``seq`` leg's row list, and the stranded rows after each leg.
 
     On a sharded part axis (``part`` a position of a mesh's part axis),
     ``currents`` is this position's block of rows, one of ``part.size``
@@ -866,7 +926,7 @@ def place_batched(
                 )
             out, waves[leg] = _wave_loop(body, sub, part)
         result = result.put(todo, out)
-        todo = todo[out.infeasible]
+        todo = host_read(operator.getitem, todo, out.infeasible)
         if todo.numel() == 0:
             break
     return PlaceResult(
@@ -892,7 +952,9 @@ def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
     s's rows are the topics ``topics[s]`` (``topics`` is (1|S, T); -1 is an
     inert padding row) under the mask ``alive_masks[s]``. Whole scenarios
     go to one ``place_batched`` call, at most ``SWEEP_CHUNK_ELEMS`` rows x
-    N_pad at a time. ``load`` is the (S, N_pad) node loads here."""
+    N_pad at a time, labelled ``ka/whatif/chunk`` under a profiler. ``load``
+    is the (S, N_pad) node loads here; each chunk's ``bincount`` reads its
+    input's largest value from the device (:func:`host_read`)."""
     dev = currents.device
     s, t = alive_masks.shape[0], topics.shape[1]
     n_pad = rack_idx.shape[0]
@@ -904,10 +966,12 @@ def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
         real, safe = idx >= 0, idx.clamp(min=0)
         cur = torch.where(real[:, None, None], currents[safe], -1)
         scen = torch.arange(k, device=dev).repeat_interleave(t)
-        res = place_batched(
-            cur, rack_idx, jhashes[safe], torch.where(real, p_reals[safe], 0), n, rf,
-            wave_mode, rfs[safe], r_cap, alive=alive_masks[s0:s0 + k], alive_row=scen,
-        )
+        with span("whatif/chunk", report=False):
+            res = place_batched(
+                cur, rack_idx, jhashes[safe], torch.where(real, p_reals[safe], 0), n,
+                rf, wave_mode, rfs[safe], r_cap, alive=alive_masks[s0:s0 + k],
+                alive_row=scen,
+            )
         placed = res.acc_nodes
         # Moved: a placed replica the row's current list does not hold (the
         # reference's membership diff, :1441-1444).
@@ -917,7 +981,7 @@ def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
         # Node loads: every placed replica of a row into its scenario's row.
         node = torch.where(placed >= 0, placed, n_pad).long()
         node = node + (scen * (n_pad + 1))[:, None, None]
-        loads.append(torch.bincount(node.view(-1), minlength=k * (n_pad + 1))
+        loads.append(host_read(torch.bincount, node.view(-1), minlength=k * (n_pad + 1))
                      .view(k, n_pad + 1)[:, :n_pad])
         for leg, w in res.waves.items():
             waves[leg] = waves.get(leg, 0) + w

@@ -53,8 +53,14 @@ drops the mesh, as the reference's does (:452-461): a mesh never reaches
 
 :data:`last_sweep` and :data:`last_groups` record what the most recent
 call of the process did; under the dispatch plane concurrent requests
-overwrite them, and a packed call's ``rows``, ``chunks`` and ``waves`` are
-the packed call's; under a mesh they sum every position's.
+overwrite them, and a packed call's ``rows``, ``chunks``, ``waves``,
+``syncs`` and ``wait`` are the packed call's; under a mesh they sum every
+position's. Under ``torch.profiler`` each timed phase of a sweep is a label
+on the profiler's clock around exactly its timer: ``ka/whatif/prep``,
+``ka/whatif/chunk`` (each placement call of the sweep, the rescue's too),
+``ka/whatif/compose`` (the incremental path; the dense one composes
+nothing) and ``ka/whatif/rescue_phase``, which holds the reference's
+``whatif/rescue`` span (``ka/whatif/rescue``) when a scenario is rescued.
 """
 from __future__ import annotations
 
@@ -75,6 +81,8 @@ from ..obs.metrics import counter_add, gauge_set
 from ..obs.trace import span
 from ..ops.assignment import (
     group_pack_sweep,
+    host_read,
+    host_reads,
     pack_group,
     whatif_subset_sweep,
     whatif_sweep,
@@ -90,7 +98,11 @@ from .mesh import Sharded, block_bounds, fetch_global, gather_blocks, owned_bloc
 #: and ``waves`` per leg, ``t_pad`` on the incremental path, and phase times
 #: in ms: ``prep`` (host encode, masks and topic facts, upload), ``sweep``
 #: (the device sweep, ending in a synchronize), ``rescue`` (the device
-#: re-run of flagged scenarios) and ``compose`` (host).
+#: re-run of flagged scenarios) and ``compose`` (host). Where the sweep
+#: and its rescue ran on a thread a ``torch.profiler`` session records,
+#: ``syncs`` counts their device-to-host reads
+#: (``ops/assignment.py:host_read``, and three reads of each call's
+#: outputs) and ``wait`` the host's ms blocked in them.
 last_sweep: Dict[str, object] = {}
 
 #: What the most recent group packing call of this process did: ``kind``
@@ -195,43 +207,49 @@ def _rescue_flagged(flagged, alive, on, host, n, rf, r_cap, moved, infeasible,
     paths, as the actual solver would for that scenario. ``alive`` is the
     host (S, N_pad) mask matrix; ``on`` holds the topic tensors on the
     device and ``host`` the same arrays on the host (the dispatch key).
-    Returns the rescue's waves per leg."""
+    Returns the rescue's record (:func:`_download`)."""
     counter_add("whatif.rescued", len(flagged))
     dev = on.currents.device
 
     def _rescue_call(rows):
-        with span("whatif/rescue", hist="whatif.dispatch_ms"):
+        with span("whatif/rescue", hist="whatif.dispatch_ms"), host_reads() as reads:
             res = whatif_sweep(
                 on.currents, on.rack_idx, on.jhashes, on.p_reals,
                 torch.as_tensor(rows["alive"]).to(dev), n, rf, wave_mode="auto",
                 rfs=on.rfs, r_cap=r_cap,
             )
-            return tuple(t.cpu().numpy() for t in res[:3]) + (res.waves,)
+            return _download(res, reads)
 
     # The "rescue" tag keeps these rows apart from the fast-leg sweeps'.
     rows = {"alive": np.asarray(alive)[flagged]}
     routed = submit_routed("whatif_sweep", host, ("rescue", n, rf, r_cap), rows,
                            len(flagged), _rescue_call)
-    moved2, infeasible2, max_load2, waves = (
+    moved2, infeasible2, max_load2, rec = (
         routed if routed is not None else _rescue_call(rows))
     for i, s in enumerate(flagged):
         moved[s] = moved2[i]
         infeasible[s] = infeasible2[i]
         max_load[s] = max_load2[i]
-    return waves
+    return rec
 
 
 def _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
              max_load):
     """Rescue the flagged scenarios, then one :class:`ScenarioResult` per
     scenario (both paths end here)."""
-    t0 = time.perf_counter()
-    flagged = [s for s in range(len(scenarios)) if infeasible[s]]
-    waves = {}
-    if flagged:
-        waves = _rescue_flagged(flagged, alive, on, host, n, rf, r_cap, moved,
-                                infeasible, max_load)
-    last_sweep.update(rescued=len(flagged), rescue=_ms(t0), rescue_waves=waves)
+    with span("whatif/rescue_phase", sink=last_sweep, key="rescue", report=False):
+        flagged = [s for s in range(len(scenarios)) if infeasible[s]]
+        waves = {}
+        if flagged:
+            rec = _rescue_flagged(flagged, alive, on, host, n, rf, r_cap, moved,
+                                  infeasible, max_load)
+            waves = rec["waves"]
+            if "syncs" in rec and "syncs" in last_sweep:
+                # .get: under the dispatch plane a concurrent request may
+                # have cleared the record since the test.
+                last_sweep["syncs"] = last_sweep.get("syncs", 0) + rec["syncs"]
+                last_sweep["wait"] = last_sweep.get("wait", 0.0) + rec["wait"]
+    last_sweep.update(rescued=len(flagged), rescue_waves=waves)
     return [
         ScenarioResult(
             removed=tuple(sorted(int(b) for b in scenarios[s])),
@@ -245,7 +263,7 @@ def _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
 
 def _evaluate_incremental(
     currents, jhashes, p_reals, rfs, cluster, alive, scenarios, s_real,
-    rf, r_cap, b_real, on, host, t_start, mesh=None,
+    rf, r_cap, b_real, on, host, prep, mesh=None,
 ):
     """Incremental sweep: solve only the (scenario, topic) pairs whose
     outcome can differ from the input.
@@ -256,9 +274,10 @@ def _evaluate_incremental(
     provably reproduces its input — zero movement, unchanged loads. The
     dense sweep remains the oracle, and this path declines (returns None)
     when the affected fraction makes it unprofitable. ``on`` holds the
-    topics on the device and ``host`` on the host; ``t_start`` is when the
-    evaluation began (the host prep clock). ``mesh`` shards the subset
-    sweep's scenarios; the composition is unchanged.
+    topics on the device and ``host`` on the host; ``prep`` is the
+    evaluation's open ``whatif/prep`` span, ended here once the index table
+    is built. ``mesh`` shards the subset sweep's scenarios; the composition
+    is unchanged.
 
     Scenarios whose fast-leg pair solve strands re-run through the FULL
     auto-chain sweep, exactly like the dense path's rescue.
@@ -293,16 +312,18 @@ def _evaluate_incremental(
     topics = np.full((s_real, t_pad), -1, dtype=np.int32)
     for s, tops in enumerate(affected):
         topics[s, : len(tops)] = tops
-    last_sweep.update(prep=_ms(t_start), t_pad=t_pad)
+    prep.end()
+    last_sweep.update(t_pad=t_pad)
 
     def _subset_rows(rows, on=on):
         dev = on.currents.device
-        res = whatif_subset_sweep(
-            on.currents, on.rack_idx, on.jhashes, on.p_reals,
-            to_tensor(rows["topics"], dev), torch.as_tensor(rows["alive"]).to(dev),
-            n, rf, rfs=on.rfs, r_cap=r_cap,
-        )
-        return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+        with host_reads() as reads:
+            res = whatif_subset_sweep(
+                on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                to_tensor(rows["topics"], dev), torch.as_tensor(rows["alive"]).to(dev),
+                n, rf, rfs=on.rfs, r_cap=r_cap,
+            )
+            return _download(res, reads)
 
     # Every operand but the index table and the masks is the cluster's, so
     # requests over the same encoding pack, across clusters too.
@@ -320,22 +341,28 @@ def _evaluate_incremental(
             routed if routed is not None else _subset_rows(rows))
     last_sweep.update(sweep=_ms(t0), **rec)
 
-    t0 = time.perf_counter()
-    moved = moved_s.astype(np.int64)
-    infeasible = infeas_s.astype(bool)
-    load_vec = np.repeat(base_load[None, :], s_real, axis=0)
-    for s, tops in enumerate(affected):
-        load_vec[s] += loads_s[s] - loads_t[tops].sum(axis=0)
-    max_load = load_vec.max(axis=1) if n else np.zeros(s_real, dtype=np.int64)
-    last_sweep.update(compose=_ms(t0))
+    with span("whatif/compose", sink=last_sweep, key="compose", report=False):
+        moved = moved_s.astype(np.int64)
+        infeasible = infeas_s.astype(bool)
+        load_vec = np.repeat(base_load[None, :], s_real, axis=0)
+        for s, tops in enumerate(affected):
+            load_vec[s] += loads_s[s] - loads_t[tops].sum(axis=0)
+        max_load = load_vec.max(axis=1) if n else np.zeros(s_real, dtype=np.int64)
     return _results(scenarios, alive, on, host, n, rf, r_cap, moved, infeasible,
                     max_load)
 
 
-def _record(res) -> Dict[str, object]:
-    """A sweep call's rows, placement calls and waves, for :data:`last_sweep`
-    (it passes whole through a packed call)."""
-    return {"rows": res.rows, "chunks": res.chunks, "waves": res.waves}
+def _download(res, reads) -> tuple:
+    """A sweep call's three outputs on the host, and its record for
+    :data:`last_sweep` (it passes whole through a packed call): rows,
+    placement calls, waves, and where the call counted its device reads
+    (``reads``, its open ``host_reads`` block) their count and the host's ms
+    blocked in them, these three reads included."""
+    out = tuple(host_read(torch.Tensor.cpu, t).numpy() for t in res[:3])
+    rec = {"rows": res.rows, "chunks": res.chunks, "waves": res.waves}
+    if reads is not None:
+        rec.update(syncs=reads.syncs, wait=reads.wait)
+    return out + (rec,)
 
 
 def _add_records(recs) -> Dict[str, object]:
@@ -344,8 +371,12 @@ def _add_records(recs) -> Dict[str, object]:
     for rec in recs:
         for leg, w in rec["waves"].items():
             waves[leg] = waves.get(leg, 0) + w
-    return {"rows": sum(r["rows"] for r in recs),
-            "chunks": sum(r["chunks"] for r in recs), "waves": waves}
+    out = {"rows": sum(r["rows"] for r in recs),
+           "chunks": sum(r["chunks"] for r in recs), "waves": waves}
+    if all("syncs" in r for r in recs):
+        out.update(syncs=sum(r["syncs"] for r in recs),
+                   wait=sum(r["wait"] for r in recs))
+    return out
 
 
 def _mesh_sweep(mesh, host, rows, empty, call):
@@ -400,7 +431,16 @@ def evaluate_removal_scenarios(
     position sweeping its block on its own device; the rescue runs on
     ``device``. Dropped on a daemon request thread under the dispatch
     plane, where the dispatcher packs requests instead."""
-    t_start = time.perf_counter()
+    # The prep phase runs from here until the sweep's index table or masks
+    # are ready, inside the reference's ``whatif/incremental`` span on that
+    # path: the span is ended there, and ends here only on an early return.
+    with span("whatif/prep", sink=last_sweep, key="prep", report=False) as prep:
+        return _evaluate(topic_assignments, brokers, rack_assignment, scenarios,
+                         replication_factor, device, mesh, prep)
+
+
+def _evaluate(topic_assignments, brokers, rack_assignment, scenarios,
+              replication_factor, device, mesh, prep) -> List[ScenarioResult]:
     dev = solve_device(device, "evaluate_removal_scenarios")
     last_sweep.clear()
     if mesh is not None and active_broker() is not None:
@@ -449,7 +489,7 @@ def evaluate_removal_scenarios(
         with span("whatif/incremental"):
             res = _evaluate_incremental(
                 currents, jhashes, p_reals, rfs, cluster, alive, scenarios,
-                s_real, rf, enc0.r_cap, len(items), on, host, t_start, mesh,
+                s_real, rf, enc0.r_cap, len(items), on, host, prep, mesh,
             )
         if res is not None:
             counter_add("whatif.incremental_sweeps")
@@ -460,15 +500,17 @@ def evaluate_removal_scenarios(
     # stays under ~KA_WHATIF_MEMBUDGET int32 elements.
     per_scenario = max(1, currents.shape[0] * currents.shape[1] * max(rf, 1))
     s_chunk = max(1, env_int("KA_WHATIF_MEMBUDGET") // per_scenario)
-    last_sweep.update(path="dense", prep=_ms(t_start), t_pad=None)
+    prep.end()
+    last_sweep.update(path="dense", t_pad=None)
 
     def _sweep_rows(rows, on=on):
-        res = whatif_sweep(
-            on.currents, on.rack_idx, on.jhashes, on.p_reals,
-            torch.as_tensor(rows["alive"]).to(on.currents.device), enc0.n, rf,
-            rfs=on.rfs, r_cap=enc0.r_cap,
-        )
-        return tuple(t.cpu().numpy() for t in res[:3]) + (_record(res),)
+        with host_reads() as reads:
+            res = whatif_sweep(
+                on.currents, on.rack_idx, on.jhashes, on.p_reals,
+                torch.as_tensor(rows["alive"]).to(on.currents.device), enc0.n, rf,
+                rfs=on.rfs, r_cap=enc0.r_cap,
+            )
+            return _download(res, reads)
 
     def _dense_rows(rows):
         with span("whatif/dispatch", hist="whatif.dispatch_ms"):

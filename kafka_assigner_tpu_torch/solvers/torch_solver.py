@@ -49,15 +49,17 @@ leadership kernel → host decode. The counterpart of
   ``solver.fresh_calls`` counters, and on the batched path the spans
   ``encode`` (the same clock as ``last_timers["encode"]``), ``solve``
   (placement and leadership) and ``decode`` (the same clock as
-  ``last_timers["decode"]``), with the ``encode.*`` gauges.
+  ``last_timers["decode"]``), with the ``encode.*`` gauges. On every path
+  each phase is a span, and so, under ``torch.profiler``, a label on the
+  profiler's clock: ``ka/encode``, ``ka/solve``, within it ``ka/place``
+  and ``ka/leadership`` (the port's own, kept out of the report), and
+  ``ka/decode``.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import sys
 import threading
-import time
 from typing import Dict, List, Mapping, Sequence, Set
 
 import numpy as np
@@ -77,7 +79,7 @@ from ..models.problem import (
 from ..native.leadership import leadership_backend, order_many
 from ..obs.metrics import counter_add, gauge_set, obs_active
 from ..obs.trace import span
-from ..ops.assignment import WAVE_MODES, PlaceResult, place_batched
+from ..ops.assignment import WAVE_MODES, PlaceResult, host_read, host_reads, place_batched
 from ..ops.leadership import leadership_order
 from ..utils.env import env_bool, env_choice, env_int
 from ..utils.logging import get_logger
@@ -129,23 +131,6 @@ def solve_device(device: str | torch.device, who: str = "TorchSolver") -> torch.
     return device
 
 
-@contextlib.contextmanager
-def _phase(name: str, sink, record: bool, log=None):
-    """One solve phase: an obs span on the batched path (``record``), where
-    the reference's ``assign_many`` has one, else a plain timer; either way
-    the phase's wall ms land in ``sink`` (``last_timers``) when given."""
-    if record:
-        with span(name, sink=sink, log=log):
-            yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sink is not None:
-            sink[name] = sink.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
 class TorchSolver:
     """Solver-protocol implementation on PyTorch tensors.
 
@@ -170,6 +155,12 @@ class TorchSolver:
         #: leadership, decode; each phase ends in a device synchronize. In a
         #: daemon under the dispatch plane ``place`` includes the queue wait,
         #: and a synchronize also waits for other requests' device work.
+        #: Under a ``torch.profiler`` session on the solving thread, and
+        #: where placement ran on that thread (unsharded, not packed by the
+        #: dispatcher), ``place_wait``: the part of ``place`` the host spent
+        #: blocked in reads of the device (``ops/assignment.py:host_read``,
+        #: the read of the infeasible flags too). ``TopicAssigner`` adds
+        #: ``infer`` and, under a profiler, ``gc``.
         self.last_timers: Dict[str, float] = {}
         #: batched waves per leg of the most recent placement.
         self.last_waves: Dict[str, int] = {}
@@ -319,14 +310,15 @@ class TorchSolver:
         """Encode, place, order and decode. ``encode()`` returns ``(encs,
         (currents, jhashes, p_reals))``. ``fresh`` runs the ``fresh`` chain
         and never the compat width, as the reference's ``fresh_assignment``
-        does. ``record`` makes the phases obs spans (the batched path)."""
+        does. ``record`` puts the phases in the run report (the batched
+        path, where the reference's ``assign_many`` has its spans)."""
         timers = {}
         self.last_timers = timers
         log = get_logger("timers") if record else None
         # Resolved first: KA_LEADERSHIP=native without its library raises
         # before any placement work.
         native_order = leadership_backend() == "native"
-        with _phase("encode", timers, record, log):
+        with span("encode", sink=timers, log=log, report=record):
             encs, (currents, jhashes, p_reals) = encode()
             rf_max = max(rf_list)
             # Compat slot width: on an RF decrease under
@@ -352,8 +344,7 @@ class TorchSolver:
             counters_t = None if native_order else self._t(counters_before)
             self._sync()
 
-        with _phase("solve", None, record, log):
-            t0 = time.perf_counter()
+        with span("solve", log=log, report=record):
             mode = "fresh" if fresh else wave_mode()
             self.last_collectives = None
             sharded = self._part_sharded(fresh)
@@ -362,22 +353,27 @@ class TorchSolver:
                     currents, encs[0], jhashes, p_reals, rf_max, mode, rfs_np, width,
                     b_real, counters_before, native_order,
                 )
+                infeasible = placed.infeasible[:b_real].cpu().numpy()
             else:
-                # The batched path of a daemon request under the dispatch
-                # plane places through the dispatcher (the reference routes
-                # assign_many only); None: no dispatcher routes.
-                placed = (self._place_routed(currents, encs[0], jhashes, p_reals,
-                                             rf_max, mode, rfs_np, width)
-                          if record and not fresh else None)
-                if placed is None:
-                    placed = place_batched(
-                        cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, mode, rfs,
-                        r_cap=encs[0].r_cap, width=width,
-                    )
+                with span("place", sink=timers, report=False), host_reads() as reads:
+                    # The batched path of a daemon request under the
+                    # dispatch plane places through the dispatcher (the
+                    # reference routes assign_many only); None: no
+                    # dispatcher routes.
+                    placed = (self._place_routed(currents, encs[0], jhashes, p_reals,
+                                                 rf_max, mode, rfs_np, width)
+                              if record and not fresh else None)
+                    routed = placed is not None
+                    if not routed:
+                        placed = place_batched(
+                            cur_t, rack_t, jh_t, pr_t, encs[0].n, rf_max, mode, rfs,
+                            r_cap=encs[0].r_cap, width=width,
+                        )
+                    infeasible = host_read(torch.Tensor.cpu,
+                                           placed.infeasible[:b_real]).numpy()
+                if reads is not None and not routed:
+                    timers["place_wait"] = reads.wait
             self.last_waves = placed.waves
-            infeasible = placed.infeasible[:b_real].cpu().numpy()
-            if not sharded:
-                timers["place"] = (time.perf_counter() - t0) * 1e3
             if not infeasible.any():
                 ordered, counters_after = order_out if sharded else self._order(
                     placed, b_real, jhashes, p_reals, counters_before,
@@ -392,7 +388,7 @@ class TorchSolver:
                 "fully assigned!"
             )
 
-        with _phase("decode", timers, record, log):
+        with span("decode", sink=timers, log=log, report=record):
             if isinstance(ordered, torch.Tensor):
                 ordered = ordered.cpu().numpy()
                 counters_after = counters_after.cpu().numpy()
@@ -433,24 +429,25 @@ class TorchSolver:
         order_lock = threading.Lock()
 
         def position(pos):
-            t0 = time.perf_counter()
+            took = {}
             dev = pos.device
             lo = pos.index * blk
-            placed = place_batched(
-                to_tensor(tiled[:, lo:lo + blk], dev), to_tensor(enc.rack_idx, dev),
-                to_tensor(jhashes, dev), to_tensor(p_reals, dev), enc.n, rf, mode,
-                None if rfs_np is None else to_tensor(rfs_np, dev),
-                r_cap=enc.r_cap, width=width, part=pos, p_pad=p_pad,
-            )
-            placed = PlaceResult(
-                pos.gather(placed.acc_nodes, 1)[:, :p_pad],
-                pos.gather(placed.acc_count, 1)[:, :p_pad],
-                placed.infeasible, pos.gather(placed.deficit, 1)[:, :p_pad],
-                placed.waves,
-            )
-            self._sync(dev)
+            with span("place", sink=took, report=False):
+                placed = place_batched(
+                    to_tensor(tiled[:, lo:lo + blk], dev), to_tensor(enc.rack_idx, dev),
+                    to_tensor(jhashes, dev), to_tensor(p_reals, dev), enc.n, rf, mode,
+                    None if rfs_np is None else to_tensor(rfs_np, dev),
+                    r_cap=enc.r_cap, width=width, part=pos, p_pad=p_pad,
+                )
+                placed = PlaceResult(
+                    pos.gather(placed.acc_nodes, 1)[:, :p_pad],
+                    pos.gather(placed.acc_count, 1)[:, :p_pad],
+                    placed.infeasible, pos.gather(placed.deficit, 1)[:, :p_pad],
+                    placed.waves,
+                )
+                self._sync(dev)
             if pos.index == positions[0].index:
-                timers["place"] = (time.perf_counter() - t0) * 1e3
+                timers["place"] = took["place"]
             if bool(placed.infeasible[:b_real].any()):
                 return placed, None, pos.collectives
             # The positions order one after the other: the ordering crosses
@@ -502,33 +499,35 @@ class TorchSolver:
 
     def _order(self, placed, b_real, jhashes, p_reals, counters_before,
                counters_t, jh_t, native_order, p_pad, device=None):
-        """The leadership phase (``last_timers["leadership"]``): the host C++
-        lane or the device lane (the kernel on cuda, its plain version on
-        cpu) on ``device`` (default the solver's). Returns ``(ordered,
-        counters_after)``."""
+        """The leadership phase (``last_timers["leadership"]``, the span
+        ``leadership``): the host C++ lane or the device lane (the kernel on
+        cuda, its plain version on cpu) on ``device`` (default the
+        solver's). Returns ``(ordered, counters_after)``."""
         device = self.device if device is None else device
-        t0 = time.perf_counter()
-        if native_order:
-            # The host lane: the placement comes to the host (inside this
-            # phase's time), and the counter slab is the one built above,
-            # `width` wide under compat and rf_max wide in a mixed-RF batch.
-            self.last_leadership = "native"
-            out = order_many(
-                placed.acc_nodes[:b_real].cpu().numpy(),
-                placed.acc_count[:b_real].cpu().numpy(),
-                jhashes[:b_real].astype(np.int64), p_reals[:b_real],
-                counters_before,
-            )
-        else:
-            self.last_leadership = "cuda" if device.type == "cuda" else "plain"
-            out = leadership_order(
-                placed.acc_nodes[:b_real].contiguous(),
-                placed.acc_count[:b_real].contiguous(),
-                counters_t, jh_t[:b_real].contiguous(),
-                chunk=leader_chunk(p_pad),
-            )
-            self._sync(device)
-        self.last_timers["leadership"] = (time.perf_counter() - t0) * 1e3
+        took = {}
+        with span("leadership", sink=took, report=False):
+            if native_order:
+                # The host lane: the placement comes to the host (inside
+                # this phase's time), and the counter slab is the one built
+                # above, `width` wide under compat and rf_max wide in a
+                # mixed-RF batch.
+                self.last_leadership = "native"
+                out = order_many(
+                    placed.acc_nodes[:b_real].cpu().numpy(),
+                    placed.acc_count[:b_real].cpu().numpy(),
+                    jhashes[:b_real].astype(np.int64), p_reals[:b_real],
+                    counters_before,
+                )
+            else:
+                self.last_leadership = "cuda" if device.type == "cuda" else "plain"
+                out = leadership_order(
+                    placed.acc_nodes[:b_real].contiguous(),
+                    placed.acc_count[:b_real].contiguous(),
+                    counters_t, jh_t[:b_real].contiguous(),
+                    chunk=leader_chunk(p_pad),
+                )
+                self._sync(device)
+        self.last_timers["leadership"] = took["leadership"]
         return out
 
 

@@ -55,7 +55,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                 "native.leadership", "solvers.greedy", "solvers.native", "obs",
                 "obs.trace", "obs.metrics", "obs.report", "obs.flight", "obs.names",
                 "obs.profile", "obs.promtext", "faults", "faults.inject", "utils.logging",
-                "utils.timers", "io.zk", "io.zkwire", "io.kafka_admin",
+                "io.zk", "io.zkwire", "io.kafka_admin",
                 "utils.backoff", "utils.programstore", "solvers.warmup", "warm",
                 "warm.__main__", "exec", "exec.engine", "exec.journal",
                 "exec.__main__", "utils.atomicwrite", "daemon", "daemon.state",
