@@ -83,11 +83,22 @@ I32 = torch.int32
 #: topics in chunks of at most this many mask elements.
 DENSE_CHUNK_ELEMS = 1 << 26
 
-#: Elements (rows x N_pad) of one what-if sweep chunk: the node-load state
-#: and each row's segments are (rows x N_pad), so a sweep places whole
-#: scenarios in chunks of at most this many elements. Rows are independent:
-#: the chunking changes no value.
+#: Elements (rows x N_pad) of one what-if sweep chunk off a CUDA device: the
+#: node-load state and each row's segments are (rows x N_pad), so there a
+#: sweep places whole scenarios in chunks of at most this many elements. On
+#: a CUDA device the chunk is sized from the card's memory instead
+#: (:func:`sweep_scenarios_per_call`). Rows are independent: the chunking
+#: changes no value.
 SWEEP_CHUNK_ELEMS = 1 << 25
+
+#: One what-if sweep call on a CUDA device may hold its card's total memory
+#: over this (:func:`sweep_budget`), which leaves the rest to the plans, the
+#: dispatcher's packed calls and a rescue's dense leg on the same card.
+SWEEP_MEMORY_SHARE = 4
+
+#: Elements any one tensor of a sweep call may hold: the sorts, scans and
+#: gathers it runs stay within 32-bit element counts.
+SWEEP_MAX_ELEMS = (1 << 31) - 1
 
 
 class _Unsharded:
@@ -162,6 +173,16 @@ class _OpenReads(threading.local):
 
 
 _READS = _OpenReads()
+
+
+class _Sharers(threading.local):
+    """How many sweeps this thread's sweep shares its device with, itself
+    included (:func:`sharing_device`)."""
+
+    k = 1
+
+
+_SHARERS = _Sharers()
 
 
 @contextlib.contextmanager
@@ -944,6 +965,69 @@ class SweepResult(NamedTuple):
     waves: Dict[str, int]     # leg -> batched waves, summed over the chunks
     rows: int                 # (scenario, topic) rows placed
     chunks: int               # placement calls
+    per_call: int             # scenarios the largest placement call held
+
+
+@contextlib.contextmanager
+def sharing_device(k: int) -> Iterator[None]:
+    """Inside the block this thread's sweeps size each placement call for
+    ``k`` sweeps running at once on their device (:func:`sweep_budget`):
+    the in-process positions of a mesh whose blocks share one card."""
+    outer = _SHARERS.k
+    _SHARERS.k = max(1, k)
+    try:
+        yield
+    finally:
+        _SHARERS.k = outer
+
+
+def sweep_budget(device: torch.device) -> Optional[int]:
+    """Bytes one sweep call may hold on ``device``: a CUDA device's total
+    memory over :data:`SWEEP_MEMORY_SHARE`, split among the sweeps that
+    share it (:func:`sharing_device`); None off a CUDA device. The total,
+    not the free memory: sweeps that start together would each see the
+    same free memory."""
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return total // SWEEP_MEMORY_SHARE // _SHARERS.k
+
+
+def sweep_row_bytes(p_pad: int, width: int, n_pad: int) -> int:
+    """Device bytes one (scenario, topic) row of a sweep call holds at the
+    call's peak, inside a wave of its first leg, from the shapes it builds.
+
+    Per node (N_pad + 1 columns), 52 B: the int32 node loads of the sticky
+    state, the leg's ``take`` of it and the wave loop's state (12 B); the
+    wave's int32 headroom, units, gathered units, cumsum and its pad, or
+    the accepted state's loads in place of the gathered units (20 B); the
+    row's copies of the segment fields, ``order`` int64 and ``sorted_key``
+    and ``sorted_rank`` int32 (16 B); the row's liveness and the wave's
+    bool masks (4 B).
+
+    Per partition row, 48 B a slot and 224 B: the slots, count and deficit
+    of five states (the three above, the accepted one and the leg's
+    ``put``) and the row's current list (24 B a slot, 40 B); the wave's
+    rack ids and (K, width) blocking test, K <= 16 (20 B a slot); the
+    int64 keys, order and ranks of ``_requests_rank``'s sort (56 B); the
+    quota leg's (K,) int32 allowances and their cumsum (128 B); and 4 B a
+    slot of bool masks and casts."""
+    return 52 * (n_pad + 1) + p_pad * (48 * width + 224)
+
+
+def sweep_scenarios_per_call(budget: Optional[int], t: int, p_pad: int, width: int,
+                             n_pad: int) -> int:
+    """Whole scenarios of ``t`` rows that one sweep call places: as many
+    rows as ``budget`` bytes hold (:func:`sweep_row_bytes`), with no tensor
+    of the call past :data:`SWEEP_MAX_ELEMS` elements (its (rows, N_pad + 1)
+    node loads, its (rows, P_pad, K, width) blocking test with K at most
+    max(width + 1, 16), and so its (rows x P_pad) sorts), and at least one.
+    With no budget (off a CUDA device): ``SWEEP_CHUNK_ELEMS // (t * n_pad)``."""
+    if budget is None:
+        return max(1, SWEEP_CHUNK_ELEMS // (t * n_pad))
+    widest = max(n_pad + 1, p_pad * width * max(width + 1, 16))
+    rows = min(budget // sweep_row_bytes(p_pad, width, n_pad), SWEEP_MAX_ELEMS // widest)
+    return max(1, rows // t)
 
 
 def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
@@ -951,14 +1035,16 @@ def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
     """Place every (scenario, topic) row and reduce per scenario. Scenario
     s's rows are the topics ``topics[s]`` (``topics`` is (1|S, T); -1 is an
     inert padding row) under the mask ``alive_masks[s]``. Whole scenarios
-    go to one ``place_batched`` call, at most ``SWEEP_CHUNK_ELEMS`` rows x
-    N_pad at a time, labelled ``ka/whatif/chunk`` under a profiler. ``load``
-    is the (S, N_pad) node loads here; each chunk's ``bincount`` reads its
-    input's largest value from the device (:func:`host_read`)."""
+    go to one ``place_batched`` call, as many as
+    :func:`sweep_scenarios_per_call` gives for the device and the shapes,
+    labelled ``ka/whatif/chunk`` under a profiler. ``load`` is the (S,
+    N_pad) node loads here; each chunk's ``bincount`` reads its input's
+    largest value from the device (:func:`host_read`)."""
     dev = currents.device
     s, t = alive_masks.shape[0], topics.shape[1]
     n_pad = rack_idx.shape[0]
-    per = max(1, SWEEP_CHUNK_ELEMS // (t * n_pad))
+    per = sweep_scenarios_per_call(sweep_budget(dev), t, currents.shape[1],
+                                   max(rf, currents.shape[2]), n_pad)
     moved, infeasible, loads, waves = [], [], [], {}
     for s0 in range(0, s, per):
         k = min(per, s - s0)
@@ -986,7 +1072,7 @@ def _sweep(currents, rack_idx, jhashes, p_reals, rfs, topics, alive_masks,
         for leg, w in res.waves.items():
             waves[leg] = waves.get(leg, 0) + w
     return SweepResult(torch.cat(moved), torch.cat(infeasible), torch.cat(loads),
-                       waves, s * t, len(moved))
+                       waves, s * t, len(moved), min(per, s))
 
 
 def whatif_sweep(

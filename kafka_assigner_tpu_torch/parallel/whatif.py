@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import itertools
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Set, Tuple
 
@@ -84,6 +85,7 @@ from ..ops.assignment import (
     host_read,
     host_reads,
     pack_group,
+    sharing_device,
     whatif_subset_sweep,
     whatif_sweep,
 )
@@ -94,8 +96,10 @@ from .mesh import Sharded, block_bounds, fetch_global, gather_blocks, owned_bloc
 #: What the most recent sweep of this process did (read like
 #: ``TorchSolver.last_timers``): ``path`` ("incremental" or "dense"),
 #: ``scenarios``, ``rescued`` (scenarios re-run on the ``auto`` chain) and
-#: ``rescue_waves``, the main sweep's ``rows``, ``chunks`` (placement calls)
-#: and ``waves`` per leg, ``t_pad`` on the incremental path, and phase times
+#: ``rescue_waves``, the main sweep's ``rows``, ``chunks`` (placement calls),
+#: ``per_call`` (the scenarios its largest placement call held, sized from
+#: the device: ``ops/assignment.py:sweep_scenarios_per_call``) and ``waves``
+#: per leg, ``t_pad`` on the incremental path, and phase times
 #: in ms: ``prep`` (host encode, masks and topic facts, upload), ``sweep``
 #: (the device sweep, ending in a synchronize), ``rescue`` (the device
 #: re-run of flagged scenarios) and ``compose`` (host). Where the sweep
@@ -355,24 +359,28 @@ def _evaluate_incremental(
 def _download(res, reads) -> tuple:
     """A sweep call's three outputs on the host, and its record for
     :data:`last_sweep` (it passes whole through a packed call): rows,
-    placement calls, waves, and where the call counted its device reads
-    (``reads``, its open ``host_reads`` block) their count and the host's ms
-    blocked in them, these three reads included."""
+    placement calls, the scenarios a call held, waves, and where the call
+    counted its device reads (``reads``, its open ``host_reads`` block)
+    their count and the host's ms blocked in them, these three reads
+    included."""
     out = tuple(host_read(torch.Tensor.cpu, t).numpy() for t in res[:3])
-    rec = {"rows": res.rows, "chunks": res.chunks, "waves": res.waves}
+    rec = {"rows": res.rows, "chunks": res.chunks, "per_call": res.per_call,
+           "waves": res.waves}
     if reads is not None:
         rec.update(syncs=reads.syncs, wait=reads.wait)
     return out + (rec,)
 
 
 def _add_records(recs) -> Dict[str, object]:
-    """Records of several sweep calls, summed."""
+    """Records of several sweep calls, summed; ``per_call`` is the
+    largest."""
     waves: Dict[str, int] = {}
     for rec in recs:
         for leg, w in rec["waves"].items():
             waves[leg] = waves.get(leg, 0) + w
     out = {"rows": sum(r["rows"] for r in recs),
-           "chunks": sum(r["chunks"] for r in recs), "waves": waves}
+           "chunks": sum(r["chunks"] for r in recs),
+           "per_call": max(r["per_call"] for r in recs), "waves": waves}
     if all("syncs" in r for r in recs):
         out.update(syncs=sum(r["syncs"] for r in recs),
                    wait=sum(r["wait"] for r in recs))
@@ -386,10 +394,12 @@ def _mesh_sweep(mesh, host, rows, empty, call):
     block; ``call`` returns host arrays with the block's scenarios first and
     a record. Returns the outputs gathered in every process (``empty``
     gives each one's dtype and trailing shape, for a block with no
-    scenario) and the records summed over every block."""
+    scenario) and the records summed over every block. The blocks that
+    share a device split its sweep budget (``sharing_device``)."""
     s = len(next(iter(rows.values())))
     k = mesh.shape["scenarios"]
     owned = owned_blocks(mesh, "scenarios")
+    sharers = Counter(pos.device for pos in owned.values())
     ons = {}
     for pos in owned.values():
         if pos.device not in ons:
@@ -399,7 +409,9 @@ def _mesh_sweep(mesh, host, rows, empty, call):
         lo, hi = block_bounds(s, k, b)
         if lo == hi:
             return tuple(empty) + (None,)
-        out = call(ons[owned[b].device], {name: v[lo:hi] for name, v in rows.items()})
+        dev = owned[b].device
+        with sharing_device(sharers[dev]):
+            out = call(ons[dev], {name: v[lo:hi] for name, v in rows.items()})
         return tuple(np.asarray(a, dtype=e.dtype) for a, e in zip(out, empty)) + out[-1:]
 
     blocks = list(owned)

@@ -18,6 +18,7 @@ Inputs come from seeds; results are integers, compared exactly
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random
 
 import jax
@@ -205,7 +206,9 @@ def test_whatif_sweep_matches_jax(monkeypatch, mode, chunk):
     assert got.chunks == (len(alive) if chunk else 1)
 
 
-def test_whatif_subset_sweep_matches_jax():
+def _subset_case():
+    """The subset sweep's inputs on the port and the JAX package's answer:
+    each scenario a random subset of the topics, -1 padded to 8."""
     encs, cur, jh, pr, rfs, alive, rf = _sweep_inputs()
     s, t_pad = len(alive), 8
     rng = np.random.default_rng(1)
@@ -226,11 +229,123 @@ def test_whatif_subset_sweep_matches_jax():
         rfs=jnp.asarray(srf), r_cap=encs[0].r_cap,
     ))
     c, rack, j, p = encoded_to_torch(cur, encs[0].rack_idx, jh, pr)
-    got = tops.whatif_subset_sweep(c, rack, j, p, to_tensor(topics),
-                                   torch.as_tensor(alive), encs[0].n, rf,
-                                   to_tensor(rfs), encs[0].r_cap)
+    args = (c, rack, j, p, to_tensor(topics), torch.as_tensor(alive), encs[0].n, rf,
+            to_tensor(rfs), encs[0].r_cap)
+    return args, ref
+
+
+def test_whatif_subset_sweep_matches_jax():
+    args, ref = _subset_case()
+    got = tops.whatif_subset_sweep(*args)
     for g, r in zip(got[:3], ref):
         np.testing.assert_array_equal(to_numpy(g), np.asarray(r))
+
+
+# --- the sweep's call size ---------------------------------------------------
+
+#: A quarter of an 80 GB card: what ``sweep_budget`` grants one call on an
+#: H100, which at these shapes holds every scenario.
+CARD_QUARTER = 80 * 10**9 // 4
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rescue():
+    tm, live, racks, scenarios = rescue_cluster()
+    return _astuples(jw.evaluate_removal_scenarios(tm, live, racks, scenarios, 3))
+
+
+@pytest.mark.parametrize("kind", ["sweep", "subset", "rescue"])
+@pytest.mark.parametrize("size", ["one", "sized", "whole"])
+def test_results_do_not_depend_on_the_call_size(monkeypatch, size, kind):
+    """One scenario a call, two (the sizing function under a budget that
+    holds two) and the whole request in one call (a card's quarter) each
+    give the JAX package's answer bit for bit: the dense sweep on ``fast``,
+    the subset sweep, and a request whose stranded scenarios the ``auto``
+    rescue places. The record names the scenarios a call held."""
+    if kind == "rescue":
+        tm, live, racks, scenarios = rescue_cluster()
+        encs, cur, _, _ = _encode(list(tm.items()), live, racks, [3] * len(tm))
+        t, s = len(cur), len(scenarios)
+    else:
+        encs, cur, jh, pr, rfs, alive, rf = _sweep_inputs()
+        t, s = (len(cur) if kind == "sweep" else 8), len(alive)
+    shapes = (t, cur.shape[1], max(3, cur.shape[2]), encs[0].n_pad)
+    budget = {"one": 0, "sized": 2 * t * tops.sweep_row_bytes(*shapes[1:]),
+              "whole": CARD_QUARTER}[size]
+    per = {"one": 1, "sized": 2, "whole": s}[size]
+    assert min(tops.sweep_scenarios_per_call(budget, *shapes), s) == per
+    monkeypatch.setattr(tops, "sweep_budget", lambda dev: budget)
+    if kind == "rescue":
+        monkeypatch.setenv("KA_WHATIF_INCREMENTAL", "0")
+        got = tw.evaluate_removal_scenarios(tm, live, racks, scenarios, 3, device="cpu")
+        assert _astuples(got) == _jax_rescue()
+        rec = tw.last_sweep
+        assert rec["path"] == "dense" and rec["rescued"] >= 1 and rec["rescue_waves"]
+        assert (rec["per_call"], rec["chunks"]) == (per, -(-s // per))
+        return
+    if kind == "sweep":
+        ref = jax.device_get(jops.whatif_sweep_jit(
+            jnp.asarray(cur), jnp.asarray(encs[0].rack_idx), jnp.asarray(jh),
+            jnp.asarray(pr), jnp.asarray(alive), n=encs[0].n, rf=rf, wave_mode="fast",
+            rfs=jnp.asarray(rfs), r_cap=encs[0].r_cap,
+        ))
+        c, rack, j, p = encoded_to_torch(cur, encs[0].rack_idx, jh, pr)
+        got = tops.whatif_sweep(c, rack, j, p, torch.as_tensor(alive), encs[0].n, rf,
+                                "fast", to_tensor(rfs), encs[0].r_cap)
+    else:
+        args, ref = _subset_case()
+        got = tops.whatif_subset_sweep(*args)
+    for g, r in zip(got[:3], ref):
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(r))
+    assert (got.per_call, got.chunks, got.rows) == (per, -(-s // per), s * t)
+
+
+@pytest.mark.parametrize("shape", [
+    (2048, 104, 3, 5000),     # config 4: 2,000 topics bucketed, 5,000 brokers
+    (512, 104, 3, 40),        # 400 topics on a few dozen brokers
+    (1, 200_000, 3, 5_104),   # one giant topic
+    (8, 16, 3, 8),
+])
+def test_sweep_call_size_from_the_budget(shape):
+    """At least one whole scenario; never more as the budget shrinks; past
+    one scenario no more bytes than the budget and no tensor of the call
+    past 2^31 elements; off a CUDA device the element rule of old."""
+    t, p_pad, width, n_pad = shape
+    row = tops.sweep_row_bytes(p_pad, width, n_pad)
+    assert tops.sweep_budget(torch.device("cpu")) is None
+    assert tops.sweep_scenarios_per_call(None, t, p_pad, width, n_pad) == max(
+        1, tops.SWEEP_CHUNK_ELEMS // (t * n_pad))
+    last = None
+    for budget in (1 << 50, 1 << 40, CARD_QUARTER, 1 << 32, 1 << 30, 1 << 26, 1 << 20,
+                   row, 0):
+        per = tops.sweep_scenarios_per_call(budget, t, p_pad, width, n_pad)
+        assert isinstance(per, int) and per >= 1
+        assert last is None or per <= last
+        last = per
+        if per > 1:
+            rows = per * t
+            assert rows * row <= budget
+            assert rows * (n_pad + 1) < 2**31 and rows * p_pad * width * 16 < 2**31
+    assert last == 1
+
+
+def test_sweep_budget_is_a_share_of_the_card_split_among_its_sweeps(monkeypatch):
+    """A quarter of the card's total memory, split among the sweeps that
+    share it; the free memory is never asked."""
+    class Props:
+        total_memory = 85_000_000_000
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", None)
+    card = torch.device("cuda", 0)
+    quarter = Props.total_memory // tops.SWEEP_MEMORY_SHARE
+    assert tops.sweep_budget(card) == quarter
+    with tops.sharing_device(8):
+        assert tops.sweep_budget(card) == quarter // 8
+        with tops.sharing_device(2):
+            assert tops.sweep_budget(card) == quarter // 2
+        assert tops.sweep_budget(card) == quarter // 8
+    assert tops.sweep_budget(card) == quarter
 
 
 # --- the host layer ----------------------------------------------------------

@@ -31,6 +31,7 @@ from kafka_assigner_tpu.models.synthetic import build_config5
 from kafka_assigner_tpu.parallel.mesh import build_mesh as jax_build_mesh
 from kafka_assigner_tpu_torch import obs
 from kafka_assigner_tpu_torch.daemon.dispatch import SolveDispatcher, dispatch_scope
+from kafka_assigner_tpu_torch.ops import assignment as tops
 from kafka_assigner_tpu_torch.parallel import mesh as tm
 
 from .test_invariants import make_cluster
@@ -126,6 +127,26 @@ def test_config5_256_scenarios_on_8_positions(sweep_path):
     # last_sweep sums every position's rows, chunks and waves.
     assert rec["rows"] == rec_plain["rows"] and rec["chunks"] == 8
     assert sum(rec["waves"].values()) >= sum(rec_plain["waves"].values())
+
+
+@pytest.mark.parametrize("sweep_path", PATHS, indirect=True)
+def test_positions_on_one_device_split_its_sweep_budget(cluster, monkeypatch, sweep_path):
+    """Eight in-process positions on one device each size their calls for
+    eight sweeps at once on it; an unsharded sweep for one."""
+    topics, live, rack_map = cluster
+    seen = []
+
+    def budget(dev):
+        seen.append(tops._SHARERS.k)
+        return None
+    monkeypatch.setattr(tops, "sweep_budget", budget)
+    scenarios = [[100 + i] for i in range(8)]
+    tw.evaluate_removal_scenarios(topics, live, rack_map, scenarios, 3, device="cpu")
+    assert seen and set(seen) == {1}
+    seen.clear()
+    tw.evaluate_removal_scenarios(topics, live, rack_map, scenarios, 3, device="cpu",
+                                  mesh=_mesh8())
+    assert len(seen) == 8 and set(seen) == {8}
 
 
 @pytest.mark.parametrize("n_scenarios,fanout", [(3, 8), (8, 8), (9, 16), (17, 32)])
