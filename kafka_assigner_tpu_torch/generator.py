@@ -218,10 +218,7 @@ def print_decommission_ranking(
     # The scenario axis is embarrassingly parallel (sharded == unsharded is
     # test-pinned); only the CLI auto-meshes, the library call stays
     # explicit.
-    local = mesh_mod.visible_devices(device)
-    mesh = None
-    if len(local) > 1 or mesh_mod.process_count() > 1:
-        mesh = mesh_mod.build_mesh(devices=local)
+    mesh = mesh_mod.auto_mesh(device)
 
     topic_map = {t: initial[t] for t in topic_list}
     racks = {k: v for k, v in rack_assignment.items() if k in brokers}

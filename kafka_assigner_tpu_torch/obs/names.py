@@ -184,6 +184,9 @@ LABEL_NAMES: frozenset = frozenset({
     # ops/assignment.py:_sweep is a chunk; the rescue phase holds the
     # reference's ``whatif/rescue`` when a scenario is rescued)
     "whatif/prep", "whatif/chunk", "whatif/rescue_phase", "whatif/compose",
+    # a scenario-sharded sweep's mesh call (parallel/whatif.py:_mesh_sweep):
+    # the cluster's upload to each position's device, and the gather
+    "whatif/mesh_upload", "whatif/mesh_gather",
     # one packed device call on the dispatcher thread (daemon/dispatch.py),
     # recorded by a /debug/profile window (obs/profile.py:capture_window)
     "dispatch/packed",

@@ -177,6 +177,18 @@ def build_mesh(
     return Mesh(positions, n_scenarios_axis, n_part_axis, rank)
 
 
+def auto_mesh(device: str | torch.device = "cuda") -> Optional[Mesh]:
+    """The mesh a what-if sweep on ``device`` spreads over when the caller
+    names none (``RANK_DECOMMISSION``): every position of
+    :func:`visible_devices` on the scenario axis, one a card in one process,
+    when there is more than one visible device or more than one rank; else
+    None, the unsharded sweep."""
+    local = visible_devices(device)
+    if len(local) > 1 or process_count() > 1:
+        return build_mesh(devices=local)
+    return None
+
+
 class Sharding(NamedTuple):
     """A mesh and a spec: per leading dimension the axis it is split over,
     or None (the ``NamedSharding(mesh, PartitionSpec(...))`` of the

@@ -60,7 +60,9 @@ on the profiler's clock around exactly its timer: ``ka/whatif/prep``,
 ``ka/whatif/chunk`` (each placement call of the sweep, the rescue's too),
 ``ka/whatif/compose`` (the incremental path; the dense one composes
 nothing) and ``ka/whatif/rescue_phase``, which holds the reference's
-``whatif/rescue`` span (``ka/whatif/rescue``) when a scenario is rescued.
+``whatif/rescue`` span (``ka/whatif/rescue``) when a scenario is rescued;
+under a mesh ``ka/whatif/mesh_upload`` and ``ka/whatif/mesh_gather`` on the
+calling thread, around each mesh call's upload and gather.
 """
 from __future__ import annotations
 
@@ -106,8 +108,18 @@ from .mesh import Sharded, block_bounds, fetch_global, gather_blocks, owned_bloc
 #: and its rescue ran on a thread a ``torch.profiler`` session records,
 #: ``syncs`` counts their device-to-host reads
 #: (``ops/assignment.py:host_read``, and three reads of each call's
-#: outputs) and ``wait`` the host's ms blocked in them.
+#: outputs) and ``wait`` the host's ms blocked in them. Under a mesh, summed
+#: over the sweep's mesh calls (``mesh_blocks``, each over ``mesh_positions``
+#: positions of the scenario axis): ``mesh_upload``, the ms copying the
+#: cluster's arrays to each device and waiting for the copies;
+#: ``mesh_slowest``, each call's slowest wall among this process's positions
+#: (each timed in its own thread, from its sweep's start to its outputs on
+#: the host); ``mesh_skew``, that minus the fastest one's; and
+#: ``mesh_gather``, the ms gathering the blocks' outputs and records.
 last_sweep: Dict[str, object] = {}
+
+#: The mesh's records that add up over a sweep's mesh calls.
+_MESH_SUMS = ("mesh_upload", "mesh_slowest", "mesh_skew", "mesh_gather", "mesh_blocks")
 
 #: What the most recent group packing call of this process did: ``kind``
 #: ("plan" or "sweep"), ``s`` (candidates), ``p_pad``, ``c_pad``, the scan's
@@ -384,6 +396,9 @@ def _add_records(recs) -> Dict[str, object]:
     if all("syncs" in r for r in recs):
         out.update(syncs=sum(r["syncs"] for r in recs),
                    wait=sum(r["wait"] for r in recs))
+    if all("mesh_positions" in r for r in recs):
+        out.update({k: sum(r[k] for r in recs) for k in _MESH_SUMS},
+                   mesh_positions=max(r["mesh_positions"] for r in recs))
     return out
 
 
@@ -394,36 +409,50 @@ def _mesh_sweep(mesh, host, rows, empty, call):
     block; ``call`` returns host arrays with the block's scenarios first and
     a record. Returns the outputs gathered in every process (``empty``
     gives each one's dtype and trailing shape, for a block with no
-    scenario) and the records summed over every block. The blocks that
-    share a device split its sweep budget (``sharing_device``)."""
+    scenario) and the records summed over every block, with the mesh's own
+    (:data:`last_sweep`'s ``mesh_*``). The blocks that share a device split
+    its sweep budget (``sharing_device``)."""
     s = len(next(iter(rows.values())))
     k = mesh.shape["scenarios"]
     owned = owned_blocks(mesh, "scenarios")
     sharers = Counter(pos.device for pos in owned.values())
+    mesh_rec: Dict[str, object] = {"mesh_blocks": 1, "mesh_positions": k}
     ons = {}
-    for pos in owned.values():
-        if pos.device not in ons:
-            ons[pos.device] = _OnDevice(*(to_tensor(a, pos.device) for a in host))
+    with span("whatif/mesh_upload", sink=mesh_rec, key="mesh_upload", report=False):
+        for pos in owned.values():
+            if pos.device not in ons:
+                ons[pos.device] = _OnDevice(*(to_tensor(a, pos.device) for a in host))
+        for d in ons:
+            _sync(d)
+
+    walls: Dict[int, float] = {}
 
     def run(b):
+        t0 = time.perf_counter()
         lo, hi = block_bounds(s, k, b)
         if lo == hi:
-            return tuple(empty) + (None,)
-        dev = owned[b].device
-        with sharing_device(sharers[dev]):
-            out = call(ons[dev], {name: v[lo:hi] for name, v in rows.items()})
-        return tuple(np.asarray(a, dtype=e.dtype) for a, e in zip(out, empty)) + out[-1:]
+            out = tuple(empty) + (None,)
+        else:
+            dev = owned[b].device
+            with sharing_device(sharers[dev]):
+                got = call(ons[dev], {name: v[lo:hi] for name, v in rows.items()})
+            out = tuple(np.asarray(a, dtype=e.dtype) for a, e in zip(got, empty)) + got[-1:]
+        walls[b] = _ms(t0)
+        return out
 
     blocks = list(owned)
     outs = dict(zip(blocks, run_positions(blocks, run)))
-    gathered = tuple(
-        fetch_global(Sharded(mesh, "scenarios", 0, s, {
-            b: (owned[b], torch.from_numpy(np.ascontiguousarray(out[i])))
-            for b, out in outs.items()}))
-        for i in range(len(empty)))
-    recs = gather_blocks(mesh, "scenarios",
-                         {b: out[-1] for b, out in outs.items() if out[-1] is not None})
-    return gathered, _add_records(list(recs.values()))
+    with span("whatif/mesh_gather", sink=mesh_rec, key="mesh_gather", report=False):
+        gathered = tuple(
+            fetch_global(Sharded(mesh, "scenarios", 0, s, {
+                b: (owned[b], torch.from_numpy(np.ascontiguousarray(out[i])))
+                for b, out in outs.items()}))
+            for i in range(len(empty)))
+        recs = gather_blocks(mesh, "scenarios",
+                             {b: out[-1] for b, out in outs.items() if out[-1] is not None})
+    mesh_rec.update(mesh_slowest=max(walls.values()),
+                    mesh_skew=max(walls.values()) - min(walls.values()))
+    return gathered, {**_add_records(list(recs.values())), **mesh_rec}
 
 
 def evaluate_removal_scenarios(

@@ -3,6 +3,7 @@
 - ``build_mesh`` shapes, defaults and errors against the JAX package's on
   the conftest's eight virtual CPU devices (the port's positions: eight
   ``cpu`` entries in one process);
+- ``auto_mesh``, the CLI's layout, over 1, 2 and 4 visible devices;
 - ``put_sharded`` -> ``fetch_global`` round trips, uneven blocks included;
 - each part-axis collective against its plain single-position result, in
   process at 1, 2, 3 and 8 positions;
@@ -33,6 +34,20 @@ def test_build_mesh_shapes_match_the_reference(args):
     assert got.devices.shape == ref.devices.shape
     assert got.axis_names == ref.axis_names == ("scenarios", "part")
     assert got.size == 8 and all(p == (0, torch.device("cpu")) for p in got.devices.flat)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_auto_mesh_puts_each_visible_device_on_the_scenario_axis(monkeypatch, n):
+    """``auto_mesh`` (``RANK_DECOMMISSION``'s layout): no mesh on one visible
+    device, else an n x 1 mesh of one position a device, in order."""
+    devices = [torch.device("cpu")] * n
+    monkeypatch.setattr(tm, "visible_devices", lambda device="cuda": devices)
+    mesh = tm.auto_mesh("cuda")
+    if n == 1:
+        assert mesh is None
+        return
+    assert dict(mesh.shape) == {"scenarios": n, "part": 1}
+    assert list(mesh.devices.flat) == [(0, d) for d in devices]
 
 
 @pytest.mark.parametrize("args", [(3, 3), (None, 3), (16, 1), (2, 8), (None, 16)])

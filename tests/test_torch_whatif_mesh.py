@@ -9,6 +9,8 @@ and the JAX package on the conftest's eight virtual CPU devices:
 - the ``whatif.fanout`` gauge equal to the reference's under the same mesh
   width;
 - a call under an active dispatcher runs unsharded, through the dispatcher;
+- the mesh's own record in ``last_sweep`` (upload, slowest position, skew,
+  gather, mesh calls, positions) on 4 positions, and none unsharded;
 - the port's CLI ``RANK_DECOMMISSION`` with the visible-device lookup
   patched to 8 ``cpu`` positions, byte-identical to the JAX CLI, which
   auto-meshes over its 8 devices.
@@ -147,6 +149,39 @@ def test_positions_on_one_device_split_its_sweep_budget(cluster, monkeypatch, sw
     tw.evaluate_removal_scenarios(topics, live, rack_map, scenarios, 3, device="cpu",
                                   mesh=_mesh8())
     assert len(seen) == 8 and set(seen) == {8}
+
+
+@pytest.mark.parametrize("sweep_path", PATHS, indirect=True)
+def test_mesh_sweep_records_upload_positions_and_gather(cluster, monkeypatch, sweep_path):
+    """A sweep on 4 positions, in blocks of 4 scenarios (a budget of one a
+    block, rounded up to the axis) on the dense path: ``last_sweep`` sums
+    its mesh calls' upload, slowest position, skew and gather, counts the
+    calls, and names the axis; an unsharded sweep records none of them."""
+    topics, live, rack_map = cluster
+    scenarios = [[b] for b in sorted(live)[:12]]
+    monkeypatch.setenv("KA_WHATIF_MEMBUDGET", "1")
+    plain = tw.evaluate_removal_scenarios(topics, live, rack_map, scenarios, 3,
+                                          device="cpu")
+    assert not [k for k in tw.last_sweep if k.startswith("mesh_")]
+    calls = []
+    real = tw.run_positions
+
+    def spy(blocks, fn):
+        calls.append(len(blocks))
+        return real(blocks, fn)
+
+    monkeypatch.setattr(tw, "run_positions", spy)
+    got = tw.evaluate_removal_scenarios(topics, live, rack_map, scenarios, 3,
+                                        device="cpu", mesh=tm.build_mesh(devices=["cpu"] * 4))
+    assert _tuples(got) == _tuples(plain)
+    rec = tw.last_sweep
+    assert calls and set(calls) == {4}
+    assert rec["mesh_blocks"] == len(calls) and rec["mesh_positions"] == 4
+    if sweep_path == "0":
+        assert len(calls) == 3
+    assert 0 <= rec["mesh_skew"] <= rec["mesh_slowest"] <= rec["sweep"]
+    assert rec["mesh_upload"] >= 0 and rec["mesh_gather"] >= 0
+    assert rec["mesh_upload"] + rec["mesh_slowest"] + rec["mesh_gather"] <= rec["sweep"]
 
 
 @pytest.mark.parametrize("n_scenarios,fanout", [(3, 8), (8, 8), (9, 16), (17, 32)])
